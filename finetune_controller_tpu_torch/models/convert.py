@@ -1,0 +1,128 @@
+"""Carry weights from the reference's flax variables into the port.
+
+``from_flax(variables, cfg)`` takes the JAX variables tree as nested dicts of
+numpy arrays — the ``params`` collection and, when present, ``lora`` — and
+returns the port's state dict (``LlamaForCausalLM.load_state_dict``).  Both
+layer layouts of the reference are read:
+
+* scanned (``scan_layers=True``): ``params/blocks/block/<...>`` with a
+  leading layer axis L on every leaf (``llama.py:773-783``);
+* unscanned: ``params/layer_{i}/<...>``.
+
+Kernels keep flax's ``(in, out)`` layout — the port's ``LoRADense`` computes
+``x @ W`` — so no leaf is transposed.  ``lm_head`` is absent for tied
+embeddings (the head reuses ``embed_tokens.embedding``); q/k/v biases come
+along where the config has them.
+
+``merge_lora(cfg, state)`` folds LoRA deltas into the base kernels, the
+counterpart of ``serve/loader.py:merge_lora_variables``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .lora import LoRAConfig
+
+_LAYER_LEAVES = {
+    "attn_norm": ("scale",),
+    "mlp_norm": ("scale",),
+    "attn/q_proj": ("kernel", "bias"),
+    "attn/k_proj": ("kernel", "bias"),
+    "attn/v_proj": ("kernel", "bias"),
+    "attn/o_proj": ("kernel",),
+    "mlp/gate_proj": ("kernel",),
+    "mlp/up_proj": ("kernel",),
+    "mlp/down_proj": ("kernel",),
+}
+
+
+def _walk(tree: Mapping, path: str):
+    for key in path.split("/"):
+        if not isinstance(tree, Mapping) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def _tensor(x) -> torch.Tensor:
+    # np.array copies: the state dict must not alias the caller's buffers
+    return torch.from_numpy(np.array(x))
+
+
+def _layer_trees(collection: Mapping | None, n_layers: int) -> list[Mapping | None]:
+    """Per-layer subtrees of one flax collection, for either layout."""
+    if collection is None:
+        return [None] * n_layers
+    stacked = _walk(collection, "blocks/block")
+    if stacked is not None:
+        def index(tree, i):
+            if isinstance(tree, Mapping):
+                return {k: index(v, i) for k, v in tree.items()}
+            return np.asarray(tree)[i]
+
+        return [index(stacked, i) for i in range(n_layers)]
+    return [collection.get(f"layer_{i}") for i in range(n_layers)]
+
+
+def from_flax(variables: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
+    """The port's state dict for the reference's ``variables`` (numpy
+    leaves).  Raises ``KeyError`` naming the first missing leaf."""
+    params = variables["params"]
+    lora = variables.get("lora")
+    state: dict[str, torch.Tensor] = {}
+
+    def need(tree, path, where):
+        leaf = _walk(tree, path) if tree is not None else None
+        if leaf is None:
+            raise KeyError(f"flax variables lack {where}/{path}")
+        return _tensor(leaf)
+
+    state["embed_tokens.embedding"] = need(params, "embed_tokens/embedding", "params")
+    state["final_norm.scale"] = need(params, "final_norm/scale", "params")
+    if not cfg.tie_embeddings:
+        state["lm_head.kernel"] = need(params, "lm_head/kernel", "params")
+    p_layers = _layer_trees(params, cfg.n_layers)
+    l_layers = _layer_trees(lora, cfg.n_layers)
+    for i, (p, lo) in enumerate(zip(p_layers, l_layers)):
+        where = f"params/layer {i}"
+        for module, leaves in _LAYER_LEAVES.items():
+            name = f"layers.{i}.{module.replace('/', '.')}"
+            for leaf in leaves:
+                if leaf == "bias" and not cfg.attention_qkv_bias:
+                    continue
+                state[f"{name}.{leaf}"] = need(p, f"{module}/{leaf}", where)
+            proj = module.split("/")[-1]
+            if cfg.lora.enabled_for(proj):
+                for leaf in ("lora_a", "lora_b"):
+                    state[f"{name}.{leaf}"] = need(lo, f"{module}/{leaf}", f"lora/layer {i}")
+    return state
+
+
+def merge_lora(cfg, state: Mapping[str, torch.Tensor]) -> tuple[Any, dict[str, torch.Tensor]]:
+    """Fold every adapter into its base kernel: ``W' = W + (alpha/r)·A·B``,
+    computed in f32 and cast back to the kernel's dtype.  Returns a rank-0
+    config and a state dict without ``lora_a``/``lora_b`` entries.  An
+    int4-quantized base cannot absorb a dense delta and is refused."""
+    if not any(k.endswith(".lora_a") for k in state):
+        return cfg, dict(state)
+    if getattr(cfg, "quantize_base", False):
+        raise ValueError("cannot merge LoRA into an int4-quantized base; serve unmerged")
+    scale = cfg.lora.alpha / cfg.lora.rank
+    merged: dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        if key.endswith((".lora_a", ".lora_b")):
+            continue
+        prefix = key[: -len(".kernel")] if key.endswith(".kernel") else None
+        if prefix is not None and f"{prefix}.lora_a" in state:
+            a = state[f"{prefix}.lora_a"].to(torch.float32)
+            b = state[f"{prefix}.lora_b"].to(torch.float32)
+            value = (value.to(torch.float32) + (a @ b) * scale).to(value.dtype)
+        merged[key] = value
+    merged_cfg = cfg.replace(
+        lora=LoRAConfig(rank=0, alpha=cfg.lora.alpha, targets=cfg.lora.targets)
+    )
+    return merged_cfg, merged

@@ -1,0 +1,51 @@
+"""Sampling: the shared token-selection rule and the uncached oracle.
+
+Counterpart of the reference's ``models/generate.py``:
+
+* :func:`_sample` — greedy argmax, or temperature and top-k then a
+  categorical draw from an explicit ``torch.Generator``;
+* :func:`generate` — the numerics oracle: each step re-runs the full
+  forward over the sequence so far (no KV cache).
+
+Sampled streams cannot match the reference's: JAX draws with threefry keys,
+PyTorch with Philox generators.  Determinism is pinned inside the port
+instead — the same seed gives the same tokens.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _sample(logits: torch.Tensor, *, temperature: float, top_k: int,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Next tokens (B,) from (B, V) logits; ``generator`` advances in place."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    scaled = logits.to(torch.float32) / temperature
+    if top_k:
+        kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    probs = torch.softmax(scaled, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(model, prompt_tokens: torch.Tensor, *, max_new_tokens: int = 32,
+             temperature: float = 0.0, top_k: int = 0, eos_id: int | None = None,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """Autoregressive sampling with a full forward per step; returns
+    (B, S + max_new_tokens) tokens.  Rows that emit ``eos_id`` keep
+    emitting it."""
+    tokens = torch.as_tensor(prompt_tokens, dtype=torch.long, device=model.device)
+    if tokens.ndim != 2:
+        raise ValueError(f"prompt_tokens must be (B, S), got {tuple(tokens.shape)}")
+    done = torch.zeros(tokens.shape[0], dtype=torch.bool, device=tokens.device)
+    for _ in range(max_new_tokens):
+        logits = model(tokens)[:, -1].to(torch.float32)
+        nxt = _sample(logits, temperature=temperature, top_k=top_k, generator=generator)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            done = done | (nxt == eos_id)
+        tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+    return tokens

@@ -1,0 +1,478 @@
+"""Llama-family decoder (RMSNorm + RoPE + GQA + SwiGLU/GeGLU) in PyTorch.
+
+Counterpart of the reference's ``models/llama.py``.  ``LlamaConfig`` and
+``PRESETS`` are copied field for field (with torch dtypes) so one spec fits
+both packages.  The layer stack is a Python loop over ``nn.ModuleList``
+(the reference's ``nn.scan`` has no counterpart here: PyTorch runs
+eagerly), and parameter names follow the flax tree so the converter
+(``models/convert.py``) is a rename.
+
+Two forward paths:
+
+* :meth:`LlamaForCausalLM.forward` — the plain full-sequence causal forward,
+  which the tests use as an oracle against the reference's ``apply``;
+* :meth:`LlamaForCausalLM.forward_paged` — the serving path of the
+  reference's ``Attention._paged_decode_attention`` (``llama.py:539-593``):
+  the chunk's K/V are written into shared per-layer page pools IN PLACE
+  (the reference rebuilt the cache tree on every call) and attention reads
+  back through the page table (``ops.attention.paged_cache_attention``, the
+  CUDA kernel on the card).
+
+Remat, MoE, QLoRA, multi-tenant adapters and multimodal inputs are not
+ported yet; configs that need them are refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.attention import paged_cache_attention, xla_causal_attention
+from .lora import LoRAConfig, LoRADense
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    d_model: int = 2048
+    n_layers: int = 22
+    n_heads: int = 32
+    n_kv_heads: int = 4
+    d_ff: int = 5632
+    rope_theta: float = 10000.0
+    #: llama3-style RoPE frequency scaling; 0.0 disables (see
+    #: :func:`rope_inv_freqs`)
+    rope_scaling_factor: float = 0.0
+    rope_scaling_low_freq_factor: float = 1.0
+    rope_scaling_high_freq_factor: float = 4.0
+    rope_scaling_original_max_len: int = 8192
+    max_seq_len: int = 2048
+    rms_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    attention_impl: str = "xla"
+    # kernel-tuning knobs of the training path (kept for spec parity)
+    flash_block_q: int = 0
+    flash_block_k: int = 0
+    flash_exp_dtype: str = ""
+    ring_inner: str = ""
+    ulysses_inner: str = ""
+    remat: bool = True
+    remat_policy: str = "full"
+    #: dtype of the materialised logits; None = float32
+    logits_dtype: Any = None
+    scan_layers: bool = True
+    tie_embeddings: bool = False
+    lora: LoRAConfig = dataclasses.field(default_factory=LoRAConfig)
+    n_experts: int = 0
+    moe_top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.02
+    quantize_base: bool = False
+    quant_block: int = 64
+    #: attention head dim decoupled from d_model // n_heads; 0 = derived
+    head_dim_override: int = 0
+    #: "silu" (SwiGLU) | "gelu" (GeGLU, tanh approximation)
+    mlp_act: str = "silu"
+    #: RMSNorm scale parameterisation: effective scale = offset + stored
+    norm_offset: float = 0.0
+    #: multiply embedding output by sqrt(d_model) (Gemma)
+    embed_scale: bool = False
+    #: q/k/v projection biases (Qwen-2)
+    attention_qkv_bias: bool = False
+    #: paged KV cache: positions per page and pool pages (page 0 = scratch)
+    kv_page_tokens: int = 0
+    kv_pool_pages: int = 0
+    lora_tenant_slots: int = 0
+    lora_tenant_rank: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.d_model // self.n_heads
+
+    def replace(self, **kw) -> "LlamaConfig":
+        return dataclasses.replace(self, **kw)
+
+
+PRESETS: dict[str, LlamaConfig] = {
+    "tiny-test": LlamaConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=128, max_seq_len=128,
+    ),
+    "tinyllama-1.1b": LlamaConfig(attention_impl="auto", remat_policy="mlp"),
+    "llama3-8b": LlamaConfig(
+        vocab_size=128256, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        d_ff=14336, rope_theta=500000.0, max_seq_len=8192, attention_impl="auto",
+        remat_policy="mlp",
+    ),
+    "llama3.2-1b": LlamaConfig(
+        vocab_size=128256, d_model=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+        d_ff=8192, rope_theta=500000.0, max_seq_len=131072,
+        tie_embeddings=True, rope_scaling_factor=32.0,
+        attention_impl="auto", remat_policy="mlp",
+    ),
+    "llama3.2-3b": LlamaConfig(
+        vocab_size=128256, d_model=3072, n_layers=28, n_heads=24, n_kv_heads=8,
+        d_ff=8192, rope_theta=500000.0, max_seq_len=131072,
+        tie_embeddings=True, rope_scaling_factor=32.0,
+        attention_impl="auto", remat_policy="mlp",
+    ),
+    "mistral-7b": LlamaConfig(
+        vocab_size=32768, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        d_ff=14336, max_seq_len=8192, attention_impl="auto", remat_policy="mlp",
+    ),
+    "mistral-7b-32k": LlamaConfig(
+        vocab_size=32768, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        d_ff=14336, max_seq_len=32768, rope_theta=1_000_000.0,
+        attention_impl="auto", remat_policy="mlp",
+    ),
+    "mixtral-8x7b": LlamaConfig(
+        vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        d_ff=14336, max_seq_len=8192, n_experts=8, moe_top_k=2,
+        attention_impl="auto",
+    ),
+    "mixtral-proxy": LlamaConfig(
+        vocab_size=32000, d_model=2048, n_layers=12, n_heads=16, n_kv_heads=8,
+        d_ff=5632, max_seq_len=8192, n_experts=8, moe_top_k=2,
+        attention_impl="auto", remat_policy="mlp",
+    ),
+    "mixtral-proxy-10b": LlamaConfig(
+        vocab_size=32000, d_model=3072, n_layers=16, n_heads=24, n_kv_heads=8,
+        d_ff=8192, max_seq_len=8192, n_experts=8, moe_top_k=2,
+        attention_impl="auto", remat_policy="full",
+    ),
+    "gemma-2b": LlamaConfig(
+        vocab_size=256000, d_model=2048, n_layers=18, n_heads=8, n_kv_heads=1,
+        d_ff=16384, max_seq_len=8192, head_dim_override=256, mlp_act="gelu",
+        norm_offset=1.0, embed_scale=True, tie_embeddings=True,
+        rms_eps=1e-6, attention_impl="auto", remat_policy="mlp",
+    ),
+    "gemma-7b": LlamaConfig(
+        vocab_size=256000, d_model=3072, n_layers=28, n_heads=16, n_kv_heads=16,
+        d_ff=24576, max_seq_len=8192, head_dim_override=256, mlp_act="gelu",
+        norm_offset=1.0, embed_scale=True, tie_embeddings=True,
+        rms_eps=1e-6, attention_impl="auto", remat_policy="mlp",
+    ),
+    "tiny-gemma-test": LlamaConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=128, max_seq_len=128, head_dim_override=32, mlp_act="gelu",
+        norm_offset=1.0, embed_scale=True, tie_embeddings=True, rms_eps=1e-6,
+    ),
+    "qwen2-7b": LlamaConfig(
+        vocab_size=152064, d_model=3584, n_layers=28, n_heads=28, n_kv_heads=4,
+        d_ff=18944, rope_theta=1_000_000.0, max_seq_len=8192, rms_eps=1e-6,
+        attention_qkv_bias=True, attention_impl="auto", remat_policy="mlp",
+    ),
+    "tiny-qwen-test": LlamaConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=128, max_seq_len=128, rms_eps=1e-6, attention_qkv_bias=True,
+    ),
+    "tiny-moe-test": LlamaConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=128, max_seq_len=128, n_experts=4, moe_top_k=2,
+    ),
+}
+
+
+def refuse_unported(cfg: Any) -> None:
+    """Raise for configurations this slice of the port cannot serve; the
+    first two messages are the reference engine's (``engine.py:237-243``)."""
+    if getattr(cfg, "n_experts", 0):
+        raise ValueError(
+            "BatchEngine does not serve MoE configs: expert-capacity "
+            "routing couples batch rows, breaking batching invariance"
+        )
+    if getattr(cfg, "vision", None) is not None:
+        raise ValueError("BatchEngine serves text-only models (no pixels)")
+    if cfg.quantize_base:
+        raise NotImplementedError("int4 QLoRA bases are not ported yet")
+    if cfg.lora_tenant_slots:
+        raise NotImplementedError("multi-tenant adapters are not ported yet")
+
+
+def rope_inv_freqs(cfg: LlamaConfig, device=None) -> torch.Tensor:
+    """Per-pair inverse frequencies in f32, with optional llama3 scaling
+    (the reference's ``rope_inv_freqs``, ``llama.py:330-356``)."""
+    half = cfg.head_dim // 2
+    freqs = 1.0 / (
+        cfg.rope_theta ** (torch.arange(half, dtype=torch.float32, device=device) / half)
+    )
+    factor = cfg.rope_scaling_factor
+    if not factor:
+        return freqs
+    orig = cfg.rope_scaling_original_max_len
+    low_f, high_f = cfg.rope_scaling_low_freq_factor, cfg.rope_scaling_high_freq_factor
+    low_wl, high_wl = orig / low_f, orig / high_f
+    wavelen = 2.0 * math.pi / freqs
+    smooth = (orig / wavelen - low_f) / (high_f - low_f)
+    smoothed = (1.0 - smooth) * freqs / factor + smooth * freqs
+    return torch.where(
+        wavelen > low_wl, freqs / factor,
+        torch.where(wavelen < high_wl, freqs, smoothed),
+    )
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freqs: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, D), positions: (B, S), ``inv_freqs``
+    from :func:`rope_inv_freqs`.  The angles and the rotation are computed
+    in f32 and the result cast back to ``x.dtype``, as in the reference."""
+    half = x.shape[-1] // 2
+    angles = positions[..., None].to(torch.float32) * inv_freqs  # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMS normalisation in f32; effective scale = ``offset`` + stored
+    ``scale`` (0.0 = Llama, ones init; 1.0 = Gemma, zeros init)."""
+
+    def __init__(self, dim: int, eps: float, dtype, param_dtype,
+                 offset: float = 0.0, device=None):
+        super().__init__()
+        self.eps, self.dtype, self.offset = eps, dtype, offset
+        init = torch.zeros if offset else torch.ones
+        self.scale = nn.Parameter(init(dim, dtype=param_dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        norm = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
+        return (norm * (self.offset + self.scale.to(torch.float32))).to(self.dtype)
+
+
+def _proj(cfg: LlamaConfig, name: str, in_features: int, features: int,
+          device) -> LoRADense:
+    lora_on = cfg.lora.enabled_for(name)
+    return LoRADense(
+        in_features, features,
+        lora_rank=cfg.lora.rank if lora_on else 0,
+        lora_alpha=cfg.lora.alpha,
+        use_bias=cfg.attention_qkv_bias and name in ("q_proj", "k_proj", "v_proj"),
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+    )
+
+
+@dataclasses.dataclass
+class PagedKV:
+    """The serving KV cache: one (P, T, Hkv, D) page pool per layer for K
+    and for V, stacked as ``(L, P, T, Hkv, D)`` tensors.  Page 0 is the
+    scratch page.  Updated in place by :meth:`Attention.forward_paged`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: LlamaConfig, pool_pages: int, page_tokens: int,
+              device) -> "PagedKV":
+        shape = (cfg.n_layers, pool_pages, page_tokens, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+    @property
+    def page_bytes(self) -> int:
+        """Bytes of one page id across every layer's K and V pools."""
+        return 2 * self.k[:, 0].numel() * self.k.element_size()
+
+    def copy_page(self, dst: int, src: int) -> None:
+        """Copy-on-write: duplicate page ``src`` into ``dst`` in every
+        layer's K and V pool."""
+        self.k[:, dst] = self.k[:, src]
+        self.v[:, dst] = self.v[:, src]
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        hd = cfg.head_dim
+        d = cfg.d_model
+        self.q_proj = _proj(cfg, "q_proj", d, cfg.n_heads * hd, device)
+        self.k_proj = _proj(cfg, "k_proj", d, cfg.n_kv_heads * hd, device)
+        self.v_proj = _proj(cfg, "v_proj", d, cfg.n_kv_heads * hd, device)
+        self.o_proj = _proj(cfg, "o_proj", cfg.n_heads * hd, d, device)
+
+    def _qkv(self, x, positions, inv_freqs):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+        q = apply_rope(self.q_proj(x).reshape(b, s, cfg.n_heads, hd), positions, inv_freqs)
+        k = apply_rope(self.k_proj(x).reshape(b, s, cfg.n_kv_heads, hd), positions, inv_freqs)
+        v = self.v_proj(x).reshape(b, s, cfg.n_kv_heads, hd)
+        return q, k, v
+
+    def forward(self, x, positions, inv_freqs):
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, positions, inv_freqs)
+        out = xla_causal_attention(q, k, v)
+        return self.o_proj(out.reshape(b, s, -1))
+
+    def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
+                      page_table, idx, write_at):
+        """Scatter the chunk's K/V into this layer's pools at ``write_at``
+        (in place; see :func:`paged_write_index`) and attend through the
+        page table from each lane's cache index ``idx`` (B,)."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, positions, inv_freqs)
+        k_pool[write_at] = k.to(k_pool.dtype)
+        v_pool[write_at] = v.to(v_pool.dtype)
+        out = paged_cache_attention(q, k_pool, v_pool, page_table, idx)
+        return self.o_proj(out.reshape(b, s, -1))
+
+
+def paged_write_index(page_table: torch.Tensor, idx: torch.Tensor, s: int,
+                      page_tokens: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(page, offset)`` index tensors, each (B, S), where a chunk of S
+    tokens starting at cache index ``idx`` (B,) lands in the pools.
+
+    The cache index and the RoPE positions are separate inputs.  Write
+    positions clamp to the lane's last logical slot, as in the reference
+    (``llama.py:583-588``): a parked lane (all-zero table row) and a
+    bucket-padded prefill tail past the lane's materialized pages both
+    write into the scratch page 0, which no live lane reads unmasked.
+    """
+    cap = page_table.shape[1] * page_tokens
+    pos = idx.long()[:, None] + torch.arange(s, device=idx.device)[None, :]
+    pos_w = torch.clamp(pos, max=cap - 1)
+    phys = torch.gather(page_table.long(), 1, pos_w // page_tokens)
+    return phys, pos_w % page_tokens
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.gelu = cfg.mlp_act == "gelu"
+        self.gate_proj = _proj(cfg, "gate_proj", cfg.d_model, cfg.d_ff, device)
+        self.up_proj = _proj(cfg, "up_proj", cfg.d_model, cfg.d_ff, device)
+        self.down_proj = _proj(cfg, "down_proj", cfg.d_ff, cfg.d_model, device)
+
+    def forward(self, x):
+        gate = self.gate_proj(x)
+        # GeGLU uses the tanh approximation, as flax's nn.gelu does
+        act = F.gelu(gate, approximate="tanh") if self.gelu else F.silu(gate)
+        return self.down_proj(act * self.up_proj(x))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        norm = dict(eps=cfg.rms_eps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                    offset=cfg.norm_offset, device=device)
+        self.attn_norm = RMSNorm(cfg.d_model, **norm)
+        self.attn = Attention(cfg, device)
+        self.mlp_norm = RMSNorm(cfg.d_model, **norm)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, positions, inv_freqs):
+        x = x + self.attn(self.attn_norm(x), positions, inv_freqs)
+        return x + self.mlp(self.mlp_norm(x))
+
+    def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
+                      page_table, idx, write_at):
+        x = x + self.attn.forward_paged(self.attn_norm(x), positions, inv_freqs,
+                                        k_pool, v_pool, page_table, idx, write_at)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class LlamaForCausalLM(nn.Module):
+    """The decoder.  Parameters are created on ``device`` (CUDA unless the
+    caller passes ``device="cpu"``) in ``cfg.param_dtype``; the serving path
+    sets ``param_dtype`` to the compute dtype so the base is stored in bf16
+    on the card."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        refuse_unported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed_tokens = nn.Module()
+        self.embed_tokens.embedding = nn.Parameter(
+            torch.zeros(cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype, device=dev)
+        )
+        self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, cfg.dtype,
+                                  cfg.param_dtype, cfg.norm_offset, dev)
+        self.lm_head = (None if cfg.tie_embeddings else LoRADense(
+            cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
+            param_dtype=cfg.param_dtype, device=dev,
+        ))
+        self.register_buffer("inv_freqs", rope_inv_freqs(cfg, dev), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed_tokens.embedding.device
+
+    def _embed(self, tokens):
+        cfg = self.cfg
+        x = self.embed_tokens.embedding.to(cfg.dtype)[tokens]
+        if cfg.embed_scale:
+            # the scale rounds through the compute dtype before multiplying
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype, device=x.device)
+        return x
+
+    def _head(self, x):
+        cfg = self.cfg
+        x = self.final_norm(x)
+        if cfg.tie_embeddings:
+            logits = x @ self.embed_tokens.embedding.to(cfg.dtype).T
+        else:
+            logits = self.lm_head(x)
+        return logits.to(cfg.logits_dtype or torch.float32)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward: (B, S) tokens -> (B, S, V) logits."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+        x = self._embed(tokens)
+        for layer in self.layers:
+            x = layer(x, positions, self.inv_freqs)
+        return self._head(x)
+
+    @torch.no_grad()
+    def forward_paged(self, tokens, positions, kv: PagedKV, page_table, idx,
+                      last_idx: int | None = None) -> torch.Tensor:
+        """Paged serving forward over a chunk of S tokens per lane.
+
+        ``tokens``/``positions`` (B, S); ``page_table`` (B, MP) int32;
+        ``idx`` (B,) int32 cache index of each lane's first token.  Writes the
+        chunk's K/V into ``kv`` in place.  Returns (B, S, V) logits, or the
+        (B, V) row at chunk offset ``last_idx`` when given (the head then
+        runs on that row only)."""
+        x = self._embed(tokens)
+        write_at = paged_write_index(page_table, idx, tokens.shape[1], kv.k.shape[2])
+        for layer, k_pool, v_pool in zip(self.layers, kv.k, kv.v):
+            x = layer.forward_paged(x, positions, self.inv_freqs, k_pool, v_pool,
+                                    page_table, idx, write_at)
+        if last_idx is not None:
+            x = x[:, last_idx]
+        return self._head(x)
+
+
+@torch.no_grad()
+def init_random_(model: LlamaForCausalLM, seed: int) -> LlamaForCausalLM:
+    """Fill every parameter from ``seed`` on the model's own device (no
+    host copy): kernels ~ N(0, 1/fan_in), embeddings ~ N(0, 1/d_model),
+    norm scales at their init (ones, or zeros with an offset), biases and
+    LoRA ``B`` zero, LoRA ``A`` ~ N(0, 0.02²)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
+        elif leaf == "embedding":
+            p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+        elif leaf == "lora_a":
+            p.normal_(0.0, 0.02, generator=gen)
+        elif leaf == "scale":
+            p.fill_(0.0 if model.cfg.norm_offset else 1.0)
+        else:  # bias, lora_b
+            p.zero_()
+    return model

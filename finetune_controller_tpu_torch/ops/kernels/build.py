@@ -1,0 +1,107 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas=-v -o build/torch_kernels/<name>-<hash>.so
+
+The output goes under ``build/torch_kernels/`` at the root of the checkout
+(listed in ``.gitignore``), keyed by a hash of the sources and the flags, so
+an edited source rebuilds and an unchanged one loads at once.  Only sources
+in the checkout are used.  The compiler's report (registers, shared memory,
+spills from ``-Xptxas=-v``) is kept beside each library as ``.log``.
+
+Several sources build in parallel: one ``nvcc`` process per source, all
+started together.  A build error raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda``'s, or
+    the first on ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME, /usr/local/cuda and PATH); "
+            "the port's CUDA kernels are built on the machine with the card"
+        )
+    return found
+
+
+def sources() -> list[str]:
+    """Names of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, the shared
+    headers of ``csrc/`` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, Path]:
+    """Build every named source that is not built yet (all of ``csrc/`` by
+    default), one ``nvcc`` per source in parallel.  Returns name -> path."""
+    names = sources() if names is None else list(names)
+    paths = {name: library_path(name) for name in names}
+    todo = {name: path for name, path in paths.items() if not path.exists()}
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        path = todo[name]
+        path.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for the current build of ``name`` ("" if none)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built first if needed."""
+    return ctypes.CDLL(str(build([name])[name]))

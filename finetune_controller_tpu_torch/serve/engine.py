@@ -1,0 +1,542 @@
+"""Slot-based continuous-batching decode engine over a paged KV cache.
+
+Counterpart of the paged mode of the reference's ``serve/engine.py``.  A
+fixed batch of ``slots`` decode lanes runs one single-token step, and
+requests are admitted into free lanes between steps.  The KV cache is a
+shared pool of fixed-size pages per layer (``models/llama.py`` ``PagedKV``)
+addressed through per-lane page tables: a lane materializes pages as its
+tokens arrive (prompt pages at admit, one page per ``page_tokens`` decode
+steps after), eviction frees them at once, and the prefix cache stores page
+runs shared copy-on-write.  Admission reserves a request's worst-case page
+count up front, so a pool too full to host a request is backpressure
+(:class:`~.kv_pages.PoolExhausted`, the batcher keeps it queued), never a
+crash mid-flight.
+
+Differences from the reference, by design:
+
+* the KV pools are updated in place; the reference rebuilt the cache tree
+  on every jitted call;
+* the per-lane cache index lives on the host and rides into every forward
+  as a (slots,) int32 tensor beside the page table and the RoPE positions;
+* there is no ``RecompileGuard``: PyTorch runs eagerly and compiles
+  nothing, so there is no compile budget to guard;
+* there is no ``TransferGuard``: the decode step's host<->device traffic is
+  its explicit inputs (tokens, positions, index, page table) and the
+  (slots,) token vector it returns, with no implicit transfer to trap.
+
+The decode step keeps on-device token selection: it returns a ``(slots,)``
+integer tensor, never the logits.  Sampled lanes draw from a per-request
+``torch.Generator`` on the device, seeded from ``GenRequest.seed``.
+
+The unpaged mode, multi-tenant adapters and the host KV tier wait for a
+later slice: ``page_tokens=0`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import logging
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..models.generate import _sample
+from ..models.llama import PagedKV, refuse_unported
+from .kv_pages import KVPagePool, PageRun, PoolExhausted
+from .prefix_cache import PrefixCache, resolve_reuse_length
+
+logger = logging.getLogger(__name__)
+
+
+class PromptTooLong(ValueError):
+    """Prompt exceeds the largest configured prefill bucket."""
+
+
+class EngineBusy(RuntimeError):
+    """No free slot (the batcher queues instead of surfacing this)."""
+
+
+class UnknownAdapter(ValueError):
+    """A request named an adapter this engine has not loaded."""
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Shape of the serving batch."""
+
+    #: fixed decode lanes (the physical batch); every step runs all of them
+    slots: int = 8
+    #: prefill pad targets, ascending
+    prompt_buckets: tuple[int, ...] = (32, 128, 512)
+    #: per-request cap on generated tokens; also sizes a lane
+    max_new_tokens: int = 128
+    #: byte budget for the prefix-reuse cache (0 = disabled)
+    prefix_cache_bytes: int = 0
+    #: sequence positions per KV page; must be > 0 (paged mode only)
+    page_tokens: int = 16
+    #: total pool pages including the scratch page; 0 = auto-size to
+    #: ``slots * pages_per_lane + 1``
+    pool_pages: int = 0
+
+    @property
+    def cache_len(self) -> int:
+        return max(self.prompt_buckets) + self.max_new_tokens
+
+    @property
+    def paged(self) -> bool:
+        return self.page_tokens > 0
+
+    @property
+    def pages_per_lane(self) -> int:
+        """Page-table width: pages covering one full-length lane."""
+        return -(-self.cache_len // self.page_tokens) if self.page_tokens else 0
+
+    @property
+    def effective_pool_pages(self) -> int:
+        if not self.paged:
+            return 0
+        return self.pool_pages or (self.slots * self.pages_per_lane + 1)
+
+    def bucket_for(self, prompt_len: int) -> int:
+        for b in self.prompt_buckets:
+            if prompt_len <= b:
+                return b
+        raise PromptTooLong(
+            f"prompt length {prompt_len} exceeds the largest prefill bucket "
+            f"{max(self.prompt_buckets)}"
+        )
+
+
+@dataclasses.dataclass
+class GenRequest:
+    request_id: str
+    tokens: list[int]                  # prompt token ids
+    max_new_tokens: int = 32
+    temperature: float = 0.0           # 0 = greedy
+    top_k: int = 0
+    eos_id: int | None = None
+    seed: int = 0                      # sampling stream (temperature > 0)
+    #: multi-tenant serving ("" = the base model); only "" is served here
+    adapter_id: str = ""
+
+
+@dataclasses.dataclass
+class GenResult:
+    request_id: str
+    prompt_tokens: list[int]
+    generated: list[int]               # includes the eos token when hit
+    finish_reason: str                 # "length" | "eos" | "evicted"
+    steps: int                         # decode steps this request rode
+    admitted_at: float = 0.0
+    finished_at: float = 0.0
+
+
+@dataclasses.dataclass
+class _Slot:
+    lane: int = 0                      # this slot's row in the batch
+    req: GenRequest | None = None
+    next_pos: int = 0                  # sequence position of the token to feed
+    last_token: int = 0                # token to feed at next_pos
+    generated: list[int] = dataclasses.field(default_factory=list)
+    generator: torch.Generator | None = None  # per-request sampling stream
+    admitted_at: float = 0.0
+    pages: list[int] = dataclasses.field(default_factory=list)
+    reserved: int = 0                  # booked-but-unmaterialized pages
+    adapter_id: str = ""
+
+    @property
+    def active(self) -> bool:
+        return self.req is not None
+
+
+class BatchEngine:
+    """Continuous-batching decode over the port's ``LlamaForCausalLM``.
+
+    Host-driven: :meth:`admit` fills a free lane, :meth:`step` advances every
+    active lane one token and returns whatever finished.  The asyncio layer
+    (``serve/batcher.py``) owns queuing and deadlines; this class owns the
+    device state and the numerics.  The engine runs on the model's device.
+    """
+
+    def __init__(self, model, config: EngineConfig | None = None):
+        cfg = model.cfg
+        refuse_unported(cfg)
+        self.config = config or EngineConfig()
+        if not self.config.paged:
+            raise NotImplementedError(
+                "the port serves the paged KV cache only (page_tokens > 0); "
+                "the unpaged mode waits for a later slice"
+            )
+        self.model = model
+        self.device = model.device
+        self.adapters = None  # multi-tenant registry: a later slice
+        pool_pages = self.config.effective_pool_pages
+        if pool_pages - 1 < self.config.pages_per_lane:
+            raise ValueError(
+                f"kv page pool too small: {pool_pages} pages cannot hold "
+                f"one full lane ({self.config.pages_per_lane} pages of "
+                f"{self.config.page_tokens} tokens)"
+            )
+        self._slots = [_Slot(lane=i) for i in range(self.config.slots)]
+        self.kv = PagedKV.zeros(cfg, pool_pages, self.config.page_tokens, self.device)
+        self._pool = KVPagePool(pool_pages, self.config.page_tokens, self.kv.page_bytes)
+        self._prefix_cache = (
+            PrefixCache(self.config.prefix_cache_bytes, pool=self._pool)
+            if self.config.prefix_cache_bytes > 0 else None
+        )
+        # host masters of the per-call inputs: lane page tables and cache
+        # indexes (int32, shipped into every forward)
+        self._tables = np.zeros((self.config.slots, self.config.pages_per_lane), np.int32)
+        self._index = np.zeros((self.config.slots,), np.int32)
+        # counters the /metrics gauges read
+        self.steps_total = 0
+        self.tokens_generated_total = 0
+        self.requests_finished_total = 0
+        self.prefix_hits_total = 0
+        self.prefix_misses_total = 0
+        self.prefill_tokens_saved_total = 0
+        self.tokens_by_tenant: dict[str, int] = {}
+        self._prefix_warned = False
+
+    # ---- slot management --------------------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        return sum(1 for s in self._slots if not s.active)
+
+    @property
+    def active_requests(self) -> int:
+        return self.config.slots - self.free_slots
+
+    @property
+    def prefix_cache_bytes(self) -> int:
+        return self._prefix_cache.total_bytes if self._prefix_cache else 0
+
+    @property
+    def prefix_cache_entries(self) -> int:
+        return len(self._prefix_cache) if self._prefix_cache else 0
+
+    def active_by_tenant(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for slot in self._slots:
+            if slot.active:
+                out[slot.adapter_id] = out.get(slot.adapter_id, 0) + 1
+        return out
+
+    def kv_page_stats(self) -> dict[str, int]:
+        return self._pool.stats()
+
+    def _request_span(self, req: GenRequest) -> int:
+        """Last written sequence position + 1: the prompt plus every decode
+        step's write (the final token is recorded, not written)."""
+        return len(req.tokens) + max(0, req.max_new_tokens - 1)
+
+    def admission_pages(self, req: GenRequest) -> int:
+        return self._pool.pages_for(self._request_span(req))
+
+    def can_admit(self, req: GenRequest, pending_pages: int = 0) -> bool:
+        """Whether :meth:`admit` would succeed now.  Conservative: ignores
+        prefix sharing.  Permanently impossible requests return True so
+        ``admit`` raises their real error."""
+        if self.free_slots == 0:
+            return False
+        need = self._pool.pages_for(self._request_span(req))
+        if need > self._pool.usable_pages:
+            return True
+        return self._pool.can_reserve(need + pending_pages)
+
+    def _resolve_prefix(self, tokens: list[int], plen: int):
+        match_len, run = self._prefix_cache.lookup(tokens)
+        if run is None:
+            return 0, None
+        reuse = resolve_reuse_length(
+            match_len, plen, self.config.prompt_buckets, self.config.cache_len
+        )
+        if reuse <= 0:
+            return 0, None
+        return reuse, run
+
+    @torch.no_grad()
+    def admit(self, req: GenRequest) -> GenResult | None:
+        """Prefill ``req`` into a free lane.  Raises :class:`EngineBusy`,
+        :class:`PromptTooLong`, or :class:`~.kv_pages.PoolExhausted` (gate
+        with :meth:`can_admit`).  Returns a :class:`GenResult` when the
+        request finishes on admission (eos, or ``max_new_tokens == 1``)."""
+        slot_id = next((i for i, s in enumerate(self._slots) if not s.active), None)
+        if slot_id is None:
+            raise EngineBusy("all decode slots are busy")
+        plen = len(req.tokens)
+        if plen < 1:
+            raise ValueError("empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        cap = self.config.max_new_tokens
+        if req.max_new_tokens > cap:
+            raise ValueError(f"max_new_tokens {req.max_new_tokens} > engine cap {cap}")
+        if req.adapter_id:
+            raise UnknownAdapter(
+                f"request {req.request_id} names adapter {req.adapter_id!r} but "
+                "this engine has no adapter registry"
+            )
+        self.config.bucket_for(plen)  # PromptTooLong before any allocation
+        logits = self._prefill_paged(req, slot_id, plen)
+        slot = self._slots[slot_id]
+        slot.req = req
+        slot.generated = []
+        slot.next_pos = plen
+        slot.adapter_id = req.adapter_id
+        slot.generator = None
+        if req.temperature > 0.0:
+            slot.generator = torch.Generator(device=self.device).manual_seed(req.seed)
+        slot.admitted_at = time.monotonic()
+        tok = int(_sample(logits, temperature=req.temperature, top_k=req.top_k,
+                          generator=slot.generator)[0])
+        return self._record(slot, tok)
+
+    def _forward(self, tokens: np.ndarray, positions: np.ndarray,
+                 table: np.ndarray, index: np.ndarray, last_idx: int) -> torch.Tensor:
+        """One paged forward: host int32 inputs in, (B, V) f32 logits at
+        chunk offset ``last_idx`` out.  Writes the chunk's K/V into the
+        pools in place."""
+        dev = self.device
+        return self.model.forward_paged(
+            torch.from_numpy(tokens).to(dev, torch.long),
+            torch.from_numpy(positions).to(dev),
+            self.kv,
+            torch.from_numpy(table).to(dev),
+            torch.from_numpy(index).to(dev),
+            last_idx=last_idx,
+        ).to(torch.float32)
+
+    def _prefill_paged(self, req: GenRequest, slot_id: int, plen: int) -> torch.Tensor:
+        pool, t = self._pool, self._pool.page_tokens
+        need_total = pool.pages_for(self._request_span(req))
+        if need_total > pool.usable_pages:
+            raise ValueError(
+                f"request {req.request_id} needs {need_total} kv pages but "
+                f"the pool holds {pool.usable_pages} — raise "
+                "serve_kv_pool_pages or shrink the request"
+            )
+        reuse, run = (
+            self._resolve_prefix(req.tokens, plen)
+            if self._prefix_cache is not None else (0, None)
+        )
+        shared = list(run.pages[: reuse // t]) if run is not None else []
+        pool.reserve(need_total - len(shared))  # PoolExhausted backpressure
+        for page in shared:
+            pool.lane_ref(page)
+        slot = self._slots[slot_id]
+        slot.pages = list(shared)
+        slot.reserved = need_total - len(shared)
+        row = np.zeros((self._tables.shape[1],), np.int32)
+        row[: len(shared)] = shared
+        try:
+            # materialize the pages the prompt writes now; decode growth
+            # spends the rest of the reservation page by page
+            for i in range(len(shared), pool.pages_for(plen)):
+                phys = pool.alloc_reserved(self._evict_hook())
+                row[i] = phys
+                slot.pages.append(phys)
+                slot.reserved -= 1
+            if run is not None and reuse % t:
+                # copy-on-write boundary: the page holding position `reuse`
+                # keeps the entry's prefix KV but this lane's suffix writes
+                # into it — it must be a private copy
+                self.kv.copy_page(int(row[reuse // t]), int(run.pages[reuse // t]))
+                pool.cow_copies_total += 1
+            start = reuse if run is not None else 0
+            suffix = req.tokens[start:]
+            sbucket = self.config.bucket_for(len(suffix))
+            padded = np.zeros((1, sbucket), np.int32)
+            padded[0, :len(suffix)] = suffix
+            positions = (start + np.arange(sbucket, dtype=np.int32))[None, :]
+            logits = self._forward(padded, positions, row[None, :],
+                                   np.array([start], np.int32), len(suffix) - 1)
+        except BaseException:
+            # roll the lane's pool state back so a failed prefill never
+            # leaks pages (its writes landed only in pages it owned, or in
+            # the scratch page)
+            pool.lane_release(slot.pages, slot.reserved)
+            slot.pages, slot.reserved = [], 0
+            raise
+        self._index[slot_id] = plen
+        self._tables[slot_id, :] = row
+        if self._prefix_cache is not None:
+            if run is not None:
+                self.prefix_hits_total += 1
+                self.prefill_tokens_saved_total += start
+            else:
+                self.prefix_misses_total += 1
+            run_new = PageRun(
+                pages=tuple(int(x) for x in row[:pool.pages_for(plen)]), n_tokens=plen,
+            )
+            if not self._prefix_cache.insert(tuple(req.tokens), run_new) \
+                    and not self._prefix_warned:
+                self._prefix_warned = True
+                logger.warning(
+                    "prefix cache cannot hold a single page run (%d pages x "
+                    "%d B > budget %d B) — every admission will miss; raise "
+                    "serve_prefix_cache_mb or disable the cache",
+                    len(run_new.pages), pool.page_bytes, self._prefix_cache.budget_bytes,
+                )
+        return logits
+
+    def _evict_hook(self):
+        return self._prefix_cache.evict_oldest if self._prefix_cache is not None else None
+
+    def evict(self, request_id: str) -> GenResult | None:
+        """Drop an in-flight request; frees its lane and pages at once and
+        parks its cache index at 0 (see :meth:`_finish`)."""
+        for slot in self._slots:
+            if slot.active and slot.req.request_id == request_id:
+                return self._finish(slot, "evicted")
+        return None
+
+    def _record(self, slot: _Slot, tok: int) -> GenResult | None:
+        """Host bookkeeping for one selected token: eos/length latching."""
+        req = slot.req
+        slot.generated.append(tok)
+        slot.last_token = tok
+        self.tokens_generated_total += 1
+        self.tokens_by_tenant[slot.adapter_id] = self.tokens_by_tenant.get(slot.adapter_id, 0) + 1
+        if req.eos_id is not None and tok == req.eos_id:
+            return self._finish(slot, "eos")
+        if len(slot.generated) >= req.max_new_tokens:
+            return self._finish(slot, "length")
+        return None
+
+    def _finish(self, slot: _Slot, reason: str) -> GenResult:
+        req = slot.req
+        result = GenResult(
+            request_id=req.request_id,
+            prompt_tokens=list(req.tokens),
+            generated=list(slot.generated),
+            finish_reason=reason,
+            steps=len(slot.generated),
+            admitted_at=slot.admitted_at,
+            finished_at=time.monotonic(),
+        )
+        slot.req = None
+        slot.generated = []
+        slot.generator = None
+        slot.last_token = 0
+        slot.next_pos = 0
+        slot.adapter_id = ""
+        # free the lane's pages (shared refs drop; pages still referenced by
+        # prefix-cache entries stay resident) and return the unspent
+        # reservation
+        self._pool.lane_release(slot.pages, slot.reserved)
+        slot.pages = []
+        slot.reserved = 0
+        self._tables[slot.lane, :] = 0
+        # park the lane: it still rides every decode step, writing
+        # throwaway tokens into the scratch page from index 0
+        self._index[slot.lane] = 0
+        self.requests_finished_total += 1
+        return result
+
+    # ---- the decode loop --------------------------------------------------
+
+    def _grow_pages(self) -> None:
+        """Materialize the page each active lane's next write lands in, when
+        it has not been allocated yet (reservation-backed)."""
+        t = self._pool.page_tokens
+        width = self._tables.shape[1]
+        for slot in self._slots:
+            if not slot.active:
+                continue
+            page_idx = slot.next_pos // t
+            if page_idx < width and self._tables[slot.lane, page_idx] == 0:
+                phys = self._pool.alloc_reserved(self._evict_hook())
+                self._tables[slot.lane, page_idx] = phys
+                slot.pages.append(phys)
+                slot.reserved -= 1
+
+    def _decode(self, tokens, positions) -> torch.Tensor:
+        """One batched decode step with on-device token selection: (slots,)
+        next tokens.  Greedy lanes take the argmax; sampled lanes draw from
+        their own generator, so a request's stream does not depend on its
+        batch-mates' draws."""
+        logits = self._forward(tokens, positions, self._tables, self._index, 0)
+        next_tokens = torch.argmax(logits, dim=-1)
+        for i, slot in enumerate(self._slots):
+            if slot.active and slot.req.temperature > 0.0:
+                next_tokens[i] = _sample(
+                    logits[i:i + 1], temperature=slot.req.temperature,
+                    top_k=slot.req.top_k, generator=slot.generator,
+                )[0]
+        return next_tokens
+
+    @torch.no_grad()
+    def step(self) -> list[GenResult]:
+        """One batched decode step; returns requests that finished on it.
+        The host receives a (slots,) token vector, never the logits."""
+        if self.active_requests == 0:
+            return []
+        self._grow_pages()
+        tokens = np.zeros((self.config.slots, 1), np.int32)
+        positions = np.zeros((self.config.slots, 1), np.int32)
+        for i, slot in enumerate(self._slots):
+            if slot.active:
+                tokens[i, 0] = slot.last_token
+                positions[i, 0] = slot.next_pos
+        next_tokens = self._decode(tokens, positions).tolist()
+        # every lane (parked ones too) advanced its index by one, saturating
+        # at the lane capacity
+        self._index = np.minimum(self._index + 1, self._tables.shape[1] * self._pool.page_tokens)
+        self.steps_total += 1
+        finished: list[GenResult] = []
+        for i, slot in enumerate(self._slots):
+            if not slot.active:
+                continue
+            slot.next_pos += 1
+            done = self._record(slot, int(next_tokens[i]))
+            if done is not None:
+                finished.append(done)
+        return finished
+
+    def run(self, requests: list[GenRequest]) -> dict[str, GenResult]:
+        """Synchronous loop (tests/bench): admit everything — overflow waits
+        for a lane or for pool pages — and step until the batch drains."""
+        results: dict[str, GenResult] = {}
+        pending = list(requests)
+        guard_steps = itertools.count()
+        limit = sum(r.max_new_tokens for r in requests) + len(requests) + 8
+        while pending or self.active_requests:
+            while pending and self.free_slots and self.can_admit(pending[0]):
+                done = self.admit(pending.pop(0))
+                if done is not None:
+                    results[done.request_id] = done
+            if pending and not self.active_requests and not self.can_admit(pending[0]):
+                raise PoolExhausted(
+                    f"request {pending[0].request_id} can never admit: the "
+                    "kv page pool is exhausted with no work in flight"
+                )
+            for done in self.step():
+                results[done.request_id] = done
+            if next(guard_steps) > limit:  # pragma: no cover - safety valve
+                raise RuntimeError("engine.run failed to converge")
+        missing = [r.request_id for r in requests if r.request_id not in results]
+        if missing:  # pragma: no cover - engine invariant
+            raise RuntimeError(f"requests did not finish: {missing}")
+        return results
+
+
+def warm_engine(engine: BatchEngine, *, warm_new: int | None = None) -> None:
+    """Run one dummy request per prompt bucket plus decode steps before the
+    engine takes traffic (first-use costs: CUDA context, kernel build and
+    load, allocator growth), then zero the counters."""
+    new_tokens = warm_new if warm_new is not None else min(2, engine.config.max_new_tokens)
+    for bucket in engine.config.prompt_buckets:
+        engine.run([GenRequest(request_id=f"_warm-{bucket}", tokens=[1] * bucket,
+                               max_new_tokens=new_tokens)])
+    engine.steps_total = 0
+    engine.tokens_generated_total = 0
+    engine.requests_finished_total = 0
+    engine.prefix_hits_total = 0
+    engine.prefix_misses_total = 0
+    engine.prefill_tokens_saved_total = 0
+    engine.tokens_by_tenant = {}

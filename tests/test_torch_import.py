@@ -1,0 +1,89 @@
+"""The PyTorch port stands alone: no JAX, no reference package.
+
+Importing every module of ``finetune_controller_tpu_torch`` (and the
+``chip_smoke.py`` script) in a fresh interpreter leaves ``jax``, ``flax``
+and ``finetune_controller_tpu`` out of ``sys.modules`` — checked in a
+subprocess because this test process has JAX loaded already.  An AST scan
+pins the same for every source file.  Entry points default to the CUDA card
+and raise where there is none, unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "finetune_controller_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "finetune_controller_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import finetune_controller_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 12 else 0)\n" % (FORBIDDEN,)
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
+
+
+def test_entry_points_default_to_cuda():
+    """Without ``device=`` the entry points ask for the card and raise where
+    there is none; ``device="cpu"`` is honoured when given."""
+    from finetune_controller_tpu_torch.device import resolve_device
+    from finetune_controller_tpu_torch.models.llama import PRESETS, LlamaForCausalLM
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert LlamaForCausalLM(PRESETS["tiny-test"], device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(PRESETS["tiny-test"])
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """The script exits non-zero and prints no result line without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
