@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+CUDA card.
 
     python3 chip_smoke.py [--seed N] [--layers L]
 
@@ -7,26 +8,43 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source of the port from ``finetune_controller_tpu_torch/
-   csrc`` (one ``nvcc`` per source, in parallel) and check each kernel once
-   against its plain version at a small shape, in f32 and bf16;
+   csrc`` (one ``nvcc`` per source, in parallel) and check each kernel
+   against its plain version at small shapes: the paged kernel in f32 and
+   bf16; the three flash kernels (T1) in f32 and bf16, D 64 and 128, GQA
+   groups 1 and 4, S 40/100/257, causal with segment ids and full attention
+   with fully masked rows, with a non-zero lse cotangent;
 3. build ``llama3-8b`` at full width (and full depth unless ``--layers``
    cuts it) in bf16 with random weights drawn on the card from ``--seed``;
 4. serve 12 requests through ``Batcher`` -> ``BatchEngine`` -> the paged
    kernel with the service defaults (8 slots, buckets 32/128/512, 128 new
    tokens at most, 16-token pages, auto-sized pool, prefix cache on): more
    requests than slots, prompts of 20-500 tokens, four sharing a 300-token
-   prefix (a copy-on-write page), 10 greedy and 2 sampled.  Every kernel's
-   launch count is zeroed just before this run and read just after;
+   prefix (a copy-on-write page), 10 greedy and 2 sampled.  The paged
+   kernel's launch count is zeroed just before this run and read just after;
 5. check that all 12 finished with the lengths asked for, that no decode
-   step failed, and that every kernel of the path was launched;
-6. hold each kernel against its plain version on the card at the engine's
-   shapes (decode B=8, S=1 over the pool and tables the run produced;
-   prefill B=1, S=512), and time kernel, plain version and the library
-   yardstick beside the kernel's bound;
+   step failed, and that the paged kernel was launched;
+6. hold the paged kernel against its plain version on the card at the
+   engine's shapes (decode B=8, S=1 over the pool and tables the run
+   produced; prefill B=1, S=512), and time kernel, plain version and the
+   library yardstick beside the kernel's bound;
 7. compare first-token logits of the model's paged prefill under
    ``FTC_PAGED_ATTN=kernel`` and ``FTC_PAGED_ATTN=gather``;
-8. print the decode rate and time to first token, the ``kernels`` line, the
-   card line, and last ``{"ok": true, "device": {...}}``.
+8. (T2) train ``llama3-8b`` at full width and depth through
+   ``train.cli.main``: LoRA rank 16 on all seven projections, bf16 base,
+   batch 4 x 2048 tokens of packed random-text documents in 2 microbatches,
+   6 steps, then 2 more resumed from the step-6 checkpoint.  The flash
+   kernels' launch counts are zeroed just before and read just after; the
+   metrics rows, the schedule, the LoRA ``B`` leaves, the checkpoints and
+   ``done.txt`` are checked;
+9. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on a
+   packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
+   ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
+10. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
+    Hkv=8, D=128, bf16, the packed microbatch's segment ids): kernel, plain
+    and library times beside the bound, and the error against the plain
+    version;
+11. print the ``kernels``, ``serve`` and ``train`` lines, the card line, and
+    last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -36,11 +54,15 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -128,6 +150,160 @@ def kernel_check_small() -> float:
                 raise AssertionError(
                     f"kernel vs plain at {(b, s, h, hkv, d, t, mp)} {dtype}: max err {err}")
     return worst
+
+
+FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+
+
+def flash_inputs(gen, b, s, h, hkv, d, dtype, segments):
+    """Random q, k, v, dO, lse cotangent and (B, S) segment ids on the card."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    seg = None
+    if segments:  # documents of random length, as packing makes them
+        starts = torch.rand((b, s), generator=gen, device="cuda") < 4.0 / s
+        seg = torch.cumsum(starts.to(torch.int32), dim=1, dtype=torch.int32) + 1
+    dlse = torch.randn((b, h, s), generator=gen, device="cuda")
+    return rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, h, d), dlse, seg
+
+
+def flash_compare(q, k, v, dout, dlse, seg, kvseg, causal):
+    """Each flash kernel against its plain version on the same inputs (the
+    backward kernels take the plain forward's out and lse).  Returns
+    {kernel: max abs err}; raises beyond ``TOLERANCE``."""
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+
+    atol, rtol = fa.TOLERANCE[q.dtype]
+    out_ref, lse_ref = fa.flash_forward_reference(q, k, v, seg, kvseg, causal)
+    delta = fa.flash_delta(out_ref, dout, dlse)
+    dq_ref, dk_ref, dv_ref = fa._backward_plain(q, k, v, dout, lse_ref, delta, seg, kvseg,
+                                                causal)
+    out, lse = fa.flash_forward(q, k, v, seg, kvseg, causal)
+    dq = fa.flash_backward_dq(q, k, v, dout, lse_ref, delta, seg, kvseg, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, dout, lse_ref, delta, seg, kvseg, causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for kernel, pairs in (("flash_forward", ((out, out_ref), (lse, lse_ref))),
+                          ("flash_backward_dq", ((dq, dq_ref),)),
+                          ("flash_backward_dkv", ((dk, dk_ref), (dv, dv_ref)))):
+        err = 0.0
+        for got, want in pairs:
+            got, want = got.float(), want.float()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{kernel}: output is not finite")
+            err = max(err, (got - want).abs().max().item())
+            if not torch.allclose(got, want, atol=atol, rtol=rtol):
+                raise AssertionError(f"{kernel} vs plain at q {tuple(q.shape)} {q.dtype} "
+                                     f"causal={causal} segments={seg is not None}: "
+                                     f"max abs err {err} beyond {(atol, rtol)}")
+        errs[kernel] = err
+    return errs
+
+
+def flash_check_small() -> dict:
+    """First launches: each flash kernel against its plain version at small
+    shapes — f32 and bf16, D 64 and 128, groups 1 and 4, S 40/100/257,
+    causal with segment ids and full attention with distinct key segments
+    (so some rows are fully masked), with a lse cotangent.  Returns the worst
+    bf16 error of each kernel."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            for group in (1, 4):
+                for s in (40, 100, 257):
+                    for causal in (True, False):
+                        q, k, v, dout, dlse, seg = flash_inputs(gen, 2, s, 2 * group, 2, d,
+                                                                dtype, segments=True)
+                        kvseg = None
+                        if not causal:  # the second half's keys match no query
+                            pos = torch.arange(s, device="cuda")[None, :]
+                            kvseg = torch.where(pos >= s // 2, seg + 1000, seg)
+                        errs = flash_compare(q, k, v, dout, dlse, seg, kvseg, causal)
+                        if dtype == torch.bfloat16:
+                            for name, e in errs.items():
+                                worst[name] = max(worst[name], e)
+    return worst
+
+
+def flash_bench(seg, reps: int, seed: int) -> dict:
+    """The flash kernels at the main path's shapes (B=2, S=2048, H=32,
+    Hkv=8, D=128, bf16, the packed batch's segment ids ``seg``): kernel,
+    plain and library times (ms), the bound and the max error against the
+    plain version, per kernel."""
+    import torch
+    import torch.nn.functional as F
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, s = seg.shape
+    h, hkv, d = 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dout, _, _ = flash_inputs(gen, b, s, h, hkv, d, torch.bfloat16, segments=False)
+    errs = flash_compare(q, k, v, dout, None, seg, None, True)
+    out, lse = fa.flash_forward_reference(q, k, v, seg, None, True)
+    delta = fa.flash_delta(out, dout)
+
+    # the library yardstick: SDPA over K/V repeated to all heads with a
+    # causal-and-segment boolean mask; its backward computes dq, dk, dv at once
+    pos = torch.arange(s, device="cuda")
+    mask = (pos[:, None] >= pos[None, :])[None, None] & (seg[:, None, :, None] == seg[:, None, None, :])
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in
+                  (q, k.repeat_interleave(h // hkv, 2), v.repeat_interleave(h // hkv, 2)))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    lib_err = (lib_out.transpose(1, 2).float() - out.float()).abs().max().item()
+    if lib_err > 0.1:
+        raise AssertionError(f"library yardstick disagrees with plain by {lib_err}")
+    do_l = dout.transpose(1, 2)
+
+    variants = {
+        "flash_forward": (
+            lambda i: fa.flash_forward(q, k, v, seg, None, True),
+            lambda i: fa.flash_forward_reference(q, k, v, seg, None, True),
+            lambda i: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)),
+        "flash_backward_dq": (
+            lambda i: fa.flash_backward_dq(q, k, v, dout, lse, delta, seg, None, True),
+            lambda i: fa._backward_plain(q, k, v, dout, lse, delta, seg, None, True),
+            lambda i: lib_out.backward(do_l, retain_graph=True)),
+        "flash_backward_dkv": (
+            lambda i: fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None, True),
+            lambda i: fa._backward_plain(q, k, v, dout, lse, delta, seg, None, True),
+            lambda i: lib_out.backward(do_l, retain_graph=True)),
+    }
+    # the work this data needs: the live (query, key) pairs, causal and
+    # within one document
+    pairs = sum(float((c * (c + 1) / 2).sum()) for c in
+                (torch.bincount(row).double() for row in seg.long()))
+    item = q.element_size()
+    io = q.numel() * item, k.numel() * item, seg.numel() * 4, b * h * s * 4
+    nbytes = {  # each input read once, each output written once
+        "flash_forward": 2 * io[0] + 2 * io[1] + io[2] + io[3],
+        "flash_backward_dq": 3 * io[0] + 2 * io[1] + io[2] + 2 * io[3],
+        "flash_backward_dkv": 2 * io[0] + 4 * io[1] + io[2] + 2 * io[3],
+    }
+    flops = {"flash_forward": 4 * h * d * pairs, "flash_backward_dq": 6 * h * d * pairs,
+             "flash_backward_dkv": 8 * h * d * pairs}
+    # the kernels compute every causal pair and mask other documents' keys
+    executed = b * s * (s + 1) / 2 / pairs
+    out_rows = {}
+    for name, (kern, plain, lib) in variants.items():
+        ms = cuda_time_ms(kern, reps)
+        plain_ms = cuda_time_ms(plain, max(2, reps // 4))
+        library_ms = cuda_time_ms(lib, reps)
+        bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops[name] / BF16_FLOPS * 1e3
+        out_rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=errs[name],
+            bound_ms=max(bytes_ms, flops_ms),
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+            bytes=int(nbytes[name]), flops=int(flops[name]),
+            tflops=executed * flops[name] / (ms * 1e-3) / 1e12)
+    return out_rows
 
 
 def serve(engine, reqs):
@@ -249,25 +425,13 @@ def profile_decode(engine, reqs, steps: int = 4):
         wall = time.perf_counter() - t0
     for r in reqs[: engine.config.slots]:
         engine.evict(f"prof-{r.request_id}")
-    from torch.autograd import DeviceType
-
-    by_name: dict[str, float] = {}
-    for evt in prof.key_averages():
-        # device-side events only: an operator's row repeats its kernels' time
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us
-    device_ms = sum(by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    window = device_time_by_kernel(prof, wall, top=8)
+    device_ms = window["device_ms"]
     return dict(
         step_ms=wall / steps * 1e3,
         device_ms_per_step=device_ms / steps if device_ms else None,
-        device_busy=device_ms / (wall * 1e3) if device_ms else None,
-        top=[(name[:60], us / 1e3 / steps) for name, us in top],
+        device_busy=window["device_busy"],
+        top=[(name, ms / steps) for name, ms in window["top"]],
     )
 
 
@@ -302,62 +466,22 @@ def logits_check(model, prompts, pool_pages, page_tokens):
     return worst
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=0, help="cut depth (0 = the preset's)")
-    ap.add_argument("--reps", type=int, default=64, help="timed launches per shape")
-    args = ap.parse_args(argv)
+class SmokeFailure(Exception):
+    """A phase failed; the message says which and why."""
 
+
+def serve_phase(args):
+    """Phases 3-7: serve through the batcher, check the results, hold the
+    paged kernel against its plain version at the engine's shapes, and
+    compare kernel and gather logits.  Returns (kernels entry, serve
+    summary); the model and the engine are freed when it returns."""
     import torch
-
-    if not torch.cuda.is_available():
-        return fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    try:
-        from finetune_controller_tpu_torch.models.llama import (
-            PRESETS, LlamaForCausalLM, init_random_,
-        )
-        from finetune_controller_tpu_torch.ops.kernels import build
-        from finetune_controller_tpu_torch.ops.kernels.paged_attention import (
-            TOLERANCE, paged_attention,
-        )
-        from finetune_controller_tpu_torch.serve.engine import (
-            BatchEngine, EngineConfig, warm_engine,
-        )
-    except ImportError as e:
-        return fail(f"the port's package is not importable beside this script: {e}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
+    from finetune_controller_tpu_torch.models.llama import PRESETS, LlamaForCausalLM, init_random_
+    from finetune_controller_tpu_torch.ops.kernels.paged_attention import (
+        TOLERANCE, paged_attention,
     )
-    if smi.returncode != 0:
-        return fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    log(f"card: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine, EngineConfig, warm_engine
 
-    # 2. build every kernel source and check each once at a small shape
-    t0 = time.perf_counter()
-    try:
-        built = build.build()
-    except RuntimeError as e:
-        return fail(f"kernel build: {e}")
-    log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    for name in built:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
-    try:
-        small_err = kernel_check_small()
-    except (AssertionError, RuntimeError, ValueError) as e:
-        return fail(f"small-shape kernel check: {e}")
-    log(f"small-shape kernel check ok (bf16 max abs err {small_err:.4g})")
-
-    # 3. the model
     cfg = PRESETS["llama3-8b"].replace(param_dtype=torch.bfloat16)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
@@ -368,7 +492,6 @@ def main(argv=None) -> int:
     log(f"llama3-8b: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params bf16, "
         f"built in {time.perf_counter() - t0:.1f} s")
 
-    # 4. serve through the batcher
     ecfg = EngineConfig(slots=8, prompt_buckets=(32, 128, 512), max_new_tokens=128,
                         prefix_cache_bytes=512 << 20, page_tokens=16)
     engine = BatchEngine(model, ecfg)
@@ -385,28 +508,28 @@ def main(argv=None) -> int:
     try:
         results, batcher, steps, ttfts, busiest = serve(engine, reqs)
     except Exception as e:  # any request failure fails the phase
-        return fail(f"serving: {type(e).__name__}: {e}")
+        raise SmokeFailure(f"serving: {type(e).__name__}: {e}") from e
     wall = time.perf_counter() - t0
     launches = paged_attention.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # 5. what came out
     stats = batcher.stats()
     if len(results) != len(reqs):
-        return fail(f"{len(results)} of {len(reqs)} requests finished")
+        raise SmokeFailure(f"{len(results)} of {len(reqs)} requests finished")
     for req, res in zip(reqs, results):
         if res.request_id != req.request_id or len(res.generated) != req.max_new_tokens \
                 or res.finish_reason != "length" \
                 or not all(0 <= t < cfg.vocab_size for t in res.generated):
-            return fail(f"bad result for {req.request_id}: {res.finish_reason}, "
-                        f"{len(res.generated)} of {req.max_new_tokens} tokens")
+            raise SmokeFailure(f"bad result for {req.request_id}: {res.finish_reason}, "
+                               f"{len(res.generated)} of {req.max_new_tokens} tokens")
     if stats["step_errors_total"] != 0:
-        return fail(f"step_errors_total = {stats['step_errors_total']}")
+        raise SmokeFailure(f"step_errors_total = {stats['step_errors_total']}")
     if launches <= 0:
-        return fail("the paged-attention kernel was not launched on the main path")
+        raise SmokeFailure("the paged-attention kernel was not launched on the main path")
     if engine.prefix_hits_total < 3 or stats["kv_cow_copies_total"] < 1:
-        return fail(f"expected prefix hits and a copy-on-write page, got "
-                    f"{engine.prefix_hits_total} hits, {stats['kv_cow_copies_total']} copies")
+        raise SmokeFailure(f"expected prefix hits and a copy-on-write page, got "
+                           f"{engine.prefix_hits_total} hits, "
+                           f"{stats['kv_cow_copies_total']} copies")
     decode_time = sum(dt for dt, _ in steps)
     decode_tokens = sum(active for _, active in steps)
     ttfts_ms = sorted(t * 1e3 for t in ttfts)
@@ -419,7 +542,6 @@ def main(argv=None) -> int:
     log(f"time to first token (queue + prefill): p50 {ttfts_ms[len(ttfts_ms) // 2]:.1f} ms, "
         f"max {ttfts_ms[-1]:.1f} ms over {len(ttfts_ms)} requests")
 
-    # 6. kernel vs plain at the engine's shapes, and times
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     _, tables, index = busiest
     shapes = {}
@@ -437,25 +559,23 @@ def main(argv=None) -> int:
             engine.kv, q, table, torch.zeros((1,), dtype=torch.int32, device="cuda"),
             max(8, args.reps // 4))
     except (AssertionError, RuntimeError, ValueError) as e:
-        return fail(f"kernel at engine shapes: {e}")
+        raise SmokeFailure(f"kernel at engine shapes: {e}") from e
     for name, r in shapes.items():
         log(f"paged_attention {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bytes']} B, {r['flops']} FLOP), "
             f"max abs err {r['max_abs_err']:.4g} (tolerance {TOLERANCE[torch.bfloat16]})")
 
-    # 7. engine path: kernel vs gather first-token logits
     prompts = [reqs[i].tokens for i in (0, 5, 7)]
     try:
         rel = logits_check(model, prompts, ecfg.pages_per_lane + 1, ecfg.page_tokens)
     except (AssertionError, RuntimeError, ValueError) as e:
-        return fail(f"logits check: {e}")
+        raise SmokeFailure(f"logits check: {e}") from e
     log(f"first-token logits, kernel vs gather: max |diff| / max |logit| = {rel:.4g} "
         f"(tolerance {LOGITS_REL_TOL})")
     if not rel <= LOGITS_REL_TOL:
-        return fail("first-token logits differ beyond the tolerance")
+        raise SmokeFailure("first-token logits differ beyond the tolerance")
 
-    # where a decode step's time goes (not part of the main path's counts)
     prof = profile_decode(engine, reqs)
     if prof["device_busy"] is None:
         log("decode profile: the profiler recorded no device time (not measured)")
@@ -466,9 +586,8 @@ def main(argv=None) -> int:
         for name, ms in prof["top"]:
             log(f"  {ms:8.3f} ms/step  {name}")
 
-    # 8. the record
     dec = shapes["decode"]
-    kernels = [{
+    entry = {
         "name": "paged_attention",
         "route": "cuda",
         "source": "finetune_controller_tpu_torch/csrc/paged_attention.cu",
@@ -480,16 +599,360 @@ def main(argv=None) -> int:
         "shapes": {name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "max_abs_err")}
                    for name, r in shapes.items()},
-    }]
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"serve": {
+    }
+    summary = {
         "requests": len(results), "tokens": stats["tokens_generated_total"],
         "decode_tokens_per_s": decode_tokens / decode_time,
         "decode_ms_per_step": decode_time / len(steps) * 1e3,
         "ttft_ms_p50": ttfts_ms[len(ttfts_ms) // 2], "ttft_ms_max": ttfts_ms[-1],
         "wall_s": wall, "peak_memory_gb": peak_gb, "layers": cfg.n_layers,
         "logits_rel_err": rel, "profile": prof,
-    }}), flush=True)
+    }
+    return entry, summary
+
+
+#: LoRA SFT of llama3-8b through the spec CLI (phase T2)
+TRAIN_SPEC = {
+    "job_id": "chip-smoke-sft",
+    "model": {"preset": "llama3-8b", "lora": {"rank": 16, "alpha": 32.0}},
+    "training": {"mode": "lora", "frozen_dtype": "bfloat16", "batch_size": 4, "seq_len": 2048,
+                 "grad_accum_steps": 2, "total_steps": 6, "warmup_steps": 2,
+                 "learning_rate": 2e-4, "log_every": 1, "checkpoint_every": 3},
+}
+#: T3, kernel vs plain flash path through 2 full-width layers in bf16:
+#: |loss difference| / |loss| and, per LoRA leaf, max |grad difference| /
+#: max |grad| (the two paths round p and ds to bf16 from f32 sums taken in
+#: different orders; bf16 activations carry that through both layers)
+MODEL_LOSS_REL_TOL = 5e-3
+MODEL_GRAD_REL_TOL = 0.05
+
+
+def write_documents(path, seed: int, n: int = 120) -> None:
+    """``n`` random-text documents of 200-6000 bytes as {"text": ...} rows."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+    with open(path, "w") as f:
+        for _ in range(n):
+            size = int(rng.integers(200, 6001))
+            chars = letters[rng.integers(0, 26, size)]
+            chars[rng.random(size) < 0.17] = ord(" ")
+            f.write(json.dumps({"text": chars.tobytes().decode()}) + "\n")
+
+
+class _Capture:
+    """Messages of one logger, kept while the CLI runs."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.messages: list[str] = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def _rows(path) -> list[dict]:
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def train_phase(work, seed: int) -> dict:
+    """T2: LoRA SFT of llama3-8b (full width and depth) through
+    ``train.cli.main``, 6 steps, then 2 more resumed from the step-6
+    checkpoint.  The flash kernels' counts are zeroed before the first run
+    and read after the second."""
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.train import cli
+    from finetune_controller_tpu_torch.train.optimizer import build_schedule
+
+    data = work / "train.jsonl"
+    write_documents(data, seed)
+    art = work / "artifacts"
+    spec = json.loads(json.dumps(TRAIN_SPEC))
+    spec["training"]["seed"] = seed
+    spec["dataset"] = {"path": str(data)}
+    spec["artifacts_dir"] = str(art)
+    spec_path = work / "job.json"
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+    walls, peaks = [], []
+    with _Capture("finetune_controller_tpu_torch.train.trainer") as capture:
+        for total in (6, 8):
+            spec["training"]["total_steps"] = total
+            spec_path.write_text(json.dumps(spec))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(["--spec", str(spec_path)])
+            except Exception as e:
+                raise SmokeFailure(f"training CLI ({total} steps): {type(e).__name__}: {e}") from e
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            if rc != 0:
+                raise SmokeFailure(f"training CLI returned {rc}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            if total == 6:
+                rows6 = _rows(art / "metrics.csv")
+                state6 = torch.load(art / "checkpoints" / "step_6" / "state.pt",
+                                    map_location="cpu", weights_only=True)
+                for want in ("checkpoints/step_3", "checkpoints/step_6", "done.txt"):
+                    if not (art / want).exists():
+                        raise SmokeFailure(f"the 6-step run left no {want}")
+    launches = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+    rows = _rows(art / "metrics.csv")
+
+    if len(rows6) != 6 or [int(r["step"]) for r in rows] != list(range(1, 9)):
+        raise SmokeFailure(f"metrics.csv rows: {len(rows6)} after the first run, steps "
+                           f"{[r['step'] for r in rows]} after the second")
+    if not any("resumed from checkpoint step 6" in m for m in capture.messages):
+        raise SmokeFailure("the second run did not resume from checkpoint step 6")
+    tcfg = spec["training"]
+    for total, chunk in ((6, rows[:6]), (8, rows[6:])):
+        sched = build_schedule(tcfg["learning_rate"], tcfg["warmup_steps"], total)
+        for r in chunk:
+            step, loss, gnorm = int(r["step"]), float(r["loss"]), float(r["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+                raise SmokeFailure(f"step {step}: loss {loss}, grad_norm {gnorm}")
+            if not math.isclose(float(r["learning_rate"]), sched(step - 1), rel_tol=1e-6,
+                                abs_tol=1e-12):
+                raise SmokeFailure(f"step {step}: learning_rate {r['learning_rate']} is not "
+                                   f"the schedule's {sched(step - 1)}")
+    moved = [k for k, v in state6["trainable"].items()
+             if k.endswith(".lora_b") and v.abs().max().item() > 0]
+    n_b = sum(k.endswith(".lora_b") for k in state6["trainable"])
+    if len(moved) != n_b or n_b != 32 * 7:
+        raise SmokeFailure(f"{len(moved)} of {n_b} LoRA B leaves moved off zero")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise SmokeFailure(f"flash kernels not launched on the main path: {missing}")
+    tokens = tcfg["batch_size"] * tcfg["seq_len"]
+    step_ms = [tokens / float(r["tokens_per_sec"]) * 1e3 for r in rows]
+    steady = sorted(step_ms[1:6] + step_ms[7:])
+    return {
+        "steps": len(rows), "layers": 32, "loss": [float(r["loss"]) for r in rows],
+        "grad_norm": [float(r["grad_norm"]) for r in rows],
+        "ms_per_step": step_ms, "ms_per_step_median": steady[len(steady) // 2],
+        "tokens_per_s_median": tokens / (steady[len(steady) // 2] / 1e3),
+        "peak_memory_gb": max(peaks), "wall_s": walls, "launches": launches,
+        "lora_b_moved": len(moved),
+    }
+
+
+def packed_segments(work, seed: int):
+    """Segment ids (2, 2048) int32 of the microbatch of T2's 8 steps (the
+    loader seeded as the run's) that holds the most documents, so the
+    kernels see document boundaries."""
+    import torch
+    from finetune_controller_tpu_torch.data.loader import jsonl_token_batches
+
+    tcfg = TRAIN_SPEC["training"]
+    batches = jsonl_token_batches(str(work / "train.jsonl"), batch_size=tcfg["batch_size"],
+                                  seq_len=tcfg["seq_len"], seed=seed)
+    rows = tcfg["batch_size"] // tcfg["grad_accum_steps"]
+    micro = [batch["segment_ids"][i:i + rows] for batch in (next(batches) for _ in range(8))
+             for i in range(0, tcfg["batch_size"], rows)]
+    best = max(micro, key=lambda seg: sum(len(np.unique(row)) for row in seg))
+    return torch.from_numpy(best).to("cuda", torch.int32)
+
+
+def model_check(seg, seed: int) -> dict:
+    """T3: loss and LoRA gradients of one step of llama3-8b cut to 2 layers
+    (full width, bf16 base, B=2, S=2048, packed segments) with
+    ``FTC_FLASH_ATTN=kernel`` against ``plain``."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.train.losses import next_token_loss
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = PRESETS["llama3-8b"].replace(n_layers=2, lora=LoRAConfig(rank=16, alpha=32.0))
+    trainer = Trainer(cfg, TrainConfig(frozen_dtype="bfloat16", batch_size=2, seq_len=2048,
+                                       seed=seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():  # non-zero B, so the A leaves get gradients too
+        for name, p in trainer.trainable.items():
+            if name.endswith(".lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, seg.shape, generator=gen, device="cuda")
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    try:
+        for impl in ("kernel", "plain"):
+            os.environ["FTC_FLASH_ATTN"] = impl
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits = trainer.model(tokens, segment_ids=seg)
+                loss, _ = next_token_loss(logits, tokens)
+                del logits
+                loss.backward()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            out[impl] = (loss.item(), {n: p.grad.float() for n, p in trainer.trainable.items()})
+            for p in trainer.trainable.values():
+                p.grad = None
+            if impl == "kernel":
+                profiled = device_time_by_kernel(prof, wall)
+    finally:
+        os.environ.pop("FTC_FLASH_ATTN", None)
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = max(((gk[n] - gp[n]).abs().max() / gp[n].abs().max()).item() for n in gp)
+    if not (math.isfinite(lk) and loss_rel <= MODEL_LOSS_REL_TOL and grad_rel <= MODEL_GRAD_REL_TOL):
+        raise SmokeFailure(f"model check: loss {lk} vs {lp} (rel {loss_rel:.3g}), worst LoRA "
+                           f"grad rel {grad_rel:.3g} (tolerances {MODEL_LOSS_REL_TOL}, "
+                           f"{MODEL_GRAD_REL_TOL})")
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel": loss_rel, "grad_rel": grad_rel,
+            "profile": profiled}
+
+
+def device_time_by_kernel(prof, wall_s: float, top: int = 10) -> dict:
+    """Wall ms, device ms, device-busy share and the ``top`` kernels (ms) of
+    a ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, float] = {}
+    for evt in prof.key_averages():
+        # device-side events only: an operator's row repeats its kernels' time
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+    device_ms = sum(by_name.values()) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_s * 1e3, "device_ms": device_ms or None,
+            "device_busy": device_ms / (wall_s * 1e3) if device_ms else None,
+            "top": [(name[:60], us / 1e3) for name, us in ranked]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the serving model's depth (0 = the preset's)")
+    ap.add_argument("--reps", type=int, default=64, help="timed launches per shape")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    try:
+        from finetune_controller_tpu_torch.ops.kernels import build
+        from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    except ImportError as e:
+        return fail(f"the port's package is not importable beside this script: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        return fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    # 2. build every kernel source; check each kernel at small shapes (T1)
+    t0 = time.perf_counter()
+    try:
+        built = build.build()
+    except RuntimeError as e:
+        return fail(f"kernel build: {e}")
+    log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    for name in built:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    try:
+        small_err = kernel_check_small()
+        flash_small = flash_check_small()
+    except (AssertionError, RuntimeError, ValueError) as e:
+        return fail(f"small-shape kernel check: {e}")
+    log(f"small-shape kernel checks ok (bf16 max abs err: paged {small_err:.4g}, "
+        + ", ".join(f"{k} {v:.4g}" for k, v in flash_small.items()) + ")")
+
+    # 3-7. serving
+    try:
+        paged_entry, serve_summary = serve_phase(args)
+    except SmokeFailure as e:
+        return fail(str(e))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # T2-T4. training
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        train = train_phase(work, args.seed)
+        log(f"train: llama3-8b LoRA SFT, {train['steps']} steps (6 + 2 resumed), "
+            f"{train['ms_per_step_median']:.0f} ms/step median, "
+            f"{train['tokens_per_s_median']:.0f} tokens/s, peak memory "
+            f"{train['peak_memory_gb']:.2f} GB, flash launches {train['launches']}")
+        seg = packed_segments(work, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = model_check(seg, args.seed)
+        log(f"model check (2 layers, kernel vs plain): loss {model['loss_kernel']:.5f} vs "
+            f"{model['loss_plain']:.5f} (rel {model['loss_rel']:.3g}), worst LoRA grad rel "
+            f"{model['grad_rel']:.3g}")
+        prof = model["profile"]
+        if prof["device_ms"] is None:
+            log("train-step profile: the profiler recorded no device time (not measured)")
+        else:
+            log(f"train-step profile (2 layers, forward + backward): {prof['wall_ms']:.1f} ms "
+                f"wall, {prof['device_ms']:.1f} ms device, busy {prof['device_busy']:.3f}")
+            for name, ms in prof["top"]:
+                log(f"  {ms:9.3f} ms  {name}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash = flash_bench(seg, max(4, args.reps // 8), args.seed)
+    except SmokeFailure as e:
+        return fail(str(e))
+    except (AssertionError, RuntimeError, ValueError) as e:
+        return fail(f"training phases: {type(e).__name__}: {e}")
+    for name, r in flash.items():
+        log(f"{name}: kernel {r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s executed), plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.4g} "
+            f"(tolerance {fa.TOLERANCE[torch.bfloat16]})")
+
+    # the record
+    src = "finetune_controller_tpu_torch/csrc/flash_attention.cu"
+    ref = "finetune_controller_tpu/ops/pallas/flash_attention.py"
+    replaces = {"flash_forward": f"{ref}:106", "flash_backward_dq": f"{ref}:315",
+                "flash_backward_dkv": f"{ref}:397"}
+    kernels = [paged_entry] + [{
+        "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
+        "launches": train["launches"][name], "max_abs_err": flash[name]["max_abs_err"],
+        "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
+        "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
+        "library_ms": flash[name]["library_ms"],
+    } for name in FLASH_KERNELS]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"serve": serve_summary}), flush=True)
+    print(json.dumps({"train": {**train, "model_check": model,
+                                "flash_tflops": {k: r["tflops"] for k, r in flash.items()}}}),
+          flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,21 @@
-"""finetune_controller_tpu_torch — the PyTorch/CUDA port of the serving path.
+"""finetune_controller_tpu_torch — the PyTorch/CUDA port.
 
 The JAX package ``finetune_controller_tpu`` is the reference; this package
 holds its own counterparts of the modules it needs and imports nothing from
-it (nor ``jax``/``flax``).  The slice ported so far is paged
-continuous-batching serving:
+it (nor ``jax``/``flax``).  The slices ported so far are paged
+continuous-batching serving and LoRA SFT training through the spec CLI:
 
-* ``models`` — ``LlamaConfig``/``PRESETS``, the decoder as ``nn.Module``s,
-  the flax-tree converter and LoRA merge, the sampling oracle;
-* ``ops`` — the plain attention functions, the ``FTC_PAGED_ATTN`` seam, and
-  the hand-written CUDA paged-attention kernel (``ops/kernels``, sources in
-  ``csrc/``);
+* ``models`` — ``LlamaConfig``/``PRESETS``, the decoder as ``nn.Module``s
+  (serving and training forwards, remat, LoRA dropout), the flax-tree
+  converters and LoRA merge, the sampling oracle;
+* ``ops`` — the plain attention functions, the ``FTC_PAGED_ATTN`` and
+  ``FTC_FLASH_ATTN`` seams, and the hand-written CUDA kernels
+  (``ops/kernels``, sources in ``csrc/``): paged attention, and the flash
+  attention forward, dQ and dK/dV;
 * ``serve`` — the page pool, prefix cache, paged ``BatchEngine`` and the
-  asyncio ``Batcher``.
+  asyncio ``Batcher``;
+* ``data`` and ``train`` — the packing loader, the trainer, optimizer,
+  checkpoints and ``python -m finetune_controller_tpu_torch.train.cli``.
 
 Submodules load lazily, so ``import finetune_controller_tpu_torch`` costs
 nothing until a name is used.
@@ -32,6 +36,8 @@ _LAZY = {
     "EngineConfig": ".serve.engine",
     "GenRequest": ".serve.engine",
     "Batcher": ".serve.batcher",
+    "TrainConfig": ".train.trainer",
+    "Trainer": ".train.trainer",
 }
 
 

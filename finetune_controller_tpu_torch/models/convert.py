@@ -14,6 +14,10 @@ Kernels keep flax's ``(in, out)`` layout — the port's ``LoRADense`` computes
 embeddings (the head reuses ``embed_tokens.embedding``); q/k/v biases come
 along where the config has them.
 
+``to_flax(state, cfg)`` is the inverse: the port's state dict back into a
+flax variables tree of numpy arrays, in the layout ``cfg.scan_layers``
+names, so tests can compare what the port trained with the JAX tree.
+
 ``merge_lora(cfg, state)`` folds LoRA deltas into the base kernels, the
 counterpart of ``serve/loader.py:merge_lora_variables``.
 """
@@ -100,6 +104,60 @@ def from_flax(variables: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
                 for leaf in ("lora_a", "lora_b"):
                     state[f"{name}.{leaf}"] = need(lo, f"{module}/{leaf}", f"lora/layer {i}")
     return state
+
+
+def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
+    """The reference's variables tree (``params`` and, with adapters,
+    ``lora``) for the port's ``state`` dict, as f32-or-native numpy leaves,
+    stacked under ``blocks/block`` when ``cfg.scan_layers`` else under
+    ``layer_{i}``.  Entries the state lacks are left out."""
+
+    def leaf(key):
+        return state[key].detach().to("cpu").numpy().copy()
+
+    def put(tree, path, value):
+        *parents, last = path.split("/")
+        for key in parents:
+            tree = tree.setdefault(key, {})
+        tree[last] = value
+
+    params: dict[str, Any] = {}
+    lora: dict[str, Any] = {}
+    for key, path in (("embed_tokens.embedding", "embed_tokens/embedding"),
+                      ("final_norm.scale", "final_norm/scale"),
+                      ("lm_head.kernel", "lm_head/kernel")):
+        if key in state:
+            put(params, path, leaf(key))
+    per_layer: list[tuple[dict, dict]] = []
+    for i in range(cfg.n_layers):
+        p_layer: dict[str, Any] = {}
+        l_layer: dict[str, Any] = {}
+        for module, leaves in _LAYER_LEAVES.items():
+            name = f"layers.{i}.{module.replace('/', '.')}"
+            for name_leaf, tree in [(lf, p_layer) for lf in leaves] + [
+                    ("lora_a", l_layer), ("lora_b", l_layer)]:
+                if f"{name}.{name_leaf}" in state:
+                    put(tree, f"{module}/{name_leaf}", leaf(f"{name}.{name_leaf}"))
+        per_layer.append((p_layer, l_layer))
+
+    def stack(trees):
+        if isinstance(trees[0], Mapping):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    for which, out in ((0, params), (1, lora)):
+        trees = [layer[which] for layer in per_layer]
+        if not trees or not trees[0]:
+            continue
+        if cfg.scan_layers:
+            out["blocks"] = {"block": stack(trees)}
+        else:
+            for i, tree in enumerate(trees):
+                out[f"layer_{i}"] = tree
+    variables: dict[str, Any] = {"params": params}
+    if lora:
+        variables["lora"] = lora
+    return variables
 
 
 def merge_lora(cfg, state: Mapping[str, torch.Tensor]) -> tuple[Any, dict[str, torch.Tensor]]:

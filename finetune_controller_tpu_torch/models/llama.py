@@ -9,8 +9,12 @@ eagerly), and parameter names follow the flax tree so the converter
 
 Two forward paths:
 
-* :meth:`LlamaForCausalLM.forward` — the plain full-sequence causal forward,
-  which the tests use as an oracle against the reference's ``apply``;
+* :meth:`LlamaForCausalLM.forward` — the full-sequence causal forward of the
+  reference's ``__call__`` (``llama.py:742-805``): packing ``segment_ids``,
+  attention through ``ops.attention.causal_attention`` (``cfg.attention_impl``:
+  the plain path or the CUDA flash kernels), per-layer rematerialisation
+  following ``cfg.remat_policy`` while gradients are recorded, and LoRA
+  dropout in training mode;
 * :meth:`LlamaForCausalLM.forward_paged` — the serving path of the
   reference's ``Attention._paged_decode_attention`` (``llama.py:539-593``):
   the chunk's K/V are written into shared per-layer page pools IN PLACE
@@ -18,8 +22,12 @@ Two forward paths:
   back through the page table (``ops.attention.paged_cache_attention``, the
   CUDA kernel on the card).
 
-Remat, MoE, QLoRA, multi-tenant adapters and multimodal inputs are not
-ported yet; configs that need them are refused.
+Rematerialisation keeps numerics: ``none`` runs the block as it is, ``full``
+wraps each block in ``torch.utils.checkpoint`` (non-reentrant), and ``mlp``
+keeps the MLP's gate and up projections by checkpointing only the attention
+half and the activation/down projection.  The reference's other named
+policies are refused.  MoE, QLoRA, multi-tenant adapters and multimodal
+inputs are not ported yet; configs that need them are refused.
 """
 
 from __future__ import annotations
@@ -31,10 +39,16 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import paged_cache_attention, xla_causal_attention
+from ..ops.attention import causal_attention, paged_cache_attention
 from .lora import LoRAConfig, LoRADense
+
+#: the reference's remat policies (``remat_policy_fn``); the port runs
+#: ``none``, ``full`` and ``mlp``
+REMAT_POLICIES = ("none", "full", "attn", "mlp", "mlp_qkv", "flash", "mlp_flash", "wide",
+                  "matmuls")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +210,23 @@ def refuse_unported(cfg: Any) -> None:
         raise NotImplementedError("multi-tenant adapters are not ported yet")
 
 
+def remat_mode(cfg: LlamaConfig) -> str:
+    """The per-layer remat the forward applies: ``none``, ``full`` or
+    ``mlp``.  Raises for an unknown policy (the reference's message) and
+    ``NotImplementedError`` for a named policy the port does not run."""
+    name = cfg.remat_policy
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}; one of {list(REMAT_POLICIES)}")
+    if not cfg.remat or name == "none":
+        return "none"
+    if name not in ("full", "mlp"):
+        raise NotImplementedError(
+            f"remat_policy {name!r} is not ported yet (ROADMAP Queue A item 2); "
+            "the port runs none, full and mlp"
+        )
+    return name
+
+
 def rope_inv_freqs(cfg: LlamaConfig, device=None) -> torch.Tensor:
     """Per-pair inverse frequencies in f32, with optional llama3 scaling
     (the reference's ``rope_inv_freqs``, ``llama.py:330-356``)."""
@@ -256,6 +287,7 @@ def _proj(cfg: LlamaConfig, name: str, in_features: int, features: int,
         in_features, features,
         lora_rank=cfg.lora.rank if lora_on else 0,
         lora_alpha=cfg.lora.alpha,
+        lora_dropout=cfg.lora.dropout,
         use_bias=cfg.attention_qkv_bias and name in ("q_proj", "k_proj", "v_proj"),
         dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
     )
@@ -310,10 +342,10 @@ class Attention(nn.Module):
         v = self.v_proj(x).reshape(b, s, cfg.n_kv_heads, hd)
         return q, k, v
 
-    def forward(self, x, positions, inv_freqs):
+    def forward(self, x, positions, inv_freqs, segment_ids=None):
         b, s, _ = x.shape
         q, k, v = self._qkv(x, positions, inv_freqs)
-        out = xla_causal_attention(q, k, v)
+        out = causal_attention(q, k, v, impl=self.cfg.attention_impl, segment_ids=segment_ids)
         return self.o_proj(out.reshape(b, s, -1))
 
     def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
@@ -355,11 +387,16 @@ class MLP(nn.Module):
         self.up_proj = _proj(cfg, "up_proj", cfg.d_model, cfg.d_ff, device)
         self.down_proj = _proj(cfg, "down_proj", cfg.d_ff, cfg.d_model, device)
 
-    def forward(self, x):
-        gate = self.gate_proj(x)
+    def gate_up(self, x):
+        return self.gate_proj(x), self.up_proj(x)
+
+    def down(self, gate, up):
         # GeGLU uses the tanh approximation, as flax's nn.gelu does
         act = F.gelu(gate, approximate="tanh") if self.gelu else F.silu(gate)
-        return self.down_proj(act * self.up_proj(x))
+        return self.down_proj(act * up)
+
+    def forward(self, x):
+        return self.down(*self.gate_up(x))
 
 
 class Block(nn.Module):
@@ -372,9 +409,25 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, **norm)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, positions, inv_freqs):
-        x = x + self.attn(self.attn_norm(x), positions, inv_freqs)
+    def _attn_residual(self, x, positions, inv_freqs, segment_ids):
+        return x + self.attn(self.attn_norm(x), positions, inv_freqs, segment_ids)
+
+    def _forward(self, x, positions, inv_freqs, segment_ids):
+        x = self._attn_residual(x, positions, inv_freqs, segment_ids)
         return x + self.mlp(self.mlp_norm(x))
+
+    def forward(self, x, positions, inv_freqs, segment_ids=None, remat: str = "none"):
+        if remat == "full":
+            return checkpoint(self._forward, x, positions, inv_freqs, segment_ids,
+                              use_reentrant=False)
+        if remat == "mlp":
+            # keep gate/up (d_ff wide); recompute the attention half and the
+            # activation + down projection in the backward
+            x = checkpoint(self._attn_residual, x, positions, inv_freqs, segment_ids,
+                           use_reentrant=False)
+            gate, up = self.mlp.gate_up(self.mlp_norm(x))
+            return x + checkpoint(self.mlp.down, gate, up, use_reentrant=False)
+        return self._forward(x, positions, inv_freqs, segment_ids)
 
     def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
                       page_table, idx, write_at):
@@ -406,6 +459,8 @@ class LlamaForCausalLM(nn.Module):
             param_dtype=cfg.param_dtype, device=dev,
         ))
         self.register_buffer("inv_freqs", rope_inv_freqs(cfg, dev), persistent=False)
+        for index, module in enumerate(m for m in self.modules() if isinstance(m, LoRADense)):
+            module.dropout_index = index
 
     @property
     def device(self) -> torch.device:
@@ -428,13 +483,26 @@ class LlamaForCausalLM(nn.Module):
             logits = self.lm_head(x)
         return logits.to(cfg.logits_dtype or torch.float32)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal forward: (B, S) tokens -> (B, S, V) logits."""
+    def forward(self, tokens: torch.Tensor,
+                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+        """Full-sequence causal forward: (B, S) tokens -> (B, S, V) logits.
+        ``segment_ids`` (B, S) keeps packed documents from attending to each
+        other; positions run 0..S-1 across the row, as in the reference."""
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+        remat = remat_mode(self.cfg) if torch.is_grad_enabled() else "none"
         x = self._embed(tokens)
         for layer in self.layers:
-            x = layer(x, positions, self.inv_freqs)
+            x = layer(x, positions, self.inv_freqs, segment_ids, remat)
         return self._head(x)
+
+    def set_dropout_seed(self, seed: int) -> None:
+        """Seed every adapter's dropout for the next forward (training mode,
+        ``lora.dropout > 0``).  Each adapter draws from its own generator
+        seeded from ``seed`` and its index, so a rematerialised forward
+        redraws the same mask."""
+        for module in self.modules():
+            if isinstance(module, LoRADense):
+                module.dropout_seed = seed
 
     @torch.no_grad()
     def forward_paged(self, tokens, positions, kv: PagedKV, page_table, idx,

@@ -5,6 +5,13 @@ The frozen base kernel and the adapter factors are parameters of one
 converted from the JAX tree (``models/convert.py``) is used as it is:
 ``y = x @ W``.
 
+LoRA dropout (``lora.dropout > 0``, training mode) drops adapter inputs as
+flax's ``nn.Dropout`` does (keep with probability 1 - rate, scale kept values
+by 1 / (1 - rate)).  Each adapter draws its mask from a ``torch.Generator``
+seeded from the seed the trainer sets (``set_dropout_seed``) and the
+adapter's index, so a rematerialised forward redraws the same mask.  The
+bits differ from JAX's; only the distribution matches.
+
 The multi-tenant branch of the reference (stacked per-tenant adapters
 selected per batch row) waits for a later slice.
 """
@@ -57,6 +64,7 @@ class LoRADense(nn.Module):
         *,
         lora_rank: int = 0,
         lora_alpha: float = 16.0,
+        lora_dropout: float = 0.0,
         use_bias: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype = torch.float32,
@@ -66,6 +74,10 @@ class LoRADense(nn.Module):
         self.dtype = dtype
         self.lora_rank = lora_rank
         self.scale = lora_alpha / lora_rank if lora_rank else 0.0
+        self.dropout = lora_dropout
+        #: set by the model: the adapter's index and the trainer's seed
+        self.dropout_index = 0
+        self.dropout_seed: int | None = None
         kw = dict(dtype=param_dtype, device=device)
         self.kernel = nn.Parameter(torch.zeros(in_features, features, **kw))
         self.bias = (nn.Parameter(torch.zeros(features, **kw))
@@ -81,6 +93,16 @@ class LoRADense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         if self.lora_a is not None:
-            # same evaluation order as the reference: ((x @ A) @ B) * scale
-            y = y + (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * self.scale
+            h = self._dropout(x) if self.dropout > 0.0 and self.training else x
+            # same evaluation order as the reference: ((h @ A) @ B) * scale
+            y = y + (h @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * self.scale
         return y
+
+    def _dropout(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dropout_seed is None:
+            raise RuntimeError("LoRA dropout needs a seed: call model.set_dropout_seed(seed)")
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed((self.dropout_seed * 1_000_003 + self.dropout_index) % (1 << 63))
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout
+        return torch.where(keep, x / (1.0 - self.dropout), torch.zeros((), dtype=x.dtype,
+                                                                        device=x.device))

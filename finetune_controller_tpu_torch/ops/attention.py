@@ -1,4 +1,4 @@
-"""Attention functions of the serving path (counterpart of ``ops/attention.py``).
+"""Attention functions of the port (counterpart of ``ops/attention.py``).
 
 The plain functions repeat the reference's numerics step for step: the
 score einsum runs in the storage dtype, is cast to f32, masked with the f32
@@ -16,6 +16,20 @@ engine goes through.  ``FTC_PAGED_ATTN`` selects its path:
 
 There is no size-based fallback from the kernel to the gather path on the
 card: the kernel walks any lane length.
+
+``causal_attention`` is the training path's seam and follows
+``cfg.attention_impl``: ``xla`` is :func:`xla_causal_attention`; ``pallas``
+and ``auto`` are the flash path (``ops/kernels/flash_attention.py``), whose
+choice ``FTC_FLASH_ATTN`` makes:
+
+* ``auto`` (default) — the CUDA kernels for CUDA tensors at every length
+  (the JAX package's 1024-token crossover was measured on a TPU), the plain
+  version for CPU tensors;
+* ``kernel`` — the CUDA kernels; raises for CPU tensors;
+* ``plain`` — the plain version on any device (operator override).
+
+``ring`` and ``ulysses`` shard the sequence over devices and wait for the
+multi-GPU queue.
 """
 
 from __future__ import annotations
@@ -114,3 +128,41 @@ def paged_cache_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return chunked_cache_attention(
         q, paged_gather(k_pool, page_table), paged_gather(v_pool, page_table), idx
     )
+
+
+def flash_attention_impl(q: torch.Tensor) -> str:
+    """Resolve ``FTC_FLASH_ATTN`` for a call with query ``q``: ``kernel``
+    or ``plain``."""
+    raw = os.environ.get("FTC_FLASH_ATTN") or "auto"
+    impl = raw.strip().lower()
+    if impl not in ("auto", "kernel", "plain"):
+        raise ValueError(f"FTC_FLASH_ATTN={raw!r}: expected auto, kernel or plain")
+    if impl == "auto":
+        return "kernel" if q.is_cuda else "plain"
+    if impl == "kernel" and not q.is_cuda:
+        raise ValueError(
+            "FTC_FLASH_ATTN=kernel needs CUDA tensors; the flash-attention "
+            f"kernels do not run on {q.device.type}"
+        )
+    return impl
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     impl: str = "xla",
+                     segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal GQA attention of the training forward, dispatched on
+    ``impl`` (``cfg.attention_impl``).  q (B, S, H, D); k, v (B, S, Hkv,
+    D); ``segment_ids`` (B, S) keeps packed documents apart."""
+    if impl == "xla":
+        return xla_causal_attention(q, k, v, segment_ids=segment_ids)
+    if impl in ("pallas", "auto"):
+        from .kernels.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, segment_ids=segment_ids,
+                               plain=flash_attention_impl(q) == "plain")
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention impl {impl!r} shards the sequence over devices; it is "
+            "not ported yet (ROADMAP Queue A item 7, multi-GPU)"
+        )
+    raise ValueError(f"unknown attention impl: {impl!r}")

@@ -1,0 +1,174 @@
+"""Training entrypoint of the port:
+``python -m finetune_controller_tpu_torch.train.cli --spec job.json [--device cpu]``.
+
+The same JSON spec as the reference's ``train/cli.py`` (the contract between
+the control plane and the compute plane):
+
+    {
+      "job_id": "...",
+      "model":    {"preset": "tiny-test", "overrides": {...}, "lora": {"rank": 8}},
+      "training": {... TrainConfig fields ...},
+      "mesh":     {"dp": 1, "fsdp": -1, "tp": 1, "sp": 1, "ep": 1, "pp": 1},
+      "dataset":  {"path": "...", "tokenizer_file": null} | {"synthetic": {"task": "increment"}},
+      "artifacts_dir": "/data/artifacts"
+    }
+
+It writes ``resolved_config.json`` first and ``done.txt`` at the end into the
+artifacts dir.  The run is on the CUDA card unless ``--device`` names
+another.  One device only: a mesh axis above 1, pretrained weights
+(``model.weights_dir``), multimodal presets and the preference tasks raise
+``NotImplementedError`` naming the ROADMAP queue that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import sys
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+#: the reference's multimodal presets (``models/multimodal.py``), named in
+#: the unknown-preset message as the reference names them
+MM_PRESET_NAMES = ("llava-1.5-7b", "tiny-mm-clip-test", "tiny-mm-test")
+_DTYPE_FIELDS = ("dtype", "param_dtype", "logits_dtype")
+
+
+@dataclasses.dataclass
+class MeshSpec:
+    """The spec's mesh section (the reference's ``parallel/mesh.py``
+    fields); the port runs on one device."""
+
+    dp: int = 1
+    fsdp: int = -1
+    ep: int = 1
+    pp: int = 1
+    sp: int = 1
+    tp: int = 1
+
+
+def build_model_config(spec: dict):
+    from ..models.llama import PRESETS
+    from ..models.lora import LoRAConfig
+
+    model_spec = spec.get("model", {})
+    preset = model_spec.get("preset", "tiny-test")
+    if preset in MM_PRESET_NAMES:
+        raise NotImplementedError(
+            f"multimodal preset {preset!r} is not ported yet (ROADMAP Queue A item 5)")
+    if preset not in PRESETS:
+        raise ValueError(
+            f"unknown model preset {preset!r}; have "
+            f"{sorted(PRESETS) + sorted(MM_PRESET_NAMES)}"
+        )
+    cfg = PRESETS[preset]
+    overrides = dict(model_spec.get("overrides", {}))
+    for name in _DTYPE_FIELDS:  # the spec names dtypes as strings
+        if isinstance(overrides.get(name), str):
+            overrides[name] = getattr(torch, overrides[name])
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    lora_spec = model_spec.get("lora")
+    if lora_spec is not None:
+        cfg = cfg.replace(lora=LoRAConfig(**lora_spec))
+    return cfg
+
+
+def build_train_config(spec: dict):
+    from .trainer import TrainConfig
+
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    raw = dict(spec.get("training", {}))
+    unknown = set(raw) - fields
+    if unknown:
+        raise ValueError(f"unknown training fields: {sorted(unknown)}")
+    return TrainConfig(**raw)
+
+
+def check_mesh(spec: dict) -> None:
+    mesh = MeshSpec(**spec.get("mesh", {}))
+    wide = {k: v for k, v in dataclasses.asdict(mesh).items() if v not in (1, -1)}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide}: the port trains on one device; meshes are not ported yet "
+            "(ROADMAP Queue A item 7, multi-GPU)")
+
+
+def build_batches(spec: dict, model_cfg, train_cfg):
+    from ..data.loader import jsonl_token_batches
+    from ..data.synthetic import synthetic_batches
+
+    ds = spec.get("dataset", {})
+    if ds.get("path"):
+        return jsonl_token_batches(ds["path"], batch_size=train_cfg.batch_size,
+                                   seq_len=train_cfg.seq_len,
+                                   tokenizer_file=ds.get("tokenizer_file"),
+                                   seed=train_cfg.seed)
+    synth = ds.get("synthetic", {})
+    return synthetic_batches(batch_size=train_cfg.batch_size, seq_len=train_cfg.seq_len,
+                             vocab_size=model_cfg.vocab_size,
+                             task=synth.get("task", "increment"), seed=train_cfg.seed)
+
+
+def run_job(spec: dict, device=None) -> None:
+    from .trainer import Trainer
+
+    extra = spec.get("extra_arguments")
+    if extra:
+        raise ValueError(
+            f"unconsumed extra_arguments {sorted(extra)}: the job spec must map "
+            "every user argument into the trainer spec (override "
+            "build_trainer_spec in the spec class)"
+        )
+    artifacts_dir = spec["artifacts_dir"]
+    os.makedirs(artifacts_dir, exist_ok=True)
+
+    model_cfg = build_model_config(spec)
+    train_cfg = build_train_config(spec)
+    check_mesh(spec)
+    with open(os.path.join(artifacts_dir, "resolved_config.json"), "w") as f:
+        json.dump(spec, f, indent=2, default=str)
+    if train_cfg.task not in ("sft", "dpo", "rlhf", "reward"):
+        raise ValueError(
+            f"unknown training task {train_cfg.task!r}; one of "
+            "['sft', 'dpo', 'rlhf', 'reward']"
+        )
+    if spec.get("model", {}).get("weights_dir"):
+        raise NotImplementedError(
+            "model.weights_dir: loading pretrained HF weights is not ported yet "
+            "(ROADMAP Queue A item 4)")
+    trainer = Trainer(model_cfg, train_cfg, device=device)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    logger.info("job %s: %s params=%.1fM device=%s", spec.get("job_id", "?"),
+                spec.get("model", {}).get("preset"), n_params / 1e6, trainer.device)
+    trainer.fit(build_batches(spec, model_cfg, train_cfg), artifacts_dir)
+    with open(os.path.join(artifacts_dir, "done.txt"), "w") as f:
+        f.write("done\n")
+    logger.info("job %s finished", spec.get("job_id", "?"))
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="ftc-train-torch")
+    parser.add_argument("--spec", required=True, help="path to the job-spec JSON")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the first CUDA card)")
+    args = parser.parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        stream=sys.stdout,
+        force=True,
+    )
+    with open(args.spec) as f:
+        spec = json.load(f)
+    run_job(spec, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,216 @@
+"""Flash attention in the PyTorch port against the JAX reference.
+
+The same numpy inputs go through the JAX ``flash_attention_with_lse`` (the
+Pallas kernels in interpret mode, blocks of 16, as ``tests/test_scaleout.py``
+runs them) and the port's ``FlashAttention`` on the CPU, which runs the
+kernels' plain versions.  out, lse and the gradients dq, dk, dv of a loss
+that weighs both outputs (so the lse cotangent is non-zero) are compared in
+f32: atol 1e-5 for the outputs, 1e-4 for the gradients (summation order
+only).
+
+The CUDA kernels are held against the plain versions on the card; those
+tests carry the ``cuda`` marker and skip without one.
+"""
+
+from __future__ import annotations
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from finetune_controller_tpu_torch.ops.attention import (
+    causal_attention,
+    flash_attention_impl,
+    xla_causal_attention,
+)
+from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+
+torch.set_num_threads(1)
+
+# (b, s, h, hkv, causal, segments): GQA group 1 and 2, packing segments, a
+# ragged S, and full attention whose key segments differ from the query
+# segments so some rows have no live key at all
+CASES = {
+    "group1": (2, 32, 2, 2, True, None),
+    "group2_segments": (2, 32, 4, 2, True, "same"),
+    "ragged_s40": (2, 40, 4, 2, True, "same"),
+    "full_masked_rows": (2, 40, 4, 2, False, "distinct"),
+}
+D = 16
+
+
+@pytest.fixture(scope="module")
+def ref():
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from finetune_controller_tpu.ops.pallas.flash_attention import flash_attention_with_lse
+
+    return types.SimpleNamespace(jax=jax, jnp=jnp, flash=flash_attention_with_lse)
+
+
+def _inputs(name):
+    b, s, h, hkv, causal, segments = CASES[name]
+    rng = np.random.default_rng(len(name))
+    arrays = dict(
+        q=rng.standard_normal((b, s, h, D), np.float32),
+        k=rng.standard_normal((b, s, hkv, D), np.float32),
+        v=rng.standard_normal((b, s, hkv, D), np.float32),
+        g_out=rng.standard_normal((b, s, h, D), np.float32),
+        g_lse=rng.standard_normal((b, h, s, 1), np.float32),
+    )
+    seg = kvseg = None
+    if segments:
+        seg = (np.arange(s)[None, :] // 13).repeat(b, 0).astype(np.int32)
+        seg[1] = np.arange(s) // 7
+    if segments == "distinct":  # queries of the last segments match no key
+        kvseg = np.where(np.arange(s)[None, :] >= 20, seg + 10, seg).astype(np.int32)
+    return arrays, seg, kvseg, causal
+
+
+def _jax_run(ref, arrays, seg, kvseg, causal):
+    jnp = ref.jnp
+
+    def loss(q, k, v):
+        out, lse = ref.flash(
+            q, k, v, causal=causal, block_q=16, block_k=16, interpret=True,
+            segment_ids=None if seg is None else jnp.asarray(seg),
+            kv_segment_ids=None if kvseg is None else jnp.asarray(kvseg))
+        return (out * arrays["g_out"]).sum() + (lse * arrays["g_lse"]).sum(), (out, lse)
+
+    (_, (out, lse)), grads = ref.jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(arrays[n]) for n in ("q", "k", "v")))
+    return [np.asarray(x) for x in (out, lse, *grads)]
+
+
+def _port_run(arrays, seg, kvseg, causal):
+    q, k, v = (torch.tensor(arrays[n], requires_grad=True) for n in ("q", "k", "v"))
+    out, lse = fa.flash_attention_with_lse(
+        q, k, v, causal=causal,
+        segment_ids=None if seg is None else torch.from_numpy(seg),
+        kv_segment_ids=None if kvseg is None else torch.from_numpy(kvseg))
+    loss = (out * torch.from_numpy(arrays["g_out"])).sum() + (
+        lse * torch.from_numpy(arrays["g_lse"])).sum()
+    loss.backward()
+    return [x.detach().numpy() for x in (out, lse, q.grad, k.grad, v.grad)]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_flash_matches_jax(ref, name):
+    arrays, seg, kvseg, causal = _inputs(name)
+    want = _jax_run(ref, arrays, seg, kvseg, causal)
+    got = _port_run(arrays, seg, kvseg, causal)
+    for label, g, w, atol in zip(("out", "lse", "dq", "dk", "dv"), got, want,
+                                 (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+        assert g.shape == w.shape, label
+        np.testing.assert_allclose(g, w, atol=atol, rtol=atol, err_msg=label)
+    if name == "full_masked_rows":  # rows with no live key: out 0, dq 0
+        out, dq = got[0], got[2]
+        dead = np.stack([~np.isin(seg[i], kvseg[i]) for i in range(len(seg))])
+        assert dead.any()
+        assert not out[dead].any() and not dq[dead].any()
+
+
+def test_cpu_wrappers_run_the_plain_versions():
+    """On CPU tensors each kernel wrapper returns exactly its plain version
+    and counts no launch."""
+    arrays, seg, kvseg, causal = _inputs("ragged_s40")
+    q, k, v, dout = (torch.from_numpy(arrays[n]) for n in ("q", "k", "v", "g_out"))
+    seg = torch.from_numpy(seg)
+    before = (fa.flash_forward.launches, fa.flash_backward_dq.launches,
+              fa.flash_backward_dkv.launches)
+    out, lse = fa.flash_forward(q, k, v, seg)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, seg)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    delta = fa.flash_delta(out, dout)
+    dq, dk, dv = fa.flash_backward_reference(q, k, v, out, lse, dout, None, seg)
+    assert torch.equal(fa.flash_backward_dq(q, k, v, dout, lse, delta, seg), dq)
+    got_dk, got_dv = fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg)
+    assert torch.equal(got_dk, dk) and torch.equal(got_dv, dv)
+    assert before == (fa.flash_forward.launches, fa.flash_backward_dq.launches,
+                      fa.flash_backward_dkv.launches)
+
+
+@pytest.mark.parametrize("segments", [False, True])
+def test_flash_path_matches_plain_attention(segments, monkeypatch):
+    """``causal_attention`` with impl pallas/auto equals the xla path in f32."""
+    monkeypatch.delenv("FTC_FLASH_ATTN", raising=False)
+    arrays, seg, _, _ = _inputs("group2_segments")
+    q, k, v = (torch.from_numpy(arrays[n]) for n in ("q", "k", "v"))
+    seg = torch.from_numpy(seg) if segments else None
+    want = xla_causal_attention(q, k, v, segment_ids=seg)
+    for impl in ("pallas", "auto"):
+        got = causal_attention(q, k, v, impl=impl, segment_ids=seg)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("raw,want", [(None, "plain"), ("auto", "plain"), ("plain", "plain"),
+                                      (" Plain ", "plain")])
+def test_dispatch_on_cpu(raw, want, monkeypatch):
+    if raw is None:
+        monkeypatch.delenv("FTC_FLASH_ATTN", raising=False)
+    else:
+        monkeypatch.setenv("FTC_FLASH_ATTN", raw)
+    assert flash_attention_impl(torch.zeros(1, 1, 2, D)) == want
+
+
+def test_dispatch_refusals(monkeypatch):
+    q = torch.zeros(1, 4, 2, D)
+    monkeypatch.setenv("FTC_FLASH_ATTN", "kernel")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        causal_attention(q, q, q, impl="pallas")
+    monkeypatch.setenv("FTC_FLASH_ATTN", "turbo")
+    with pytest.raises(ValueError, match="FTC_FLASH_ATTN"):
+        flash_attention_impl(q)
+    for impl in ("ring", "ulysses"):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            causal_attention(q, q, q, impl=impl)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        causal_attention(q, q, q, impl="nope")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash-attention kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernels_match_plain_on_card(cuda, name, d, dtype):
+    """Each CUDA kernel against its plain version, one launch each."""
+    b, s, h, hkv, causal, segments = CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name) + d)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v, dout = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, h, d)
+    dlse = torch.randn((b, h, s), generator=gen, device=cuda)
+    _, seg, kvseg, _ = _inputs(name)
+    seg = None if seg is None else torch.from_numpy(seg).to(cuda)
+    kvseg = None if kvseg is None else torch.from_numpy(kvseg).to(cuda)
+    atol, rtol = fa.TOLERANCE[dtype]
+    out_ref, lse_ref = fa.flash_forward_reference(q, k, v, seg, kvseg, causal)
+    delta = fa.flash_delta(out_ref, dout, dlse)
+    want = fa._backward_plain(q, k, v, dout, lse_ref, delta, seg, kvseg, causal)
+    before = fa.flash_forward.launches
+    out, lse = fa.flash_forward(q, k, v, seg, kvseg, causal)
+    assert fa.flash_forward.launches == before + 1
+    dq = fa.flash_backward_dq(q, k, v, dout, lse_ref, delta, seg, kvseg, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, dout, lse_ref, delta, seg, kvseg, causal)
+    for got, ref_val in ((out, out_ref), (lse, lse_ref), (dq, want[0]), (dk, want[1]),
+                         (dv, want[2])):
+        torch.testing.assert_close(got.float(), ref_val.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_kernel_path_raises_on_unsupported_head_dim(cuda):
+    q = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_forward(q, q, q)

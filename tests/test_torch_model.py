@@ -28,7 +28,7 @@ from finetune_controller_tpu.models.llama import (
 )
 from finetune_controller_tpu.models.lora import LoRAConfig as JaxLoRAConfig
 from finetune_controller_tpu.serve.loader import merge_lora_variables
-from finetune_controller_tpu_torch.models.convert import from_flax, merge_lora
+from finetune_controller_tpu_torch.models.convert import from_flax, merge_lora, to_flax
 from finetune_controller_tpu_torch.models.llama import (
     PRESETS,
     LlamaConfig,
@@ -160,3 +160,90 @@ def test_config_fields_match_reference():
 def test_unported_configs_are_refused():
     with pytest.raises(ValueError, match="does not serve MoE configs"):
         LlamaForCausalLM(PRESETS["tiny-moe-test"], device="cpu")
+
+
+def test_segment_forward_matches_reference(tokens):
+    """The training forward with packing segment ids, f32, against the JAX
+    ``apply`` with the same ids (1e-5)."""
+    jcfg = _jax_cfg("tiny-test", 4, True, "float32")
+    variables = _noisy_variables(jcfg, seed=11)
+    seg = np.repeat(np.array([[1, 1, 2], [1, 2, 3]]), 4, axis=1).astype(np.int32)
+    want = JaxLlama(jcfg).apply(variables, jnp.asarray(tokens), segment_ids=jnp.asarray(seg))
+    model = LlamaForCausalLM(_port("tiny-test", 4, "float32"), device="cpu")
+    model.load_state_dict(from_flax(variables, model.cfg))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long(), segment_ids=torch.from_numpy(seg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _loss_and_grads(model, tokens, seg=None):
+    model.zero_grad()
+    logits = model(tokens, segment_ids=seg)
+    loss = torch.log_softmax(logits, -1)[..., 0].mean()
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.3])
+@pytest.mark.parametrize("policy", ["full", "mlp"])
+def test_remat_keeps_numerics(policy, dropout, tokens):
+    """Loss and gradients under ``full``/``mlp`` remat equal ``none``'s
+    exactly, dropout included (each adapter redraws its mask from its own
+    seeded generator when the checkpointed region reruns)."""
+    jcfg = _jax_cfg("tiny-test", 4, True, "float32")
+    variables = _noisy_variables(jcfg, seed=12)
+    seg = torch.from_numpy(np.repeat(np.array([[1, 2], [1, 1]]), 6, axis=1).astype(np.int32))
+    results = []
+    for name in ("none", policy):
+        cfg = _port("tiny-test", 4, "float32", remat_policy=name).replace(
+            lora=LoRAConfig(rank=4, dropout=dropout))
+        model = LlamaForCausalLM(cfg, device="cpu")
+        model.load_state_dict(from_flax(variables, cfg))
+        model.set_dropout_seed(5)
+        results.append(_loss_and_grads(model, torch.from_numpy(tokens).long(), seg))
+    (loss0, grads0), (loss1, grads1) = results
+    assert loss0 == loss1 and grads0.keys() == grads1.keys()
+    for key in grads0:
+        torch.testing.assert_close(grads1[key], grads0[key], atol=0, rtol=0)
+
+
+def test_lora_dropout_is_seeded_and_off_in_eval(tokens):
+    cfg = _port("tiny-test", 4, "float32").replace(lora=LoRAConfig(rank=4, dropout=0.5))
+    jcfg = _jax_cfg("tiny-test", 4, True, "float32")
+    model = LlamaForCausalLM(cfg, device="cpu")
+    model.load_state_dict(from_flax(_noisy_variables(jcfg, seed=13), cfg))
+    x = torch.from_numpy(tokens).long()
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="set_dropout_seed"):
+            model(x)
+        outs = []
+        for seed in (1, 1, 2):
+            model.set_dropout_seed(seed)
+            outs.append(model(x))
+        plain = model.eval()(x)
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    assert not torch.equal(outs[0], plain)
+
+
+@pytest.mark.parametrize("policy,error", [("attn", NotImplementedError), ("bogus", ValueError)])
+def test_unported_remat_policies_raise(policy, error, tokens):
+    model = LlamaForCausalLM(_port("tiny-test", 2, "float32", remat_policy=policy),
+                             device="cpu")
+    with pytest.raises(error, match="remat_policy"):
+        model(torch.from_numpy(tokens).long())
+    with torch.no_grad():  # no gradients recorded: nothing to rematerialise
+        model(torch.from_numpy(tokens).long())
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_to_flax_inverts_from_flax(scan):
+    jcfg = _jax_cfg("tiny-qwen-test", 2, scan, "float32")
+    variables = _noisy_variables(jcfg, seed=14)
+    cfg = PRESETS["tiny-qwen-test"].replace(lora=LoRAConfig(rank=2), scan_layers=scan)
+    back = to_flax(from_flax(variables, cfg), cfg)
+    want = jax.tree_util.tree_leaves_with_path(variables)
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(got[path], np.asarray(leaf))
