@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    against its plain version at small shapes: the paged kernel in f32 and
    bf16; the three flash kernels (T1) in f32 and bf16, D 64 and 128, GQA
    groups 1 and 4, S 40/100/257, causal with segment ids and full attention
-   with fully masked rows, with a non-zero lse cotangent;
+   with fully masked rows, with a non-zero lse cotangent, and at S=300 on
+   the segment layouts of tile skipping (packed, 16-token documents,
+   boundaries on tile edges, non-monotonic ids, trailing padding); ptxas's
+   register and spill report of every kernel;
 3. build ``llama3-8b`` at full width (and full depth unless ``--layers``
    cuts it) in bf16 with random weights drawn on the card from ``--seed``;
 4. serve 12 requests through ``Batcher`` -> ``BatchEngine`` -> the paged
@@ -41,8 +44,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
 10. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
     Hkv=8, D=128, bf16, the packed microbatch's segment ids): kernel, plain
-    and library times beside the bound, and the error against the plain
-    version;
+    and library times beside the bound, the error against the plain
+    version, the share of tile pairs it executes (``live_tiles`` at its tile
+    sizes), its rate on that executed work and its share of the bound, and
+    the Hopper forward and dK/dV with no segment ids (every causal tile
+    pair); the two launched twice must give the same bits;
 11. print the ``kernels``, ``serve`` and ``train`` lines, the card line, and
     last ``{"ok": true, "device": {...}}``.
 
@@ -80,6 +86,24 @@ def log(msg: str) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_wg<128>`` from a mangled kernel name: the first name of
+    the port's kernels in it, with its first template argument as mangled
+    (``128``, ``f`` for float, ``13__nv_bfloat16``)."""
+    import re
+
+    for m in re.finditer(r"(\d+)([A-Za-z_])", mangled):
+        start, digits = m.start(2), m.group(1)
+        for cut in range(len(digits)):  # "_116flash..." is "_1" then 16 letters
+            n = int(digits[cut:])
+            ident, rest = mangled[start:start + n], mangled[start + n:]
+            if len(ident) == n and rest[:1] in ("I", "E", "v", "") \
+                    and ident.startswith(("flash_", "paged_")):
+                arg = re.match(r"I(?:Li)?(\w+?)E", rest)
+                return ident + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -208,9 +232,12 @@ def flash_check_small() -> dict:
     """First launches: each flash kernel against its plain version at small
     shapes — f32 and bf16, D 64 and 128, groups 1 and 4, S 40/100/257,
     causal with segment ids and full attention with distinct key segments
-    (so some rows are fully masked), with a lse cotangent.  Returns the worst
-    bf16 error of each kernel."""
+    (so some rows are fully masked), with a lse cotangent; then causal at
+    S=300 on each layout of ``flash_check.segment_layouts`` (packed,
+    16-token documents, boundaries on tile edges, non-monotonic ids,
+    trailing padding).  Returns the worst bf16 error of each kernel."""
     import torch
+    from finetune_controller_tpu_torch.ops.kernels.flash_check import segment_layouts
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
@@ -229,14 +256,41 @@ def flash_check_small() -> dict:
                         if dtype == torch.bfloat16:
                             for name, e in errs.items():
                                 worst[name] = max(worst[name], e)
+            for ids in segment_layouts(2, 300).values():
+                q, k, v, dout, dlse, _ = flash_inputs(gen, 2, 300, 8, 2, d, dtype, segments=False)
+                seg = torch.from_numpy(ids).cuda()
+                errs = flash_compare(q, k, v, dout, dlse, seg, None, True)
+                if dtype == torch.bfloat16:
+                    for name, e in errs.items():
+                        worst[name] = max(worst[name], e)
     return worst
+
+
+def executed_pairs(seg, tile_q: int, tile_k: int, skips_segments: bool):
+    """(query, key) pairs a causal kernel with these tiles computes on the
+    segment ids ``seg`` — every pair of each tile pair ``live_tiles`` keeps,
+    with the ids counted as one document when the kernel skips only
+    causally dead tiles — and the share of causal tile pairs it keeps."""
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+
+    s = seg.shape[1]
+    one_doc = torch.zeros_like(seg)
+    live = fa.live_tiles(seg if skips_segments else one_doc, None, tile_q, tile_k, True)
+    causal = fa.live_tiles(one_doc, None, tile_q, tile_k, True)
+    rows = torch.clamp(s - torch.arange(live.shape[1], device=seg.device) * tile_q, max=tile_q)
+    cols = torch.clamp(s - torch.arange(live.shape[2], device=seg.device) * tile_k, max=tile_k)
+    pairs = float((live * rows[None, :, None] * cols[None, None, :]).sum())
+    return pairs, float(live.sum() / causal.sum())
 
 
 def flash_bench(seg, reps: int, seed: int) -> dict:
     """The flash kernels at the main path's shapes (B=2, S=2048, H=32,
     Hkv=8, D=128, bf16, the packed batch's segment ids ``seg``): kernel,
-    plain and library times (ms), the bound and the max error against the
-    plain version, per kernel."""
+    plain and library times (ms), the bound, the max error against the
+    plain version, and the executed work (:func:`executed_pairs`) with its
+    rate, per kernel.  Checks that the Hopper kernels give the same bits
+    on two launches."""
     import torch
     import torch.nn.functional as F
     from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
@@ -275,6 +329,13 @@ def flash_bench(seg, reps: int, seed: int) -> dict:
             lambda i: fa._backward_plain(q, k, v, dout, lse, delta, seg, None, True),
             lambda i: lib_out.backward(do_l, retain_graph=True)),
     }
+    # the Hopper kernels are deterministic: a second launch gives the same bits
+    first, second = ((*fa.flash_forward(q, k, v, seg, None, True),
+                      *fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None, True))
+                     for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        raise AssertionError("flash forward / dK/dV: two launches differ")
+
     # the work this data needs: the live (query, key) pairs, causal and
     # within one document
     pairs = sum(float((c * (c + 1) / 2).sum()) for c in
@@ -286,23 +347,40 @@ def flash_bench(seg, reps: int, seed: int) -> dict:
         "flash_backward_dq": 3 * io[0] + 2 * io[1] + io[2] + 2 * io[3],
         "flash_backward_dkv": 2 * io[0] + 4 * io[1] + io[2] + 2 * io[3],
     }
-    flops = {"flash_forward": 4 * h * d * pairs, "flash_backward_dq": 6 * h * d * pairs,
-             "flash_backward_dkv": 8 * h * d * pairs}
-    # the kernels compute every causal pair and mask other documents' keys
-    executed = b * s * (s + 1) / 2 / pairs
+    per_pair = {"flash_forward": 4 * h * d, "flash_backward_dq": 6 * h * d,
+                "flash_backward_dkv": 8 * h * d}
+    # what skipping saves: the Hopper kernels on the same inputs with no
+    # segment ids, so every causal tile pair runs
+    out_c, lse_c = fa.flash_forward_reference(q, k, v, None, None, True)
+    delta_c = fa.flash_delta(out_c, dout)
+    no_segments = {
+        "flash_forward": lambda i: fa.flash_forward(q, k, v, None, None, True),
+        "flash_backward_dkv": lambda i: fa.flash_backward_dkv(q, k, v, dout, lse_c, delta_c,
+                                                              None, None, True),
+    }
     out_rows = {}
     for name, (kern, plain, lib) in variants.items():
+        tq, tk = fa.TILES[name]
+        executed, live_share = executed_pairs(seg, tq, tk, name != "flash_backward_dq")
+        row = {}
+        if name in no_segments:
+            all_causal, _ = executed_pairs(seg, tq, tk, False)
+            ms_all = cuda_time_ms(no_segments[name], reps)
+            row = dict(ms_no_segments=ms_all,
+                       tflops_no_segments=per_pair[name] * all_causal / (ms_all * 1e-3) / 1e12)
         ms = cuda_time_ms(kern, reps)
         plain_ms = cuda_time_ms(plain, max(2, reps // 4))
         library_ms = cuda_time_ms(lib, reps)
+        flops = per_pair[name] * pairs
         bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        flops_ms = flops[name] / BF16_FLOPS * 1e3
+        flops_ms = flops / BF16_FLOPS * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
         out_rows[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=errs[name],
-            bound_ms=max(bytes_ms, flops_ms),
-            bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-            bytes=int(nbytes[name]), flops=int(flops[name]),
-            tflops=executed * flops[name] / (ms * 1e-3) / 1e12)
+            row, ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=errs[name],
+            bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+            bytes=int(nbytes[name]), flops=int(flops), executed_flops=int(per_pair[name] * executed),
+            tflops=per_pair[name] * executed / (ms * 1e-3) / 1e12, bound_share=bound_ms / ms,
+            live_tile_share=live_share, tiles=(tq, tk))
     return out_rows
 
 
@@ -819,8 +897,8 @@ def model_check(seg, seed: int) -> dict:
 
 
 def device_time_by_kernel(prof, wall_s: float, top: int = 10) -> dict:
-    """Wall ms, device ms, device-busy share and the ``top`` kernels (ms) of
-    a ``torch.profiler`` window."""
+    """Wall ms, device ms, device-busy share, the ``top`` kernels (ms) and
+    every flash-attention kernel (ms) of a ``torch.profiler`` window."""
     from torch.autograd import DeviceType
 
     by_name: dict[str, float] = {}
@@ -837,7 +915,8 @@ def device_time_by_kernel(prof, wall_s: float, top: int = 10) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_s * 1e3, "device_ms": device_ms or None,
             "device_busy": device_ms / (wall_s * 1e3) if device_ms else None,
-            "top": [(name[:60], us / 1e3) for name, us in ranked]}
+            "top": [(name[:60], us / 1e3) for name, us in ranked],
+            "flash": [(name[:60], us / 1e3) for name, us in by_name.items() if "flash_" in name]}
 
 
 def main(argv=None) -> int:
@@ -879,9 +958,8 @@ def main(argv=None) -> int:
         return fail(f"kernel build: {e}")
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name in built:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, line in build.ptxas_report(name).items():
+            log(f"  ptxas {name}: {kernel_label(fn)}: {line}")
     try:
         small_err = kernel_check_small()
         flash_small = flash_check_small()
@@ -923,6 +1001,8 @@ def main(argv=None) -> int:
                 f"wall, {prof['device_ms']:.1f} ms device, busy {prof['device_busy']:.3f}")
             for name, ms in prof["top"]:
                 log(f"  {ms:9.3f} ms  {name}")
+            for name, ms in prof["flash"]:
+                log(f"  flash kernel {ms:9.3f} ms  {name}")
         gc.collect()
         torch.cuda.empty_cache()
         flash = flash_bench(seg, max(4, args.reps // 8), args.seed)
@@ -931,10 +1011,15 @@ def main(argv=None) -> int:
     except (AssertionError, RuntimeError, ValueError) as e:
         return fail(f"training phases: {type(e).__name__}: {e}")
     for name, r in flash.items():
-        log(f"{name}: kernel {r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s executed), plain "
-            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.4g} "
+        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"share of bound {r['bound_share']:.3f}), tiles {r['tiles']}: live-tile share "
+            f"{r['live_tile_share']:.3f}, {r['executed_flops'] / 1e9:.1f} GFLOP executed at "
+            f"{r['tflops']:.1f} TFLOP/s, max abs err {r['max_abs_err']:.4g} "
             f"(tolerance {fa.TOLERANCE[torch.bfloat16]})")
+        if "ms_no_segments" in r:
+            log(f"  {name} with no segment ids (every causal tile pair): "
+                f"{r['ms_no_segments']:.4f} ms, {r['tflops_no_segments']:.1f} TFLOP/s")
 
     # the record
     src = "finetune_controller_tpu_torch/csrc/flash_attention.cu"
@@ -950,9 +1035,10 @@ def main(argv=None) -> int:
     } for name in FLASH_KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serve": serve_summary}), flush=True)
-    print(json.dumps({"train": {**train, "model_check": model,
-                                "flash_tflops": {k: r["tflops"] for k, r in flash.items()}}}),
-          flush=True)
+    print(json.dumps({"train": {**train, "model_check": model, "flash": {
+        k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",
+                              "ms_no_segments", "tflops_no_segments") if f in r}
+        for k, r in flash.items()}}}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

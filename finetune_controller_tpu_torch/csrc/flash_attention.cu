@@ -2,9 +2,9 @@
 //
 // Replaces the three Pallas TPU kernels of
 // finetune_controller_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_tc / flash_fwd_kernel         <- _fwd_kernel (pallas_call in _flash_forward)
-//   flash_bwd_dq_tc / flash_bwd_dq_kernel   <- _bwd_dq_kernel (first in _flash_backward)
-//   flash_bwd_dkv_tc / flash_bwd_dkv_kernel <- _bwd_dkv_kernel (second in _flash_backward)
+//   wg::flash_fwd_wg / flash_fwd_kernel         <- _fwd_kernel (pallas_call in _flash_forward)
+//   tc::flash_bwd_dq_tc / flash_bwd_dq_kernel   <- _bwd_dq_kernel (first in _flash_backward)
+//   wg::flash_bwd_dkv_wg / flash_bwd_dkv_kernel <- _bwd_dkv_kernel (second in _flash_backward)
 // (the bf16 / the f32 kernel of each, for head dims 64 and 128).
 // Same contract: q, dO, out (B, S, H, D); k, v (B, S, Hkv, D) with head h
 // reading KV head h / (H / Hkv); optional int32 segment ids (B, S) for the
@@ -17,17 +17,24 @@
 // What bounds them on this card: operations.  At training shapes (S = 2048,
 // D = 128) a block does 2 * D FLOP per (query, key) pair per product on tiles
 // it reuses from shared memory 32-64 times; the bytes (each input read once)
-// are ~30x below the operations even at the tensor-core rate.
+// are ~30x below the operations even at the tensor-core rate.  In a packed
+// batch only the pairs inside one document count, so the work the data
+// needs is below the causal square.
 //
-// Two paths, chosen by dtype:
-//   * bf16 (the training path) runs its products on the tensor cores with
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate), namespace tc below;
-//   * f32 runs them as FMAs on the CUDA cores (the card's 67 TFLOP/s f32
-//     rate), so f32 results differ from the plain version only in summation
-//     order.
-// wgmma, TMA loads, a producer warp and software pipelining are later work.
+// Three paths, chosen by dtype and kernel:
+//   * bf16 forward and dK/dV (the training path) are Hopper kernels,
+//     namespace wg: a producer warp keeps TMA loads of the next tiles in
+//     flight through a ring of shared-memory stages while consumer
+//     warpgroups run wgmma on the current one; the tile pairs whose
+//     documents cannot meet, or that lie past the causal frontier, are
+//     skipped (described above namespace wg);
+//   * bf16 dQ runs mma.sync.m16n8k16 (bf16 in, f32 accumulate) with tiles
+//     staged by all threads, namespace tc;
+//   * f32 runs its products as FMAs on the CUDA cores (the card's 67 TFLOP/s
+//     f32 rate), so f32 results differ from the plain version only in
+//     summation order.
 //
-// Design, both paths:
+// Design, all paths:
 //   * one block per (query tile, query head, batch row) for the forward and
 //     dQ, one per (key tile, KV head, batch row) for dK/dV; the sequential
 //     grid axis of the TPU kernels becomes a loop inside the block;
@@ -37,27 +44,33 @@
 //   * dK/dV loops over every query head of its KV head's group inside the
 //     block, so the GQA sum needs no atomics and is deterministic;
 //   * ragged tails are masked in the kernel: rows at or past S read as zero
-//     and are never written (the TPU path pads because its DMAs clamp).
+//     (the TMA loads zero-fill them) and are never written (the TPU path pads
+//     because its DMAs clamp).
 // The f32 path stages tiles in shared memory, rows padded by 4 floats
 // so the 16-byte reads of the 8 threads that share a row group hit distinct
 // banks; each thread owns RM rows x RN columns of a score tile (rows
 // rg + RG*i, columns cg + 8*j) and RM rows x D/8 columns of an accumulator
 // (dims 4*cg + 32*k .. +3), and a row's 8 owners are 8 neighbouring lanes.
-// The tensor-core path's layout is described above namespace tc.
 // Numerics follow the Pallas kernels: f32 scores times the scale, f32 exp
-// (the TPU default for bf16 inputs is a bf16 exp), p rounded to the value
-// dtype before the PV and dV products, ds rounded to the key/query dtype
-// before the dQ and dK products (both only on the bf16 path: f32 rounds to
+// (the TPU default for bf16 inputs is a bf16 exp; the wg kernels take it as
+// exp2 of the score times scale * log2(e)), p rounded to the value dtype
+// before the PV and dV products, ds rounded to the key/query dtype before
+// the dQ and dK products (both only on the bf16 path: f32 rounds to
 // itself), f32 accumulation, the scale applied to dQ and dK once at the end.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // ops/kernels/flash_attention.py; each entry point launches on the caller's
-// stream, allocates nothing and returns cudaGetLastError() after the launch.
+// stream, allocates nothing and returns cudaGetLastError() after the launch
+// (or an error of its own when a tensor map cannot be encoded or a bf16
+// pointer is not 16-byte aligned).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -484,18 +497,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync.m16n8k16 (bf16 x bf16 -> f32)
+// bf16 dQ on the tensor cores: mma.sync.m16n8k16 (bf16 x bf16 -> f32)
 //
-// Each warp owns 16 rows of a tile (queries for the forward and dQ, keys for
-// dK/dV) and keeps its score tile and accumulators as mma fragments: a thread
-// holds rows g = lane / 4 and g + 8, columns 2t and 2t + 1 (t = lane % 4) of
-// every 8-column slice.  A row's owners are the 4 lanes of a quad, so row max
-// and sum are two shuffles.  A score/probability fragment converts in
-// registers into the A operand of the next product (FlashAttention-2's
-// layout trick), rounded to bf16 as the Pallas kernels round p and ds.
-// Tiles stay bf16 in shared memory, rows padded by 8 elements so the 32-bit
-// fragment reads of a warp hit 32 distinct banks; operands that a product
-// needs along the other axis are staged transposed once per tile.
+// Each warp owns 16 query rows of a tile and keeps its score tile and
+// accumulator as mma fragments: a thread holds rows g = lane / 4 and g + 8,
+// columns 2t and 2t + 1 (t = lane % 4) of every 8-column slice.  A row's
+// owners are the 4 lanes of a quad, so row max and sum are two shuffles.  A
+// ds fragment converts in registers into the A operand of the next product
+// (FlashAttention-2's layout trick), rounded to bf16 as the Pallas kernel
+// rounds ds.  Tiles stay bf16 in shared memory, rows padded by 8 elements so
+// the 32-bit fragment reads of a warp hit 32 distinct banks; K, which the
+// dQ product needs along the other axis, is staged transposed once per tile.
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -616,105 +628,6 @@ __device__ __forceinline__ void store_pair(bf16* out, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(lo, hi);
 }
 
-template <int D> struct Fwd {
-  static constexpr int BQ = 64, BK = 64, LD = D + 8;
-  static constexpr size_t smem =
-      ((size_t)(BQ + BK) * LD + (size_t)D * (BK + 8)) * sizeof(bf16) + (BQ + BK) * sizeof(int);
-};
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-             const int* __restrict__ qseg, const int* __restrict__ kseg, bf16* __restrict__ out,
-             float* __restrict__ lse, int S, int H, int Hkv, float scale, int causal) {
-  using C = Fwd<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NJ = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + BQ * LD;
-  bf16* vt_s = k_s + BK * LD;
-  int* qseg_s = reinterpret_cast<int*>(vt_s + D * (BK + 8));
-  int* kseg_s = qseg_s + BQ;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, r0 = (threadIdx.x / 32) * 16;
-  const int64_t qstride = (int64_t)H * D, kstride = (int64_t)Hkv * D;
-  const int64_t qoff = ((int64_t)b * S * H + h) * D, koff = ((int64_t)b * S * Hkv + kvh) * D;
-
-  stage<D, BQ>(q_s, LD, q + qoff, q0, S, qstride);
-  if (qseg) load_segments(qseg_s, qseg, b, q0, BQ, S, NT);
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    stage<D, BK>(k_s, LD, k + koff, k0, S, kstride);
-    stage_t<D, BK>(vt_s, v + koff, k0, S, kstride);
-    if (qseg) load_segments(kseg_s, kseg, b, k0, BK, S, NT);
-    __syncthreads();
-
-    float s[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_nt<D, BK>(s, q_s, k_s, LD, r0, g, t);
-
-    float mx[2] = {NEG_INF, NEG_INF};
-    unsigned live = 0;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = r0 + g + 8 * (e >> 1), qp = q0 + rl;
-        const int cl = 8 * j + 2 * t + (e & 1), kp = k0 + cl;
-        const bool ok = kp < S && (!causal || qp >= kp) && (!qseg || qseg_s[rl] == kseg_s[cl]);
-        live |= (unsigned)ok << (4 * j + e);
-        s[j][e] = ok ? s[j][e] * scale : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = ((live >> (4 * j + e)) & 1u) ? expf(s[j][e] - m[e >> 1]) : 0.f;
-        sum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    mma_pv<D, BK>(o, s, vt_s, g, t);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = q0 + r0 + g + 8 * r;
-    if (qp >= S) continue;
-    const float inv = 1.f / fmaxf(l[r], L_FLOOR);
-    bf16* dst = out + qoff + (int64_t)qp * qstride;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      store_pair(dst + 8 * n + 2 * t, o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    if (t == 0) lse[((int64_t)b * H + h) * S + qp] = m[r] + logf(fmaxf(l[r], L_FLOOR));
-  }
-}
-
 template <int D> struct Dq {
   static constexpr int BQ = 64, BK = 64, LD = D + 8;
   static constexpr size_t smem =
@@ -802,109 +715,534 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   }
 }
 
-template <int D> struct Dkv {
-  static constexpr int BK = 64, BQ = 32, LD = D + 8;
-  static constexpr size_t smem =
-      ((size_t)(2 * BK + 2 * BQ) * LD + (size_t)2 * D * (BQ + 8)) * sizeof(bf16) +
-      2 * BQ * sizeof(float) + (BQ + BK) * sizeof(int);
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// bf16 forward and dK/dV on Hopper: wgmma fed by a TMA ring
+//
+// A block is NC consumer warpgroups plus one producer warpgroup.  One warp
+// of the producer issues the TMA loads of each live tile into a ring of ST
+// stages (a full and an empty mbarrier each) and copies the tile's per-row
+// scalars (segment ids, lse, delta) beside it; the consumers run wgmma
+// (bf16 in, f32 accumulate) on the stage, then release it.  setmaxnreg
+// moves registers from the producer to the consumers.
+//
+// Tiles land with the 128-byte swizzle and are read by the wgmma
+// descriptors as each product needs them (sm90.cuh), so nothing is staged
+// transposed:
+//   forward  S = Q Kᵀ       Q, K K-major     O += P V     V MN-major
+//   dK/dV    Sᵀ = K Qᵀ      K, Q K-major     dV += Pᵀ dO  dO MN-major
+//            dPᵀ = V dOᵀ    V, dO K-major    dK += dSᵀ Q  Q MN-major
+// P, Pᵀ and dSᵀ go from the accumulator into the next product's register A
+// fragments, rounded to bf16 as the Pallas kernels round p and ds.
+//
+// Tile skipping: before the split into roles every warp of the block reads
+// the segment ids of its tile pairs and marks a pair dead when its key tile
+// lies past the causal frontier or when the [min, max] segment ids of the
+// query and key tiles are disjoint (the predicate of ``live_tiles`` in
+// ops/kernels/flash_attention.py).  One warp compacts the live pairs into a
+// list that producer and consumers walk in the same order.  A live pair is
+// further marked for the causal / bounds mask and for the segment compare,
+// so a pair fully inside one document and below the diagonal runs unmasked.
+//
+// Sizes: two consumer warpgroups, so a block holds 128 query rows (forward)
+// or 128 key rows (dK/dV) and reuses each streamed tile for both; key tiles
+// of 128 (forward), query tiles of 64 (dK/dV, where dK and dV stay in
+// registers, 2 x 64 a thread at D = 128).  setmaxnreg gives the consumers
+// 240 registers (forward) or 232 (dK/dV, whose producer also copies lse,
+// delta and segment ids and keeps 40); 384 threads launch at 168 each.
+// Causal work grows with the query tile in the forward and shrinks with the
+// key tile in dK/dV; the grid's y axis is ordered so the heaviest blocks get
+// the lowest indices and start first, and the light ones fill the tail.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+constexpr int WG_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int LIVE = 1, BOUND_MASK = 2, SEG_MASK = 4;  // tile flags
+constexpr int TILE_BITS = 24;                           // list entry: tile | flags << 24
+
+// [min, max] of seg[base + r] over rows r in [r0, r1), reduced over the warp
+// (0, 0 without segment ids).
+__device__ __forceinline__ void seg_range(const int* seg, int64_t base, int r0, int r1, int lane,
+                                          int& lo, int& hi) {
+  if (seg == nullptr) {
+    lo = hi = 0;
+    return;
+  }
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int r = r0 + lane; r < r1; r += 32) {
+    const int v = seg[base + r];
+    lo = min(lo, v);
+    hi = max(hi, v);
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+__device__ __forceinline__ int tile_flags(int qlo, int qhi, int klo, int khi, bool bound) {
+  if (qhi < klo || khi < qlo) return 0;
+  const bool uniform = qlo == qhi && klo == khi && qlo == klo;
+  return LIVE | (bound ? BOUND_MASK : 0) | (uniform ? 0 : SEG_MASK);
+}
+
+// Warp 0 packs the live entries of flags[0, n) into list; returns the count
+// (to every lane of warp 0).
+__device__ __forceinline__ int compact(const int* flags, int* list, int n, int lane) {
+  int count = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int t = base + lane;
+    const int f = t < n ? flags[t] : 0;
+    const unsigned live = __ballot_sync(0xffffffffu, f & LIVE);
+    if (f & LIVE) list[count + __popc(live & ((1u << lane) - 1u))] = t | (f << TILE_BITS);
+    count += __popc(live);
+  }
+  return count;
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (query tile of 64 NC rows, head, batch row)
+// ---------------------------------------------------------------------------
+
+template <int D> struct Fwd {
+  static constexpr int NC = 2, BQ = 64 * NC, BK = 128, ST = D == 128 ? 2 : 4;
+  static constexpr int NT = WG_THREADS * (NC + 1), P = D / 64;
+  static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr size_t K_OFF = Q_BYTES, KSEG_OFF = K_OFF + (size_t)ST * 2 * KV_BYTES;
+  static constexpr size_t BAR_OFF = KSEG_OFF + ST * BK * sizeof(int);
+  static constexpr size_t LIST_OFF = BAR_OFF + (1 + 2 * ST) * sizeof(uint64_t) + 16;
+  // + 1024 to align the base; + the flags and list of n key tiles
+  static size_t smem(int n) { return 1024 + LIST_OFF + 2 * (size_t)n * sizeof(int); }
 };
 
 template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const int* __restrict__ qseg, const int* __restrict__ kseg, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int S, int H, int Hkv, float scale, int causal) {
-  using C = Dkv<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NJ = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + BK * LD;
-  bf16* q_s = v_s + BK * LD;
-  bf16* do_s = q_s + BQ * LD;
-  bf16* qt_s = do_s + BQ * LD;
-  bf16* dot_s = qt_s + D * (BQ + 8);
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * (BQ + 8));
-  float* delta_s = lse_s + BQ;
-  int* qseg_s = reinterpret_cast<int*>(delta_s + BQ);
-  int* kseg_s = qseg_s + BQ;
+__global__ void __launch_bounds__(Fwd<D>::NT, 1)
+flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ qseg,
+             const int* __restrict__ kseg, bf16* __restrict__ out, float* __restrict__ lse,
+             int S, int H, int Hkv, float scale, int causal) {
+  using C = Fwd<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::ST, P = C::P;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* q_s = reinterpret_cast<bf16*>(base);
+  int* kseg_s = reinterpret_cast<int*>(base + C::KSEG_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);  // q, full[ST], empty[ST]
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + ST;
+  int* n_live = reinterpret_cast<int*>(empty + ST);
+  int* flags = reinterpret_cast<int*>(base + C::LIST_OFF);
 
-  const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, r0 = (threadIdx.x / 32) * 16;
-  const int64_t qstride = (int64_t)H * D, kstride = (int64_t)Hkv * D;
-  const int64_t koff = ((int64_t)b * S * Hkv + kvh) * D;
+  const int nqt = gridDim.y;
+  const int q0 = (nqt - 1 - (int)blockIdx.y) * BQ;  // heaviest causal tiles launch first
+  const int h = blockIdx.x % H, b = blockIdx.x / H, kvh = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int nk = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
+  int* list = flags + nk;
 
-  stage<D, BK>(k_s, LD, k + koff, k0, S, kstride);
-  stage<D, BK>(v_s, LD, v + koff, k0, S, kstride);
-  if (qseg) load_segments(kseg_s, kseg, b, k0, BK, S, NT);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const int64_t qoff = ((int64_t)b * S * H + h) * D;
-    const int64_t row_stats = ((int64_t)b * H + h) * S;
-    for (int q0 = q_begin; q0 < S; q0 += BQ) {
-      __syncthreads();
-      stage<D, BQ>(q_s, LD, q + qoff, q0, S, qstride);
-      stage<D, BQ>(do_s, LD, dout + qoff, q0, S, qstride);
-      stage_t<D, BQ>(qt_s, q + qoff, q0, S, qstride);
-      stage_t<D, BQ>(dot_s, dout + qoff, q0, S, qstride);
-      for (int r = threadIdx.x; r < BQ; r += NT) {
-        const bool in = q0 + r < S;
-        lse_s[r] = in ? lse[row_stats + q0 + r] : 0.f;
-        delta_s[r] = in ? delta[row_stats + q0 + r] : 0.f;
+  {  // live key tiles of this query tile
+    int qlo, qhi;
+    seg_range(qseg, (int64_t)b * S, q0, q_last + 1, lane, qlo, qhi);
+    for (int t = warp; t < nk; t += C::NT / 32) {
+      const int k_first = t * BK;
+      int klo, khi;
+      seg_range(kseg, (int64_t)b * S, k_first, min(k_first + BK, S), lane, klo, khi);
+      const bool bound = (causal && k_first + BK - 1 > q0) || k_first + BK > S;
+      if (lane == 0) flags[t] = tile_flags(qlo, qhi, klo, khi, bound);
+    }
+    if (threadIdx.x == 0) {
+      sm90::bar_init(&bars[0], 1);
+      for (int s = 0; s < ST; ++s) {
+        sm90::bar_init(&full[s], 32);
+        sm90::bar_init(&empty[s], 4 * C::NC);
       }
-      if (qseg) load_segments(qseg_s, qseg, b, q0, BQ, S, NT);
-      __syncthreads();
+      sm90::bar_init_fence();
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int n = compact(flags, list, nk, lane);
+      if (lane == 0) *n_live = n;
+    }
+    __syncthreads();
+  }
+  const int n = *n_live;
+  const int wgi = threadIdx.x / WG_THREADS;
 
-      // transposed tiles: rows are the warp's keys, columns the queries
-      float s[NJ][4], dp[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_nt<D, BQ>(s, k_s, q_s, LD, r0, g, t);
-      mma_nt<D, BQ>(dp, v_s, do_s, LD, r0, g, t);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rl = r0 + g + 8 * (e >> 1), kp = k0 + rl;
-          const int cl = 8 * j + 2 * t + (e & 1), qp = q0 + cl;
-          const bool ok = qp < S && kp < S && (!causal || qp >= kp) &&
-                          (!qseg || qseg_s[cl] == kseg_s[rl]);
-          const float p = ok ? expf(s[j][e] * scale - lse_s[cl]) : 0.f;
-          dp[j][e] = p * (dp[j][e] - delta_s[cl]);  // ds
-          s[j][e] = p;
+  if (wgi == C::NC) {  // producer
+    sm90::regs_dec<24>();
+    if (warp % 4 != 0) return;
+    if (lane == 0) {
+      sm90::bar_arrive_tx(&bars[0], C::Q_BYTES);
+      for (int p = 0; p < P; ++p)
+        sm90::tma_load_4d(q_s + p * BQ * 64, &tm_q, &bars[0], 64 * p, h, q0, b);
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = i % ST;
+      sm90::bar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+      const int k0 = (list[i] & ((1 << TILE_BITS) - 1)) * BK;
+      if (kseg)
+        for (int r = lane; r < BK; r += 32)
+          kseg_s[s * BK + r] = k0 + r < S ? kseg[(int64_t)b * S + k0 + r] : 0;
+      if (lane == 0) {
+        sm90::bar_arrive_tx(&full[s], 2 * C::KV_BYTES);
+        bf16* k_s = reinterpret_cast<bf16*>(base + C::K_OFF + (size_t)s * 2 * C::KV_BYTES);
+        bf16* v_s = k_s + BK * D;
+        for (int p = 0; p < P; ++p) {
+          sm90::tma_load_4d(k_s + p * BK * 64, &tm_k, &full[s], 64 * p, kvh, k0, b);
+          sm90::tma_load_4d(v_s + p * BK * 64, &tm_v, &full[s], 64 * p, kvh, k0, b);
         }
-      mma_pv<D, BQ>(dv_acc, s, dot_s, g, t);
-      mma_pv<D, BQ>(dk_acc, dp, qt_s, g, t);
+      } else {
+        sm90::bar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns query rows q0 + 64 wgi .. + 63
+  sm90::regs_inc<240>();
+  const int wl = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int row[2] = {q0 + 64 * wgi + 16 * wl + g, q0 + 64 * wgi + 16 * wl + g + 8};
+  int qs[2] = {0, 0};
+  if (qseg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) qs[r] = row[r] < S ? qseg[(int64_t)b * S + row[r]] : 0;
+  }
+  const float c1 = scale * LOG2E;
+  float o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // Q K-major (this warpgroup's 64 rows); K K-major; V MN-major (LBO: next 64 columns)
+  const uint64_t dq = sm90::desc(q_s + 64 * wgi * 64, 16, 1024);
+  sm90::bar_wait(&bars[0], 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % ST;
+    const int entry = list[i], f = entry >> TILE_BITS;
+    const int k0 = (entry & ((1 << TILE_BITS) - 1)) * BK;
+    const bf16* k_s = reinterpret_cast<const bf16*>(base + C::K_OFF + (size_t)s * 2 * C::KV_BYTES);
+    const uint64_t dk = sm90::desc(k_s, 16, 1024);
+    const uint64_t dv = sm90::desc(k_s + BK * D, BK * 128, 1024);
+    sm90::bar_wait(&full[s], (i / ST) & 1);
+
+    float sc[BK / 2];
+    sm90::fence_regs(sc);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::mma_ss<0, 0>(sc, sm90::desc_add(dq, (kk / 4) * BQ * 128 + (kk % 4) * 32),
+                         sm90::desc_add(dk, (kk / 4) * BK * 128 + (kk % 4) * 32), kk > 0);
+    sm90::mma_commit();
+    sm90::mma_wait<0>();
+    sm90::fence_regs(sc);
+
+    // scores in the log2 domain; masked ones -inf
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = 8 * j + 2 * t4 + (e & 1), kp = k0 + c;
+        bool ok = true;
+        if (f & BOUND_MASK) ok = kp < S && (!causal || row[r] >= kp);
+        if (f & SEG_MASK) ok = ok && qs[r] == kseg_s[s * BK + c];
+        const float y = ok ? sc[4 * j + e] * c1 : -INFINITY;
+        sc[4 * j + e] = y;
+        mx[r] = fmaxf(mx[r], y);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f}, m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], tc::quad_max(mx[r]));
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing live yet
+      alpha[r] = exp2f(m[r] - m_use[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[4 * j + e] - m_use[e >> 1]);
+        sc[4 * j + e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + tc::quad_sum(sum[r]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 0] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) pf[kk][x] = tc::pack(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+
+    sm90::fence_regs(o);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sm90::mma_rs<1>(o, pf[kk], sm90::desc_add(dv, kk * 16 * 128), 1);
+    sm90::mma_commit();
+    sm90::mma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::fence_regs(pf);
+    if (lane == 0) sm90::bar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row[r];
+    if (qp >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], L_FLOOR);
+    bf16* dst = out + (((int64_t)b * S + qp) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      tc::store_pair(dst + 8 * j + 2 * t4, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (t4 == 0)
+      lse[((int64_t)b * H + h) * S + qp] =
+          l[r] > 0.f ? m[r] * LN2 + logf(l[r]) : NEG_INF + logf(L_FLOOR);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: one block per (key tile of 64 NC rows, KV head, batch row); the G
+// query heads of the KV head and their live query tiles are walked inside
+// the block, so the GQA sum stays in registers (no atomics)
+// ---------------------------------------------------------------------------
+
+template <int D> struct Dkv {
+  static constexpr int NC = 2, BK = 64 * NC, BQ = 64, ST = 3;
+  static constexpr int NT = WG_THREADS * (NC + 1), P = D / 64;
+  static constexpr uint32_t KV_BYTES = BK * D * 2, QT_BYTES = BQ * D * 2;
+  static constexpr size_t Q_OFF = 2 * (size_t)KV_BYTES;
+  static constexpr size_t ROW_OFF = Q_OFF + (size_t)ST * 2 * QT_BYTES;  // lse, delta, qseg
+  static constexpr size_t BAR_OFF = ROW_OFF + 3 * ST * BQ * sizeof(float);
+  static constexpr size_t LIST_OFF = BAR_OFF + (1 + 2 * ST) * sizeof(uint64_t) + 16;
+  static size_t smem(int n) { return 1024 + LIST_OFF + 2 * (size_t)n * sizeof(int); }
+};
+
+template <int D>
+__global__ void __launch_bounds__(Dkv<D>::NT, 1)
+flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ qseg, const int* __restrict__ kseg,
+                 bf16* __restrict__ dk_out, bf16* __restrict__ dv_out, int S, int H, int Hkv,
+                 float scale, int causal) {
+  using C = Dkv<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::ST, P = C::P;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* k_s = reinterpret_cast<bf16*>(base);
+  bf16* v_s = k_s + BK * D;
+  float* lse_s = reinterpret_cast<float*>(base + C::ROW_OFF);  // [ST][BQ] each
+  float* delta_s = lse_s + ST * BQ;
+  int* qseg_s = reinterpret_cast<int*>(delta_s + ST * BQ);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);  // kv, full[ST], empty[ST]
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + ST;
+  int* n_live = reinterpret_cast<int*>(empty + ST);
+  int* flags = reinterpret_cast<int*>(base + C::LIST_OFF);
+
+  const int k0 = blockIdx.y * BK;  // key tile 0 holds the most causal work: it launches first
+  const int kvh = blockIdx.x % Hkv, b = blockIdx.x / Hkv, G = H / Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = (S + BQ - 1) / BQ;
+  const int jb = causal ? k0 / BQ : 0;  // query tiles before it see none of these keys
+  int* list = flags + (nq - jb);
+
+  {  // live query tiles of this key tile
+    int klo, khi;
+    seg_range(kseg, (int64_t)b * S, k0, min(k0 + BK, S), lane, klo, khi);
+    for (int j = jb + warp; j < nq; j += C::NT / 32) {
+      const int qf = j * BQ;
+      int qlo, qhi;
+      seg_range(qseg, (int64_t)b * S, qf, min(qf + BQ, S), lane, qlo, qhi);
+      const bool bound = (causal && qf < k0 + BK - 1) || qf + BQ > S || k0 + BK > S;
+      if (lane == 0) flags[j - jb] = tile_flags(qlo, qhi, klo, khi, bound);
+    }
+    if (threadIdx.x == 0) {
+      sm90::bar_init(&bars[0], 1);
+      for (int s = 0; s < ST; ++s) {
+        sm90::bar_init(&full[s], 32);
+        sm90::bar_init(&empty[s], 4 * C::NC);
+      }
+      sm90::bar_init_fence();
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int n = compact(flags, list, nq - jb, lane);
+      if (lane == 0) *n_live = n;
+    }
+    __syncthreads();
+  }
+  const int n = *n_live;
+  const int wgi = threadIdx.x / WG_THREADS;
+
+  if (wgi == C::NC) {  // producer
+    sm90::regs_dec<40>();
+    if (warp % 4 != 0) return;
+    if (lane == 0) {
+      sm90::bar_arrive_tx(&bars[0], 2 * C::KV_BYTES);
+      for (int p = 0; p < P; ++p) {
+        sm90::tma_load_4d(k_s + p * BK * 64, &tm_k, &bars[0], 64 * p, kvh, k0, b);
+        sm90::tma_load_4d(v_s + p * BK * 64, &tm_v, &bars[0], 64 * p, kvh, k0, b);
+      }
+    }
+    int i = 0;
+    for (int gi = 0; gi < G; ++gi) {
+      const int h = kvh * G + gi;
+      const float* lse_h = lse + ((int64_t)b * H + h) * S;
+      const float* delta_h = delta + ((int64_t)b * H + h) * S;
+      for (int jj = 0; jj < n; ++jj, ++i) {
+        const int s = i % ST;
+        sm90::bar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        const int q0 = (jb + (list[jj] & ((1 << TILE_BITS) - 1))) * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < S;
+          lse_s[s * BQ + r] = in ? lse_h[q0 + r] : 0.f;
+          delta_s[s * BQ + r] = in ? delta_h[q0 + r] : 0.f;
+          if (qseg) qseg_s[s * BQ + r] = in ? qseg[(int64_t)b * S + q0 + r] : 0;
+        }
+        if (lane == 0) {
+          sm90::bar_arrive_tx(&full[s], 2 * C::QT_BYTES);
+          bf16* q_s = reinterpret_cast<bf16*>(base + C::Q_OFF + (size_t)s * 2 * C::QT_BYTES);
+          bf16* do_s = q_s + BQ * D;
+          for (int p = 0; p < P; ++p) {
+            sm90::tma_load_4d(q_s + p * BQ * 64, &tm_q, &full[s], 64 * p, h, q0, b);
+            sm90::tma_load_4d(do_s + p * BQ * 64, &tm_do, &full[s], 64 * p, h, q0, b);
+          }
+        } else {
+          sm90::bar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns key rows k0 + 64 wgi .. + 63
+  sm90::regs_inc<232>();
+  const int wl = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int row[2] = {k0 + 64 * wgi + 16 * wl + g, k0 + 64 * wgi + 16 * wl + g + 8};
+  int ks[2] = {0, 0};
+  if (kseg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) ks[r] = row[r] < S ? kseg[(int64_t)b * S + row[r]] : 0;
+  }
+  const float c1 = scale * LOG2E;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  // K and V K-major (this warpgroup's 64 rows)
+  const uint64_t dka = sm90::desc(k_s + 64 * wgi * 64, 16, 1024);
+  const uint64_t dva = sm90::desc(v_s + 64 * wgi * 64, 16, 1024);
+  sm90::bar_wait(&bars[0], 0);
+
+  int i = 0;
+  for (int gi = 0; gi < G; ++gi) {
+    for (int jj = 0; jj < n; ++jj, ++i) {
+      const int s = i % ST;
+      const int entry = list[jj], f = entry >> TILE_BITS;
+      const int q0 = (jb + (entry & ((1 << TILE_BITS) - 1))) * BQ;
+      const bf16* q_s = reinterpret_cast<const bf16*>(base + C::Q_OFF + (size_t)s * 2 * C::QT_BYTES);
+      const bf16* do_s = q_s + BQ * D;
+      const float* lse_t = lse_s + s * BQ;
+      const float* delta_t = delta_s + s * BQ;
+      const int* qseg_t = qseg_s + s * BQ;
+      sm90::bar_wait(&full[s], (i / ST) & 1);
+
+      float st[BQ / 2], dpt[BQ / 2];  // Sᵀ, dPᵀ: rows keys, columns queries
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+      sm90::mma_fence();
+      {
+        const uint64_t dqb = sm90::desc(q_s, 16, 1024), ddob = sm90::desc(do_s, 16, 1024);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          sm90::mma_ss<0, 0>(st, sm90::desc_add(dka, (kk / 4) * BK * 128 + (kk % 4) * 32),
+                             sm90::desc_add(dqb, (kk / 4) * BQ * 128 + (kk % 4) * 32), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          sm90::mma_ss<0, 0>(dpt, sm90::desc_add(dva, (kk / 4) * BK * 128 + (kk % 4) * 32),
+                             sm90::desc_add(ddob, (kk / 4) * BQ * 128 + (kk % 4) * 32), kk > 0);
+      }
+      sm90::mma_commit();
+      sm90::mma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      // pᵀ = exp(s·scale − lse), dsᵀ = pᵀ (dpᵀ − delta), per query column
+      uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int y = 0; y < 2; ++y) {
+            const int idx = 8 * kk + 2 * x + y;  // accumulator slot
+            const int r = (idx >> 1) & 1, c = 8 * (idx >> 2) + 2 * t4 + (idx & 1), qp = q0 + c;
+            bool ok = true;
+            if (f & BOUND_MASK) ok = qp < S && row[r] < S && (!causal || qp >= row[r]);
+            if (f & SEG_MASK) ok = ok && qseg_t[c] == ks[r];
+            const float p = ok ? exp2f(st[idx] * c1 - lse_t[c] * LOG2E) : 0.f;
+            pv[y] = p;
+            dsv[y] = p * (dpt[idx] - delta_t[c]);
+          }
+          pf[kk][x] = tc::pack(pv[0], pv[1]);
+          dsf[kk][x] = tc::pack(dsv[0], dsv[1]);
+        }
+
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::mma_fence();
+      {
+        // dO and Q MN-major for the products over queries (LBO: next 64 columns)
+        const uint64_t ddo_t = sm90::desc(do_s, BQ * 128, 1024);
+        const uint64_t dq_t = sm90::desc(q_s, BQ * 128, 1024);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          sm90::mma_rs<1>(dv, pf[kk], sm90::desc_add(ddo_t, kk * 16 * 128), 1);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          sm90::mma_rs<1>(dk, dsf[kk], sm90::desc_add(dq_t, kk * 16 * 128), 1);
+      }
+      sm90::mma_commit();
+      sm90::mma_wait<0>();
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::fence_regs(pf);
+      sm90::fence_regs(dsf);
+      if (lane == 0) sm90::bar_arrive(&empty[s]);
     }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int kp = k0 + r0 + g + 8 * r;
+    const int kp = row[r];
     if (kp >= S) continue;
-    bf16* dk_row = dk + koff + (int64_t)kp * kstride;
-    bf16* dv_row = dv + koff + (int64_t)kp * kstride;
+    const int64_t off = (((int64_t)b * S + kp) * Hkv + kvh) * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      store_pair(dk_row + 8 * n + 2 * t, dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
-      store_pair(dv_row + 8 * n + 2 * t, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      tc::store_pair(dk_out + off + 8 * j + 2 * t4, dk[4 * j + 2 * r] * scale,
+                     dk[4 * j + 2 * r + 1] * scale);
+      tc::store_pair(dv_out + off + 8 * j + 2 * t4, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
   }
 }
 
-}  // namespace tc
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // launchers
@@ -973,19 +1311,30 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// The Hopper kernels take the opt-in maximum of dynamic shared memory once
+// and launch with what the shape needs (the tile list grows with S).
+constexpr size_t MAX_SMEM = 232448;
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 template <int D>
-cudaError_t launch_tc_fwd(const Args& a) {
-  using C = tc::Fwd<D>;
+cudaError_t launch_wg_fwd(const Args& a) {
+  using C = wg::Fwd<D>;
   static bool ready = false;
-  auto kernel = tc::flash_fwd_tc<D>;
-  cudaError_t err = allow_smem(kernel, C::smem, ready);
+  auto kernel = wg::flash_fwd_wg<D>;
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
-  kernel<<<grid, tc::NT, C::smem, a.stream>>>(
-      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
-      static_cast<const tc::bf16*>(a.v), static_cast<const int*>(a.qseg),
-      static_cast<const int*>(a.kseg), static_cast<tc::bf16*>(a.out),
-      static_cast<float*>(a.out2), a.S, a.H, a.Hkv, a.scale, a.causal);
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v)) return cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  if (!sm90::encode_bf16_4d(&tq, a.q, D, a.H, a.S, a.B, C::BQ) ||
+      !sm90::encode_bf16_4d(&tk, a.k, D, a.Hkv, a.S, a.B, C::BK) ||
+      !sm90::encode_bf16_4d(&tv, a.v, D, a.Hkv, a.S, a.B, C::BK))
+    return cudaErrorNotSupported;
+  const dim3 grid(a.H * a.B, (a.S + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::NT, C::smem((a.S + C::BK - 1) / C::BK), a.stream>>>(
+      tq, tk, tv, static_cast<const int*>(a.qseg), static_cast<const int*>(a.kseg),
+      static_cast<tc::bf16*>(a.out), static_cast<float*>(a.out2), a.S, a.H, a.Hkv, a.scale,
+      a.causal);
   return cudaGetLastError();
 }
 
@@ -1007,20 +1356,26 @@ cudaError_t launch_tc_dq(const Args& a) {
 }
 
 template <int D>
-cudaError_t launch_tc_dkv(const Args& a) {
-  using C = tc::Dkv<D>;
+cudaError_t launch_wg_dkv(const Args& a) {
+  using C = wg::Dkv<D>;
   static bool ready = false;
-  auto kernel = tc::flash_bwd_dkv_tc<D>;
-  cudaError_t err = allow_smem(kernel, C::smem, ready);
+  auto kernel = wg::flash_bwd_dkv_wg<D>;
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + C::BK - 1) / C::BK, a.Hkv, a.B);
-  kernel<<<grid, tc::NT, C::smem, a.stream>>>(
-      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
-      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout))
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!sm90::encode_bf16_4d(&tq, a.q, D, a.H, a.S, a.B, C::BQ) ||
+      !sm90::encode_bf16_4d(&tk, a.k, D, a.Hkv, a.S, a.B, C::BK) ||
+      !sm90::encode_bf16_4d(&tv, a.v, D, a.Hkv, a.S, a.B, C::BK) ||
+      !sm90::encode_bf16_4d(&tdo, a.dout, D, a.H, a.S, a.B, C::BQ))
+    return cudaErrorNotSupported;
+  const dim3 grid(a.Hkv * a.B, (a.S + C::BK - 1) / C::BK);
+  kernel<<<grid, C::NT, C::smem((a.S + C::BQ - 1) / C::BQ), a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const int*>(a.qseg), static_cast<const int*>(a.kseg),
-      static_cast<tc::bf16*>(a.out), static_cast<tc::bf16*>(a.out2), a.S, a.H, a.Hkv,
-      a.scale, a.causal);
+      static_cast<tc::bf16*>(a.out), static_cast<tc::bf16*>(a.out2), a.S, a.H, a.Hkv, a.scale,
+      a.causal);
   return cudaGetLastError();
 }
 
@@ -1030,9 +1385,9 @@ enum class Which { fwd, dq, dkv };
 template <int D>
 cudaError_t launch(Which which, const Args& a, bool tensor_cores) {
   switch (which) {
-    case Which::fwd: return tensor_cores ? launch_tc_fwd<D>(a) : launch_fwd<D>(a);
+    case Which::fwd: return tensor_cores ? launch_wg_fwd<D>(a) : launch_fwd<D>(a);
     case Which::dq: return tensor_cores ? launch_tc_dq<D>(a) : launch_dq<D>(a);
-    default: return tensor_cores ? launch_tc_dkv<D>(a) : launch_dkv<D>(a);
+    default: return tensor_cores ? launch_wg_dkv<D>(a) : launch_dkv<D>(a);
   }
 }
 

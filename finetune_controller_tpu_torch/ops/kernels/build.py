@@ -10,7 +10,8 @@ The output goes under ``build/torch_kernels/`` at the root of the checkout
 (listed in ``.gitignore``), keyed by a hash of the sources and the flags, so
 an edited source rebuilds and an unchanged one loads at once.  Only sources
 in the checkout are used.  The compiler's report (registers, shared memory,
-spills from ``-Xptxas=-v``) is kept beside each library as ``.log``.
+spills from ``-Xptxas=-v``) is kept beside each library as ``.log``;
+:func:`ptxas_report` reads it per kernel.
 
 Several sources build in parallel: one ``nvcc`` process per source, all
 started together.  A build error raises with the compiler's output.
@@ -100,6 +101,21 @@ def build_log(name: str) -> str:
     """The compiler's report for the current build of ``name`` ("" if none)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_report(name: str) -> dict[str, str]:
+    """Per kernel of ``name``'s current build, ptxas's register and spill
+    lines joined into one ("Used 168 registers, ...; 0 bytes spill stores,
+    0 bytes spill loads"), keyed by the mangled function name."""
+    report: dict[str, list[str]] = {}
+    fn = None
+    for line in build_log(name).splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif fn and ("registers" in line or "spill" in line):
+            report.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    return {fn: "; ".join(lines) for fn, lines in report.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,17 +4,21 @@ versions and the ``torch.autograd.Function`` that ties them together.
 Replaces the three Pallas TPU kernels of
 ``finetune_controller_tpu/ops/pallas/flash_attention.py`` (``_fwd_kernel``,
 ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) and their ``custom_vjp``.  The
-kernel source is ``csrc/flash_attention.cu``; its note gives the design.  In
-short:
+kernel source is ``csrc/flash_attention.cu`` (with the Hopper building
+blocks of ``csrc/sm90.cuh``); its note gives the design.  In short:
 
 * what bounds them on the H100 is operations (2·D FLOP per attended
   (query, key) pair and product, on tiles reused from shared memory);
 * one block per (query tile, head, batch row) for the forward and dQ, one per
   (key tile, KV head, batch row) for dK/dV, which sums the GQA group inside
-  the block (no atomics: deterministic); loops stop at the causal frontier;
-  ragged tails are masked in the kernel, nothing is padded;
-* bf16 products run on the tensor cores (``mma.sync``, f32 accumulation),
-  f32 products as FMAs on the CUDA cores.
+  the block (no atomics: deterministic); ragged tails are masked in the
+  kernel, nothing is padded;
+* the bf16 forward and dK/dV are Hopper kernels: a producer warp streams
+  tiles by TMA through a ring of shared-memory stages, consumer warpgroups
+  run ``wgmma`` on them, and tile pairs that :func:`live_tiles` marks dead
+  (past the causal frontier, or documents that cannot meet) are skipped;
+* bf16 dQ runs ``mma.sync`` over every causal key tile; f32 products run as
+  FMAs on the CUDA cores.
 
 Layouts are the reference's: q, out, dO (B, S, H, D); k, v (B, S, Hkv, D);
 segment ids (B, S) int32; ``lse`` and ``delta`` (B, H, S) f32 here, with
@@ -51,6 +55,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
+#: (query tile, key tile) of each bf16 kernel: the tile pairs it computes
+#: are those :func:`live_tiles` marks at these sizes.  dQ skips only the
+#: tiles past the causal frontier (its segment ids count as one document).
+TILES = {"flash_forward": (128, 128), "flash_backward_dq": (64, 64),
+         "flash_backward_dkv": (64, 128)}
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -78,6 +89,41 @@ def _live(s, device, qseg, kseg, causal):
     if qseg is not None:
         mask = mask & (qseg[:, None, None, :, None] == kseg[:, None, None, None, :])
     return mask
+
+
+def live_tiles(segment_ids, kv_segment_ids, tile_q: int, tile_k: int,
+               causal: bool) -> torch.Tensor:
+    """(B, ⌈S/tile_q⌉, ⌈S/tile_k⌉) bool: the (query tile, key tile) pairs
+    that can hold a live (query, key) pair.  A pair is dead when its first
+    key lies past the query tile's last query (causal), or when the query
+    tile's [min, max] segment id and the key tile's are disjoint — which
+    holds for any ids, monotone or not.  The bf16 Hopper kernels compute the
+    same predicate and skip dead pairs; every live pair of :func:`_live`
+    lies in a live tile pair.  Either id tensor may be None (as in
+    :func:`_segments`), not both."""
+    if segment_ids is None and kv_segment_ids is None:
+        raise ValueError("live_tiles needs segment ids for the batch shape")
+    ref = segment_ids if segment_ids is not None else kv_segment_ids
+    b, s = ref.shape
+    qseg, kseg = _segments(segment_ids, kv_segment_ids, b, s, ref.device)
+
+    def ranges(ids, tile):
+        n = -(-s // tile)
+        pad = n * tile - s
+        info = torch.iinfo(torch.int32)
+        lo = torch.cat([ids, ids.new_full((b, pad), info.max)], 1).view(b, n, tile).amin(-1)
+        hi = torch.cat([ids, ids.new_full((b, pad), info.min)], 1).view(b, n, tile).amax(-1)
+        return lo, hi
+
+    qlo, qhi = ranges(qseg, tile_q)
+    klo, khi = ranges(kseg, tile_k)
+    live = (qlo[:, :, None] <= khi[:, None, :]) & (klo[:, None, :] <= qhi[:, :, None])
+    if causal:
+        q_last = torch.clamp(torch.arange(qlo.shape[1], device=ref.device) * tile_q + tile_q,
+                             max=s) - 1
+        k_first = torch.arange(klo.shape[1], device=ref.device) * tile_k
+        live &= (k_first[None, :] <= q_last[:, None])[None]
+    return live
 
 
 def _round(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -204,6 +250,12 @@ def _seg_args(segment_ids, kv_segment_ids, b, s, device):
     return qseg.to(device).contiguous(), kseg.to(device).contiguous()
 
 
+def _dense(*xs):
+    """Each tensor contiguous and 16-byte aligned (the TMA loads need it)."""
+    return tuple(x if x.is_contiguous() and x.data_ptr() % 16 == 0
+                 else x.clone(memory_format=torch.contiguous_format) for x in xs)
+
+
 def _ptr(x) -> int | None:
     return None if x is None else x.data_ptr()
 
@@ -220,7 +272,7 @@ def flash_forward(q, k, v, segment_ids=None, kv_segment_ids=None, causal: bool =
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, segment_ids, kv_segment_ids, causal)
     b, s, h, hkv, d = _check("flash_forward", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _dense(q, k, v)
     qseg, kseg = _seg_args(segment_ids, kv_segment_ids, b, s, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -242,7 +294,7 @@ def flash_backward_dq(q, k, v, dout, lse, delta, segment_ids=None, kv_segment_id
         return _backward_plain(q, k, v, dout, lse, delta, segment_ids, kv_segment_ids,
                                causal)[0]
     b, s, h, hkv, d = _check("flash_backward_dq", q, k, v, dout, lse, delta)
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    q, k, v, dout = _dense(q, k, v, dout)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     qseg, kseg = _seg_args(segment_ids, kv_segment_ids, b, s, q.device)
     dq = torch.empty_like(q)
@@ -265,7 +317,7 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, segment_ids=None, kv_segment_i
         return _backward_plain(q, k, v, dout, lse, delta, segment_ids, kv_segment_ids,
                                causal)[1:]
     b, s, h, hkv, d = _check("flash_backward_dkv", q, k, v, dout, lse, delta)
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    q, k, v, dout = _dense(q, k, v, dout)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     qseg, kseg = _seg_args(segment_ids, kv_segment_ids, b, s, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -8,8 +8,13 @@ that weighs both outputs (so the lse cotangent is non-zero) are compared in
 f32: atol 1e-5 for the outputs, 1e-4 for the gradients (summation order
 only).
 
-The CUDA kernels are held against the plain versions on the card; those
-tests carry the ``cuda`` marker and skip without one.
+``live_tiles`` (the tile-skipping predicate of the Hopper kernels) is
+checked on the CPU: every live (query, key) pair lies in a live tile pair,
+on packed, non-monotonic and trailing-padding segment ids at a ragged S.
+
+The CUDA kernels are held against the plain versions on the card, also on
+those segment layouts, and the Hopper kernels are checked to be bitwise
+deterministic; those tests carry the ``cuda`` marker and skip without one.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from finetune_controller_tpu_torch.ops.attention import (
     xla_causal_attention,
 )
 from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+from finetune_controller_tpu_torch.ops.kernels import flash_check
 
 torch.set_num_threads(1)
 
@@ -39,6 +45,10 @@ CASES = {
     "full_masked_rows": (2, 40, 4, 2, False, "distinct"),
 }
 D = 16
+
+# segment layouts of the tile-skipping checks, (B, S) at a ragged S
+LAYOUT_S = 300
+LAYOUTS = flash_check.segment_layouts(2, LAYOUT_S)
 
 
 @pytest.fixture(scope="module")
@@ -171,6 +181,43 @@ def test_dispatch_refusals(monkeypatch):
         causal_attention(q, q, q, impl="nope")
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (64, 128)])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_live_tiles_cover_live_pairs(name, tiles, causal):
+    """Every live (query, key) pair of ``_live`` lies in a tile pair that
+    ``live_tiles`` keeps, at a ragged S; where ids run up by one per
+    document (all but the non-monotonic and padded layouts) it keeps no
+    tile pair without one."""
+    tq, tk = tiles
+    seg = torch.from_numpy(LAYOUTS[name])
+    b, s = seg.shape
+    live = fa._live(s, seg.device, seg, seg, causal)[:, 0, 0]           # (B, S, S)
+    tiles_live = fa.live_tiles(seg, None, tq, tk, causal)
+    assert tiles_live.shape == (b, -(-s // tq), -(-s // tk))
+    covered = tiles_live.repeat_interleave(tq, 1)[:, :s].repeat_interleave(tk, 2)[:, :, :s]
+    assert not (live & ~covered).any()
+    if name in ("packed", "short_docs", "tile_edge"):
+        held = torch.nn.functional.pad(live.float(), (0, -s % tk, 0, -s % tq))
+        held = held.reshape(b, -(-s // tq), tq, -(-s // tk), tk).amax((2, 4)) > 0
+        assert torch.equal(held, tiles_live)
+
+
+def test_live_tiles_skip_work_on_packed_batches():
+    """On packed documents fewer tile pairs are live than causal ones, at
+    every kernel's tile sizes; one document keeps every causal pair."""
+    seg = torch.from_numpy(LAYOUTS["packed"])
+    for name, (tq, tk) in fa.TILES.items():
+        causal_only = fa.live_tiles(torch.zeros_like(seg), None, tq, tk, True)
+        packed = fa.live_tiles(seg, None, tq, tk, True)
+        assert packed.sum() < causal_only.sum(), name
+        assert not (packed & ~causal_only).any()
+    one_doc = fa.live_tiles(torch.ones_like(seg), None, 64, 64, True)
+    assert torch.equal(one_doc, fa.live_tiles(torch.zeros_like(seg), None, 64, 64, True))
+    with pytest.raises(ValueError, match="segment ids"):
+        fa.live_tiles(None, None, 64, 64, True)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -178,13 +225,23 @@ def cuda():
     return torch.device("cuda")
 
 
+def _card_case(name):
+    """(b, s, h, hkv, causal, seg, kvseg) of a card test case: CASES, or a
+    segment layout at (2, LAYOUT_S, 8, 2), causal."""
+    if name in CASES:
+        b, s, h, hkv, causal, _ = CASES[name]
+        _, seg, kvseg, _ = _inputs(name)
+        return b, s, h, hkv, causal, seg, kvseg
+    return 2, LAYOUT_S, 8, 2, True, LAYOUTS[name], None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(LAYOUTS))
 def test_kernels_match_plain_on_card(cuda, name, d, dtype):
     """Each CUDA kernel against its plain version, one launch each."""
-    b, s, h, hkv, causal, segments = CASES[name]
+    b, s, h, hkv, causal, seg, kvseg = _card_case(name)
     gen = torch.Generator(device=cuda).manual_seed(len(name) + d)
 
     def rnd(*shape):
@@ -192,7 +249,6 @@ def test_kernels_match_plain_on_card(cuda, name, d, dtype):
 
     q, k, v, dout = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, h, d)
     dlse = torch.randn((b, h, s), generator=gen, device=cuda)
-    _, seg, kvseg, _ = _inputs(name)
     seg = None if seg is None else torch.from_numpy(seg).to(cuda)
     kvseg = None if kvseg is None else torch.from_numpy(kvseg).to(cuda)
     atol, rtol = fa.TOLERANCE[dtype]
@@ -207,6 +263,25 @@ def test_kernels_match_plain_on_card(cuda, name, d, dtype):
     for got, ref_val in ((out, out_ref), (lse, lse_ref), (dq, want[0]), (dk, want[1]),
                          (dv, want[2])):
         torch.testing.assert_close(got.float(), ref_val.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_hopper_kernels_are_deterministic(cuda, d):
+    """Two launches of the bf16 forward and dK/dV kernels give the same bits
+    (no atomics: the GQA sum and every tile order are fixed)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    b, s, h, hkv = 2, 640, 8, 2
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+                     for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d)))
+    seg = torch.from_numpy(flash_check.segment_layouts(b, s)["packed"]).to(cuda)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_forward(q, k, v, seg)
+        delta = fa.flash_delta(out, dout)
+        runs.append((out, lse, *fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg)))
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
