@@ -10,12 +10,15 @@ Phases (any failure exits non-zero and prints no result line):
 2. build every CUDA source of the port from ``finetune_controller_tpu_torch/
    csrc`` (one ``nvcc`` per source, in parallel) and check each kernel
    against its plain version at small shapes: the paged kernel in f32 and
-   bf16; the three flash kernels (T1) in f32 and bf16, D 64 and 128, GQA
-   groups 1 and 4, S 40/100/257, causal with segment ids and full attention
-   with fully masked rows, with a non-zero lse cotangent, and at S=300 on
-   the segment layouts of tile skipping (packed, 16-token documents,
-   boundaries on tile edges, non-monotonic ids, trailing padding); ptxas's
-   register and spill report of every kernel;
+   bf16, D 64/128/256, also at split edges (idx on and beside page and chunk
+   boundaries, lanes shorter than one split beside full ones, S·G on both
+   sides of the decode/prefill threshold, 1 to 7 splits), each launched
+   twice for identical bits; the three flash kernels (T1) in f32 and bf16,
+   D 64 and 128, GQA groups 1 and 4, S 40/100/257, causal with segment ids
+   and full attention with fully masked rows, with a non-zero lse
+   cotangent, and at S=300 on the segment layouts of tile skipping (packed,
+   16-token documents, boundaries on tile edges, non-monotonic ids,
+   trailing padding); ptxas's register and spill report of every kernel;
 3. build ``llama3-8b`` at full width (and full depth unless ``--layers``
    cuts it) in bf16 with random weights drawn on the card from ``--seed``;
 4. serve 12 requests through ``Batcher`` -> ``BatchEngine`` -> the paged
@@ -28,8 +31,11 @@ Phases (any failure exits non-zero and prints no result line):
    step failed, and that the paged kernel was launched;
 6. hold the paged kernel against its plain version on the card at the
    engine's shapes (decode B=8, S=1 over the pool and tables the run
-   produced; prefill B=1, S=512), and time kernel, plain version and the
-   library yardstick beside the kernel's bound;
+   produced; prefill B=1, S=512; the suffix prefill after a prefix hit,
+   B=1, S=128, idx=300), check that two launches give the same bits, and
+   time kernel, plain version and the library yardstick (CUDA-graph
+   replays, so the wrapper's host work is not timed; the kernel also back
+   to back) beside the kernel's bound and its split count;
 7. compare first-token logits of the model's paged prefill under
    ``FTC_PAGED_ATTN=kernel`` and ``FTC_PAGED_ATTN=gather``;
 8. (T2) train ``llama3-8b`` at full width and depth through
@@ -46,9 +52,9 @@ Phases (any failure exits non-zero and prints no result line):
     Hkv=8, D=128, bf16, the packed microbatch's segment ids): kernel, plain
     and library times beside the bound, the error against the plain
     version, the share of tile pairs it executes (``live_tiles`` at its tile
-    sizes), its rate on that executed work and its share of the bound, and
-    the Hopper forward and dK/dV with no segment ids (every causal tile
-    pair); the two launched twice must give the same bits;
+    sizes), its rate on that executed work and its share of the bound, each
+    with no segment ids too (every causal tile pair), beside its time before
+    the Hopper redesign; each launched twice must give the same bits;
 11. print the ``kernels``, ``serve`` and ``train`` lines, the card line, and
     last ``{"ok": true, "device": {...}}``.
 
@@ -77,6 +83,12 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 #: first-token logits, kernel vs gather engine path: max |diff| over the
 #: largest |logit| (bf16 activations through every layer; see PERF.md)
 LOGITS_REL_TOL = 0.05
+#: each kernel's time before its Hopper redesign, in ms at the shapes this
+#: script times it (PERF.md §6: the flash kernels on mma.sync, the paged
+#: kernel on the CUDA cores with one block per (KV head, lane)), printed
+#: beside the new time
+EARLIER_MS = {"flash_forward": 0.733, "flash_backward_dq": 1.066, "flash_backward_dkv": 1.997,
+              "paged decode": 0.0656, "paged prefill": 0.3408}
 
 
 def log(msg: str) -> None:
@@ -89,9 +101,9 @@ def fail(msg: str) -> int:
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_fwd_wg<128>`` from a mangled kernel name: the first name of
-    the port's kernels in it, with its first template argument as mangled
-    (``128``, ``f`` for float, ``13__nv_bfloat16``)."""
+    """``paged_attention_tc<128, true>`` from a mangled kernel name: the
+    first name of the port's kernels in it, with its template arguments
+    (numbers, ``true``/``false``, ``float``, class names)."""
     import re
 
     for m in re.finditer(r"(\d+)([A-Za-z_])", mangled):
@@ -101,25 +113,30 @@ def kernel_label(mangled: str) -> str:
             ident, rest = mangled[start:start + n], mangled[start + n:]
             if len(ident) == n and rest[:1] in ("I", "E", "v", "") \
                     and ident.startswith(("flash_", "paged_")):
-                arg = re.match(r"I(?:Li)?(\w+?)E", rest)
-                return ident + (f"<{arg.group(1)}>" if arg else "")
+                return ident + template_args(rest)
     return mangled
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn(i)`` over ``reps`` calls, CUDA events."""
-    import torch
+def template_args(rest: str) -> str:
+    """``<128, true>`` from the mangled ``ILi128ELb1EE...`` after a name."""
+    import re
 
-    for i in range(3):
-        fn(i)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for i in range(reps):
-        fn(i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    if not rest.startswith("I"):
+        return ""
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        if m := re.match(r"L([a-z])(\d+)E", rest[i:]):
+            kind, value = m.groups()
+            args.append({"1": "true", "0": "false"}[value] if kind == "b" else value)
+        elif m := re.match(r"(\d+)", rest[i:]):  # a class name, length first
+            n = int(m.group(1))
+            args.append(rest[i + m.end():i + m.end() + n])
+            i += n
+        else:
+            m = re.match(r".", rest[i:])
+            args.append({"f": "float", "i": "int"}.get(m.group(0), m.group(0)))
+        i += m.end()
+    return "<" + ", ".join(args) + ">"
 
 
 def make_requests(seed: int, vocab: int):
@@ -145,35 +162,13 @@ def make_requests(seed: int, vocab: int):
 
 
 def kernel_check_small() -> float:
-    """First launch: each dtype at a small shape against the plain version."""
+    """First launches of the paged kernel: ``paged_check.check`` (random
+    shapes and the split edges, f32 and bf16, each launched twice).
+    Returns the worst bf16 error."""
     import torch
-    from finetune_controller_tpu_torch.ops.kernels.paged_attention import (
-        TOLERANCE, paged_attention, paged_attention_reference,
-    )
+    from finetune_controller_tpu_torch.ops.kernels import paged_check
 
-    worst = 0.0
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, s, h, hkv, d, t, mp, p in ((3, 1, 8, 2, 128, 16, 5, 9),
-                                           (1, 37, 4, 2, 64, 16, 4, 6),
-                                           (2, 5, 8, 1, 256, 7, 6, 12)):
-            q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((p, t, hkv, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((p, t, hkv, d), generator=gen, device="cuda").to(dtype)
-            table = torch.randint(0, p, (b, mp), generator=gen, device="cuda", dtype=torch.int32)
-            table[:, -1] = 0
-            idx = torch.randint(0, mp * t - s + 1, (b,), generator=gen, device="cuda",
-                                dtype=torch.int32)
-            got = paged_attention(q, k, v, table, idx)
-            want = paged_attention_reference(q, k, v, table, idx)
-            torch.cuda.synchronize()
-            atol, rtol = TOLERANCE[dtype]
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err) if dtype == torch.bfloat16 else worst
-            if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
-                raise AssertionError(
-                    f"kernel vs plain at {(b, s, h, hkv, d, t, mp)} {dtype}: max err {err}")
-    return worst
+    return paged_check.check(torch.Generator(device="cuda").manual_seed(0))
 
 
 FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
@@ -269,8 +264,9 @@ def flash_check_small() -> dict:
 def executed_pairs(seg, tile_q: int, tile_k: int, skips_segments: bool):
     """(query, key) pairs a causal kernel with these tiles computes on the
     segment ids ``seg`` — every pair of each tile pair ``live_tiles`` keeps,
-    with the ids counted as one document when the kernel skips only
-    causally dead tiles — and the share of causal tile pairs it keeps."""
+    with the ids counted as one document when the kernel is given none
+    (``skips_segments`` false) — and the share of causal tile pairs it
+    keeps."""
     import torch
     from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -294,6 +290,7 @@ def flash_bench(seg, reps: int, seed: int) -> dict:
     import torch
     import torch.nn.functional as F
     from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.ops.kernels.timing import cuda_time_ms
 
     b, s = seg.shape
     h, hkv, d = 32, 8, 128
@@ -331,10 +328,11 @@ def flash_bench(seg, reps: int, seed: int) -> dict:
     }
     # the Hopper kernels are deterministic: a second launch gives the same bits
     first, second = ((*fa.flash_forward(q, k, v, seg, None, True),
+                      fa.flash_backward_dq(q, k, v, dout, lse, delta, seg, None, True),
                       *fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None, True))
                      for _ in range(2))
     if not all(torch.equal(x, y) for x, y in zip(first, second)):
-        raise AssertionError("flash forward / dK/dV: two launches differ")
+        raise AssertionError("flash forward / dQ / dK/dV: two launches differ")
 
     # the work this data needs: the live (query, key) pairs, causal and
     # within one document
@@ -355,19 +353,19 @@ def flash_bench(seg, reps: int, seed: int) -> dict:
     delta_c = fa.flash_delta(out_c, dout)
     no_segments = {
         "flash_forward": lambda i: fa.flash_forward(q, k, v, None, None, True),
+        "flash_backward_dq": lambda i: fa.flash_backward_dq(q, k, v, dout, lse_c, delta_c,
+                                                            None, None, True),
         "flash_backward_dkv": lambda i: fa.flash_backward_dkv(q, k, v, dout, lse_c, delta_c,
                                                               None, None, True),
     }
     out_rows = {}
     for name, (kern, plain, lib) in variants.items():
         tq, tk = fa.TILES[name]
-        executed, live_share = executed_pairs(seg, tq, tk, name != "flash_backward_dq")
-        row = {}
-        if name in no_segments:
-            all_causal, _ = executed_pairs(seg, tq, tk, False)
-            ms_all = cuda_time_ms(no_segments[name], reps)
-            row = dict(ms_no_segments=ms_all,
-                       tflops_no_segments=per_pair[name] * all_causal / (ms_all * 1e-3) / 1e12)
+        executed, live_share = executed_pairs(seg, tq, tk, True)
+        all_causal, _ = executed_pairs(seg, tq, tk, False)
+        ms_all = cuda_time_ms(no_segments[name], reps)
+        row = dict(ms_no_segments=ms_all,
+                   tflops_no_segments=per_pair[name] * all_causal / (ms_all * 1e-3) / 1e12)
         ms = cuda_time_ms(kern, reps)
         plain_ms = cuda_time_ms(plain, max(2, reps // 4))
         library_ms = cuda_time_ms(lib, reps)
@@ -426,13 +424,15 @@ def serve(engine, reqs):
 
 def attention_bench(kv, q, table, idx, reps):
     """Kernel / plain / library times (ms) cycling over every layer's pools,
-    so the pools come from HBM as in the real step; max error vs plain."""
+    so the pools come from HBM as in the real step; max error vs plain, the
+    split count, and a check that two launches give the same bits."""
     import torch
     import torch.nn.functional as F
     from finetune_controller_tpu_torch.ops.attention import paged_gather
     from finetune_controller_tpu_torch.ops.kernels.paged_attention import (
-        TOLERANCE, paged_attention, paged_attention_reference,
+        TOLERANCE, paged_attention, paged_attention_reference, paged_splits,
     )
+    from finetune_controller_tpu_torch.ops.kernels.timing import cuda_time_ms, graph_time_ms
 
     n_layers = kv.k.shape[0]
     b, s, h, d = q.shape
@@ -463,11 +463,19 @@ def attention_bench(kv, q, table, idx, reps):
         lib_err = (lib.float() - want.float()).abs().max().item()
         if lib_err > 0.1:
             raise AssertionError(f"library yardstick disagrees with plain by {lib_err}")
-    ms = cuda_time_ms(lambda i: paged_attention(q, kv.k[i % n_layers], kv.v[i % n_layers],
-                                                table, idx), reps)
-    plain_ms = cuda_time_ms(lambda i: paged_attention_reference(
-        q, kv.k[i % n_layers], kv.v[i % n_layers], table, idx), reps)
-    library_ms = cuda_time_ms(library, reps)
+        if not torch.equal(got, paged_attention(q, kv.k[layer], kv.v[layer], table, idx).float()):
+            raise AssertionError("two launches give different bits")
+    splits = paged_splits(b, s, h, hkv, cap, q.dtype,
+                          torch.cuda.get_device_properties(q.device).multi_processor_count)
+    def kernel(i):
+        return paged_attention(q, kv.k[i % n_layers], kv.v[i % n_layers], table, idx)
+
+    def plain(i):
+        return paged_attention_reference(q, kv.k[i % n_layers], kv.v[i % n_layers], table, idx)
+
+    # device time of graph replays; back-to-back calls beside it (host work included)
+    ms, plain_ms, library_ms = (graph_time_ms(fn, reps) for fn in (kernel, plain, library))
+    eager_ms = cuda_time_ms(kernel, reps)
     # bound: each attended K/V row once, q and out once, table and index once
     rows = torch.clamp(idx.long() + s, max=cap).sum().item()
     item = kv.k.element_size()
@@ -476,8 +484,8 @@ def attention_bench(kv, q, table, idx, reps):
     attended = sum(min(cap, int(i0) + j + 1) for i0 in idx.tolist() for j in range(s))
     flops = 4 * h * d * attended
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=worst,
-                bound_ms=max(bytes_ms, flops_ms),
+    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+                max_abs_err=worst, splits=splits, bound_ms=max(bytes_ms, flops_ms),
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                 bytes=int(nbytes), flops=int(flops))
 
@@ -636,13 +644,24 @@ def serve_phase(args):
         shapes["prefill"] = attention_bench(
             engine.kv, q, table, torch.zeros((1,), dtype=torch.int32, device="cuda"),
             max(8, args.reps // 4))
+        # the suffix after a hit on the shared 300-token prefix
+        q = torch.randn((1, 128, cfg.n_heads, cfg.head_dim), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        shapes["suffix prefill"] = attention_bench(
+            engine.kv, q, table, torch.full((1,), 300, dtype=torch.int32, device="cuda"),
+            max(8, args.reps // 4))
     except (AssertionError, RuntimeError, ValueError) as e:
         raise SmokeFailure(f"kernel at engine shapes: {e}") from e
     for name, r in shapes.items():
-        log(f"paged_attention {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        earlier = EARLIER_MS.get(f"paged {name}")
+        log(f"paged_attention {name}: kernel {r['ms']:.4f} ms ("
+            + (f"before the redesign {earlier} ms" if earlier else "no earlier time")
+            + f"; {r['eager_ms']:.4f} ms back to back with the wrapper's host work), "
+            f"{r['splits']} split(s), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bytes']} B, {r['flops']} FLOP), "
-            f"max abs err {r['max_abs_err']:.4g} (tolerance {TOLERANCE[torch.bfloat16]})")
+            f"max abs err {r['max_abs_err']:.4g} (tolerance {TOLERANCE[torch.bfloat16]}), "
+            "two launches identical")
 
     prompts = [reqs[i].tokens for i in (0, 5, 7)]
     try:
@@ -674,8 +693,8 @@ def serve_phase(args):
         "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
-        "shapes": {name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms", "max_abs_err")}
+        "shapes": {name: {k: r[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "max_abs_err", "splits")}
                    for name, r in shapes.items()},
     }
     summary = {
@@ -1011,15 +1030,18 @@ def main(argv=None) -> int:
     except (AssertionError, RuntimeError, ValueError) as e:
         return fail(f"training phases: {type(e).__name__}: {e}")
     for name, r in flash.items():
-        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, library "
+        log(f"{name}: kernel {r['ms']:.4f} ms (mma.sync kernel before {EARLIER_MS[name]} ms), "
+            f"plain {r['plain_ms']:.3f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
             f"share of bound {r['bound_share']:.3f}), tiles {r['tiles']}: live-tile share "
             f"{r['live_tile_share']:.3f}, {r['executed_flops'] / 1e9:.1f} GFLOP executed at "
             f"{r['tflops']:.1f} TFLOP/s, max abs err {r['max_abs_err']:.4g} "
             f"(tolerance {fa.TOLERANCE[torch.bfloat16]})")
-        if "ms_no_segments" in r:
-            log(f"  {name} with no segment ids (every causal tile pair): "
-                f"{r['ms_no_segments']:.4f} ms, {r['tflops_no_segments']:.1f} TFLOP/s")
+        log(f"  {name} with no segment ids (every causal tile pair): "
+            f"{r['ms_no_segments']:.4f} ms, {r['tflops_no_segments']:.1f} TFLOP/s")
+    backward = flash["flash_backward_dq"]["ms"] + flash["flash_backward_dkv"]["ms"]
+    log(f"port backward (dQ + dK/dV) {backward:.4f} ms vs SDPA's whole backward "
+        f"{flash['flash_backward_dq']['library_ms']:.4f} ms")
 
     # the record
     src = "finetune_controller_tpu_torch/csrc/flash_attention.cu"
@@ -1037,7 +1059,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": serve_summary}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",
-                              "ms_no_segments", "tflops_no_segments") if f in r}
+                              "ms_no_segments", "tflops_no_segments")}
         for k, r in flash.items()}}}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 // Replaces the three Pallas TPU kernels of
 // finetune_controller_tpu/ops/pallas/flash_attention.py:
 //   wg::flash_fwd_wg / flash_fwd_kernel         <- _fwd_kernel (pallas_call in _flash_forward)
-//   tc::flash_bwd_dq_tc / flash_bwd_dq_kernel   <- _bwd_dq_kernel (first in _flash_backward)
+//   wg::flash_bwd_dq_wg / flash_bwd_dq_kernel   <- _bwd_dq_kernel (first in _flash_backward)
 //   wg::flash_bwd_dkv_wg / flash_bwd_dkv_kernel <- _bwd_dkv_kernel (second in _flash_backward)
 // (the bf16 / the f32 kernel of each, for head dims 64 and 128).
 // Same contract: q, dO, out (B, S, H, D); k, v (B, S, Hkv, D) with head h
@@ -21,20 +21,17 @@
 // batch only the pairs inside one document count, so the work the data
 // needs is below the causal square.
 //
-// Three paths, chosen by dtype and kernel:
-//   * bf16 forward and dK/dV (the training path) are Hopper kernels,
-//     namespace wg: a producer warp keeps TMA loads of the next tiles in
-//     flight through a ring of shared-memory stages while consumer
-//     warpgroups run wgmma on the current one; the tile pairs whose
-//     documents cannot meet, or that lie past the causal frontier, are
-//     skipped (described above namespace wg);
-//   * bf16 dQ runs mma.sync.m16n8k16 (bf16 in, f32 accumulate) with tiles
-//     staged by all threads, namespace tc;
+// Two paths, chosen by dtype:
+//   * bf16 (the training path): Hopper kernels, namespace wg.  A producer
+//     warp keeps TMA loads of the next tiles in flight through a ring of
+//     shared-memory stages while consumer warpgroups run wgmma on the
+//     current one; the tile pairs whose documents cannot meet, or that lie
+//     past the causal frontier, are skipped (described above namespace wg);
 //   * f32 runs its products as FMAs on the CUDA cores (the card's 67 TFLOP/s
 //     f32 rate), so f32 results differ from the plain version only in
 //     summation order.
 //
-// Design, all paths:
+// Design, both paths:
 //   * one block per (query tile, query head, batch row) for the forward and
 //     dQ, one per (key tile, KV head, batch row) for dK/dV; the sequential
 //     grid axis of the TPU kernels becomes a loop inside the block;
@@ -42,7 +39,8 @@
 //     tiles up to the tile's last query, dK/dV walk query tiles from the tile
 //     holding its first key;
 //   * dK/dV loops over every query head of its KV head's group inside the
-//     block, so the GQA sum needs no atomics and is deterministic;
+//     block, so the GQA sum needs no atomics; no kernel uses atomics, so two
+//     launches give the same bits;
 //   * ragged tails are masked in the kernel: rows at or past S read as zero
 //     (the TMA loads zero-fill them) and are never written (the TPU path pads
 //     because its DMAs clamp).
@@ -497,228 +495,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ on the tensor cores: mma.sync.m16n8k16 (bf16 x bf16 -> f32)
-//
-// Each warp owns 16 query rows of a tile and keeps its score tile and
-// accumulator as mma fragments: a thread holds rows g = lane / 4 and g + 8,
-// columns 2t and 2t + 1 (t = lane % 4) of every 8-column slice.  A row's
-// owners are the 4 lanes of a quad, so row max and sum are two shuffles.  A
-// ds fragment converts in registers into the A operand of the next product
-// (FlashAttention-2's layout trick), rounded to bf16 as the Pallas kernel
-// rounds ds.  Tiles stay bf16 in shared memory, rows padded by 8 elements so
-// the 32-bit fragment reads of a warp hit 32 distinct banks; K, which the
-// dQ product needs along the other axis, is staged transposed once per tile.
-// ---------------------------------------------------------------------------
-
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-constexpr int NT = 128;  // 4 warps
-
-__device__ __forceinline__ uint32_t ld32(const bf16* base, int ld, int row, int col) {
-  return *reinterpret_cast<const uint32_t*>(base + row * ld + col);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a (16x16, row-major fragment) * b (16x8, column fragment)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 16) of a row-major tile
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* m, int ld, int r0, int c0,
-                                       int g, int t) {
-  a[0] = ld32(m, ld, r0 + g, c0 + 2 * t);
-  a[1] = ld32(m, ld, r0 + g + 8, c0 + 2 * t);
-  a[2] = ld32(m, ld, r0 + g, c0 + 8 + 2 * t);
-  a[3] = ld32(m, ld, r0 + g + 8, c0 + 8 + 2 * t);
-}
-
-// The A fragment of columns [16 kk, 16 kk + 16) of a 16-row score fragment.
-template <int N>
-__device__ __forceinline__ void frag_from_scores(uint32_t (&a)[4], const float (&s)[N][4], int kk) {
-  a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-// acc[i][j] += sum_k A[rows of the warp][k] * B[8i + j'][k] over k < D: A's
-// fragments from row-major `a_s` (rows r0..), B from row-major `b_s` (its
-// rows are the output columns).
-template <int D, int NC>
-__device__ __forceinline__ void mma_nt(float (&acc)[NC / 8][4], const bf16* a_s, const bf16* b_s,
-                                       int ld, int r0, int g, int t) {
-#pragma unroll
-  for (int k = 0; k < D; k += 16) {
-    uint32_t a[4];
-    frag_a(a, a_s, ld, r0, k, g, t);
-#pragma unroll
-    for (int j = 0; j < NC / 8; ++j)
-      mma(acc[j], a, ld32(b_s, ld, 8 * j + g, k + 2 * t), ld32(b_s, ld, 8 * j + g, k + 8 + 2 * t));
-  }
-}
-
-// acc[n][.] += P (16 x NK, from score fragments) * M (NK x D), with M given
-// transposed (`mt_s`, D rows of NK + 8).
-template <int D, int NK>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[NK / 8][4],
-                                       const bf16* mt_s, int g, int t) {
-  constexpr int LDT = NK + 8;
-#pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) {
-    uint32_t a[4];
-    frag_from_scores<NK / 8>(a, p, kk);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      mma(acc[n], a, ld32(mt_s, LDT, 8 * n + g, 16 * kk + 2 * t),
-          ld32(mt_s, LDT, 8 * n + g, 16 * kk + 8 + 2 * t));
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Rows [row0, row0 + ROWS) of one head's slice into a bf16 tile with leading
-// dimension `ld` (rows at or past S read as zero).
-template <int D, int ROWS>
-__device__ __forceinline__ void stage(bf16* dst, int ld, const bf16* src, int row0, int S,
-                                      int64_t stride) {
-  constexpr int VPR = D / 8;
-  for (int e = threadIdx.x; e < ROWS * VPR; e += NT) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) v = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-// The same rows transposed: dst[c][r] with leading dimension ROWS + 8.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_t(bf16* dst, const bf16* src, int row0, int S,
-                                        int64_t stride) {
-  constexpr int LDT = ROWS + 8;
-  for (int e = threadIdx.x; e < ROWS * (D / 8); e += NT) {
-    const int r = e % ROWS, c = (e / ROWS) * 8;  // neighbouring threads: neighbouring rows
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) v = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * stride + c);
-    const bf16* x = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * LDT + r] = x[i];
-  }
-}
-
-__device__ __forceinline__ void store_pair(bf16* out, float lo, float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(lo, hi);
-}
-
-template <int D> struct Dq {
-  static constexpr int BQ = 64, BK = 64, LD = D + 8;
-  static constexpr size_t smem =
-      ((size_t)(2 * BQ + 2 * BK) * LD + (size_t)D * (BK + 8)) * sizeof(bf16) +
-      (BQ + BK) * sizeof(int);
-};
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                const bf16* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, const int* __restrict__ qseg,
-                const int* __restrict__ kseg, bf16* __restrict__ dq, int S, int H, int Hkv,
-                float scale, int causal) {
-  using C = Dq<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NJ = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + BQ * LD;
-  bf16* k_s = do_s + BQ * LD;
-  bf16* v_s = k_s + BK * LD;
-  bf16* kt_s = v_s + BK * LD;
-  int* qseg_s = reinterpret_cast<int*>(kt_s + D * (BK + 8));
-  int* kseg_s = qseg_s + BQ;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, r0 = (threadIdx.x / 32) * 16;
-  const int64_t qstride = (int64_t)H * D, kstride = (int64_t)Hkv * D;
-  const int64_t qoff = ((int64_t)b * S * H + h) * D, koff = ((int64_t)b * S * Hkv + kvh) * D;
-  const int64_t row_stats = ((int64_t)b * H + h) * S;
-
-  stage<D, BQ>(q_s, LD, q + qoff, q0, S, qstride);
-  stage<D, BQ>(do_s, LD, dout + qoff, q0, S, qstride);
-  if (qseg) load_segments(qseg_s, qseg, b, q0, BQ, S, NT);
-
-  float lse_r[2], delta_r[2], acc[D / 8][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = q0 + r0 + g + 8 * r;
-    lse_r[r] = qp < S ? lse[row_stats + qp] : 0.f;
-    delta_r[r] = qp < S ? delta[row_stats + qp] : 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    stage<D, BK>(k_s, LD, k + koff, k0, S, kstride);
-    stage<D, BK>(v_s, LD, v + koff, k0, S, kstride);
-    stage_t<D, BK>(kt_s, k + koff, k0, S, kstride);
-    if (qseg) load_segments(kseg_s, kseg, b, k0, BK, S, NT);
-    __syncthreads();
-
-    float s[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_nt<D, BK>(s, q_s, k_s, LD, r0, g, t);
-    mma_nt<D, BK>(dp, do_s, v_s, LD, r0, g, t);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, rl = r0 + g + 8 * r, qp = q0 + rl;
-        const int cl = 8 * j + 2 * t + (e & 1), kp = k0 + cl;
-        const bool ok = kp < S && (!causal || qp >= kp) && (!qseg || qseg_s[rl] == kseg_s[cl]);
-        const float p = ok ? expf(s[j][e] * scale - lse_r[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - delta_r[r]);  // ds
-      }
-    mma_pv<D, BK>(acc, s, kt_s, g, t);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = q0 + r0 + g + 8 * r;
-    if (qp >= S) continue;
-    bf16* dst = dq + qoff + (int64_t)qp * qstride;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      store_pair(dst + 8 * n + 2 * t, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
-  }
-}
-
-}  // namespace tc
-
-// ---------------------------------------------------------------------------
-// bf16 forward and dK/dV on Hopper: wgmma fed by a TMA ring
+// bf16 forward, dQ and dK/dV on Hopper: wgmma fed by a TMA ring
 //
 // A block is NC consumer warpgroups plus one producer warpgroup.  One warp
 // of the producer issues the TMA loads of each live tile into a ring of ST
@@ -731,10 +508,12 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
 // descriptors as each product needs them (sm90.cuh), so nothing is staged
 // transposed:
 //   forward  S = Q Kᵀ       Q, K K-major     O += P V     V MN-major
+//   dQ       S = Q Kᵀ       Q, K K-major     dQ += dS K   K MN-major
+//            dP = dO Vᵀ     dO, V K-major
 //   dK/dV    Sᵀ = K Qᵀ      K, Q K-major     dV += Pᵀ dO  dO MN-major
 //            dPᵀ = V dOᵀ    V, dO K-major    dK += dSᵀ Q  Q MN-major
-// P, Pᵀ and dSᵀ go from the accumulator into the next product's register A
-// fragments, rounded to bf16 as the Pallas kernels round p and ds.
+// P, dS, Pᵀ and dSᵀ go from the accumulator into the next product's
+// register A fragments, rounded to bf16 as the Pallas kernels round p and ds.
 //
 // Tile skipping: before the split into roles every warp of the block reads
 // the segment ids of its tile pairs and marks a pair dead when its key tile
@@ -745,15 +524,17 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
 // further marked for the causal / bounds mask and for the segment compare,
 // so a pair fully inside one document and below the diagonal runs unmasked.
 //
-// Sizes: two consumer warpgroups, so a block holds 128 query rows (forward)
-// or 128 key rows (dK/dV) and reuses each streamed tile for both; key tiles
-// of 128 (forward), query tiles of 64 (dK/dV, where dK and dV stay in
-// registers, 2 x 64 a thread at D = 128).  setmaxnreg gives the consumers
-// 240 registers (forward) or 232 (dK/dV, whose producer also copies lse,
-// delta and segment ids and keeps 40); 384 threads launch at 168 each.
-// Causal work grows with the query tile in the forward and shrinks with the
-// key tile in dK/dV; the grid's y axis is ordered so the heaviest blocks get
-// the lowest indices and start first, and the light ones fill the tail.
+// Sizes: two consumer warpgroups, so a block holds 128 query rows (forward,
+// dQ) or 128 key rows (dK/dV) and reuses each streamed tile for both; key
+// tiles of 128 (forward) and 64 (dQ, whose 64 x 128 dQ accumulator takes 64
+// registers a thread beside S and dP, 32 each), query tiles of 64 (dK/dV,
+// where dK and dV stay in registers, 2 x 64 a thread at D = 128).
+// setmaxnreg gives the consumers 240 registers (forward, dQ) or 232 (dK/dV,
+// whose producer also copies lse, delta and segment ids and keeps 40); 384
+// threads launch at 168 each.  Causal work grows with the query tile in the
+// forward and dQ and shrinks with the key tile in dK/dV; the grid's y axis
+// is ordered so the heaviest blocks get the lowest indices and start first,
+// and the light ones fill the tail.
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -764,6 +545,26 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int LIVE = 1, BOUND_MASK = 2, SEG_MASK = 4;  // tile flags
 constexpr int TILE_BITS = 24;                           // list entry: tile | flags << 24
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store_pair(bf16* out, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(lo, hi);
+}
+
+// Reductions over the 4 lanes of a quad, which own one accumulator row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
 // [min, max] of seg[base + r] over rows r in [r0, r1), reduced over the warp
 // (0, 0 without segment ids).
@@ -807,6 +608,48 @@ __device__ __forceinline__ int compact(const int* flags, int* list, int n, int l
   return count;
 }
 
+// Flags of key tiles [0, nk) of BK rows for the query rows [q0, q_last],
+// written by the block's warps in turn (forward and dQ).
+template <int BK, int NT>
+__device__ __forceinline__ void key_tile_flags(const int* qseg, const int* kseg, int b, int S,
+                                               int q0, int q_last, int nk, int causal, int* flags,
+                                               int warp, int lane) {
+  int qlo, qhi;
+  seg_range(qseg, (int64_t)b * S, q0, q_last + 1, lane, qlo, qhi);
+  for (int t = warp; t < nk; t += NT / 32) {
+    const int k_first = t * BK;
+    int klo, khi;
+    seg_range(kseg, (int64_t)b * S, k_first, min(k_first + BK, S), lane, klo, khi);
+    const bool bound = (causal && k_first + BK - 1 > q0) || k_first + BK > S;
+    if (lane == 0) flags[t] = tile_flags(qlo, qhi, klo, khi, bound);
+  }
+}
+
+// Once the flags of n tiles are written: thread 0 initialises the barriers
+// (bars[0] for the block's resident tiles, one arrival; the ring's full[s]
+// = bars[1 + s], the 32 lanes of the producer warp; empty[s] = bars[1 + ST
+// + s], one lane of each of the 4 NC consumer warps), warp 0 compacts the
+// live tiles into `list`, and every thread gets their count.
+template <int ST, int NC>
+__device__ __forceinline__ int ring_setup(uint64_t* bars, const int* flags, int* list, int n,
+                                          int* n_live, int warp, int lane) {
+  if (threadIdx.x == 0) {
+    sm90::bar_init(&bars[0], 1);
+    for (int s = 0; s < ST; ++s) {
+      sm90::bar_init(&bars[1 + s], 32);
+      sm90::bar_init(&bars[1 + ST + s], 4 * NC);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int count = compact(flags, list, n, lane);
+    if (lane == 0) *n_live = count;
+  }
+  __syncthreads();
+  return *n_live;
+}
+
 // ---------------------------------------------------------------------------
 // forward: one block per (query tile of 64 NC rows, head, batch row)
 // ---------------------------------------------------------------------------
@@ -848,32 +691,8 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
   const int nk = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
   int* list = flags + nk;
 
-  {  // live key tiles of this query tile
-    int qlo, qhi;
-    seg_range(qseg, (int64_t)b * S, q0, q_last + 1, lane, qlo, qhi);
-    for (int t = warp; t < nk; t += C::NT / 32) {
-      const int k_first = t * BK;
-      int klo, khi;
-      seg_range(kseg, (int64_t)b * S, k_first, min(k_first + BK, S), lane, klo, khi);
-      const bool bound = (causal && k_first + BK - 1 > q0) || k_first + BK > S;
-      if (lane == 0) flags[t] = tile_flags(qlo, qhi, klo, khi, bound);
-    }
-    if (threadIdx.x == 0) {
-      sm90::bar_init(&bars[0], 1);
-      for (int s = 0; s < ST; ++s) {
-        sm90::bar_init(&full[s], 32);
-        sm90::bar_init(&empty[s], 4 * C::NC);
-      }
-      sm90::bar_init_fence();
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int n = compact(flags, list, nk, lane);
-      if (lane == 0) *n_live = n;
-    }
-    __syncthreads();
-  }
-  const int n = *n_live;
+  key_tile_flags<BK, C::NT>(qseg, kseg, b, S, q0, q_last, nk, causal, flags, warp, lane);
+  const int n = ring_setup<ST, C::NC>(bars, flags, list, nk, n_live, warp, lane);
   const int wgi = threadIdx.x / WG_THREADS;
 
   if (wgi == C::NC) {  // producer
@@ -960,7 +779,7 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     float alpha[2], sum[2] = {0.f, 0.f}, m_use[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], tc::quad_max(mx[r]));
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
       m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing live yet
       alpha[r] = exp2f(m[r] - m_use[r]);
       m[r] = m_new;
@@ -974,7 +793,7 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
         sum[e >> 1] += p;
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + tc::quad_sum(sum[r]);
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       o[4 * j + 0] *= alpha[0];
@@ -986,7 +805,7 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int x = 0; x < 4; ++x) pf[kk][x] = tc::pack(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+      for (int x = 0; x < 4; ++x) pf[kk][x] = pack(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
 
     sm90::fence_regs(o);
     sm90::mma_fence();
@@ -1008,7 +827,7 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     bf16* dst = out + (((int64_t)b * S + qp) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      tc::store_pair(dst + 8 * j + 2 * t4, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      store_pair(dst + 8 * j + 2 * t4, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (t4 == 0)
       lse[((int64_t)b * H + h) * S + qp] =
           l[r] > 0.f ? m[r] * LN2 + logf(l[r]) : NEG_INF + logf(L_FLOOR);
@@ -1062,7 +881,7 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int jb = causal ? k0 / BQ : 0;  // query tiles before it see none of these keys
   int* list = flags + (nq - jb);
 
-  {  // live query tiles of this key tile
+  {  // flags of the live query tiles of this key tile
     int klo, khi;
     seg_range(kseg, (int64_t)b * S, k0, min(k0 + BK, S), lane, klo, khi);
     for (int j = jb + warp; j < nq; j += C::NT / 32) {
@@ -1072,22 +891,8 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       const bool bound = (causal && qf < k0 + BK - 1) || qf + BQ > S || k0 + BK > S;
       if (lane == 0) flags[j - jb] = tile_flags(qlo, qhi, klo, khi, bound);
     }
-    if (threadIdx.x == 0) {
-      sm90::bar_init(&bars[0], 1);
-      for (int s = 0; s < ST; ++s) {
-        sm90::bar_init(&full[s], 32);
-        sm90::bar_init(&empty[s], 4 * C::NC);
-      }
-      sm90::bar_init_fence();
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int n = compact(flags, list, nq - jb, lane);
-      if (lane == 0) *n_live = n;
-    }
-    __syncthreads();
   }
-  const int n = *n_live;
+  const int n = ring_setup<ST, C::NC>(bars, flags, list, nq - jb, n_live, warp, lane);
   const int wgi = threadIdx.x / WG_THREADS;
 
   if (wgi == C::NC) {  // producer
@@ -1200,8 +1005,8 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             pv[y] = p;
             dsv[y] = p * (dpt[idx] - delta_t[c]);
           }
-          pf[kk][x] = tc::pack(pv[0], pv[1]);
-          dsf[kk][x] = tc::pack(dsv[0], dsv[1]);
+          pf[kk][x] = pack(pv[0], pv[1]);
+          dsf[kk][x] = pack(dsv[0], dsv[1]);
         }
 
       sm90::fence_regs(dv);
@@ -1235,10 +1040,191 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     const int64_t off = (((int64_t)b * S + kp) * Hkv + kvh) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      tc::store_pair(dk_out + off + 8 * j + 2 * t4, dk[4 * j + 2 * r] * scale,
+      store_pair(dk_out + off + 8 * j + 2 * t4, dk[4 * j + 2 * r] * scale,
                      dk[4 * j + 2 * r + 1] * scale);
-      tc::store_pair(dv_out + off + 8 * j + 2 * t4, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      store_pair(dv_out + off + 8 * j + 2 * t4, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ: one block per (query tile of 64 NC rows, head, batch row), laid out as
+// the forward.  Q and dO of the tile stay resident; K and V of each live key
+// tile stream through the ring.  Per tile pair and consumer warpgroup:
+//   S = Q Kᵀ, dP = dO Vᵀ (both ss, K-major), issued together; p from S while
+//   dP is still in flight; dS = p (dP − delta) rounded to bf16 into register
+//   A fragments; dQ += dS K with K read MN-major (rs).
+// ---------------------------------------------------------------------------
+
+template <int D> struct Dq {
+  static constexpr int NC = 2, BQ = 64 * NC, BK = 64, ST = 4;
+  static constexpr int NT = WG_THREADS * (NC + 1), P = D / 64;
+  static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr size_t DO_OFF = Q_BYTES, K_OFF = 2 * (size_t)Q_BYTES;
+  static constexpr size_t KSEG_OFF = K_OFF + (size_t)ST * 2 * KV_BYTES;
+  static constexpr size_t BAR_OFF = KSEG_OFF + ST * BK * sizeof(int);
+  static constexpr size_t LIST_OFF = BAR_OFF + (1 + 2 * ST) * sizeof(uint64_t) + 16;
+  static size_t smem(int n) { return 1024 + LIST_OFF + 2 * (size_t)n * sizeof(int); }
+};
+
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::NT, 1)
+flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const int* __restrict__ qseg, const int* __restrict__ kseg,
+                bf16* __restrict__ dq_out, int S, int H, int Hkv, float scale, int causal) {
+  using C = Dq<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::ST, P = C::P;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* q_s = reinterpret_cast<bf16*>(base);
+  bf16* do_s = reinterpret_cast<bf16*>(base + C::DO_OFF);
+  int* kseg_s = reinterpret_cast<int*>(base + C::KSEG_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);  // q + dO, full[ST], empty[ST]
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + ST;
+  int* n_live = reinterpret_cast<int*>(empty + ST);
+  int* flags = reinterpret_cast<int*>(base + C::LIST_OFF);
+
+  const int nqt = gridDim.y;
+  const int q0 = (nqt - 1 - (int)blockIdx.y) * BQ;  // heaviest causal tiles launch first
+  const int h = blockIdx.x % H, b = blockIdx.x / H, kvh = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int nk = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
+  int* list = flags + nk;
+
+  key_tile_flags<BK, C::NT>(qseg, kseg, b, S, q0, q_last, nk, causal, flags, warp, lane);
+  const int n = ring_setup<ST, C::NC>(bars, flags, list, nk, n_live, warp, lane);
+  const int wgi = threadIdx.x / WG_THREADS;
+
+  if (wgi == C::NC) {  // producer
+    sm90::regs_dec<24>();
+    if (warp % 4 != 0) return;
+    if (lane == 0) {
+      sm90::bar_arrive_tx(&bars[0], 2 * C::Q_BYTES);
+      for (int p = 0; p < P; ++p) {
+        sm90::tma_load_4d(q_s + p * BQ * 64, &tm_q, &bars[0], 64 * p, h, q0, b);
+        sm90::tma_load_4d(do_s + p * BQ * 64, &tm_do, &bars[0], 64 * p, h, q0, b);
+      }
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = i % ST;
+      sm90::bar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+      const int k0 = (list[i] & ((1 << TILE_BITS) - 1)) * BK;
+      if (kseg)
+        for (int r = lane; r < BK; r += 32)
+          kseg_s[s * BK + r] = k0 + r < S ? kseg[(int64_t)b * S + k0 + r] : 0;
+      if (lane == 0) {
+        sm90::bar_arrive_tx(&full[s], 2 * C::KV_BYTES);
+        bf16* k_s = reinterpret_cast<bf16*>(base + C::K_OFF + (size_t)s * 2 * C::KV_BYTES);
+        bf16* v_s = k_s + BK * D;
+        for (int p = 0; p < P; ++p) {
+          sm90::tma_load_4d(k_s + p * BK * 64, &tm_k, &full[s], 64 * p, kvh, k0, b);
+          sm90::tma_load_4d(v_s + p * BK * 64, &tm_v, &full[s], 64 * p, kvh, k0, b);
+        }
+      } else {
+        sm90::bar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns query rows q0 + 64 wgi .. + 63
+  sm90::regs_inc<240>();
+  const int wl = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int row[2] = {q0 + 64 * wgi + 16 * wl + g, q0 + 64 * wgi + 16 * wl + g + 8};
+  int qs[2] = {0, 0};
+  float lse2[2], dlt[2];  // lse in the log2 domain, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row[r] < S;
+    const int64_t at = ((int64_t)b * H + h) * S + row[r];
+    lse2[r] = in ? lse[at] * LOG2E : 0.f;
+    dlt[r] = in ? delta[at] : 0.f;
+    if (qseg) qs[r] = in ? qseg[(int64_t)b * S + row[r]] : 0;
+  }
+  const float c1 = scale * LOG2E;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // Q and dO K-major (this warpgroup's 64 rows)
+  const uint64_t dqa = sm90::desc(q_s + 64 * wgi * 64, 16, 1024);
+  const uint64_t doa = sm90::desc(do_s + 64 * wgi * 64, 16, 1024);
+  sm90::bar_wait(&bars[0], 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % ST;
+    const int entry = list[i], f = entry >> TILE_BITS;
+    const int k0 = (entry & ((1 << TILE_BITS) - 1)) * BK;
+    const bf16* k_s = reinterpret_cast<const bf16*>(base + C::K_OFF + (size_t)s * 2 * C::KV_BYTES);
+    const uint64_t dk = sm90::desc(k_s, 16, 1024);
+    const uint64_t dv = sm90::desc(k_s + BK * D, 16, 1024);
+    sm90::bar_wait(&full[s], (i / ST) & 1);
+
+    float sc[BK / 2], dp[BK / 2];
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::mma_ss<0, 0>(sc, sm90::desc_add(dqa, (kk / 4) * BQ * 128 + (kk % 4) * 32),
+                         sm90::desc_add(dk, (kk / 4) * BK * 128 + (kk % 4) * 32), kk > 0);
+    sm90::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::mma_ss<0, 0>(dp, sm90::desc_add(doa, (kk / 4) * BQ * 128 + (kk % 4) * 32),
+                         sm90::desc_add(dv, (kk / 4) * BK * 128 + (kk % 4) * 32), kk > 0);
+    sm90::mma_commit();
+    sm90::mma_wait<1>();  // S has landed; dP may still run
+    sm90::fence_regs(sc);
+
+    // p = exp(s·scale − lse), masked ones exactly 0
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) {
+      const int r = (x >> 1) & 1, c = 8 * (x >> 2) + 2 * t4 + (x & 1), kp = k0 + c;
+      bool ok = true;
+      if (f & BOUND_MASK) ok = kp < S && (!causal || row[r] >= kp);
+      if (f & SEG_MASK) ok = ok && qs[r] == kseg_s[s * BK + c];
+      sc[x] = ok ? exp2f(sc[x] * c1 - lse2[r]) : 0.f;
+    }
+    sm90::mma_wait<0>();
+    sm90::fence_regs(dp);
+
+    // ds = p (dp − delta), rounded to bf16 as the A fragments of dQ += dS K
+    uint32_t dsf[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i0 = 8 * kk + 2 * x, r = x & 1;
+        dsf[kk][x] = pack(sc[i0] * (dp[i0] - dlt[r]), sc[i0 + 1] * (dp[i0 + 1] - dlt[r]));
+      }
+
+    sm90::fence_regs(acc);
+    sm90::mma_fence();
+    {
+      const uint64_t dkt = sm90::desc(k_s, BK * 128, 1024);  // K MN-major (LBO: next 64 columns)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::mma_rs<1>(acc, dsf[kk], sm90::desc_add(dkt, kk * 16 * 128), 1);
+    }
+    sm90::mma_commit();
+    sm90::mma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(dsf);
+    if (lane == 0) sm90::bar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row[r];
+    if (qp >= S) continue;
+    bf16* dst = dq_out + (((int64_t)b * S + qp) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store_pair(dst + 8 * j + 2 * t4, acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
   }
 }
 
@@ -1333,25 +1319,31 @@ cudaError_t launch_wg_fwd(const Args& a) {
   const dim3 grid(a.H * a.B, (a.S + C::BQ - 1) / C::BQ);
   kernel<<<grid, C::NT, C::smem((a.S + C::BK - 1) / C::BK), a.stream>>>(
       tq, tk, tv, static_cast<const int*>(a.qseg), static_cast<const int*>(a.kseg),
-      static_cast<tc::bf16*>(a.out), static_cast<float*>(a.out2), a.S, a.H, a.Hkv, a.scale,
+      static_cast<wg::bf16*>(a.out), static_cast<float*>(a.out2), a.S, a.H, a.Hkv, a.scale,
       a.causal);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_tc_dq(const Args& a) {
-  using C = tc::Dq<D>;
+cudaError_t launch_wg_dq(const Args& a) {
+  using C = wg::Dq<D>;
   static bool ready = false;
-  auto kernel = tc::flash_bwd_dq_tc<D>;
-  cudaError_t err = allow_smem(kernel, C::smem, ready);
+  auto kernel = wg::flash_bwd_dq_wg<D>;
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + C::BQ - 1) / C::BQ, a.H, a.B);
-  kernel<<<grid, tc::NT, C::smem, a.stream>>>(
-      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
-      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout))
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!sm90::encode_bf16_4d(&tq, a.q, D, a.H, a.S, a.B, C::BQ) ||
+      !sm90::encode_bf16_4d(&tk, a.k, D, a.Hkv, a.S, a.B, C::BK) ||
+      !sm90::encode_bf16_4d(&tv, a.v, D, a.Hkv, a.S, a.B, C::BK) ||
+      !sm90::encode_bf16_4d(&tdo, a.dout, D, a.H, a.S, a.B, C::BQ))
+    return cudaErrorNotSupported;
+  const dim3 grid(a.H * a.B, (a.S + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::NT, C::smem((a.S + C::BK - 1) / C::BK), a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const int*>(a.qseg), static_cast<const int*>(a.kseg),
-      static_cast<tc::bf16*>(a.out), a.S, a.H, a.Hkv, a.scale, a.causal);
+      static_cast<wg::bf16*>(a.out), a.S, a.H, a.Hkv, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -1374,7 +1366,7 @@ cudaError_t launch_wg_dkv(const Args& a) {
   kernel<<<grid, C::NT, C::smem((a.S + C::BQ - 1) / C::BQ), a.stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const int*>(a.qseg), static_cast<const int*>(a.kseg),
-      static_cast<tc::bf16*>(a.out), static_cast<tc::bf16*>(a.out2), a.S, a.H, a.Hkv, a.scale,
+      static_cast<wg::bf16*>(a.out), static_cast<wg::bf16*>(a.out2), a.S, a.H, a.Hkv, a.scale,
       a.causal);
   return cudaGetLastError();
 }
@@ -1386,7 +1378,7 @@ template <int D>
 cudaError_t launch(Which which, const Args& a, bool tensor_cores) {
   switch (which) {
     case Which::fwd: return tensor_cores ? launch_wg_fwd<D>(a) : launch_fwd<D>(a);
-    case Which::dq: return tensor_cores ? launch_tc_dq<D>(a) : launch_dq<D>(a);
+    case Which::dq: return tensor_cores ? launch_wg_dq<D>(a) : launch_dq<D>(a);
     default: return tensor_cores ? launch_wg_dkv<D>(a) : launch_dkv<D>(a);
   }
 }

@@ -13,12 +13,14 @@ blocks of ``csrc/sm90.cuh``); its note gives the design.  In short:
   (key tile, KV head, batch row) for dK/dV, which sums the GQA group inside
   the block (no atomics: deterministic); ragged tails are masked in the
   kernel, nothing is padded;
-* the bf16 forward and dK/dV are Hopper kernels: a producer warp streams
-  tiles by TMA through a ring of shared-memory stages, consumer warpgroups
-  run ``wgmma`` on them, and tile pairs that :func:`live_tiles` marks dead
-  (past the causal frontier, or documents that cannot meet) are skipped;
-* bf16 dQ runs ``mma.sync`` over every causal key tile; f32 products run as
-  FMAs on the CUDA cores.
+* the three bf16 kernels are Hopper kernels: a producer warp streams tiles
+  by TMA through a ring of shared-memory stages, consumer warpgroups run
+  ``wgmma`` on them, and tile pairs that :func:`live_tiles` marks dead (past
+  the causal frontier, or documents that cannot meet) are skipped; dQ keeps
+  its 128 query rows of Q and dO resident and streams K and V, computing
+  S = Q·Kᵀ and dP = dO·Vᵀ together and dQ += dS·K with dS kept in
+  registers; no kernel uses atomics, so two launches give the same bits;
+* f32 products run as FMAs on the CUDA cores.
 
 Layouts are the reference's: q, out, dO (B, S, H, D); k, v (B, S, Hkv, D);
 segment ids (B, S) int32; ``lse`` and ``delta`` (B, H, S) f32 here, with
@@ -56,9 +58,8 @@ _HEAD_DIMS = (64, 128)
 
 
 #: (query tile, key tile) of each bf16 kernel: the tile pairs it computes
-#: are those :func:`live_tiles` marks at these sizes.  dQ skips only the
-#: tiles past the causal frontier (its segment ids count as one document).
-TILES = {"flash_forward": (128, 128), "flash_backward_dq": (64, 64),
+#: are those :func:`live_tiles` marks at these sizes.
+TILES = {"flash_forward": (128, 128), "flash_backward_dq": (128, 64),
          "flash_backward_dkv": (64, 128)}
 
 

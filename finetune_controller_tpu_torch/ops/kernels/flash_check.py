@@ -3,7 +3,7 @@
     python -m finetune_controller_tpu_torch.ops.kernels.flash_check
 
 Builds ``csrc/flash_attention.cu``, prints ptxas's register and spill line
-of each kernel, holds the forward and dK/dV kernels against their plain
+of each kernel, holds the forward, dQ and dK/dV kernels against their plain
 versions (D 64 and 128; full, causal, causal with segment ids and full with
 segment ids; S 128, 300 and 1024; and the :func:`segment_layouts` at
 S 300), then times the forward, dQ and dK/dV kernels at the training shapes
@@ -22,10 +22,11 @@ import torch
 
 from . import build
 from . import flash_attention as fa
+from .timing import cuda_time_ms
 
 #: max abs error allowed here (bf16 outputs of O(1) values; the card tests
 #: hold every kernel to ``fa.TOLERANCE`` with its relative part)
-LIMITS = {"out": 0.03, "lse": 0.03, "dk": 0.05, "dv": 0.05}
+LIMITS = {"out": 0.03, "lse": 0.03, "dq": 0.05, "dk": 0.05, "dv": 0.05}
 
 
 def segment_layouts(b: int, s: int) -> dict[str, np.ndarray]:
@@ -54,22 +55,9 @@ def segment_layouts(b: int, s: int) -> dict[str, np.ndarray]:
     return {name: ids.astype(np.int32) for name, ids in layouts.items()}
 
 
-def _time_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _compare(gen, d, b, s, h, hkv, causal, seg, label) -> bool:
-    """Forward and dK/dV against their plain versions on one case; prints
-    one line and returns whether every error is inside ``LIMITS``."""
+    """Forward, dQ and dK/dV against their plain versions on one case;
+    prints one line and returns whether every error is inside ``LIMITS``."""
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -77,13 +65,14 @@ def _compare(gen, d, b, s, h, hkv, causal, seg, label) -> bool:
     q, k, v, dout = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, h, d)
     out_ref, lse_ref = fa.flash_forward_reference(q, k, v, seg, None, causal)
     delta = fa.flash_delta(out_ref, dout)
-    _, dk_ref, dv_ref = fa._backward_plain(q, k, v, dout, lse_ref, delta, seg, None, causal)
+    dq_ref, dk_ref, dv_ref = fa._backward_plain(q, k, v, dout, lse_ref, delta, seg, None, causal)
     out, lse = fa.flash_forward(q, k, v, seg, None, causal)
+    dq = fa.flash_backward_dq(q, k, v, dout, lse_ref, delta, seg, None, causal)
     dk, dv = fa.flash_backward_dkv(q, k, v, dout, lse_ref, delta, seg, None, causal)
     torch.cuda.synchronize()
     errs = {name: (got.float() - want.float()).abs().max().item()
             for name, got, want in (("out", out, out_ref), ("lse", lse, lse_ref),
-                                    ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+                                    ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
     ok = all(errs[name] <= LIMITS[name] for name in errs)
     print(f"D={d} (b, s, h, hkv)={(b, s, h, hkv)} {label}: "
           + " ".join(f"{name} {e:.4g}" for name, e in errs.items()) + ("" if ok else " BAD"),
@@ -92,7 +81,7 @@ def _compare(gen, d, b, s, h, hkv, causal, seg, label) -> bool:
 
 
 def check(gen) -> bool:
-    """Forward and dK/dV against their plain versions: full, causal, causal
+    """Forward, dQ and dK/dV against their plain versions: full, causal, causal
     and full with 97-token documents at three shapes, then causal on each
     of :func:`segment_layouts` (inputs from a generator of their own)."""
     ok = True
@@ -122,10 +111,11 @@ def bench(gen) -> None:
         out, lse = fa.flash_forward_reference(q, k, v, seg, None, True)
         delta = fa.flash_delta(out, dout)
         times = {
-            "forward": _time_ms(lambda: fa.flash_forward(q, k, v, seg, None, True)),
-            "dq": _time_ms(lambda: fa.flash_backward_dq(q, k, v, dout, lse, delta, seg, None, True)),
-            "dkv": _time_ms(lambda: fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None,
-                                                          True)),
+            "forward": cuda_time_ms(lambda i: fa.flash_forward(q, k, v, seg, None, True), 20),
+            "dq": cuda_time_ms(lambda i: fa.flash_backward_dq(q, k, v, dout, lse, delta, seg,
+                                                              None, True), 20),
+            "dkv": cuda_time_ms(lambda i: fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg,
+                                                                None, True), 20),
         }
         print(f"{(b, s, h, hkv, d)} {label}: "
               + ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items()), flush=True)

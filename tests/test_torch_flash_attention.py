@@ -13,8 +13,9 @@ checked on the CPU: every live (query, key) pair lies in a live tile pair,
 on packed, non-monotonic and trailing-padding segment ids at a ragged S.
 
 The CUDA kernels are held against the plain versions on the card, also on
-those segment layouts, and the Hopper kernels are checked to be bitwise
-deterministic; those tests carry the ``cuda`` marker and skip without one.
+those segment layouts, and the Hopper kernels (forward, dQ, dK/dV) are
+checked to be bitwise deterministic; those tests carry the ``cuda`` marker
+and skip without one.
 """
 
 from __future__ import annotations
@@ -182,7 +183,8 @@ def test_dispatch_refusals(monkeypatch):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (64, 128)])
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (64, 128),
+                                   fa.TILES["flash_backward_dq"]])
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_live_tiles_cover_live_pairs(name, tiles, causal):
     """Every live (query, key) pair of ``_live`` lies in a tile pair that
@@ -268,8 +270,8 @@ def test_kernels_match_plain_on_card(cuda, name, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_hopper_kernels_are_deterministic(cuda, d):
-    """Two launches of the bf16 forward and dK/dV kernels give the same bits
-    (no atomics: the GQA sum and every tile order are fixed)."""
+    """Two launches of the bf16 forward, dQ and dK/dV kernels give the same
+    bits (no atomics: the GQA sum and every tile order are fixed)."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     b, s, h, hkv = 2, 640, 8, 2
     q, k, v, dout = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
@@ -279,7 +281,8 @@ def test_hopper_kernels_are_deterministic(cuda, d):
     for _ in range(2):
         out, lse = fa.flash_forward(q, k, v, seg)
         delta = fa.flash_delta(out, dout)
-        runs.append((out, lse, *fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg)))
+        runs.append((out, lse, fa.flash_backward_dq(q, k, v, dout, lse, delta, seg),
+                     *fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg)))
     for first, second in zip(*runs):
         assert torch.equal(first, second)
 
