@@ -45,17 +45,36 @@ Phases (any failure exits non-zero and prints no result line):
    kernels' launch counts are zeroed just before and read just after; the
    metrics rows, the schedule, the LoRA ``B`` leaves, the checkpoints and
    ``done.txt`` are checked;
-9. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on a
-   packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
-   ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
-10. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
+9. (S2) serve what T2 trained, from its artifacts directory: (a)
+   ``load_serving_model(merge_lora=True)`` serves 4 requests; (b) the
+   unmerged checkpoint split by ``strip_lora_for_multitenant`` into the base
+   and tenant ``job`` (rank 16), beside a seeded rank-8 tenant ``r8`` padded
+   to 16, in a fleet of 2 in-process replicas sharing the weights behind the
+   router, host KV tier on and a device pool small enough that prefixes
+   demote: 24 requests (8 per tenant and the base, 20-500 prompt tokens,
+   three of each sharing one 300-token prefix) with replica r0 killed at its
+   decode step 20.  Checked: every request exactly once, a failover and a
+   respawn, tenants' first-token logits against one-tenant engines and the
+   merged model (and ``r8`` away from the base), no prefix splice across
+   namespaces and a hit within one, demotions and a restore hit whose greedy
+   tokens equal the device-resident prefix's, the paged kernel launched
+   (its count zeroed just before the fleet's traffic and read just after);
+   timed: decode ms/step base-only and over 3 tenants (host clock, and the
+   device time per step under ``torch.profiler``), demote and restore ms
+   per page, failover recovery, peak memory; (c) the unpaged engine serves 4
+   requests, each token checked against ``cached_generate``'s cached path;
+10. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
+    a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
+    ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
+11. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
     Hkv=8, D=128, bf16, the packed microbatch's segment ids): kernel, plain
     and library times beside the bound, the error against the plain
     version, the share of tile pairs it executes (``live_tiles`` at its tile
     sizes), its rate on that executed work and its share of the bound, each
     with no segment ids too (every causal tile pair), beside its time before
     the Hopper redesign; each launched twice must give the same bits;
-11. print the ``kernels``, ``serve`` and ``train`` lines, the card line, and
+12. print the ``kernels``, ``serve``, ``serve_tenants`` and ``train`` lines,
+    the card line, and
     last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
@@ -847,6 +866,395 @@ def train_phase(work, seed: int) -> dict:
     }
 
 
+#: the device phase S2 runs on ("cpu" drives S2 at a tiny size without a card)
+DEVICE = "cuda"
+#: S2's fleet engines: the service's batch shape, LoRA tenants up to rank
+#: 16 in 3 stack slots (base, the job, a rank-8 tenant), a device pool well
+#: under the auto size (8 x 36 + 1 pages) and a 32-page device prefix budget,
+#: so prefix entries demote to a 1 GiB host tier
+S2_ENGINE = dict(slots=8, prompt_buckets=(32, 128, 512), max_new_tokens=64, page_tokens=16,
+                 pool_pages=160, tenant_slots=3, tenant_rank=16, host_pool_bytes=1 << 30)
+S2_PREFIX_PAGES = 32
+#: the replica the fault kills, and at which of its decode steps
+S2_FAULT = ("r0", 20)
+S2_TENANTS = ("", "job", "r8")
+
+
+def s2_requests(seed: int, vocab: int):
+    """24 requests, 8 each for the base (""), ``job`` and ``r8``, tenants
+    interleaved: per tenant 5 unrelated prompts of 20-500 tokens and 3 that
+    share one 300-token prefix (the same text in every tenant); 16-48 new
+    tokens, greedy."""
+    from finetune_controller_tpu_torch.serve.engine import GenRequest
+
+    rng = np.random.default_rng(seed + 5)
+    shared = rng.integers(0, vocab, 300).tolist()
+    new = [16, 24, 32, 40, 48, 16, 24, 32]
+    by_tenant = []
+    for aid in S2_TENANTS:
+        prompts = [rng.integers(0, vocab, n).tolist() for n in (20, 64, 130, 250, 500)]
+        prompts += [shared + rng.integers(0, vocab, n).tolist() for n in (9, 60, 150)]
+        by_tenant.append([GenRequest(request_id=f"s2-{aid or 'base'}-{i}", tokens=p,
+                                     max_new_tokens=new[i], adapter_id=aid)
+                          for i, p in enumerate(prompts)])
+    return [reqs[i] for i in range(8) for reqs in by_tenant], shared
+
+
+def random_adapter(cfg, rank: int, seed: int) -> dict:
+    """A seeded rank-``rank`` adapter for every projection of ``cfg``:
+    A ~ N(0, 1/in), B ~ N(0, 0.09/rank) (non-zero, so it moves the output)."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import tenant_shapes
+
+    gen = torch.Generator().manual_seed(seed)
+    tree = {}
+    for i in range(cfg.n_layers):
+        for proj, (fan_in, fan_out) in tenant_shapes(cfg).items():
+            name = f"layers.{i}.{'mlp' if proj in ('gate_proj', 'up_proj', 'down_proj') else 'attn'}.{proj}"
+            tree[f"{name}.lora_a"] = torch.randn(fan_in, rank, generator=gen) * fan_in ** -0.5
+            tree[f"{name}.lora_b"] = torch.randn(rank, fan_out, generator=gen) * 0.3 * rank ** -0.5
+    return tree
+
+
+def first_logits(model, prompt, tenants=None, slot: int = 0):
+    """Last-position logits (f32, host) of a B=1 paged prefill of
+    ``prompt`` on a fresh pool — the paged kernel on the card — with the
+    row on tenant ``slot`` of ``tenants`` when given."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import PagedKV
+
+    bucket, page = 512, 16
+    kv = PagedKV.zeros(model.cfg, bucket // page + 1, page, DEVICE)
+    table = torch.arange(1, bucket // page + 1, dtype=torch.int32, device=DEVICE)[None, :]
+    tokens = torch.zeros((1, bucket), dtype=torch.long, device=DEVICE)
+    tokens[0, :len(prompt)] = torch.tensor(prompt, device=DEVICE)
+    positions = torch.arange(bucket, dtype=torch.int32, device=DEVICE)[None, :]
+    ids = torch.tensor([slot], dtype=torch.int32) if tenants is not None else None
+    out = model.forward_paged(tokens, positions, kv, table, torch.zeros(1, dtype=torch.int32,
+                                                                        device=DEVICE),
+                              last_idx=len(prompt) - 1, adapter_ids=ids, tenants=tenants)
+    return out.float()[0].cpu()
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def decode_ms(engine, reqs, adapters, steps: int) -> float:
+    """Mean host-clock ms of ``steps`` decode steps with every lane busy,
+    the lanes' adapters cycling through ``adapters``; each step ends in a
+    device-to-host copy of its tokens."""
+    import dataclasses
+
+    lanes = [dataclasses.replace(r, request_id=f"m-{i}", adapter_id=adapters[i % len(adapters)],
+                                 max_new_tokens=engine.config.max_new_tokens)
+             for i, r in enumerate(reqs[:engine.config.slots])]
+    for r in lanes:
+        engine.admit(r)
+    engine.step()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    for r in lanes:
+        engine.evict(r.request_id)
+    return ms
+
+
+def serve_fleet(fleet_args, reqs, seed: int):
+    """Phase S2(b)'s traffic: a fleet of 2 in-process replicas behind the
+    router, the fault armed on one; all requests submitted at once.
+    Returns the results, the fleet and router stats, and the seconds from
+    the kill to the respawned replica taking traffic."""
+    from finetune_controller_tpu_torch.resilience.faults import ServeFault, ServeFaultInjector
+    from finetune_controller_tpu_torch.resilience.policy import RetryPolicy
+    from finetune_controller_tpu_torch.serve.fleet import ReplicaFleet
+    from finetune_controller_tpu_torch.serve.router import ReplicaRouter
+
+    model, ecfg, registry, adapters = fleet_args
+    fault = ServeFaultInjector(ServeFault(replica_id=S2_FAULT[0], at_step=S2_FAULT[1]))
+
+    async def go():
+        fleet = ReplicaFleet(
+            "chip-smoke-sft", model, ecfg, replicas=2, adapters=registry, fault=fault,
+            batcher_kwargs=dict(max_queue=64), stall_timeout_s=120.0,
+            restart_policy=RetryPolicy(max_attempts=3, base_delay_s=0.5, max_delay_s=2.0,
+                                       seed=seed))
+        try:
+            await fleet.start()
+            for aid, (tree, alpha, rank) in adapters.items():
+                await fleet.register_adapter(aid, tree, alpha, rank)
+            fleet.start_health_loop(0.1)
+            router = ReplicaRouter(fleet, default_timeout_s=600.0, failover_retries=2)
+            marks = {}
+
+            async def watch():
+                while "kill" not in marks:
+                    if fault.fired:
+                        marks["kill"] = time.perf_counter()
+                    await asyncio.sleep(0.005)
+                while not (fleet.replica_restarts_total and len(fleet.healthy_replicas()) == 2):
+                    await asyncio.sleep(0.005)
+                marks["back"] = time.perf_counter()
+
+            watcher = asyncio.ensure_future(watch())
+            results = await asyncio.gather(*(router.submit(r) for r in reqs))
+            try:
+                await asyncio.wait_for(watcher, timeout=120.0)
+            except asyncio.TimeoutError:
+                raise SmokeFailure("S2: the killed replica was not failed and respawned "
+                                   f"(fault fired: {fault.fired})") from None
+            stats = fleet.stats()
+            engines = [r.engine for r in fleet.replicas.values()]
+            return results, stats, router.stats(), marks["back"] - marks["kill"], engines
+        finally:
+            await fleet.close()
+
+    return asyncio.run(go())
+
+
+def serve_tenants_phase(art, seed: int) -> tuple[int, dict]:
+    """S2: serve T2's trained checkpoint.  (a) merged: 4 requests; (b) the
+    base with the job's adapter as tenant ``job`` beside a seeded rank-8
+    tenant ``r8``, a 2-replica fleet behind the router, the host tier on,
+    24 requests with a replica killed mid-run; (c) the unpaged engine
+    against ``cached_generate``.  Returns (paged-kernel launches of (b)'s
+    traffic, summary)."""
+    import dataclasses
+
+    import torch
+    from finetune_controller_tpu_torch.models.generate import cached_generate
+    from finetune_controller_tpu_torch.models.llama import DenseKV
+    from finetune_controller_tpu_torch.ops.kernels.paged_attention import paged_attention
+    from finetune_controller_tpu_torch.serve.adapters import AdapterRegistry
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine, EngineConfig, GenRequest
+    from finetune_controller_tpu_torch.serve.loader import (
+        load_serving_model, strip_lora_for_multitenant,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    # (a) the merged model serves 4 requests
+    t0 = time.perf_counter()
+    merged, meta = load_serving_model(art, merge_lora=True)
+    load_s = time.perf_counter() - t0
+    cfg = merged.cfg
+    reqs, shared = s2_requests(seed, cfg.vocab_size)
+    checks = [shared + [11, 12, 13], reqs[9].tokens]  # a shared-prefix prompt, a 250-token one
+    engine = BatchEngine(merged, EngineConfig(slots=4, prompt_buckets=(32, 128, 512),
+                                              max_new_tokens=32, page_tokens=16))
+    four = [dataclasses.replace(r, request_id=f"merged-{i}", adapter_id="", max_new_tokens=32)
+            for i, r in enumerate(reqs[:4])]
+    done = engine.run(four)
+    if sorted(done) != sorted(r.request_id for r in four) or any(
+            len(done[r.request_id].generated) != 32 for r in four):
+        raise SmokeFailure("S2(a): the merged model did not serve its 4 requests")
+    with torch.no_grad():
+        merged_logits = [first_logits(merged, p) for p in checks]
+    log(f"S2(a): merged model of step {meta['checkpoint_step']} loaded in {load_s:.1f} s, "
+        "served 4 requests x 32 tokens")
+    del merged, engine, done
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the base + the job's adapter as a tenant + r8, a fleet of 2
+    t0 = time.perf_counter()
+    unmerged, _ = load_serving_model(art, merge_lora=False)
+    base, job_tree, alpha, rank = strip_lora_for_multitenant(unmerged)
+    del unmerged
+    gc.collect()
+    torch.cuda.empty_cache()
+    load_s = time.perf_counter() - t0
+    adapters = {"job": (job_tree, alpha, rank), "r8": (random_adapter(cfg, 8, seed + 8), 16.0, 8)}
+    registry = AdapterRegistry(S2_ENGINE["tenant_slots"], S2_ENGINE["tenant_rank"])
+    page_bytes = 2 * cfg.n_layers * S2_ENGINE["page_tokens"] * cfg.n_kv_heads * cfg.head_dim * 2
+    ecfg = EngineConfig(**S2_ENGINE, prefix_cache_bytes=S2_PREFIX_PAGES * page_bytes)
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        results, stats, rstats, recovery_s, engines = serve_fleet(
+            (base, ecfg, registry, adapters), reqs, seed)
+    except SmokeFailure:
+        raise
+    except Exception as e:  # any request failure fails the phase
+        raise SmokeFailure(f"S2(b) fleet: {type(e).__name__}: {e}") from e
+    traffic_s = time.perf_counter() - t0
+    launches = paged_attention.launches
+    ids = [r.request_id for r in results]
+    if sorted(ids) != sorted(r.request_id for r in reqs) or len(set(ids)) != len(reqs):
+        raise SmokeFailure(f"S2(b): {len(set(ids))} distinct of {len(reqs)} requests finished")
+    for req, res in zip(reqs, results):
+        if res.request_id != req.request_id or len(res.generated) != req.max_new_tokens \
+                or res.finish_reason != "length":
+            raise SmokeFailure(f"S2(b): bad result for {req.request_id}")
+    if stats["requests_completed_total"] != len(reqs):
+        raise SmokeFailure(f"S2(b): {stats['requests_completed_total']} completions counted "
+                           f"for {len(reqs)} requests")
+    if rstats["failovers_total"] < 1 or stats["replica_restarts_total"] < 1:
+        raise SmokeFailure(f"S2(b): no failover ({rstats['failovers_total']}) or no respawn "
+                           f"({stats['replica_restarts_total']})")
+    if stats["kv_demotions_total"] < 1 or stats["prefix_hits_total"] < 1:
+        raise SmokeFailure(f"S2(b): {stats['kv_demotions_total']} demotions and "
+                           f"{stats['prefix_hits_total']} prefix hits in the traffic")
+    # the killed replica's tokens of requests that failed over count too
+    want_tokens = {aid: sum(r.max_new_tokens for r in reqs if r.adapter_id == aid)
+                   for aid in S2_TENANTS}
+    if any(stats["tokens_by_tenant"].get(aid, 0) < n for aid, n in want_tokens.items()):
+        raise SmokeFailure(f"S2(b): tokens by tenant {stats['tokens_by_tenant']}, "
+                           f"delivered {want_tokens}")
+    log(f"S2(b): fleet of 2 replicas sharing one model (base loaded in {load_s:.1f} s), "
+        f"{len(reqs)}/{len(reqs)} requests exactly once in {traffic_s:.2f} s, "
+        f"{rstats['failovers_total']} failovers, {stats['replica_restarts_total']} respawn, "
+        f"failover recovery (kill to respawned replica in service) {recovery_s:.3f} s, "
+        f"{launches} paged-kernel launches, {stats['prefix_hits_total']} prefix hits, "
+        f"{stats['kv_demotions_total']} pages demoted, {stats['kv_restores_total']} restored")
+    log(f"S2(b): tokens by tenant {stats['tokens_by_tenant']}")
+
+    # (b) checks on one more engine with the fleet's registry, its prefix
+    # budget wide enough that only the explicit demotion below demotes
+    check = BatchEngine(
+        base, dataclasses.replace(ecfg, prefix_cache_bytes=4 * ecfg.prefix_cache_bytes),
+        adapters=registry)
+    slots = {aid: registry.resolve(aid) for aid in S2_TENANTS}
+    with torch.no_grad():
+        multi = {aid: [first_logits(base, p, check._tenants, slot) for p in checks]
+                 for aid, slot in slots.items()}
+        one = {}
+        for aid in ("job", "r8"):
+            tree, a, r = adapters[aid]
+            solo = BatchEngine(base, EngineConfig(slots=1, prompt_buckets=(512,),
+                                                  max_new_tokens=16, page_tokens=16,
+                                                  tenant_slots=2, tenant_rank=r))
+            solo.adapters.register(aid, tree, a, r)
+            solo.install_adapter(aid)
+            one[aid] = [first_logits(base, p, solo._tenants, 1) for p in checks]
+            del solo
+    rels = {
+        "job_vs_one_tenant": max(rel_diff(x, y) for x, y in zip(multi["job"], one["job"])),
+        "r8_vs_one_tenant": max(rel_diff(x, y) for x, y in zip(multi["r8"], one["r8"])),
+        "job_vs_merged": max(rel_diff(x, y) for x, y in zip(multi["job"], merged_logits)),
+        "r8_vs_base": min(rel_diff(x, y) for x, y in zip(multi["r8"], multi[""])),
+    }
+    log("S2(b): first-token logits, max |diff| / max |logit|: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in rels.items()) + f" (tolerance {LOGITS_REL_TOL})")
+    for key in ("job_vs_one_tenant", "r8_vs_one_tenant", "job_vs_merged"):
+        if not rels[key] <= LOGITS_REL_TOL:
+            raise SmokeFailure(f"S2(b): first-token logits {key} {rels[key]:.4g} beyond "
+                               f"{LOGITS_REL_TOL}")
+    if not rels["r8_vs_base"] > LOGITS_REL_TOL:
+        raise SmokeFailure(f"S2(b): r8's logits differ from the base's by only "
+                           f"{rels['r8_vs_base']:.4g}: the adapter is not applied")
+
+    def one_request(rid, tokens, aid):
+        return check.run([GenRequest(request_id=rid, tokens=tokens, max_new_tokens=24,
+                                     adapter_id=aid)])[rid].generated
+
+    one_request("ns-seed", shared + [1], "job")
+    hits, misses = check.prefix_hits_total, check.prefix_misses_total
+    one_request("ns-other", shared + [2], "r8")
+    if (check.prefix_hits_total, check.prefix_misses_total) != (hits, misses + 1):
+        raise SmokeFailure("S2(b): a prefix was spliced across adapter namespaces")
+    device_tokens = one_request("ns-device", shared + [3], "job")
+    if check.prefix_hits_total != hits + 1:
+        raise SmokeFailure("S2(b): no prefix hit within one namespace")
+    cache = check._prefix_cache
+    while cache.stats()["entries_host"] < len(cache):
+        cache.demote_or_evict()
+    restores = check._host_pool.restores_total
+    restored_tokens = one_request("ns-restored", shared + [3], "job")
+    if check._host_pool.restores_total <= restores or check.prefix_hits_total != hits + 2:
+        raise SmokeFailure("S2(b): no restore hit on a demoted prefix")
+    if restored_tokens != device_tokens:
+        raise SmokeFailure("S2(b): a request served from a restored prefix gave other greedy "
+                           "tokens than from the device-resident prefix")
+    tier = {k: sum(e.tier_seconds[k] for e in engines + [check]) for k in ("demote", "restore")}
+    pages = {"demote": sum(e._host_pool.demotions_total for e in engines + [check]),
+             "restore": sum(e._host_pool.restores_total for e in engines + [check])}
+    tier_ms = {k: tier[k] / pages[k] * 1e3 for k in tier if pages[k]}
+    log(f"S2(b): host tier {pages['demote']} pages demoted, {pages['restore']} restored "
+        f"(traffic + checks): demote {tier_ms.get('demote', float('nan')):.3f} ms/page, "
+        f"restore {tier_ms.get('restore', float('nan')):.3f} ms/page (host clock, pages of "
+        f"{page_bytes / 1e6:.2f} MB); "
+        "restored-prefix tokens equal the device-resident ones")
+    ms = {"base_only": [], "three_tenants": []}
+    for case in ("base_only", "three_tenants", "three_tenants", "base_only"):
+        ms[case].append(decode_ms(check, reqs, ("",) if case == "base_only" else S2_TENANTS,
+                                  steps=16))
+    step_ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"S2(b): decode with 8 lanes busy: base only {step_ms['base_only']:.2f} ms/step, "
+        f"3 tenants {step_ms['three_tenants']:.2f} ms/step (runs {ms})")
+    # the same two batches under the profiler: device time per step, which
+    # the host's spread does not blur
+    prof = {"base_only": profile_decode(check, [dataclasses.replace(r, adapter_id="")
+                                                for r in reqs]),
+            "three_tenants": profile_decode(check, reqs)}
+    for case, p in prof.items():
+        if p["device_busy"] is None:
+            log(f"S2(b): decode profile {case}: no device time recorded (not measured)")
+            continue
+        log(f"S2(b): decode profile {case} (8 lanes): {p['step_ms']:.2f} ms/step wall, "
+            f"{p['device_ms_per_step']:.2f} ms/step device, busy {p['device_busy']:.3f}")
+        for name, kernel_ms in p["top"][:5]:
+            log(f"  {kernel_ms:8.3f} ms/step  {name}")
+    del check, engines
+
+    # (c) the unpaged engine against cached_generate
+    engine = BatchEngine(base, EngineConfig(slots=4, prompt_buckets=(32, 128, 512),
+                                            max_new_tokens=32, page_tokens=0))
+    four = [dataclasses.replace(r, request_id=f"unpaged-{i}", adapter_id="", max_new_tokens=32)
+            for i, r in enumerate(reqs[0:12:3])]
+    done = engine.run(four)
+    equal, worst_gap = 0, 0.0
+    with torch.no_grad():
+        for r in four:
+            got = done[r.request_id].generated
+            if len(got) != 32:
+                raise SmokeFailure(f"S2(c): {r.request_id} gave {len(got)} tokens")
+            want = cached_generate(base, torch.tensor([r.tokens]), max_new_tokens=32)[0]
+            equal += int(want[len(r.tokens):].tolist() == got)
+            # the engine's every token against the cached path fed the same
+            # tokens: its logit within the bf16 tolerance of the best one
+            plen = len(r.tokens)
+            kv = DenseKV.zeros(cfg, 1, plen + 32, DEVICE)
+            logits = base.forward_cached(
+                torch.tensor([r.tokens], device=DEVICE), torch.arange(plen, device=DEVICE)[None],
+                kv, torch.zeros(1, dtype=torch.int32, device=DEVICE), fresh=True,
+                last_idx=plen - 1).float()[0]
+            for t, tok in enumerate(got):
+                gap = ((logits.max() - logits[tok]) / logits.abs().max()).item()
+                worst_gap = max(worst_gap, gap)
+                pos = plen + t
+                logits = base.forward_cached(
+                    torch.tensor([[tok]], device=DEVICE),
+                    torch.full((1, 1), pos, device=DEVICE), kv,
+                    torch.full((1,), pos, dtype=torch.int32, device=DEVICE),
+                    last_idx=0).float()[0]
+    log(f"S2(c): unpaged engine served 4 requests x 32 tokens; {equal} of 4 equal "
+        f"cached_generate's greedy tokens; worst logit gap of an engine token under the "
+        f"cached path {worst_gap:.4g} of max |logit| (tolerance {LOGITS_REL_TOL})")
+    if not worst_gap <= LOGITS_REL_TOL:
+        raise SmokeFailure(f"S2(c): an unpaged-engine token is {worst_gap:.4g} of max |logit| "
+                           "below the cached path's best")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"S2: serving phase peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated "
+        f"after T2 was freed), {time.perf_counter() - t_phase:.1f} s")
+    summary = {
+        "requests": len(results), "traffic_s": traffic_s, "failovers": rstats["failovers_total"],
+        "respawns": stats["replica_restarts_total"], "recovery_s": recovery_s,
+        "tokens_by_tenant": stats["tokens_by_tenant"], "prefix_hits": stats["prefix_hits_total"],
+        "demoted_pages": pages["demote"], "restored_pages": pages["restore"],
+        "demote_ms_per_page": tier_ms.get("demote"), "restore_ms_per_page": tier_ms.get("restore"),
+        "decode_ms_per_step": step_ms, "decode_ms_runs": ms,
+        "decode_profile": {k: {f: p[f] for f in ("step_ms", "device_ms_per_step", "device_busy")}
+                           for k, p in prof.items()},
+        "logits_rel": rels,
+        "unpaged_equal_cached": equal, "unpaged_worst_gap": worst_gap,
+        "peak_memory_gb": peak_gb, "launches": launches,
+    }
+    return launches, summary
+
+
 def packed_segments(work, seed: int):
     """Segment ids (2, 2048) int32 of the microbatch of T2's 8 steps (the
     loader seeded as the run's) that holds the most documents, so the
@@ -995,7 +1403,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # T2-T4. training
+    # T2, S2, T3, T4: training, serving what it trained, the flash kernels
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1005,6 +1413,14 @@ def main(argv=None) -> int:
             f"{train['ms_per_step_median']:.0f} ms/step median, "
             f"{train['tokens_per_s_median']:.0f} tokens/s, peak memory "
             f"{train['peak_memory_gb']:.2f} GB, flash launches {train['launches']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        s2_launches, serve_tenants = serve_tenants_phase(work / "artifacts", args.seed)
+        if s2_launches <= 0:
+            raise SmokeFailure("S2: the paged-attention kernel was not launched on its path")
+        paged_entry["launches"] += s2_launches
+        gc.collect()
+        torch.cuda.empty_cache()
         seg = packed_segments(work, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1057,6 +1473,7 @@ def main(argv=None) -> int:
     } for name in FLASH_KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serve": serve_summary}), flush=True)
+    print(json.dumps({"serve_tenants": serve_tenants}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",
                               "ms_no_segments", "tflops_no_segments")}

@@ -3,7 +3,9 @@
 The JAX package ``finetune_controller_tpu`` is the reference; this package
 holds its own counterparts of the modules it needs and imports nothing from
 it (nor ``jax``/``flax``).  The slices ported so far are paged
-continuous-batching serving and LoRA SFT training through the spec CLI:
+continuous-batching serving, LoRA SFT training through the spec CLI, and
+serving what it trains (multi-tenant adapters, a host KV tier, a replica
+fleet and router):
 
 * ``models`` — ``LlamaConfig``/``PRESETS``, the decoder as ``nn.Module``s
   (serving and training forwards, remat, LoRA dropout), the flax-tree
@@ -12,8 +14,11 @@ continuous-batching serving and LoRA SFT training through the spec CLI:
   ``FTC_FLASH_ATTN`` seams, and the hand-written CUDA kernels
   (``ops/kernels``, sources in ``csrc/``): paged attention, and the flash
   attention forward, dQ and dK/dV;
-* ``serve`` — the page pool, prefix cache, paged ``BatchEngine`` and the
-  asyncio ``Batcher``;
+* ``serve`` — the page pool and host tier, prefix cache, ``BatchEngine``
+  (paged or unpaged, multi-tenant), the asyncio ``Batcher``, the adapter
+  registry, the replica fleet and router, and the checkpoint loader;
+* ``resilience`` — failure classification, retry backoff and the serve
+  fault injector;
 * ``data`` and ``train`` — the packing loader, the trainer, optimizer,
   checkpoints and ``python -m finetune_controller_tpu_torch.train.cli``.
 
@@ -36,6 +41,9 @@ _LAZY = {
     "EngineConfig": ".serve.engine",
     "GenRequest": ".serve.engine",
     "Batcher": ".serve.batcher",
+    "ReplicaFleet": ".serve.fleet",
+    "ReplicaRouter": ".serve.router",
+    "load_serving_model": ".serve.loader",
     "TrainConfig": ".train.trainer",
     "Trainer": ".train.trainer",
 }

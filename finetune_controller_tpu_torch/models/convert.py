@@ -1,9 +1,10 @@
 """Carry weights from the reference's flax variables into the port.
 
 ``from_flax(variables, cfg)`` takes the JAX variables tree as nested dicts of
-numpy arrays — the ``params`` collection and, when present, ``lora`` — and
-returns the port's state dict (``LlamaForCausalLM.load_state_dict``).  Both
-layer layouts of the reference are read:
+numpy arrays — the ``params`` collection and, when present, ``lora`` and
+the multi-tenant ``tenants`` stacks — and returns the port's state dict
+(``LlamaForCausalLM.load_state_dict``).  Both layer layouts of the
+reference are read:
 
 * scanned (``scan_layers=True``): ``params/blocks/block/<...>`` with a
   leading layer axis L on every leaf (``llama.py:773-783``);
@@ -17,6 +18,11 @@ along where the config has them.
 ``to_flax(state, cfg)`` is the inverse: the port's state dict back into a
 flax variables tree of numpy arrays, in the layout ``cfg.scan_layers``
 names, so tests can compare what the port trained with the JAX tree.
+
+``adapter_from_flax(lora, cfg)`` carries one adapter's ``lora`` tree into
+the port's adapter form: the flat ``layers.{i}.{attn|mlp}.{proj}.lora_a`` /
+``lora_b`` dict a LoRA checkpoint's ``trainable`` holds, which
+``serve/adapters.py`` installs into tenant stacks.
 
 ``merge_lora(cfg, state)`` folds LoRA deltas into the base kernels, the
 counterpart of ``serve/loader.py:merge_lora_variables``.
@@ -42,6 +48,10 @@ _LAYER_LEAVES = {
     "mlp/up_proj": ("kernel",),
     "mlp/down_proj": ("kernel",),
 }
+
+
+#: the seven projections, as ``module/projection`` paths of a layer
+_PROJECTIONS = tuple(m for m in _LAYER_LEAVES if "/" in m)
 
 
 def _walk(tree: Mapping, path: str):
@@ -103,7 +113,28 @@ def from_flax(variables: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
             if cfg.lora.enabled_for(proj):
                 for leaf in ("lora_a", "lora_b"):
                     state[f"{name}.{leaf}"] = need(lo, f"{module}/{leaf}", f"lora/layer {i}")
+    if cfg.lora_tenant_slots:
+        t_layers = _layer_trees(variables.get("tenants"), cfg.n_layers)
+        for module in _PROJECTIONS:
+            proj = module.split("/")[-1]
+            for leaf in ("lora_a", "lora_b", "scale"):
+                per_layer = [need(t, f"{module}/{leaf}", f"tenants/layer {i}")
+                             for i, t in enumerate(t_layers)]
+                state[f"tenants.{proj}.{leaf}"] = torch.stack(per_layer)
     return state
+
+
+def adapter_from_flax(lora: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
+    """One adapter's ``lora`` tree (numpy leaves, either layout) as the
+    port's flat adapter dict, for every projection the tree holds."""
+    adapter: dict[str, torch.Tensor] = {}
+    for i, tree in enumerate(_layer_trees(lora, cfg.n_layers)):
+        for module in _PROJECTIONS:
+            for leaf in ("lora_a", "lora_b"):
+                value = _walk(tree, f"{module}/{leaf}") if tree is not None else None
+                if value is not None:
+                    adapter[f"layers.{i}.{module.replace('/', '.')}.{leaf}"] = _tensor(value)
+    return adapter
 
 
 def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
@@ -160,6 +191,13 @@ def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
     return variables
 
 
+def merge_kernel(kernel: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """``W + scale·A·B`` computed in f32, in ``kernel``'s dtype."""
+    return (kernel.to(torch.float32)
+            + (a.to(torch.float32) @ b.to(torch.float32)) * scale).to(kernel.dtype)
+
+
 def merge_lora(cfg, state: Mapping[str, torch.Tensor]) -> tuple[Any, dict[str, torch.Tensor]]:
     """Fold every adapter into its base kernel: ``W' = W + (alpha/r)·A·B``,
     computed in f32 and cast back to the kernel's dtype.  Returns a rank-0
@@ -176,11 +214,12 @@ def merge_lora(cfg, state: Mapping[str, torch.Tensor]) -> tuple[Any, dict[str, t
             continue
         prefix = key[: -len(".kernel")] if key.endswith(".kernel") else None
         if prefix is not None and f"{prefix}.lora_a" in state:
-            a = state[f"{prefix}.lora_a"].to(torch.float32)
-            b = state[f"{prefix}.lora_b"].to(torch.float32)
-            value = (value.to(torch.float32) + (a @ b) * scale).to(value.dtype)
+            value = merge_kernel(value, state[f"{prefix}.lora_a"], state[f"{prefix}.lora_b"],
+                                 scale)
         merged[key] = value
-    merged_cfg = cfg.replace(
-        lora=LoRAConfig(rank=0, alpha=cfg.lora.alpha, targets=cfg.lora.targets)
-    )
-    return merged_cfg, merged
+    return merged_config(cfg), merged
+
+
+def merged_config(cfg):
+    """``cfg`` with its adapters folded away (rank 0, same alpha/targets)."""
+    return cfg.replace(lora=LoRAConfig(rank=0, alpha=cfg.lora.alpha, targets=cfg.lora.targets))

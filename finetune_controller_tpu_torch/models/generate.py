@@ -5,7 +5,10 @@ Counterpart of the reference's ``models/generate.py``:
 * :func:`_sample` — greedy argmax, or temperature and top-k then a
   categorical draw from an explicit ``torch.Generator``;
 * :func:`generate` — the numerics oracle: each step re-runs the full
-  forward over the sequence so far (no KV cache).
+  forward over the sequence so far (no KV cache);
+* :func:`cached_generate` — fill then decode over a dense KV cache of
+  ``prompt_len + max_new_tokens`` positions (``LlamaForCausalLM.
+  forward_cached``), one single-position forward per new token.
 
 Sampled streams cannot match the reference's: JAX draws with threefry keys,
 PyTorch with Philox generators.  Determinism is pinned inside the port
@@ -15,6 +18,8 @@ instead — the same seed gives the same tokens.
 from __future__ import annotations
 
 import torch
+
+from .llama import DenseKV
 
 
 def _sample(logits: torch.Tensor, *, temperature: float, top_k: int,
@@ -48,4 +53,37 @@ def generate(model, prompt_tokens: torch.Tensor, *, max_new_tokens: int = 32,
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
             done = done | (nxt == eos_id)
         tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+    return tokens
+
+
+@torch.no_grad()
+def cached_generate(model, prompt_tokens: torch.Tensor, *, max_new_tokens: int = 32,
+                    temperature: float = 0.0, top_k: int = 0, eos_id: int | None = None,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """KV-cached fill-then-decode sampling; the contract of :func:`generate`
+    (the reference's ``cached_generate``, ``generate.py:158-227``).  Every
+    row decodes in lockstep at the same position."""
+    tokens = torch.as_tensor(prompt_tokens, dtype=torch.long, device=model.device)
+    if tokens.ndim != 2:
+        raise ValueError(f"prompt_tokens must be (B, S), got {tuple(tokens.shape)}")
+    b, prompt_len = tokens.shape
+    kv = DenseKV.zeros(model.cfg, b, prompt_len + max_new_tokens, model.device)
+    positions = torch.arange(prompt_len, device=tokens.device).expand(b, prompt_len)
+    index = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
+    logits = model.forward_cached(tokens, positions, kv, index, fresh=True,
+                                  last_idx=prompt_len - 1).to(torch.float32)
+    done = torch.zeros((b,), dtype=torch.bool, device=tokens.device)
+    for t in range(max_new_tokens):
+        nxt = _sample(logits, temperature=temperature, top_k=top_k, generator=generator)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            done = done | (nxt == eos_id)
+        tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+        if t == max_new_tokens - 1:
+            break
+        pos = prompt_len + t
+        logits = model.forward_cached(
+            nxt[:, None], torch.full((b, 1), pos, device=tokens.device), kv,
+            torch.full((b,), pos, dtype=torch.int32, device=tokens.device), last_idx=0,
+        ).to(torch.float32)
     return tokens

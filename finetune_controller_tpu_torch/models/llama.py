@@ -7,7 +7,7 @@ both packages.  The layer stack is a Python loop over ``nn.ModuleList``
 eagerly), and parameter names follow the flax tree so the converter
 (``models/convert.py``) is a rename.
 
-Two forward paths:
+Three forward paths:
 
 * :meth:`LlamaForCausalLM.forward` — the full-sequence causal forward of the
   reference's ``__call__`` (``llama.py:742-805``): packing ``segment_ids``,
@@ -20,14 +20,25 @@ Two forward paths:
   the chunk's K/V are written into shared per-layer page pools IN PLACE
   (the reference rebuilt the cache tree on every call) and attention reads
   back through the page table (``ops.attention.paged_cache_attention``, the
-  CUDA kernel on the card).
+  CUDA kernel on the card);
+* :meth:`LlamaForCausalLM.forward_cached` — the unpaged serving path of the
+  reference's ``Attention._decode_attention`` (``llama.py:461-538``): a
+  dense ``(B, M, Hkv, D)`` cache per layer (:class:`DenseKV`), written in
+  place; a fresh prefill attends causally over the chunk, a suffix prefill
+  and a decode step attend the cache up to each row's index (plain torch
+  attention, as the reference runs XLA attention there).
+
+Every path takes ``adapter_ids`` (B,): with tenant stacks (built from
+``cfg.lora_tenant_slots``/``lora_tenant_rank``, or passed as ``tenants=`` by
+a serving engine that owns its own) each row applies its tenant's adapter
+on all seven projections (``models/lora.py``).
 
 Rematerialisation keeps numerics: ``none`` runs the block as it is, ``full``
 wraps each block in ``torch.utils.checkpoint`` (non-reentrant), and ``mlp``
 keeps the MLP's gate and up projections by checkpointing only the attention
 half and the activation/down projection.  The reference's other named
-policies are refused.  MoE, QLoRA, multi-tenant adapters and multimodal
-inputs are not ported yet; configs that need them are refused.
+policies are refused.  MoE, QLoRA and multimodal inputs are not ported
+yet; configs that need them are refused.
 """
 
 from __future__ import annotations
@@ -42,8 +53,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import causal_attention, paged_cache_attention
-from .lora import LoRAConfig, LoRADense
+from ..ops.attention import (
+    causal_attention,
+    chunked_cache_attention,
+    paged_cache_attention,
+    xla_causal_attention,
+)
+from .lora import LoRAConfig, LoRADense, TenantRows, TenantStacks
 
 #: the reference's remat policies (``remat_policy_fn``); the port runs
 #: ``none``, ``full`` and ``mlp``
@@ -195,7 +211,7 @@ PRESETS: dict[str, LlamaConfig] = {
 
 
 def refuse_unported(cfg: Any) -> None:
-    """Raise for configurations this slice of the port cannot serve; the
+    """Raise for configurations the port cannot build or serve yet; the
     first two messages are the reference engine's (``engine.py:237-243``)."""
     if getattr(cfg, "n_experts", 0):
         raise ValueError(
@@ -206,8 +222,6 @@ def refuse_unported(cfg: Any) -> None:
         raise ValueError("BatchEngine serves text-only models (no pixels)")
     if cfg.quantize_base:
         raise NotImplementedError("int4 QLoRA bases are not ported yet")
-    if cfg.lora_tenant_slots:
-        raise NotImplementedError("multi-tenant adapters are not ported yet")
 
 
 def remat_mode(cfg: LlamaConfig) -> str:
@@ -293,6 +307,22 @@ def _proj(cfg: LlamaConfig, name: str, in_features: int, features: int,
     )
 
 
+def tenant_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
+    """``(in, out)`` of each of the seven projections (every one carries a
+    tenant stack, as in the reference, whatever ``cfg.lora.targets`` says)."""
+    hd, d = cfg.head_dim, cfg.d_model
+    return {
+        "q_proj": (d, cfg.n_heads * hd), "k_proj": (d, cfg.n_kv_heads * hd),
+        "v_proj": (d, cfg.n_kv_heads * hd), "o_proj": (cfg.n_heads * hd, d),
+        "gate_proj": (d, cfg.d_ff), "up_proj": (d, cfg.d_ff), "down_proj": (cfg.d_ff, d),
+    }
+
+
+def tenant_stacks(cfg: LlamaConfig, slots: int, rank: int, device=None) -> TenantStacks:
+    """Zero tenant stacks for ``cfg``'s layers in its compute dtype."""
+    return TenantStacks(tenant_shapes(cfg), cfg.n_layers, slots, rank, cfg.dtype, device)
+
+
 @dataclasses.dataclass
 class PagedKV:
     """The serving KV cache: one (P, T, Hkv, D) page pool per layer for K
@@ -322,6 +352,34 @@ class PagedKV:
         self.v[:, dst] = self.v[:, src]
 
 
+@dataclasses.dataclass
+class DenseKV:
+    """The unpaged serving KV cache: a contiguous ``M``-position stripe per
+    lane, ``(L, B, M, Hkv, D)`` for K and for V.  Updated in place by
+    :meth:`Attention.forward_cached`; the lanes' cache indexes are the
+    caller's (host) state."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: LlamaConfig, batch: int, length: int, device) -> "DenseKV":
+        shape = (cfg.n_layers, batch, length, cfg.n_kv_heads, cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+    @property
+    def nbytes(self) -> int:
+        return self.k.nbytes + self.v.nbytes
+
+    def clone(self) -> "DenseKV":
+        return DenseKV(self.k.clone(), self.v.clone())
+
+
+def _rows(tenant: dict[str, TenantRows] | None, name: str) -> TenantRows | None:
+    return tenant[name] if tenant is not None else None
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -333,32 +391,57 @@ class Attention(nn.Module):
         self.v_proj = _proj(cfg, "v_proj", d, cfg.n_kv_heads * hd, device)
         self.o_proj = _proj(cfg, "o_proj", cfg.n_heads * hd, d, device)
 
-    def _qkv(self, x, positions, inv_freqs):
+    def _qkv(self, x, positions, inv_freqs, tenant=None):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
-        q = apply_rope(self.q_proj(x).reshape(b, s, cfg.n_heads, hd), positions, inv_freqs)
-        k = apply_rope(self.k_proj(x).reshape(b, s, cfg.n_kv_heads, hd), positions, inv_freqs)
-        v = self.v_proj(x).reshape(b, s, cfg.n_kv_heads, hd)
-        return q, k, v
+        q = self.q_proj(x, _rows(tenant, "q_proj")).reshape(b, s, cfg.n_heads, hd)
+        k = self.k_proj(x, _rows(tenant, "k_proj")).reshape(b, s, cfg.n_kv_heads, hd)
+        v = self.v_proj(x, _rows(tenant, "v_proj")).reshape(b, s, cfg.n_kv_heads, hd)
+        return apply_rope(q, positions, inv_freqs), apply_rope(k, positions, inv_freqs), v
 
-    def forward(self, x, positions, inv_freqs, segment_ids=None):
-        b, s, _ = x.shape
-        q, k, v = self._qkv(x, positions, inv_freqs)
+    def _out(self, out, tenant):
+        b, s = out.shape[:2]
+        return self.o_proj(out.reshape(b, s, -1), _rows(tenant, "o_proj"))
+
+    def forward(self, x, positions, inv_freqs, segment_ids=None, tenant=None):
+        q, k, v = self._qkv(x, positions, inv_freqs, tenant)
         out = causal_attention(q, k, v, impl=self.cfg.attention_impl, segment_ids=segment_ids)
-        return self.o_proj(out.reshape(b, s, -1))
+        return self._out(out, tenant)
 
     def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
-                      page_table, idx, write_at):
+                      page_table, idx, write_at, tenant=None):
         """Scatter the chunk's K/V into this layer's pools at ``write_at``
         (in place; see :func:`paged_write_index`) and attend through the
         page table from each lane's cache index ``idx`` (B,)."""
-        b, s, _ = x.shape
-        q, k, v = self._qkv(x, positions, inv_freqs)
+        q, k, v = self._qkv(x, positions, inv_freqs, tenant)
         k_pool[write_at] = k.to(k_pool.dtype)
         v_pool[write_at] = v.to(v_pool.dtype)
         out = paged_cache_attention(q, k_pool, v_pool, page_table, idx)
-        return self.o_proj(out.reshape(b, s, -1))
+        return self._out(out, tenant)
+
+    def forward_cached(self, x, positions, inv_freqs, k_cache, v_cache, idx, fresh,
+                       tenant=None):
+        """The reference's three regimes of ``_decode_attention`` over a
+        (B, M, Hkv, D) cache: ``fresh`` writes the chunk at [0, S) and
+        attends causally within it; otherwise the chunk lands at each row's
+        index ``idx`` (B,) and attends the cache up to itself.  A single
+        token's write clamps to the last slot, so a parked lane stays in
+        bounds."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, positions, inv_freqs, tenant)
+        if fresh:
+            k_cache[:, :s] = k
+            v_cache[:, :s] = v
+            out = xla_causal_attention(q, k, v)
+        else:
+            rows = torch.arange(b, device=x.device)[:, None]
+            cols = idx.long()[:, None] + torch.arange(s, device=x.device)[None, :]
+            cols = torch.clamp(cols, max=k_cache.shape[1] - 1) if s == 1 else cols
+            k_cache[rows, cols] = k.to(k_cache.dtype)
+            v_cache[rows, cols] = v.to(v_cache.dtype)
+            out = chunked_cache_attention(q, k_cache, v_cache, idx)
+        return self._out(out, tenant)
 
 
 def paged_write_index(page_table: torch.Tensor, idx: torch.Tensor, s: int,
@@ -387,16 +470,17 @@ class MLP(nn.Module):
         self.up_proj = _proj(cfg, "up_proj", cfg.d_model, cfg.d_ff, device)
         self.down_proj = _proj(cfg, "down_proj", cfg.d_ff, cfg.d_model, device)
 
-    def gate_up(self, x):
-        return self.gate_proj(x), self.up_proj(x)
+    def gate_up(self, x, tenant=None):
+        return (self.gate_proj(x, _rows(tenant, "gate_proj")),
+                self.up_proj(x, _rows(tenant, "up_proj")))
 
-    def down(self, gate, up):
+    def down(self, gate, up, tenant=None):
         # GeGLU uses the tanh approximation, as flax's nn.gelu does
         act = F.gelu(gate, approximate="tanh") if self.gelu else F.silu(gate)
-        return self.down_proj(act * up)
+        return self.down_proj(act * up, _rows(tenant, "down_proj"))
 
-    def forward(self, x):
-        return self.down(*self.gate_up(x))
+    def forward(self, x, tenant=None):
+        return self.down(*self.gate_up(x, tenant), tenant)
 
 
 class Block(nn.Module):
@@ -409,31 +493,38 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, **norm)
         self.mlp = MLP(cfg, device)
 
-    def _attn_residual(self, x, positions, inv_freqs, segment_ids):
-        return x + self.attn(self.attn_norm(x), positions, inv_freqs, segment_ids)
+    def _attn_residual(self, x, positions, inv_freqs, segment_ids, tenant=None):
+        return x + self.attn(self.attn_norm(x), positions, inv_freqs, segment_ids, tenant)
 
-    def _forward(self, x, positions, inv_freqs, segment_ids):
-        x = self._attn_residual(x, positions, inv_freqs, segment_ids)
-        return x + self.mlp(self.mlp_norm(x))
+    def _forward(self, x, positions, inv_freqs, segment_ids, tenant=None):
+        x = self._attn_residual(x, positions, inv_freqs, segment_ids, tenant)
+        return x + self.mlp(self.mlp_norm(x), tenant)
 
-    def forward(self, x, positions, inv_freqs, segment_ids=None, remat: str = "none"):
+    def forward(self, x, positions, inv_freqs, segment_ids=None, remat: str = "none",
+                tenant=None):
         if remat == "full":
-            return checkpoint(self._forward, x, positions, inv_freqs, segment_ids,
+            return checkpoint(self._forward, x, positions, inv_freqs, segment_ids, tenant,
                               use_reentrant=False)
         if remat == "mlp":
             # keep gate/up (d_ff wide); recompute the attention half and the
             # activation + down projection in the backward
-            x = checkpoint(self._attn_residual, x, positions, inv_freqs, segment_ids,
+            x = checkpoint(self._attn_residual, x, positions, inv_freqs, segment_ids, tenant,
                            use_reentrant=False)
-            gate, up = self.mlp.gate_up(self.mlp_norm(x))
-            return x + checkpoint(self.mlp.down, gate, up, use_reentrant=False)
-        return self._forward(x, positions, inv_freqs, segment_ids)
+            gate, up = self.mlp.gate_up(self.mlp_norm(x), tenant)
+            return x + checkpoint(self.mlp.down, gate, up, tenant, use_reentrant=False)
+        return self._forward(x, positions, inv_freqs, segment_ids, tenant)
 
     def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
-                      page_table, idx, write_at):
+                      page_table, idx, write_at, tenant=None):
         x = x + self.attn.forward_paged(self.attn_norm(x), positions, inv_freqs,
-                                        k_pool, v_pool, page_table, idx, write_at)
-        return x + self.mlp(self.mlp_norm(x))
+                                        k_pool, v_pool, page_table, idx, write_at, tenant)
+        return x + self.mlp(self.mlp_norm(x), tenant)
+
+    def forward_cached(self, x, positions, inv_freqs, k_cache, v_cache, idx, fresh,
+                       tenant=None):
+        x = x + self.attn.forward_cached(self.attn_norm(x), positions, inv_freqs,
+                                         k_cache, v_cache, idx, fresh, tenant)
+        return x + self.mlp(self.mlp_norm(x), tenant)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -459,6 +550,10 @@ class LlamaForCausalLM(nn.Module):
             param_dtype=cfg.param_dtype, device=dev,
         ))
         self.register_buffer("inv_freqs", rope_inv_freqs(cfg, dev), persistent=False)
+        #: the model's own tenant stacks (``cfg.lora_tenant_slots > 0``); a
+        #: serving engine passes its own as ``tenants=`` instead
+        self.tenants = (tenant_stacks(cfg, cfg.lora_tenant_slots, cfg.lora_tenant_rank, dev)
+                        if cfg.lora_tenant_slots else None)
         for index, module in enumerate(m for m in self.modules() if isinstance(m, LoRADense)):
             module.dropout_index = index
 
@@ -483,16 +578,30 @@ class LlamaForCausalLM(nn.Module):
             logits = self.lm_head(x)
         return logits.to(cfg.logits_dtype or torch.float32)
 
+    def _tenant_rows(self, adapter_ids, tenants) -> list:
+        """Per layer, the rows' gathered tenant adapters (``None`` entries
+        without ``adapter_ids``)."""
+        if adapter_ids is None:
+            return [None] * self.cfg.n_layers
+        stacks = tenants if tenants is not None else self.tenants
+        if stacks is None:
+            raise ValueError("adapter_ids given, but the model has no tenant stacks "
+                             "(lora_tenant_slots=0) and none were passed")
+        return stacks.select(adapter_ids)
+
     def forward(self, tokens: torch.Tensor,
-                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+                segment_ids: torch.Tensor | None = None,
+                adapter_ids: torch.Tensor | None = None,
+                tenants: TenantStacks | None = None) -> torch.Tensor:
         """Full-sequence causal forward: (B, S) tokens -> (B, S, V) logits.
         ``segment_ids`` (B, S) keeps packed documents from attending to each
-        other; positions run 0..S-1 across the row, as in the reference."""
+        other; positions run 0..S-1 across the row, as in the reference.
+        ``adapter_ids`` (B,) selects each row's tenant adapter."""
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
         remat = remat_mode(self.cfg) if torch.is_grad_enabled() else "none"
         x = self._embed(tokens)
-        for layer in self.layers:
-            x = layer(x, positions, self.inv_freqs, segment_ids, remat)
+        for layer, tenant in zip(self.layers, self._tenant_rows(adapter_ids, tenants)):
+            x = layer(x, positions, self.inv_freqs, segment_ids, remat, tenant)
         return self._head(x)
 
     def set_dropout_seed(self, seed: int) -> None:
@@ -506,7 +615,8 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def forward_paged(self, tokens, positions, kv: PagedKV, page_table, idx,
-                      last_idx: int | None = None) -> torch.Tensor:
+                      last_idx: int | None = None, adapter_ids=None,
+                      tenants: TenantStacks | None = None) -> torch.Tensor:
         """Paged serving forward over a chunk of S tokens per lane.
 
         ``tokens``/``positions`` (B, S); ``page_table`` (B, MP) int32;
@@ -516,9 +626,27 @@ class LlamaForCausalLM(nn.Module):
         runs on that row only)."""
         x = self._embed(tokens)
         write_at = paged_write_index(page_table, idx, tokens.shape[1], kv.k.shape[2])
-        for layer, k_pool, v_pool in zip(self.layers, kv.k, kv.v):
+        rows = self._tenant_rows(adapter_ids, tenants)
+        for layer, k_pool, v_pool, tenant in zip(self.layers, kv.k, kv.v, rows):
             x = layer.forward_paged(x, positions, self.inv_freqs, k_pool, v_pool,
-                                    page_table, idx, write_at)
+                                    page_table, idx, write_at, tenant)
+        if last_idx is not None:
+            x = x[:, last_idx]
+        return self._head(x)
+
+    @torch.no_grad()
+    def forward_cached(self, tokens, positions, kv: DenseKV, idx, *, fresh: bool = False,
+                       last_idx: int | None = None, adapter_ids=None,
+                       tenants: TenantStacks | None = None) -> torch.Tensor:
+        """Unpaged serving forward over a chunk of S tokens per lane against
+        ``kv`` (written in place): ``fresh`` prefills from position 0,
+        otherwise the chunk continues each lane's cache at ``idx`` (B,).
+        Returns logits as :meth:`forward_paged` does."""
+        x = self._embed(tokens)
+        rows = self._tenant_rows(adapter_ids, tenants)
+        for layer, k_cache, v_cache, tenant in zip(self.layers, kv.k, kv.v, rows):
+            x = layer.forward_cached(x, positions, self.inv_freqs, k_cache, v_cache, idx,
+                                     fresh, tenant)
         if last_idx is not None:
             x = x[:, last_idx]
         return self._head(x)

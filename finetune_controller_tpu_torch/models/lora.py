@@ -12,8 +12,19 @@ seeded from the seed the trainer sets (``set_dropout_seed``) and the
 adapter's index, so a rematerialised forward redraws the same mask.  The
 bits differ from JAX's; only the distribution matches.
 
-The multi-tenant branch of the reference (stacked per-tenant adapters
-selected per batch row) waits for a later slice.
+Multi-tenant serving (the reference's ``tenant_slots`` branch,
+``lora.py:59-67`` and ``:114-138``): :class:`TenantStacks` holds N stacked
+per-tenant adapters for every projection of every layer, and each batch row
+applies the adapter its entry in ``adapter_ids`` names.  Slot 0 is the base
+model (all-zero stack, scale 0: its delta is an exact 0.0); a tenant whose
+rank is below the stack rank is zero-padded.  The stacks are buffers, one
+``(L, N, in, R)`` / ``(L, N, R, out)`` / ``(L, N)`` triple per projection
+kind (the reference's scanned ``"tenants"`` leaves), so a forward gathers
+the rows' adapters once per kind for all layers (:meth:`TenantStacks.select`)
+and :meth:`LoRADense.forward` takes its layer's gathered slice.  They are
+stored in the compute dtype: the reference keeps them in ``param_dtype`` and
+casts at use, and a cast at store time rounds the same values to the same
+bits.
 """
 
 from __future__ import annotations
@@ -88,7 +99,10 @@ class LoRADense(nn.Module):
         else:
             self.lora_a = self.lora_b = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tenant: "TenantRows | None" = None) -> torch.Tensor:
+        """``tenant`` is this projection's slice of :meth:`TenantStacks.select`:
+        per-row ``A (B, in, R)``, ``B (B, R, out)`` and ``scale (B,)`` in the
+        compute dtype, applied as ``y_b += scale_b * (x_b @ A_b) @ B_b``."""
         y = x @ self.kernel.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
@@ -96,6 +110,12 @@ class LoRADense(nn.Module):
             h = self._dropout(x) if self.dropout > 0.0 and self.training else x
             # same evaluation order as the reference: ((h @ A) @ B) * scale
             y = y + (h @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * self.scale
+        if tenant is not None:
+            # the reference's order: gather (done by select), bsi,bir->bsr,
+            # bsr,bro->bso, then the per-row scale
+            a, b, scale = tenant
+            delta = torch.bmm(torch.bmm(x, a), b)
+            y = y + delta * scale[:, None, None]
         return y
 
     def _dropout(self, x: torch.Tensor) -> torch.Tensor:
@@ -106,3 +126,50 @@ class LoRADense(nn.Module):
         keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout
         return torch.where(keep, x / (1.0 - self.dropout), torch.zeros((), dtype=x.dtype,
                                                                         device=x.device))
+
+
+#: one projection's per-row adapters: (A (B, in, R), B (B, R, out), scale (B,))
+TenantRows = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class _Stack(nn.Module):
+    """One projection kind's stacks across ``L`` layers and ``N`` slots."""
+
+    def __init__(self, n_layers: int, slots: int, rank: int, in_features: int,
+                 features: int, dtype: torch.dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.register_buffer("lora_a", torch.zeros(n_layers, slots, in_features, rank, **kw))
+        self.register_buffer("lora_b", torch.zeros(n_layers, slots, rank, features, **kw))
+        self.register_buffer("scale", torch.zeros(n_layers, slots, **kw))
+
+
+class TenantStacks(nn.Module):
+    """Stacked per-tenant adapters of every projection of every layer.
+
+    ``shapes`` maps each projection name to its ``(in, out)``; the children
+    are named after the projections and each holds ``lora_a (L, N, in, R)``,
+    ``lora_b (L, N, R, out)`` and ``scale (L, N)`` buffers.  Slot 0 stays
+    zero (the base model).  ``serve/adapters.py::install_into`` writes a
+    tenant's slot in place; a serving engine does so under its lock, so no
+    forward reads a half-written slot."""
+
+    def __init__(self, shapes: dict[str, tuple[int, int]], n_layers: int, slots: int,
+                 rank: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.n_layers = n_layers
+        for name, (fan_in, fan_out) in shapes.items():
+            self.add_module(name, _Stack(n_layers, slots, max(1, rank), fan_in, fan_out,
+                                         dtype, device))
+
+    def select(self, adapter_ids: torch.Tensor) -> list[dict[str, TenantRows]]:
+        """Per layer, ``{projection: (A, B, scale)}`` gathered for the rows'
+        ``adapter_ids`` (B,): one gather per stack for all layers."""
+        ids = adapter_ids.to(device=next(self.buffers()).device, dtype=torch.long)
+        per_kind = {
+            name: tuple(t.index_select(1, ids).unbind(0)
+                        for t in (stack.lora_a, stack.lora_b, stack.scale))
+            for name, stack in self.named_children()
+        }
+        return [{name: (a[i], b[i], s[i]) for name, (a, b, s) in per_kind.items()}
+                for i in range(self.n_layers)]

@@ -1,1 +1,44 @@
-"""Paged continuous-batching serving: page pool, prefix cache, engine, batcher."""
+"""Continuous-batching serving of the port (counterpart of the reference's
+``serve/`` package).
+
+* :mod:`engine` — slot-based batch decode over a paged KV pool (the CUDA
+  paged-attention kernel on the card) or a dense per-lane cache, with
+  multi-tenant LoRA adapters and the host-RAM KV tier;
+* :mod:`kv_pages` — the page pool's host-side allocator and the host tier;
+* :mod:`prefix_cache` — prefix reuse, namespaced by adapter;
+* :mod:`adapters` — the multi-tenant adapter registry;
+* :mod:`batcher` — asyncio admission queue with backpressure, deadlines and
+  per-tenant fairness;
+* :mod:`fleet` — N health-checked in-process replicas sharing one model:
+  failure and respawn, drain, rollover;
+* :mod:`router` — spreads requests over the fleet with failover,
+  idempotent request ids and Retry-After load shedding;
+* :mod:`loader` — a trained job's directory into a serving model, merged
+  or as the base plus its adapter.
+
+The reference's HTTP routes (``service.py``), its store-facing loader half
+and its process transport are not ported yet (ROADMAP Queue A).
+"""
+
+from .adapters import AdapterRegistry, UnknownAdapter
+from .engine import BatchEngine, EngineConfig, GenRequest, GenResult
+from .fleet import Replica, ReplicaFleet, ReplicaState
+from .kv_pages import KVPagePool, PageRun, PoolExhausted
+from .router import FleetUnavailable, ReplicaRouter
+
+__all__ = [
+    "AdapterRegistry",
+    "BatchEngine",
+    "EngineConfig",
+    "FleetUnavailable",
+    "GenRequest",
+    "GenResult",
+    "KVPagePool",
+    "PageRun",
+    "PoolExhausted",
+    "Replica",
+    "ReplicaFleet",
+    "ReplicaRouter",
+    "ReplicaState",
+    "UnknownAdapter",
+]

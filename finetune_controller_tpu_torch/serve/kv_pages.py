@@ -2,6 +2,8 @@
 
 A copy of the reference's ``serve/kv_pages.py``, which is free of JAX; the
 port keeps its own copy so that it imports nothing of the reference package.
+The one change: :class:`HostPagePool` stores its pages in pinned torch
+buffers, and a write returns only once the device-to-host copy is complete.
 
 An unpaged engine reserves a full ``cache_len`` KV lane per decode slot at
 admit time, so HBM — not compute — caps concurrency: a 12-token request holds
@@ -46,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
+import torch
 
 
 class PoolExhausted(RuntimeError):
@@ -82,12 +84,12 @@ class HostPagePool:
     (docs/serving.md §KV tiering).
 
     A flat pool of ``capacity = budget_bytes // page_bytes`` host page
-    slots.  Storage is one pinned numpy buffer per K/V cache leaf, shaped
-    ``(capacity,) + page_slice_shape`` and allocated lazily on the first
-    demotion (the engine defines the leaf set; this class only needs the
-    bytes to land somewhere stable and reusable).  Single-threaded by the
-    same contract as the device pool — the batcher's drive loop serializes
-    every caller.
+    slots.  Storage is one torch buffer per K/V cache leaf, shaped
+    ``(capacity,) + page_slice_shape`` and pinned when the pages come from
+    a CUDA card, allocated by :meth:`allocate` (the engine calls it when it
+    starts, so no demotion pays for a pinned allocation; the first write
+    allocates otherwise).  Single-threaded by the same contract as the
+    device pool — the engine's lock serializes every caller.
 
     The unit of transfer is one whole page id across every layer's K and V
     leaves — exactly the device pool's accounting unit, so device and host
@@ -103,9 +105,9 @@ class HostPagePool:
         # ascending hand-out order, like the device pool: deterministic slot
         # reuse keeps demote/restore tests reproducible
         self._free = list(range(self.capacity - 1, -1, -1))
-        #: per-leaf pinned buffers, keyed by leaf ordinal in the engine's
+        #: per-leaf host buffers, keyed by leaf ordinal in the engine's
         #: fixed K/V traversal order; created on first write
-        self._buffers: list[np.ndarray] | None = None
+        self._buffers: list[torch.Tensor] | None = None
         # counters for /metrics + tests (units: PAGES moved, not calls)
         self.demotions_total = 0
         self.restores_total = 0
@@ -144,17 +146,29 @@ class HostPagePool:
 
     # ---- page bytes -------------------------------------------------------
 
-    def write(self, slot: int, pages: list[np.ndarray]) -> None:
-        """Store one device page's per-leaf slices into host ``slot``."""
+    def allocate(self, pages: list[torch.Tensor]) -> None:
+        """Create the per-leaf buffers for pages shaped like ``pages``
+        (pinned when they lie on a CUDA card); a no-op once allocated."""
         if self._buffers is None:
+            pin = pages[0].is_cuda
             self._buffers = [
-                np.empty((self.capacity,) + np.shape(p), p.dtype)
+                torch.empty((self.capacity,) + tuple(p.shape), dtype=p.dtype,
+                            pin_memory=pin)
                 for p in pages
             ]
-        for buf, page in zip(self._buffers, pages):
-            buf[slot] = page
 
-    def read(self, slot: int) -> list[np.ndarray]:
+    def write(self, slot: int, pages: list[torch.Tensor]) -> None:
+        """Store one device page's per-leaf slices into host ``slot``.  The
+        copies are queued on the device's current stream and waited for
+        before this returns, so the slot counts as filled only once its
+        bytes have landed."""
+        self.allocate(pages)
+        for buf, page in zip(self._buffers, pages):
+            buf[slot].copy_(page, non_blocking=True)
+        if pages[0].is_cuda:
+            torch.cuda.current_stream(pages[0].device).synchronize()
+
+    def read(self, slot: int) -> list[torch.Tensor]:
         """The per-leaf page slices stored in ``slot`` (same order as the
         :meth:`write` that filled it)."""
         assert self._buffers is not None, "read before any write"

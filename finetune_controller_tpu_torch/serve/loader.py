@@ -1,0 +1,265 @@
+"""Load a trained job's checkpoint into a serving model (the local-directory
+half of the reference's ``serve/loader.py``).
+
+A job's artifacts directory — what ``python -m
+finetune_controller_tpu_torch.train.cli`` writes, and what a promotion
+copies — holds ``resolved_config.json`` (the job spec) and
+``checkpoints/step_N/state.pt`` (the trainable tensors and the optimizer
+state, ``train/checkpoint.py``).  This module turns that directory back
+into a model the serving engine decodes with:
+
+* :func:`load_serving_model` rebuilds the model as the trainer did (same
+  preset, same seed, so the same frozen base for a from-scratch job),
+  restores the latest checkpoint's trainable tensors into it, and — for a
+  LoRA job — optionally folds the adapters into the base kernels
+  (:func:`merge_lora_variables`: in f32, then cast to the serving dtype).
+  The base is built in the spec's ``frozen_dtype``, or in the compute dtype
+  when the spec names none, and served in the compute dtype: no f32 copy
+  of a bf16-served base is made on the way;
+* :func:`strip_lora_for_multitenant` splits an unmerged model into the
+  pristine base and the job's own adapter, which becomes a tenant;
+* :func:`_load_adapter_tree` reads only a LoRA job's adapter (the
+  checkpoint's trainable tensors), never the base; :func:`stage_meta` reads
+  only the spec and the checkpoint listing.
+
+Every entry point refuses what cannot be served with the reference's
+messages (:class:`ServeLoadError`).  The store-facing half of the reference
+(``resolve_promoted``, ``fetch_promoted``, ``load_adapter``,
+``stage_for_workers``, ``load_promoted``) waits for the controller's port
+(ROADMAP Queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from ..models.convert import merge_kernel, merged_config
+from ..models.llama import LlamaForCausalLM, rope_inv_freqs
+from ..train.checkpoint import CheckpointManager
+from ..train.cli import MM_PRESET_NAMES, build_model_config, build_train_config
+
+logger = logging.getLogger(__name__)
+
+_LORA_LEAVES = (".lora_a", ".lora_b")
+
+
+class ServeLoadError(RuntimeError):
+    """A job cannot be served; ``status`` maps to the HTTP response."""
+
+    def __init__(self, message: str, status: int = 409):
+        super().__init__(message)
+        self.status = status
+
+
+def _read_spec(local_dir: Path) -> dict:
+    spec_path = local_dir / "resolved_config.json"
+    if not spec_path.exists():
+        raise ServeLoadError(
+            f"{spec_path} missing: the promoted prefix carries no job spec"
+        )
+    with open(spec_path) as f:
+        return json.load(f)
+
+
+def _latest_step(local_dir: Path) -> int:
+    ckpt_dir = local_dir / "checkpoints"
+    if not ckpt_dir.is_dir() or not os.listdir(ckpt_dir):
+        raise ServeLoadError(
+            f"no checkpoints under {ckpt_dir} — the job produced none"
+        )
+    latest = CheckpointManager(ckpt_dir).latest_step()
+    if latest is None:
+        raise ServeLoadError(f"no committed checkpoint steps under {ckpt_dir}")
+    return latest
+
+
+def _model_config(spec: dict, multimodal_message: str):
+    if spec.get("model", {}).get("preset") in MM_PRESET_NAMES:
+        raise ServeLoadError(multimodal_message)
+    return build_model_config(spec)
+
+
+def _resolve_staged_spec(local_dir: Path) -> tuple[dict, Any, int]:
+    """Shared validation for a staged job directory: spec read,
+    serving-eligibility guards, latest committed checkpoint step.  Both
+    :func:`load_serving_model` and :func:`stage_meta` run it, so a
+    checkpoint is servable (or refused, with the same error) either way."""
+    spec = _read_spec(local_dir)
+    model_cfg = _model_config(spec, "serving multimodal checkpoints is not supported yet")
+    if getattr(model_cfg, "n_experts", 0):
+        raise ServeLoadError(
+            "serving MoE checkpoints is not supported (batching invariance "
+            "does not hold under capacity routing)"
+        )
+    return spec, model_cfg, _latest_step(local_dir)
+
+
+def merge_lora_variables(model_cfg: Any, state: dict[str, torch.Tensor]
+                         ) -> tuple[Any, dict[str, torch.Tensor]]:
+    """Fold LoRA deltas into the base kernels: ``W' = W + (α/r)·A·B``,
+    computed in f32 and cast to the serving (compute) dtype.  Returns a
+    rank-0 config and ``state`` itself, updated in place (adapter entries
+    removed), so only one kernel at a time exists twice.  Quantized bases
+    refuse (int4 kernels cannot absorb a dense delta); serve those
+    unmerged."""
+    if not any(k.endswith(_LORA_LEAVES) for k in state):
+        return model_cfg, state
+    if getattr(model_cfg, "quantize_base", False):
+        raise ServeLoadError(
+            "cannot merge LoRA into an int4-quantized base; serve unmerged"
+        )
+    scale = model_cfg.lora.alpha / model_cfg.lora.rank
+    for key in [k for k in state if k.endswith(".lora_a")]:
+        prefix = key[: -len(".lora_a")]
+        a, b = state.pop(key), state.pop(f"{prefix}.lora_b")
+        kernel = state[f"{prefix}.kernel"].to(model_cfg.dtype)
+        state[f"{prefix}.kernel"] = merge_kernel(kernel, a, b, scale)
+    return merged_config(model_cfg), state
+
+
+def _assemble(cfg: Any, state: dict[str, torch.Tensor], device: torch.device
+              ) -> LlamaForCausalLM:
+    """A model for ``cfg`` whose parameters ARE the tensors of ``state``
+    (already on ``device``): built on the meta device and assigned, so no
+    second copy of the weights is ever allocated."""
+    model = LlamaForCausalLM(cfg, device="meta")
+    model.load_state_dict(state, strict=True, assign=True)
+    model.inv_freqs = rope_inv_freqs(cfg, device)  # not in a state dict
+    return model.requires_grad_(False).eval()
+
+
+def load_serving_model(local_dir: Path | str, *, merge_lora: bool = True,
+                       device=None) -> tuple[LlamaForCausalLM, dict]:
+    """Build ``(model, meta)`` from a job's artifacts directory on
+    ``device`` (the CUDA card unless the caller passes another).
+
+    The port's ``Trainer`` rebuilds the model (its base drawn from the
+    job's seed, as in training), the latest checkpoint's trainable tensors
+    are copied in, and the optimizer state is dropped.  With
+    ``merge_lora`` the adapters fold into the base kernels; without it they
+    stay as the model's LoRA branch."""
+    from ..train.trainer import Trainer
+
+    local_dir = Path(local_dir)
+    spec, model_cfg, latest = _resolve_staged_spec(local_dir)
+    if spec.get("model", {}).get("weights_dir"):
+        raise NotImplementedError(
+            "model.weights_dir: loading pretrained HF weights is not ported yet "
+            "(ROADMAP Queue A item 4)")
+    train_cfg = build_train_config(spec)
+    if train_cfg.mode == "lora" and not train_cfg.frozen_dtype:
+        # serve the base in the compute dtype without building it in f32
+        train_cfg = dataclasses.replace(
+            train_cfg, frozen_dtype=str(model_cfg.dtype).removeprefix("torch."))
+    trainer = Trainer(model_cfg, train_cfg, device=device)
+    host = CheckpointManager(local_dir / "checkpoints").restore(latest)
+    missing = sorted(set(trainer.trainable) - set(host["trainable"]))
+    if missing:
+        raise ServeLoadError(
+            f"checkpoint step_{latest} lacks trainable tensors {missing[:3]} "
+            f"({len(missing)} in all): it does not fit this job's model")
+    with torch.no_grad():
+        for name, p in trainer.trainable.items():
+            p.copy_(host["trainable"][name])
+    state = {k: v.detach() for k, v in trainer.model.state_dict().items()}
+    dev = trainer.device
+    del trainer, host  # the optimizer state and the host copy go here
+    # the base in the serving dtype; the adapters keep their f32 (a cast at
+    # use rounds them the same way)
+    state = {k: v if k.endswith(_LORA_LEAVES) else v.to(model_cfg.dtype)
+             for k, v in state.items()}
+    merged = False
+    if merge_lora and model_cfg.lora.rank > 0:
+        model_cfg, state = merge_lora_variables(model_cfg, state)
+        merged = True
+    model = _assemble(model_cfg, state, dev)
+    meta = {
+        "preset": spec.get("model", {}).get("preset"),
+        "task": train_cfg.task,
+        "checkpoint_step": latest,
+        "lora_merged": merged,
+        "vocab_size": model_cfg.vocab_size,
+        "max_seq_len": model_cfg.max_seq_len,
+        "weights_dir": None,
+    }
+    logger.info("serving model ready: %s", meta)
+    return model, meta
+
+
+def strip_lora_for_multitenant(model: LlamaForCausalLM
+                               ) -> tuple[LlamaForCausalLM, dict | None, float, int]:
+    """Split a loaded (unmerged) serving model into the pristine base plus
+    its own adapter, for multi-tenant serving: returns ``(base_model,
+    adapter | None, alpha, rank)``.  The base model's config drops to rank
+    0 and shares the loaded model's tensors; the adapter (host copies of the
+    LoRA factors) becomes a tenant, so the job's own fine-tune is served as
+    tenant #1 while slot 0 stays the untouched base."""
+    cfg = model.cfg
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    adapter = {k: v.to("cpu") for k, v in state.items() if k.endswith(_LORA_LEAVES)}
+    if not adapter:
+        return model, None, 0.0, 0
+    base = {k: v for k, v in state.items() if not k.endswith(_LORA_LEAVES)}
+    return (_assemble(merged_config(cfg), base, model.device), adapter,
+            cfg.lora.alpha, cfg.lora.rank)
+
+
+def _load_adapter_tree(local_dir: Path | str) -> tuple[dict, dict]:
+    """A LoRA job's directory → ``(adapter, adapter_meta)``.  Unlike
+    :func:`load_serving_model` this never builds the model or touches base
+    weights: a LoRA checkpoint's trainable tensors ARE the adapter, so the
+    load is one spec read plus one small ``state.pt`` read."""
+    local_dir = Path(local_dir)
+    spec = _read_spec(local_dir)
+    model_cfg = _model_config(spec, "multimodal adapters are not servable yet")
+    if model_cfg.lora.rank < 1:
+        raise ServeLoadError(
+            "job is not a LoRA job (lora.rank == 0): only LoRA deltas can "
+            "be multiplexed onto a shared base fleet — serve it as its own "
+            "model instead"
+        )
+    latest = _latest_step(local_dir)
+    host = CheckpointManager(local_dir / "checkpoints").restore(latest)
+    trainable = host.get("trainable") if isinstance(host, dict) else None
+    adapter = {k: v for k, v in (trainable or {}).items() if k.endswith(_LORA_LEAVES)}
+    if not adapter:
+        raise ServeLoadError(
+            "checkpoint carries no trainable (LoRA) tree — was this job "
+            "trained by this stack in LoRA mode?"
+        )
+    meta = {
+        "preset": spec.get("model", {}).get("preset"),
+        "weights_dir": spec.get("model", {}).get("weights_dir") or None,
+        "checkpoint_step": latest,
+        "lora_rank": model_cfg.lora.rank,
+        "lora_alpha": model_cfg.lora.alpha,
+    }
+    return adapter, meta
+
+
+def stage_meta(local_dir: Path | str, *, merge_lora: bool = True) -> dict:
+    """Serving meta from a job directory without building the model or
+    reading weights; the eligibility guards are :func:`_resolve_staged_spec`,
+    shared with :func:`load_serving_model`."""
+    local_dir = Path(local_dir)
+    spec, model_cfg, latest = _resolve_staged_spec(local_dir)
+    merged = bool(merge_lora and model_cfg.lora.rank > 0
+                  and not getattr(model_cfg, "quantize_base", False))
+    return {
+        "preset": spec.get("model", {}).get("preset"),
+        "task": spec.get("training", {}).get("task", "sft"),
+        "checkpoint_step": latest,
+        "lora_merged": merged,
+        "lora_rank": model_cfg.lora.rank,
+        "lora_alpha": model_cfg.lora.alpha,
+        "vocab_size": model_cfg.vocab_size,
+        "max_seq_len": model_cfg.max_seq_len,
+        "weights_dir": spec.get("model", {}).get("weights_dir") or None,
+    }

@@ -1,4 +1,4 @@
-"""The port's paged serving engine against the JAX ``BatchEngine``.
+"""The port's serving engine against the JAX ``BatchEngine``.
 
 Both engines serve ``tiny-test`` in f32 from the same weights (seeded numpy
 noise through ``from_flax``) with 4-token pages, 3 slots, buckets (8, 16)
@@ -7,7 +7,9 @@ admissions, a prefix hit whose reuse length (10) is not a page multiple (a
 copy-on-write page), an eviction mid-flight, more requests than slots — and
 the greedy tokens must be EQUAL.  The same requests through the port's
 asyncio ``Batcher`` give the same results.  Sampled streams cannot match
-JAX's threefry, so the port's own determinism is pinned instead.
+JAX's threefry, so the port's own determinism is pinned instead.  The
+unpaged mode (a dense cache per lane) and ``cached_generate`` give the
+reference's greedy tokens too.
 """
 
 from __future__ import annotations
@@ -195,15 +197,62 @@ def test_warm_engine_zeroes_counters(port_model):
     assert engine.kv_page_stats()["pages_reserved"] == 0
 
 
-def test_unpaged_mode_waits_for_a_later_slice(port_model):
-    with pytest.raises(NotImplementedError, match="paged"):
-        _port_engine(port_model, page_tokens=0)
+@pytest.fixture(scope="module")
+def jax_unpaged(weights):
+    """The reference engine's unpaged mode (dense per-lane cache, prefix
+    snapshots) on the scripted requests, without the eviction."""
+    jcfg, variables = weights
+    engine = JaxEngine(JaxLlama(jcfg), variables, JaxEngineConfig(**{**ENGINE, "page_tokens": 0}))
+    reqs = [JaxRequest(request_id=rid, tokens=p, max_new_tokens=n) for rid, p, n in _requests()]
+    out = {rid: r.generated for rid, r in engine.run(reqs).items()}
+    return out, engine.prefix_hits_total
+
+
+def test_unpaged_mode_waits_for_a_later_slice(port_model, jax_unpaged):
+    """The unpaged mode has arrived (``page_tokens=0``): a dense cache per
+    lane with prefix snapshots gives the reference unpaged engine's greedy
+    tokens and prefix hits, and the paged engine's tokens."""
+    engine = _port_engine(port_model, page_tokens=0)
+    assert not engine.paged and engine.kv_page_stats() == {}
+    got = engine.run([GenRequest(request_id=rid, tokens=p, max_new_tokens=n)
+                      for rid, p, n in _requests()])
+    want, hits = jax_unpaged
+    assert {rid: r.generated for rid, r in got.items()} == want
+    assert engine.prefix_hits_total == hits >= 2
+    paged = _port_engine(port_model).run([GenRequest(request_id=rid, tokens=p, max_new_tokens=n)
+                                          for rid, p, n in _requests()])
+    assert {rid: r.generated for rid, r in paged.items()} == want
+
+
+def test_cached_generate_matches_reference(weights, port_model):
+    """``cached_generate`` (fill, then one cached position per token) gives
+    the reference's greedy tokens on a batch of two prompts, and the
+    uncached oracle's."""
+    from finetune_controller_tpu.models.generate import cached_generate as jax_cached_generate
+    from finetune_controller_tpu_torch.models.generate import cached_generate, generate
+
+    jcfg, variables = weights
+    prompts = np.array([[3, 1, 4, 1, 5, 9, 2], [7, 1, 8, 2, 8, 1, 8]], np.int32)
+    want = np.asarray(jax_cached_generate(JaxLlama(jcfg), variables, jnp.asarray(prompts),
+                                          max_new_tokens=9, eos_id=255))
+    got = cached_generate(port_model, torch.from_numpy(prompts), max_new_tokens=9, eos_id=255)
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == generate(port_model, torch.from_numpy(prompts), max_new_tokens=9,
+                                    eos_id=255).tolist()
 
 
 def test_unknown_adapter_is_refused(port_model):
+    """A request naming an adapter is refused with the reference's
+    messages: by an engine without a registry (naming the knob) and by a
+    tenant-mode engine that has not loaded it (naming what is loaded); the
+    lane stays free."""
     from finetune_controller_tpu_torch.serve.engine import UnknownAdapter
 
     engine = _port_engine(port_model)
-    with pytest.raises(UnknownAdapter):
+    with pytest.raises(UnknownAdapter, match="serve_max_adapters"):
         engine.admit(GenRequest("t", [1, 2], 2, adapter_id="tenant-a"))
     assert engine.free_slots == ENGINE["slots"]
+    tenants = _port_engine(port_model, tenant_slots=3, tenant_rank=4)
+    with pytest.raises(UnknownAdapter, match="'tenant-a' is not loaded .*loaded: none"):
+        tenants.admit(GenRequest("t", [1, 2], 2, adapter_id="tenant-a"))
+    assert tenants.free_slots == ENGINE["slots"]

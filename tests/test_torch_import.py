@@ -95,6 +95,40 @@ def test_training_slice_imports_resolve_inside_the_port(path):
         assert not _forbidden(module), f"{path.relative_to(ROOT)}:{line} imports {module}"
 
 
+SERVING_SLICE = sorted(
+    [PORT / "serve" / f for f in ("adapters.py", "engine.py", "fleet.py", "router.py",
+                                  "loader.py", "batcher.py", "kv_pages.py", "prefix_cache.py",
+                                  "__init__.py")]
+    + [PORT / "resilience" / f for f in ("__init__.py", "policy.py", "faults.py")]
+    + [PORT / "models" / f for f in ("lora.py", "llama.py", "convert.py", "generate.py")])
+
+
+@pytest.mark.parametrize("path", SERVING_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_serving_slice_imports_resolve_inside_the_port(path):
+    """The serving slice's modules (tenants, host tier, fleet, router,
+    loader and the resilience copies), relative imports resolved, stay out
+    of JAX, the JAX package and the packages the card machine lacks."""
+    assert path.exists()
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in ("msgpack", "aiohttp"), \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_serving_entry_points_default_to_cuda(tmp_path):
+    """The loader and a fleet's engines run on the card unless the caller
+    passes the CPU: without a card the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from finetune_controller_tpu_torch.serve.loader import load_serving_model
+
+    (tmp_path / "checkpoints" / "step_1").mkdir(parents=True)
+    (tmp_path / "resolved_config.json").write_text(
+        '{"model": {"preset": "tiny-test", "lora": {"rank": 2}}, "training": {}}')
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_serving_model(tmp_path)
+
+
 def test_entry_points_default_to_cuda():
     """Without ``device=`` the entry points ask for the card and raise where
     there is none; ``device="cpu"`` is honoured when given."""
