@@ -38,14 +38,36 @@ Phases (any failure exits non-zero and prints no result line):
    to back) beside the kernel's bound and its split count;
 7. compare first-token logits of the model's paged prefill under
    ``FTC_PAGED_ATTN=kernel`` and ``FTC_PAGED_ATTN=gather``;
-8. (T2) train ``llama3-8b`` at full width and depth through
-   ``train.cli.main``: LoRA rank 16 on all seven projections, bf16 base,
-   batch 4 x 2048 tokens of packed random-text documents in 2 microbatches,
-   6 steps, then 2 more resumed from the step-6 checkpoint.  The flash
-   kernels' launch counts are zeroed just before and read just after; the
-   metrics rows, the schedule, the LoRA ``B`` leaves, the checkpoints and
-   ``done.txt`` are checked;
-9. (S2) serve what T2 trained, from its artifacts directory: (a)
+8. (H1) write the base T2's trainer draws from ``--seed`` as an HF
+   directory in the layout of the published Meta-Llama-3-8B repository
+   (bf16 shards of at most 5 GB, ``model.safetensors.index.json``,
+   ``config.json``), after printing the free space of the work directory's
+   file system (and failing when the bf16 base and T2's f32 export do not
+   fit); read it back onto the card through
+   ``load_llama_params`` and hold it against the writer's tensors, bit for
+   bit; print write and read seconds and GB/s;
+   (T2) train ``llama3-8b`` at full width through ``train.cli.main`` from
+   that directory (``model.weights_dir``): LoRA rank
+   16 on all seven projections, bf16 base, batch 4 x 2048 tokens of packed
+   random-text documents in 2 microbatches, evaluation every 3 steps on a
+   second seeded file (2 batches), 6 steps, then 2 more resumed from the
+   step-6 checkpoint with ``export_merged``.  The flash kernels' launch
+   counts are zeroed just before and read just after; the metrics rows, the
+   schedule, the eval rows, the LoRA ``B`` leaves, the checkpoints,
+   ``done.txt``, ``adapter/`` (14 f32 tensors a layer, r 16, alpha 32),
+   ``merged/`` (9 tensors a layer and 3), ``heartbeat.json``, ``events.jsonl``, the
+   spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
+   the losses printed beside those of the same run from a random-init
+   base at 32 layers.
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 28 of the 32 layers: the run may
+   write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
+   merged export and checkpoints (46.3 GiB) exceed;
+   (H2) the exported adapter against the step-8 LoRA tensors (bit for
+   bit), and the merged checkpoint reloaded into a bf16 model through
+   ``load_pretrained_`` against ``load_serving_model(merge_lora=True)``:
+   first-token logits within 1 % of max |logit|; export and reload timed;
+9. (S2) serve what T2 trained, from its artifacts directory, the base
+   coming from ``model.weights_dir`` through the loader: (a)
    ``load_serving_model(merge_lora=True)`` serves 4 requests; (b) the
    unmerged checkpoint split by ``strip_lora_for_multitenant`` into the base
    and tenant ``job`` (rank 16), beside a seeded rank-8 tenant ``r8`` padded
@@ -73,8 +95,19 @@ Phases (any failure exits non-zero and prints no result line):
     sizes), its rate on that executed work and its share of the bound, each
     with no segment ids too (every causal tile pair), beside its time before
     the Hopper redesign; each launched twice must give the same bits;
-12. print the ``kernels``, ``serve``, ``serve_tenants`` and ``train`` lines,
-    the card line, and
+12. (F) the fidelity proof at the reference's default scale
+    (``fidelity.py:286-299``), on the card through the port's CLI:
+    ``pretrain_base`` (``tiny-test``, 600 steps on a 400 KB stdlib corpus,
+    batch 16 x 128, exported as an HF directory), a LoRA SFT job (rank 8,
+    lr 3e-3, 120 steps) through ``train.cli.main`` from it, and
+    ``generate_cli`` on the job's artifacts with a held-out prompt; the
+    reference's three checks (step-1 loss < 0.75 x random-init loss, final
+    < 0.75 x step 1, the generation starts with ``SFT_PREFIX`` only after
+    the job).  ``tiny-test`` runs the plain attention by its config (head
+    dim 16, ``attention_impl="xla"``); the kernels are held on the
+    full-width phases;
+13. print the ``kernels``, ``serve``, ``serve_tenants``, ``hf_io``,
+    ``fidelity`` and ``train`` lines, the card line, and
     last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
@@ -727,14 +760,38 @@ def serve_phase(args):
     return entry, summary
 
 
-#: LoRA SFT of llama3-8b through the spec CLI (phase T2)
+#: depth of the model H1 writes, T2 trains and H2 and S2 load: the run may
+#: write 45 GiB to its disk at most, and at 32 layers H1's bf16 base (16.06
+#: GB), T2's f32 merged export (32.12 GB) and T2's three checkpoints (1.51
+#: GB) are 49.7 GB (46.3 GiB); at 28 layers they are 44.3 GB (41.2 GiB)
+HF_LAYERS = 28
+#: the llama3-8b preset's depth, which S1 serves
+PRESETS_DEPTH = 32
+#: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
+#: CLI (phase T2)
 TRAIN_SPEC = {
     "job_id": "chip-smoke-sft",
-    "model": {"preset": "llama3-8b", "lora": {"rank": 16, "alpha": 32.0}},
+    "model": {"preset": "llama3-8b", "lora": {"rank": 16, "alpha": 32.0},
+              "overrides": {"n_layers": HF_LAYERS}},
     "training": {"mode": "lora", "frozen_dtype": "bfloat16", "batch_size": 4, "seq_len": 2048,
                  "grad_accum_steps": 2, "total_steps": 6, "warmup_steps": 2,
-                 "learning_rate": 2e-4, "log_every": 1, "checkpoint_every": 3},
+                 "learning_rate": 2e-4, "log_every": 1, "checkpoint_every": 3,
+                 "eval_every": 3, "eval_steps": 2, "heartbeat_interval_s": 0.01},
 }
+#: H1: the hub's shard size limit for the base written as an HF directory
+HF_SHARD_BYTES = 5 * 10**9
+#: H2: merged checkpoint reloaded in bf16 vs the loader's merge, first-token
+#: logits, max |diff| / max |logit|
+MERGED_REL_TOL = 0.01
+#: F: the reference's default scale (``fidelity.py:286-299``)
+FIDELITY = dict(pretrain_steps=600, corpus_bytes=400_000, batch_size=16, seq_len=128,
+                lora_rank=8, sft_learning_rate=3e-3, sft_steps=120, max_new_tokens=24)
+#: T2's 8 losses at 32 layers from the random-init base (seed 0), on an
+#: NVIDIA H100 80GB HBM3 at 700 W before T2 read an HF directory; printed
+#: beside this run's
+RANDOM_INIT_T2_LOSSES = [12.108512878417969, 12.082706451416016, 11.533029556274414,
+                         9.84800910949707, 9.645097732543945, 8.93314266204834,
+                         8.015846252441406, 7.339583396911621]
 #: T3, kernel vs plain flash path through 2 full-width layers in bf16:
 #: |loss difference| / |loss| and, per LoRA leaf, max |grad difference| /
 #: max |grad| (the two paths round p and ds to bf16 from f32 sums taken in
@@ -762,9 +819,11 @@ class _Capture:
         import logging
 
         self.messages: list[str] = []
+        self.times: list[float] = []
         self.logger = logging.getLogger(name)
         self.handler = logging.Handler()
-        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+        self.handler.emit = lambda record: (self.messages.append(record.getMessage()),
+                                            self.times.append(record.created))
 
     def __enter__(self):
         self.logger.addHandler(self.handler)
@@ -782,34 +841,41 @@ def _rows(path) -> list[dict]:
 
 
 def train_phase(work, seed: int) -> dict:
-    """T2: LoRA SFT of llama3-8b (full width and depth) through
-    ``train.cli.main``, 6 steps, then 2 more resumed from the step-6
-    checkpoint.  The flash kernels' counts are zeroed before the first run
-    and read after the second."""
+    """T2: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through
+    ``train.cli.main`` from H1's HF directory, evaluating every 3 steps on
+    a held-out file, 6 steps, then 2 more resumed from the step-6
+    checkpoint with ``export_merged``.  The flash kernels' counts are zeroed
+    before the first run and read after the second."""
     import torch
+    from finetune_controller_tpu_torch.obs.events import parse_event_lines
+    from finetune_controller_tpu_torch.obs.phase import PhaseClock
+    from finetune_controller_tpu_torch.obs.trace import parse_span_lines
+    from finetune_controller_tpu_torch.models.safetensors_io import SafetensorsFile
     from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.resilience.heartbeat import read_heartbeat_file
     from finetune_controller_tpu_torch.train import cli
     from finetune_controller_tpu_torch.train.optimizer import build_schedule
 
-    data = work / "train.jsonl"
-    write_documents(data, seed)
-    art = work / "artifacts"
-    spec = json.loads(json.dumps(TRAIN_SPEC))
+    spec = t2_spec(work)
     spec["training"]["seed"] = seed
-    spec["dataset"] = {"path": str(data)}
-    spec["artifacts_dir"] = str(art)
+    n_layers = cli.build_model_config(spec).n_layers
+    write_documents(spec["dataset"]["path"], seed)
+    write_documents(spec["dataset"]["eval_path"], seed + 1, n=40)
+    art = Path(spec["artifacts_dir"])
     spec_path = work / "job.json"
     for name in FLASH_KERNELS:
         getattr(fa, name).launches = 0
     walls, peaks = [], []
-    with _Capture("finetune_controller_tpu_torch.train.trainer") as capture:
+    with _Capture("finetune_controller_tpu_torch.train.trainer") as capture, \
+            _Capture("finetune_controller_tpu_torch.models.hf_export") as exports:
         for total in (6, 8):
             spec["training"]["total_steps"] = total
+            spec["training"]["export_merged"] = total == 8
             spec_path.write_text(json.dumps(spec))
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             try:
-                rc = cli.main(["--spec", str(spec_path)])
+                rc = cli.main(["--spec", str(spec_path)] + DEVICE_ARGS)
             except Exception as e:
                 raise SmokeFailure(f"training CLI ({total} steps): {type(e).__name__}: {e}") from e
             torch.cuda.synchronize()
@@ -823,11 +889,14 @@ def train_phase(work, seed: int) -> dict:
                 rows6 = _rows(art / "metrics.csv")
                 state6 = torch.load(art / "checkpoints" / "step_6" / "state.pt",
                                     map_location="cpu", weights_only=True)
-                for want in ("checkpoints/step_3", "checkpoints/step_6", "done.txt"):
+                for want in ("checkpoints/step_3", "checkpoints/step_6", "done.txt", "adapter"):
                     if not (art / want).exists():
                         raise SmokeFailure(f"the 6-step run left no {want}")
     launches = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
     rows = _rows(art / "metrics.csv")
+    # the merged export's time: from the adapter's log line to the merged one's
+    marks = {m.split(" ")[1]: t for m, t in zip(exports.messages, exports.times)}
+    export_s = marks["merged"] - marks["PEFT"]
 
     if len(rows6) != 6 or [int(r["step"]) for r in rows] != list(range(1, 9)):
         raise SmokeFailure(f"metrics.csv rows: {len(rows6)} after the first run, steps "
@@ -848,26 +917,293 @@ def train_phase(work, seed: int) -> dict:
     moved = [k for k, v in state6["trainable"].items()
              if k.endswith(".lora_b") and v.abs().max().item() > 0]
     n_b = sum(k.endswith(".lora_b") for k in state6["trainable"])
-    if len(moved) != n_b or n_b != 32 * 7:
+    if len(moved) != n_b or n_b != n_layers * 7:
         raise SmokeFailure(f"{len(moved)} of {n_b} LoRA B leaves moved off zero")
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
         raise SmokeFailure(f"flash kernels not launched on the main path: {missing}")
+    # the artifacts: exports, eval rows, heartbeat, events, spans, phase columns
+    adapter = SafetensorsFile(art / "adapter" / "adapter_model.safetensors")
+    adapter_cfg = json.loads((art / "adapter" / "adapter_config.json").read_text())
+    merged = SafetensorsFile(art / "merged" / "model.safetensors")
+    n_f32 = sum(adapter.dtype(k) == torch.float32 for k in adapter.keys())
+    n_adapter, n_merged = n_layers * 7 * 2, 3 + n_layers * 9  # 448 and 291 at 32 layers
+    if (len(adapter.keys()), n_f32, adapter_cfg["r"], adapter_cfg["lora_alpha"]) != (
+            n_adapter, n_adapter, 16, 32.0):
+        raise SmokeFailure(f"T2: adapter/ holds {len(adapter.keys())} tensors ({n_f32} f32), "
+                           f"r {adapter_cfg['r']}, alpha {adapter_cfg['lora_alpha']}")
+    if len(merged.keys()) != n_merged or not (art / "merged" / "config.json").exists():
+        raise SmokeFailure(f"T2: merged/ holds {len(merged.keys())} tensors")
+    del adapter, merged
+    eval_loss = {int(r["step"]): float(r["eval_loss"]) for r in rows if r.get("eval_loss")}
+    if not all(math.isfinite(eval_loss.get(step, math.nan)) for step in (3, 6)):
+        raise SmokeFailure(f"T2: eval_loss on the rows of steps 3 and 6: {eval_loss}")
+    beat = read_heartbeat_file(str(art / "heartbeat.json")) or {}
+    events = parse_event_lines((art / "events.jsonl").read_bytes())
+    names = [e["event"] for e in events]
+    committed = sorted(e["attrs"]["step"] for e in events if e["event"] == "checkpoint-committed")
+    spans = {s["name"] for s in parse_span_lines((art / "trace" / "trainer.jsonl").read_bytes())}
+    phase_columns = [c for c in PhaseClock.columns() if c not in rows[0]]
+    if beat.get("step") != 8 or names.count("train-started") != 2 \
+            or committed != [3, 6, 8] or "train-finished" not in names \
+            or not {"fit", "init", "restore"} <= spans or phase_columns:
+        raise SmokeFailure(f"T2: heartbeat {beat}, events {names} (committed {committed}), "
+                           f"spans {sorted(spans)}, phase columns missing {phase_columns}")
     tokens = tcfg["batch_size"] * tcfg["seq_len"]
     step_ms = [tokens / float(r["tokens_per_sec"]) * 1e3 for r in rows]
     steady = sorted(step_ms[1:6] + step_ms[7:])
+    losses = [float(r["loss"]) for r in rows]
+    log(f"T2 ({n_layers} layers): losses {[round(x, 4) for x in losses]}; from the "
+        f"random-init base at 32 layers {[round(x, 4) for x in RANDOM_INIT_T2_LOSSES]}; "
+        f"eval_loss {eval_loss}; exports adapter/ "
+        f"({n_adapter} f32 tensors, r 16, alpha 32) and merged/ ({n_merged} tensors); "
+        f"heartbeat at step 8; "
+        f"events {names}; spans {sorted(spans)}")
     return {
-        "steps": len(rows), "layers": 32, "loss": [float(r["loss"]) for r in rows],
+        "steps": len(rows), "layers": n_layers, "loss": losses,
+        "random_init_32_layer_loss": RANDOM_INIT_T2_LOSSES,
+        "eval_loss": eval_loss,
         "grad_norm": [float(r["grad_norm"]) for r in rows],
         "ms_per_step": step_ms, "ms_per_step_median": steady[len(steady) // 2],
         "tokens_per_s_median": tokens / (steady[len(steady) // 2] / 1e3),
+        "phase_ms": {c: [float(r[c]) for r in rows] for c in PhaseClock.columns()},
         "peak_memory_gb": max(peaks), "wall_s": walls, "launches": launches,
-        "lora_b_moved": len(moved),
+        "lora_b_moved": len(moved), "export_s": export_s,
     }
 
+def t2_spec(work) -> dict:
+    """T2's job spec (``TRAIN_SPEC`` with the run's seed, data and dirs)."""
+    spec = json.loads(json.dumps(TRAIN_SPEC))
+    spec["model"]["weights_dir"] = str(work / "hf_base")
+    spec["dataset"] = {"path": str(work / "train.jsonl"), "eval_path": str(work / "eval.jsonl")}
+    spec["artifacts_dir"] = str(work / "artifacts")
+    return spec
 
-#: the device phase S2 runs on ("cpu" drives S2 at a tiny size without a card)
+
+def hf_base_phase(work, seed: int) -> dict:
+    """H1: the base T2's trainer draws from ``seed`` (the same spec, so the
+    same generator draws), written as an HF directory in the layout of the
+    published Meta-Llama-3-8B repository: bf16 shards of at most 5 GB, the
+    index and ``config.json``.  Read back through ``load_llama_params`` onto
+    the card and held against the writer's tensors, bit for bit."""
+    import torch
+    from finetune_controller_tpu_torch.models.hf_export import export_merged_checkpoint
+    from finetune_controller_tpu_torch.models.hf_import import load_llama_params
+    from finetune_controller_tpu_torch.models.llama import LlamaForCausalLM
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.train import cli
+    from finetune_controller_tpu_torch.train.trainer import Trainer
+
+    spec = t2_spec(work)
+    spec["training"]["seed"] = seed
+    cfg = cli.build_model_config(spec)
+    n_params = sum(p.numel() for p in LlamaForCausalLM(
+        cfg.replace(lora=LoRAConfig()), device="meta").parameters())
+    need = n_params * (2 + 4)  # H1's bf16 shards and T2's f32 merged export (read by H2)
+    free = shutil.disk_usage(work).free
+    log(f"H1, T2, H2, S2: {cfg.n_layers} of {PRESETS_DEPTH} layers, so that the base, the "
+        f"merged export and the checkpoints stay under the run's 45 GiB of disk writes")
+    log(f"H1: {free / 1e9:.1f} GB free on the file system of {work}; H1 and T2 write "
+        f"{n_params * 2 / 1e9:.1f} GB (bf16) + {n_params * 4 / 1e9:.1f} GB (f32)")
+    if free < need * 1.02:
+        raise SmokeFailure(f"H1: {free / 1e9:.1f} GB free under {work}, the HF files need "
+                           f"{need / 1e9:.1f} GB")
+    trainer = Trainer(cfg, cli.build_train_config(spec), device=DEVICE)
+    base = {k: v.detach() for k, v in trainer.model.state_dict().items()
+            if not k.endswith((".lora_a", ".lora_b"))}
+    out = Path(spec["model"]["weights_dir"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_merged_checkpoint(cfg, base, out, dtype=torch.bfloat16, max_shard_bytes=HF_SHARD_BYTES)
+    write_s = time.perf_counter() - t0
+    shards = sorted(out.glob("model-*-of-*.safetensors"))
+    nbytes = sum(f.stat().st_size for f in shards)
+    if not (out / "model.safetensors.index.json").exists() or not (out / "config.json").exists() \
+            or max(f.stat().st_size for f in shards) > HF_SHARD_BYTES:
+        raise SmokeFailure(f"H1: the HF directory is not in the hub's layout: {os.listdir(out)}")
+    t0 = time.perf_counter()
+    loaded = load_llama_params(out, cfg, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    diff = sorted(set(base) ^ set(loaded)) + [k for k in base if k in loaded and not (
+        loaded[k].dtype == base[k].dtype and torch.equal(loaded[k], base[k]))]
+    if diff:
+        raise SmokeFailure(f"H1: {len(diff)} tensors read back differ from the written ones, "
+                           f"first {diff[:3]}")
+    n_tensors = len(base)
+    del trainer, base, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"layers": cfg.n_layers, "of_layers": PRESETS_DEPTH,
+               "layers_cut_for": "45 GiB of disk writes per run",
+               "files": len(shards), "bytes": nbytes, "tensors": n_tensors, "write_s": write_s,
+               "write_gb_per_s": nbytes / write_s / 1e9,
+               "read_s": read_s, "read_gb_per_s": nbytes / read_s / 1e9,
+               "free_gb": free / 1e9}
+    log(f"H1: wrote the seeded {spec['model']['preset']} base as {len(shards)} bf16 shards "
+        f"({nbytes / 1e9:.2f} GB) in {write_s:.1f} s ({summary['write_gb_per_s']:.2f} GB/s); "
+        f"load_llama_params read it onto the card in {read_s:.1f} s "
+        f"({summary['read_gb_per_s']:.2f} GB/s), every tensor bit-equal to the writer's")
+    return summary
+
+
+def merged_roundtrip_phase(art, export_s: float) -> dict:
+    """H2: the adapter T2 exported against its step-8 checkpoint (bit for
+    bit), and its merged checkpoint reloaded into a bf16 model through
+    ``load_pretrained_`` against ``load_serving_model(merge_lora=True)``:
+    first-token logits within ``MERGED_REL_TOL`` of max |logit|."""
+    import torch
+    from finetune_controller_tpu_torch.models.hf_import import load_pretrained_
+    from finetune_controller_tpu_torch.models.llama import LlamaForCausalLM
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.models.safetensors_io import SafetensorsFile
+    from finetune_controller_tpu_torch.serve.loader import load_serving_model
+    from finetune_controller_tpu_torch.train import cli
+
+    state8 = torch.load(art / "checkpoints" / "step_8" / "state.pt", map_location="cpu",
+                        weights_only=True)["trainable"]
+    adapter = SafetensorsFile(art / "adapter" / "adapter_model.safetensors")
+    prefix = "base_model.model.model.layers."
+    bad = []
+    for name in adapter.keys():
+        i, module, proj, leaf = name[len(prefix):].split(".")[:4]
+        group = "attn" if module == "self_attn" else "mlp"
+        key = f"layers.{i}.{group}.{proj}.{'lora_a' if leaf == 'lora_A' else 'lora_b'}"
+        if not torch.equal(adapter.get_tensor(name), state8[key].T):
+            bad.append(name)
+    n_adapter = len(adapter.keys())
+    if bad or n_adapter != len(state8):
+        raise SmokeFailure(f"H2: adapter tensors differ from the step-8 LoRA tensors: {bad[:3]}")
+    del adapter, state8
+
+    merged_dir = art / "merged"
+    nbytes = (merged_dir / "model.safetensors").stat().st_size
+    cfg = cli.build_model_config(TRAIN_SPEC).replace(param_dtype=torch.bfloat16,
+                                                      lora=LoRAConfig())
+    model = LlamaForCausalLM(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_pretrained_(model, merged_dir)
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t0
+    served, _ = load_serving_model(art, merge_lora=True, device=DEVICE)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 64)))
+    with torch.no_grad():
+        want = served(prompt.to(DEVICE))[0, -1].float().cpu()
+        got = model.eval()(prompt.to(DEVICE))[0, -1].float().cpu()
+    rel = rel_diff(got, want)
+    del model, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"H2: adapter ({n_adapter} f32 tensors) bit-equal to the step-8 LoRA tensors, "
+        f"transposed; merged checkpoint ({nbytes / 1e9:.2f} GB f32, {cfg.n_layers} layers) "
+        f"exported in {export_s:.1f} s "
+        f"({nbytes / export_s / 1e9:.2f} GB/s), reloaded into bf16 through load_pretrained_ in "
+        f"{reload_s:.1f} s ({nbytes / reload_s / 1e9:.2f} GB/s); first-token logits vs the "
+        f"loader's merge: max |diff| / max |logit| {rel:.4g} (tolerance {MERGED_REL_TOL})")
+    if not rel <= MERGED_REL_TOL:
+        raise SmokeFailure(f"H2: merged checkpoint logits {rel:.4g} of max |logit| from the "
+                           f"loader's merge (tolerance {MERGED_REL_TOL})")
+    return {"layers": cfg.n_layers, "merged_bytes": nbytes, "export_s": export_s,
+            "export_gb_per_s": nbytes / export_s / 1e9, "reload_s": reload_s,
+            "reload_gb_per_s": nbytes / reload_s / 1e9, "logits_rel": rel}
+
+
+def fidelity_phase(work, seed: int) -> dict:
+    """F: the fidelity proof on the card at the reference's default scale,
+    through the port's CLI: ``pretrain_base`` (full mode on the stdlib
+    corpus, exported as an HF directory), a LoRA SFT job through
+    ``train.cli.main`` from that base, and ``generate_cli`` on the job's
+    artifacts with a held-out prompt; the reference's three checks."""
+    import contextlib
+    import io
+
+    import torch
+    from finetune_controller_tpu_torch.data.loader import jsonl_token_batches
+    from finetune_controller_tpu_torch.fidelity import (
+        HOLDOUT_TOPICS, SFT_PREFIX, _generate_text, _read_metrics_csv, build_sft_jsonl,
+        pretrain_base, sft_prompt,
+    )
+    from finetune_controller_tpu_torch.models import generate_cli
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.train import cli
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    f = FIDELITY
+    fid = work / "fidelity"
+    t_phase = time.perf_counter()
+    base = pretrain_base(fid / "base", steps=f["pretrain_steps"], corpus_bytes=f["corpus_bytes"],
+                         batch_size=f["batch_size"], seq_len=f["seq_len"], seed=seed,
+                         device=DEVICE)
+    pretrain_s = time.perf_counter() - t_phase
+    sft = fid / "sft.jsonl"
+    build_sft_jsonl(sft)
+    probe = sft_prompt(HOLDOUT_TOPICS[0])
+    cfg = PRESETS["tiny-test"].replace(lora=LoRAConfig(rank=f["lora_rank"]))
+    trainer = Trainer(cfg, TrainConfig(mode="lora", batch_size=f["batch_size"],
+                                       seq_len=f["seq_len"], eval_steps=4), device=DEVICE)
+
+    def eval_loss() -> float:
+        return trainer.evaluate(jsonl_token_batches(
+            str(sft), batch_size=f["batch_size"], seq_len=f["seq_len"], seed=7))["eval_loss"]
+
+    random_init_loss = eval_loss()
+    trainer.load_pretrained(base["base_dir"])
+    base_eval_loss = eval_loss()
+    before = _generate_text(trainer.model, probe, f["max_new_tokens"])
+    del trainer
+    art = fid / "job"
+    steps = f["sft_steps"]
+    spec = {"job_id": "fidelity-1",
+            "model": {"preset": "tiny-test", "weights_dir": base["base_dir"],
+                      "lora": {"rank": f["lora_rank"]}},
+            "training": {"mode": "lora", "learning_rate": f["sft_learning_rate"],
+                         "total_steps": steps, "warmup_steps": max(1, steps // 20),
+                         "batch_size": f["batch_size"], "seq_len": f["seq_len"],
+                         "seed": seed, "log_every": 1, "checkpoint_every": 100},
+            "dataset": {"path": str(sft)}, "artifacts_dir": str(art)}
+    (fid / "job.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    if cli.main(["--spec", str(fid / "job.json")] + DEVICE_ARGS) != 0:
+        raise SmokeFailure("F: the SFT job's CLI failed")
+    sft_s = time.perf_counter() - t0
+    rows = _read_metrics_csv(art / "metrics.csv")
+    step0_loss, final_loss = rows[0]["loss"], rows[-1]["loss"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        generate_cli.main(["--artifacts", str(art), "--prompt", probe,
+                           "--max-new-tokens", str(f["max_new_tokens"])] + DEVICE_ARGS)
+    after = json.loads(buf.getvalue().strip().splitlines()[-1])["text"]
+    checks = {
+        "base_transfers": step0_loss < 0.75 * random_init_loss,
+        "finetune_learns": final_loss < 0.75 * step0_loss,
+        "style_acquired": after.startswith(SFT_PREFIX) and not before.startswith(SFT_PREFIX),
+    }
+    record = {**{k: v for k, v in base.items() if k != "base_dir"}, "sft_steps": steps,
+              "lora_rank": f["lora_rank"], "random_init_loss": random_init_loss,
+              "base_eval_loss": base_eval_loss, "base_step0_loss": step0_loss,
+              "final_loss": final_loss, "before_generation": before,
+              "after_generation": after, "checks": checks, "pretrain_s": pretrain_s,
+              "sft_s": sft_s, "phase_s": time.perf_counter() - t_phase,
+              "attention": "plain (tiny-test: head dim 16, attention_impl xla)"}
+    log(f"F: tiny-test on the card with the plain attention path (head dim 16, "
+        f"attention_impl 'xla': the flash kernels are held on the full-width phases); "
+        f"pretrain {f['pretrain_steps']} steps on {base['corpus_bytes']} corpus bytes: loss "
+        f"{base['pretrain_first_loss']:.3f} -> {base['pretrain_final_loss']:.3f} "
+        f"({pretrain_s:.1f} s); SFT loss random init {random_init_loss:.3f}, base "
+        f"{base_eval_loss:.3f}; job step 1 {step0_loss:.3f} -> step {steps} {final_loss:.3f} "
+        f"({sft_s:.1f} s); before {before!r}, after {after!r}; checks {checks}")
+    if not all(checks.values()):
+        raise SmokeFailure(f"F: fidelity checks failed: {checks}")
+    torch.cuda.empty_cache()
+    return record
+
+
+#: the device phases H1, T2, H2, S2 and F run on ("cpu" drives them at a tiny
+#: size without a card), and what the CLIs they call are given for it
 DEVICE = "cuda"
+DEVICE_ARGS: list[str] = []
 #: S2's fleet engines: the service's batch shape, LoRA tenants up to rank
 #: 16 in 3 stack slots (base, the job, a rank-8 tenant), a device pool well
 #: under the auto size (8 x 36 + 1 pages) and a 32-page device prefix budget,
@@ -1039,6 +1375,8 @@ def serve_tenants_phase(art, seed: int) -> tuple[int, dict]:
     t0 = time.perf_counter()
     merged, meta = load_serving_model(art, merge_lora=True)
     load_s = time.perf_counter() - t0
+    if not meta["weights_dir"]:
+        raise SmokeFailure("S2(a): the loader did not take the base from model.weights_dir")
     cfg = merged.cfg
     reqs, shared = s2_requests(seed, cfg.vocab_size)
     checks = [shared + [11, 12, 13], reqs[9].tokens]  # a shared-prefix prompt, a 250-token one
@@ -1052,7 +1390,8 @@ def serve_tenants_phase(art, seed: int) -> tuple[int, dict]:
         raise SmokeFailure("S2(a): the merged model did not serve its 4 requests")
     with torch.no_grad():
         merged_logits = [first_logits(merged, p) for p in checks]
-    log(f"S2(a): merged model of step {meta['checkpoint_step']} loaded in {load_s:.1f} s, "
+    log(f"S2(a): merged model of step {meta['checkpoint_step']} (base from "
+        f"{meta['weights_dir']}) loaded in {load_s:.1f} s, "
         "served 4 requests x 32 tokens")
     del merged, engine, done
     gc.collect()
@@ -1408,13 +1747,16 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
+        hf_base = hf_base_phase(work, args.seed)
         train = train_phase(work, args.seed)
-        log(f"train: llama3-8b LoRA SFT, {train['steps']} steps (6 + 2 resumed), "
+        log(f"train: llama3-8b LoRA SFT from the HF directory, {train['steps']} steps "
+            f"(6 + 2 resumed), eval every 3 steps, "
             f"{train['ms_per_step_median']:.0f} ms/step median, "
             f"{train['tokens_per_s_median']:.0f} tokens/s, peak memory "
             f"{train['peak_memory_gb']:.2f} GB, flash launches {train['launches']}")
         gc.collect()
         torch.cuda.empty_cache()
+        merged = merged_roundtrip_phase(work / "artifacts", train["export_s"])
         s2_launches, serve_tenants = serve_tenants_phase(work / "artifacts", args.seed)
         if s2_launches <= 0:
             raise SmokeFailure("S2: the paged-attention kernel was not launched on its path")
@@ -1441,6 +1783,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         flash = flash_bench(seg, max(4, args.reps // 8), args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fidelity = fidelity_phase(work, args.seed)
     except SmokeFailure as e:
         return fail(str(e))
     except (AssertionError, RuntimeError, ValueError) as e:
@@ -1474,6 +1819,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serve": serve_summary}), flush=True)
     print(json.dumps({"serve_tenants": serve_tenants}), flush=True)
+    print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
+    print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",
                               "ms_no_segments", "tflops_no_segments")}

@@ -3,13 +3,15 @@
 The JAX package ``finetune_controller_tpu`` is the reference; this package
 holds its own counterparts of the modules it needs and imports nothing from
 it (nor ``jax``/``flax``).  The slices ported so far are paged
-continuous-batching serving, LoRA SFT training through the spec CLI, and
+continuous-batching serving, LoRA SFT training through the spec CLI,
 serving what it trains (multi-tenant adapters, a host KV tier, a replica
-fleet and router):
+fleet and router), and HF checkpoints in and out with held-out evaluation,
+the trainer's observability and the fidelity proof:
 
 * ``models`` — ``LlamaConfig``/``PRESETS``, the decoder as ``nn.Module``s
   (serving and training forwards, remat, LoRA dropout), the flax-tree
-  converters and LoRA merge, the sampling oracle;
+  converters and LoRA merge, the sampling oracle and ``generate_cli``, the
+  safetensors reader/writer and the HF import and export;
 * ``ops`` — the plain attention functions, the ``FTC_PAGED_ATTN`` and
   ``FTC_FLASH_ATTN`` seams, and the hand-written CUDA kernels
   (``ops/kernels``, sources in ``csrc/``): paged attention, and the flash
@@ -17,10 +19,13 @@ fleet and router):
 * ``serve`` — the page pool and host tier, prefix cache, ``BatchEngine``
   (paged or unpaged, multi-tenant), the asyncio ``Batcher``, the adapter
   registry, the replica fleet and router, and the checkpoint loader;
-* ``resilience`` — failure classification, retry backoff and the serve
-  fault injector;
-* ``data`` and ``train`` — the packing loader, the trainer, optimizer,
-  checkpoints and ``python -m finetune_controller_tpu_torch.train.cli``.
+* ``resilience`` — failure classification, retry backoff, the serve
+  fault injector and the trainer's heartbeat;
+* ``obs`` — the trainer's lifecycle events, spans and step-phase clock;
+* ``data`` and ``train`` — the packing loader, the stdlib corpus, the
+  trainer, optimizer, checkpoints and ``python -m
+  finetune_controller_tpu_torch.train.cli``;
+* ``fidelity`` — the fidelity proof's base pretraining and SFT data.
 
 Submodules load lazily, so ``import finetune_controller_tpu_torch`` costs
 nothing until a name is used.

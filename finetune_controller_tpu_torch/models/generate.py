@@ -5,7 +5,8 @@ Counterpart of the reference's ``models/generate.py``:
 * :func:`_sample` — greedy argmax, or temperature and top-k then a
   categorical draw from an explicit ``torch.Generator``;
 * :func:`generate` — the numerics oracle: each step re-runs the full
-  forward over the sequence so far (no KV cache);
+  forward over the sequence so far (no KV cache); :func:`greedy_generate`
+  is its greedy form;
 * :func:`cached_generate` — fill then decode over a dense KV cache of
   ``prompt_len + max_new_tokens`` positions (``LlamaForCausalLM.
   forward_cached``), one single-position forward per new token.
@@ -54,6 +55,14 @@ def generate(model, prompt_tokens: torch.Tensor, *, max_new_tokens: int = 32,
             done = done | (nxt == eos_id)
         tokens = torch.cat([tokens, nxt[:, None]], dim=1)
     return tokens
+
+
+def greedy_generate(model, prompt_tokens: torch.Tensor, *, max_new_tokens: int = 32,
+                    eos_id: int | None = None) -> torch.Tensor:
+    """:func:`generate` with greedy selection (the reference's
+    ``greedy_generate``, ``generate.py:90-95``)."""
+    return generate(model, prompt_tokens, max_new_tokens=max_new_tokens, temperature=0.0,
+                    eos_id=eos_id)
 
 
 @torch.no_grad()

@@ -1,3 +1,4 @@
 """Resilience helpers of the port: failure classification and retry backoff
-(``policy``) and the serve-plane fault injector (``faults``), copies of the
-reference's stdlib-only modules."""
+(``policy``), the serve-plane fault injector (``faults``) and the trainer's
+liveness heartbeat (``heartbeat``), copies of the reference's stdlib-only
+modules."""

@@ -9,9 +9,11 @@ state, ``train/checkpoint.py``).  This module turns that directory back
 into a model the serving engine decodes with:
 
 * :func:`load_serving_model` rebuilds the model as the trainer did (same
-  preset, same seed, so the same frozen base for a from-scratch job),
-  restores the latest checkpoint's trainable tensors into it, and — for a
-  LoRA job — optionally folds the adapters into the base kernels
+  preset, same seed, so the same frozen base for a from-scratch job; the
+  HF checkpoint of ``model.weights_dir``, loaded in place, for a job that
+  started from one), restores the latest checkpoint's trainable tensors
+  into it, and — for a LoRA job — optionally folds the adapters into the
+  base kernels
   (:func:`merge_lora_variables`: in f32, then cast to the serving dtype).
   The base is built in the spec's ``frozen_dtype``, or in the compute dtype
   when the spec names none, and served in the compute dtype: no f32 copy
@@ -149,16 +151,18 @@ def load_serving_model(local_dir: Path | str, *, merge_lora: bool = True,
 
     local_dir = Path(local_dir)
     spec, model_cfg, latest = _resolve_staged_spec(local_dir)
-    if spec.get("model", {}).get("weights_dir"):
-        raise NotImplementedError(
-            "model.weights_dir: loading pretrained HF weights is not ported yet "
-            "(ROADMAP Queue A item 4)")
+    pretrained = spec.get("model", {}).get("weights_dir")
     train_cfg = build_train_config(spec)
     if train_cfg.mode == "lora" and not train_cfg.frozen_dtype:
         # serve the base in the compute dtype without building it in f32
         train_cfg = dataclasses.replace(
             train_cfg, frozen_dtype=str(model_cfg.dtype).removeprefix("torch."))
     trainer = Trainer(model_cfg, train_cfg, device=device)
+    if pretrained and train_cfg.mode != "full":
+        # the base from the HF directory, in place (no second copy), then
+        # the checkpoint's trainable tensors, the reference's order; a full
+        # fine-tune's checkpoint holds every weight
+        trainer.load_pretrained(pretrained)
     host = CheckpointManager(local_dir / "checkpoints").restore(latest)
     missing = sorted(set(trainer.trainable) - set(host["trainable"]))
     if missing:
@@ -187,7 +191,7 @@ def load_serving_model(local_dir: Path | str, *, merge_lora: bool = True,
         "lora_merged": merged,
         "vocab_size": model_cfg.vocab_size,
         "max_seq_len": model_cfg.max_seq_len,
-        "weights_dir": None,
+        "weights_dir": pretrained or None,
     }
     logger.info("serving model ready: %s", meta)
     return model, meta

@@ -13,11 +13,16 @@ the control plane and the compute plane):
       "artifacts_dir": "/data/artifacts"
     }
 
-It writes ``resolved_config.json`` first and ``done.txt`` at the end into the
-artifacts dir.  The run is on the CUDA card unless ``--device`` names
-another.  One device only: a mesh axis above 1, pretrained weights
-(``model.weights_dir``), multimodal presets and the preference tasks raise
-``NotImplementedError`` naming the ROADMAP queue that ports them.
+``model.weights_dir`` names a local HF checkpoint directory the base starts
+from; ``dataset.eval_path`` is the held-out split ``training.eval_every``
+evaluates on (a synthetic dataset holds out a disjoint stream by itself).
+It writes ``resolved_config.json`` first, then what ``Trainer.fit`` writes
+(``metrics.csv``, ``checkpoints/``, ``heartbeat.json``, ``events.jsonl``,
+``trace/trainer.jsonl``), the HF exports (``adapter/`` for a LoRA run,
+``merged/`` with ``training.export_merged``) and ``done.txt`` at the end.
+The run is on the CUDA card unless ``--device`` names another.  One device
+only: a mesh axis above 1, multimodal presets and the preference tasks
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -99,20 +104,30 @@ def check_mesh(spec: dict) -> None:
             "(ROADMAP Queue A item 7, multi-GPU)")
 
 
-def build_batches(spec: dict, model_cfg, train_cfg):
+def build_batches(spec: dict, model_cfg, train_cfg, split: str = "train"):
+    """The job's batch stream: ``dataset.path`` (``dataset.eval_path`` for
+    ``split="eval"``) or the synthetic task.  ``None`` for an eval split of
+    a file dataset that names no ``eval_path``."""
     from ..data.loader import jsonl_token_batches
     from ..data.synthetic import synthetic_batches
 
     ds = spec.get("dataset", {})
-    if ds.get("path"):
-        return jsonl_token_batches(ds["path"], batch_size=train_cfg.batch_size,
+    path = ds.get("eval_path") if split == "eval" else ds.get("path")
+    if path:
+        return jsonl_token_batches(path, batch_size=train_cfg.batch_size,
                                    seq_len=train_cfg.seq_len,
                                    tokenizer_file=ds.get("tokenizer_file"),
                                    seed=train_cfg.seed)
+    if split == "eval" and ds.get("path"):
+        # real train data but no eval split configured: nothing held out
+        return None
     synth = ds.get("synthetic", {})
+    # the eval stream draws from a disjoint region of the generator's seed
+    # space so held-out rows never coincide with training rows
+    seed = train_cfg.seed + (100_003 if split == "eval" else 0)
     return synthetic_batches(batch_size=train_cfg.batch_size, seq_len=train_cfg.seq_len,
                              vocab_size=model_cfg.vocab_size,
-                             task=synth.get("task", "increment"), seed=train_cfg.seed)
+                             task=synth.get("task", "increment"), seed=seed)
 
 
 def run_job(spec: dict, device=None) -> None:
@@ -138,15 +153,24 @@ def run_job(spec: dict, device=None) -> None:
             f"unknown training task {train_cfg.task!r}; one of "
             "['sft', 'dpo', 'rlhf', 'reward']"
         )
-    if spec.get("model", {}).get("weights_dir"):
-        raise NotImplementedError(
-            "model.weights_dir: loading pretrained HF weights is not ported yet "
-            "(ROADMAP Queue A item 4)")
     trainer = Trainer(model_cfg, train_cfg, device=device)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.info("job %s: %s params=%.1fM device=%s", spec.get("job_id", "?"),
                 spec.get("model", {}).get("preset"), n_params / 1e6, trainer.device)
-    trainer.fit(build_batches(spec, model_cfg, train_cfg), artifacts_dir)
+    eval_batches = None
+    if train_cfg.eval_every > 0:
+        eval_batches = build_batches(spec, model_cfg, train_cfg, split="eval")
+        if eval_batches is None:
+            raise ValueError(
+                "training.eval_every > 0 but the dataset has no eval split: "
+                "set dataset.eval_path (or use a synthetic dataset, which "
+                "holds out a disjoint stream automatically)"
+            )
+    weights_dir = spec.get("model", {}).get("weights_dir")
+    trainer.fit(build_batches(spec, model_cfg, train_cfg), artifacts_dir,
+                pretrained_dir=weights_dir, eval_batches=eval_batches)
+    # deployable artifacts: the PEFT adapter (+ the merged checkpoint)
+    trainer.export_artifacts(artifacts_dir)
     with open(os.path.join(artifacts_dir, "done.txt"), "w") as f:
         f.write("done\n")
     logger.info("job %s finished", spec.get("job_id", "?"))

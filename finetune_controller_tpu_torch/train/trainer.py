@@ -1,19 +1,27 @@
 """The trainer (counterpart of ``train/trainer.py``): the model on one device,
-the train step with gradient accumulation, and a lean ``fit`` loop with
-metrics, checkpoints, resume and preemption handling.
+the train step with gradient accumulation, held-out evaluation, and ``fit``
+with metrics, checkpoints, resume, preemption handling and the reference's
+observability.
 
 ``TrainConfig`` is copied field for field, so one spec fits both packages.
 What this slice runs: ``task="sft"``, ``mode`` ``lora`` and ``full``,
 ``frozen_dtype``, ``grad_accum_steps``, LoRA dropout, the remat policies of
-``models/llama.py``, prefetch, checkpoints and resume.  Configurations it
-cannot train raise ``NotImplementedError`` naming the ROADMAP queue; the
-fields that steer TPU-only machinery (guards, heartbeat, tracing) are
-accepted and have no effect here.
+``models/llama.py``, prefetch (with the copy to the card on the producer
+thread when ``prefetch_to_device``), pretrained HF weights
+(:meth:`Trainer.load_pretrained`), evaluation every ``eval_every`` steps,
+the PEFT adapter and merged HF exports (:meth:`Trainer.export_artifacts`),
+and, as the reference writes them, ``heartbeat.json``, ``events.jsonl``,
+``trace/trainer.jsonl`` and the ``phase_*_ms`` columns.  Configurations it
+cannot train raise ``NotImplementedError`` naming the ROADMAP item that
+ports them: the preference tasks, MoE and int4 bases, profiler windows, and
+the guard fields ``transfer_guard``, ``shard_audit`` and a
+``recompile_budget`` above 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import logging
 import signal
 import time
@@ -80,9 +88,13 @@ def refuse_untrainable(model_cfg: LlamaConfig, cfg: TrainConfig) -> None:
         (cfg.task != "sft", f"task {cfg.task!r}: the preference plane (ROADMAP Queue A item 6)"),
         (bool(model_cfg.n_experts), "MoE configs (ROADMAP Queue A item 5)"),
         (model_cfg.quantize_base, "int4 QLoRA bases (ROADMAP Queue A item 5)"),
-        (cfg.eval_every > 0, "eval_every > 0: held-out evaluation (ROADMAP Queue A item 3)"),
-        (cfg.profile_steps > 0, "profile_steps > 0: profiler windows (ROADMAP Queue A item 3)"),
-        (cfg.export_merged, "export_merged: HF/PEFT export (ROADMAP Queue A item 3)"),
+        (cfg.profile_steps > 0, "profile_steps > 0: profiler windows (ROADMAP Queue A item 2e)"),
+        (bool(cfg.transfer_guard),
+         f"transfer_guard {cfg.transfer_guard!r}: the transfer guard (ROADMAP Queue A item 9)"),
+        (bool(cfg.shard_audit),
+         f"shard_audit {cfg.shard_audit!r}: the shard audit (ROADMAP Queue A item 9)"),
+        (cfg.recompile_budget > 0,
+         f"recompile_budget {cfg.recompile_budget}: the recompile guard (ROADMAP Queue A item 9)"),
     ]
     for refused, what in refusals:
         if refused:
@@ -122,8 +134,8 @@ class Trainer:
     In lora mode the adapters are trained in ``model_cfg.param_dtype`` and
     the base is stored in ``frozen_dtype`` (or ``param_dtype``); in full
     mode every parameter is trained.  Parameters start from ``seed``
-    (:func:`~..models.llama.init_random_`); load other weights with
-    ``trainer.model.load_state_dict`` before the first step."""
+    (:func:`~..models.llama.init_random_`); :meth:`load_pretrained` (or
+    ``fit(pretrained_dir=...)``) replaces the base with an HF checkpoint."""
 
     def __init__(self, model_cfg: LlamaConfig, train_cfg: TrainConfig, device=None):
         refuse_untrainable(model_cfg, train_cfg)
@@ -163,17 +175,59 @@ class Trainer:
         self.optimizer = AdamW(self.trainable, self.sched, weight_decay=train_cfg.weight_decay,
                                clip_norm=train_cfg.clip_norm)
         self.step_count = 0
+        #: the running fit's heartbeat, so a long evaluate() beats too
+        self._heartbeat = None
+        self._warned_eval_unsplit = False
 
-    # ---- the step ----------------------------------------------------------
+    # ---- batches -----------------------------------------------------------
 
-    def _to_device(self, batch: dict) -> dict:
+    @staticmethod
+    def _host_batch(batch: dict) -> dict[str, torch.Tensor]:
+        """``batch`` as tensors in the step's dtypes (numpy leaves wrapped,
+        device tensors left where they are)."""
         out = {}
         for key, x in batch.items():
-            x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
+            x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
             if key in ("tokens", "segment_ids"):
                 x = x.to(torch.int64 if key == "tokens" else torch.int32)
+            out[key] = x
+        return out
+
+    def _to_device(self, batch: dict) -> dict:
+        """The step's copy of a batch to the device, on the step's thread
+        (a batch the prefetch stage already moved is used as it is)."""
+        out = {}
+        for key, x in self._host_batch(batch).items():
+            if x.device == self.device and x.is_cuda:
+                # allocated on the prefetch stream: keep the block from being
+                # reused while this stream's kernels may still read it
+                x.record_stream(torch.cuda.current_stream(self.device))
             out[key] = x.to(self.device, non_blocking=True)
         return out
+
+    def _transfer_stage(self) -> Callable[[dict], dict]:
+        """``prefetch_to_device``: the copy to the device, run on the prefetch
+        producer thread.  On a card the batch goes through pinned host
+        memory to the device on a side stream, which the producer
+        synchronizes before it queues the batch, so the step never reads a
+        half-copied batch and its own stream never waits; on the CPU it is
+        the plain ``.to(device)``."""
+        if self.device.type != "cuda":
+            return lambda batch: {k: v.to(self.device)
+                                  for k, v in self._host_batch(batch).items()}
+        stream = torch.cuda.Stream(self.device)
+
+        def transfer(batch: dict) -> dict:
+            host = self._host_batch(batch)
+            with torch.cuda.stream(stream):
+                out = {k: v.pin_memory().to(self.device, non_blocking=True)
+                       for k, v in host.items()}
+            stream.synchronize()
+            return out
+
+        return transfer
+
+    # ---- the step ----------------------------------------------------------
 
     def step(self, batch: dict) -> dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (numpy or tensors: ``tokens``,
@@ -212,6 +266,88 @@ class Trainer:
         self.step_count += 1
         return metrics
 
+    @torch.no_grad()
+    def evaluate(self, eval_batches: Iterator[dict]) -> dict[str, float]:
+        """Average forward-only metrics over ``cfg.eval_steps`` batches
+        (the reference's ``evaluate``): no gradients, dropout off, each
+        batch split into ``grad_accum_steps`` microbatches as the step
+        splits it; the model is back in train mode after.  Returns
+        ``eval_loss``, ``eval_accuracy`` and ``eval_input_ms`` (host build +
+        transfer time per eval batch)."""
+        sums: dict[str, float] = {}
+        n = 0
+        n_batches = max(1, self.cfg.eval_steps)
+        input_s = 0.0
+        self.model.eval()
+        try:
+            for _ in range(n_batches):
+                t_in = time.perf_counter()
+                host_batch = next(eval_batches)
+                input_s += time.perf_counter() - t_in
+                # grad accumulation exists because the full batch's
+                # activations don't fit the card — eval microbatches the same way
+                accum = self.cfg.grad_accum_steps
+                rows = next(iter(host_batch.values())).shape[0]
+                chunks = accum if accum > 1 and rows % accum == 0 else 1
+                if accum > 1 and chunks == 1 and not self._warned_eval_unsplit:
+                    self._warned_eval_unsplit = True
+                    logger.warning(
+                        "eval batch rows (%d) not divisible by grad_accum_steps (%d): "
+                        "evaluating UNSPLIT", rows, accum)
+                size = rows // chunks
+                for c in range(chunks):
+                    t_in = time.perf_counter()
+                    batch = self._to_device(
+                        {k: v[c * size:(c + 1) * size] for k, v in host_batch.items()})
+                    input_s += time.perf_counter() - t_in
+                    logits = self.model(batch["tokens"], segment_ids=batch.get("segment_ids"))
+                    _, metrics = next_token_loss(logits, batch["tokens"], batch.get("loss_mask"))
+                    del logits
+                    for k, v in metrics.items():
+                        sums[k] = sums.get(k, 0.0) + float(v)
+                    n += 1
+                if self._heartbeat is not None:
+                    # liveness through a long eval pass (float() above synced)
+                    self._heartbeat.beat(self.step_count)
+        finally:
+            self.model.train()
+        # target_tokens is a per-batch count: averaging it is meaningless
+        out = {f"eval_{k}": v / n for k, v in sums.items() if k != "target_tokens"}
+        out["eval_input_ms"] = input_s / n_batches * 1000.0
+        return out
+
+    # ---- weights in and out ------------------------------------------------
+
+    def load_pretrained(self, ckpt_dir: str) -> None:
+        """Replace the base weights with an HF checkpoint
+        (``models/hf_import.load_pretrained_``), in place: in lora mode
+        the frozen base, in full mode the trained tensors themselves, so
+        the optimizer's references stay valid.  Call it before the first
+        step."""
+        from ..models.hf_import import load_pretrained_
+
+        load_pretrained_(self.model, ckpt_dir)
+
+    def export_artifacts(self, artifacts_dir: str) -> None:
+        """Deployable HF-format artifacts after training (the reference's
+        single-process branch): a PEFT ``adapter/`` for every LoRA run, and
+        ``merged/`` (the adapters folded into the base, f32) when
+        ``cfg.export_merged``.  A full fine-tune exports nothing here, as in
+        the reference."""
+        if self.cfg.mode != "lora":
+            return
+        from ..models.hf_export import export_lora_adapter, export_merged_checkpoint
+
+        state = {k: v.detach() for k, v in self.model.state_dict().items()}
+        export_lora_adapter(self.model_cfg, state, f"{artifacts_dir}/adapter")
+        if self.cfg.export_merged:
+            try:
+                export_merged_checkpoint(self.model_cfg, state, f"{artifacts_dir}/merged")
+            except NotImplementedError as exc:
+                # an unsupported merged layout (partial Gemma semantics) must
+                # not fail a completed run — the adapter already shipped
+                logger.warning("export_merged skipped: %s", exc)
+
     # ---- state -------------------------------------------------------------
 
     def state_dict(self) -> dict[str, Any]:
@@ -231,16 +367,39 @@ class Trainer:
         self.optimizer.load_state_dict(state["opt_state"])
         self.step_count = int(state["step"])
 
+    def _writer_extra_fields(self, eval_enabled: bool) -> tuple[str, ...]:
+        """Metrics-CSV columns that may appear only on later rows and must
+        be declared up front (``MetricsWriter`` pins the header)."""
+        fields: tuple[str, ...] = ("input_ms", "input_fraction")
+        if eval_enabled:
+            fields += ("eval_loss", "eval_accuracy", "eval_input_ms")
+        return fields
+
     # ---- the loop ----------------------------------------------------------
 
     def fit(self, batches: Iterable[dict], artifacts_dir: str, resume: bool = True,
-            on_metrics: Callable[[int, dict], None] | None = None) -> None:
+            on_metrics: Callable[[int, dict], None] | None = None,
+            pretrained_dir: str | None = None,
+            eval_batches: Iterable[dict] | None = None) -> None:
         """Train from the latest checkpoint (or the start) to
-        ``total_steps``: a ``metrics.csv`` row every ``log_every`` steps and
-        at the last, a checkpoint every ``checkpoint_every`` steps and at
-        the last; SIGTERM checkpoints and exits with ``SystemExit(143)``."""
-        logger.info("this slice of the port writes no lifecycle events, spans, heartbeat, "
-                    "phase clock or PEFT export (ROADMAP Queue A item 3)")
+        ``total_steps``: a ``metrics.csv`` row every ``log_every`` steps, at
+        eval steps and at the last; an evaluation every ``eval_every`` steps
+        and at the last; a checkpoint every ``checkpoint_every`` steps and
+        at the last; SIGTERM checkpoints and exits with ``SystemExit(143)``.
+
+        ``pretrained_dir`` loads an HF base before the checkpoint restore
+        (a full fine-tune that resumes skips it: its checkpoint holds every
+        weight).  As the reference does, ``fit`` writes ``heartbeat.json``
+        (every ``heartbeat_interval_s``, if above 0), and unless ``trace``
+        is off or ``FTC_TRACE=0``, ``events.jsonl``, the spans of
+        ``trace/trainer.jsonl`` (under ``FTC_TRACE_ID``, or a trace id of
+        its own) and the ``phase_*_ms`` columns; ``FTC_ATTEMPT`` stamps the
+        attempt."""
+        from ..obs.events import EventLogWriter
+        from ..obs.phase import PhaseClock
+        from ..obs.trace import SpanRecorder, new_trace_id
+        from ..resilience.heartbeat import HeartbeatWriter
+
         cfg = self.cfg
         guard = PreemptionGuard()
         try:
@@ -248,41 +407,107 @@ class Trainer:
         except ValueError:
             pass  # not on the main thread (e.g. tests)
         ckpt = CheckpointManager(f"{artifacts_dir}/checkpoints", keep=cfg.keep_checkpoints)
-        start_step = 0
+        obs_on = cfg.trace and os.environ.get("FTC_TRACE", "1").strip().lower() not in (
+            "0", "false", "no", "off")
+        controller_trace_id = os.environ.get("FTC_TRACE_ID", "")
+        attempt = int(os.environ.get("FTC_ATTEMPT", "1") or 1)
+        events_log = EventLogWriter(artifacts_dir, trace_id=controller_trace_id,
+                                    attempt=attempt, enabled=obs_on)
+        # without a controller's trace id the spans carry one of their own
+        spans = SpanRecorder(artifacts_dir, controller_trace_id or new_trace_id(),
+                             attempt=attempt, enabled=obs_on)
+        phases = PhaseClock()
+        fit_span = spans.start("fit", total_steps=cfg.total_steps)
         latest = ckpt.latest_step() if resume else None
+        with spans.span("init", parent=fit_span, pretrained=bool(pretrained_dir) or None):
+            if pretrained_dir and not (latest is not None and cfg.mode == "full"):
+                # the base before the restore, which replaces only the
+                # trained tensors: in lora mode the base comes from here on
+                # every resume too
+                self.load_pretrained(pretrained_dir)
+        start_step = 0
         if latest is not None:
+            restore_span = spans.start("restore", parent=fit_span, step=latest)
             self.load_state(ckpt.restore(latest))
             start_step = latest
+            spans.finish(restore_span, step=start_step)
             logger.info("resumed from checkpoint step %d", start_step)
-        writer = MetricsWriter(artifacts_dir, append=start_step > 0,
-                               extra_fields=("input_ms", "input_fraction"),
-                               resume_step=start_step)
+        heartbeat = None
+        if cfg.heartbeat_interval_s > 0:
+            heartbeat = HeartbeatWriter(artifacts_dir, interval_s=cfg.heartbeat_interval_s)
+            heartbeat.beat(start_step, force=True)
+        self._heartbeat = heartbeat
+        events_log.emit("train-started", step=start_step,
+                        resumed_from=start_step if start_step else None)
+        eval_it: Iterator[dict] | None = iter(eval_batches) if eval_batches is not None else None
+        if cfg.eval_every > 0 and eval_it is None:
+            raise ValueError("eval_every > 0 but no eval_batches were supplied to fit()")
+        writer = MetricsWriter(
+            artifacts_dir, append=start_step > 0,
+            extra_fields=self._writer_extra_fields(eval_it is not None)
+            + (PhaseClock.columns() if obs_on else ()),
+            resume_step=start_step)
         it: Iterator[dict] = iter(batches)
         # the same data stream an uninterrupted run would have seen
         for _ in range(start_step):
             next(it)
-        prefetch = None
+        prefetch_its = []
         if cfg.prefetch > 0:
             from ..data.prefetch import PrefetchIterator
 
-            it = prefetch = PrefetchIterator(it, depth=cfg.prefetch)
+            it = PrefetchIterator(
+                it, depth=cfg.prefetch,
+                transfer=self._transfer_stage() if cfg.prefetch_to_device else None)
+            prefetch_its.append(it)
+            if eval_it is not None and cfg.eval_every > 0:
+                eval_it = PrefetchIterator(eval_it, depth=1)
+                prefetch_its.append(eval_it)
         tokens_per_batch = cfg.batch_size * cfg.seq_len
         window_t0, window_tokens, window_input_s, window_steps = time.perf_counter(), 0, 0.0, 0
         try:
             for step_idx in range(start_step, cfg.total_steps):
-                t_in = time.perf_counter()
+                iter_t0 = t_in = time.perf_counter()
                 batch = next(it)
-                window_input_s += time.perf_counter() - t_in
+                dt_in = time.perf_counter() - t_in
+                window_input_s += dt_in
+                if obs_on:
+                    phases.add("input", dt_in)
                 window_steps += 1
                 metrics = self.step(batch)
                 window_tokens += tokens_per_batch
+                if heartbeat is not None:
+                    t_hb = time.perf_counter()
+                    heartbeat.beat(step_idx + 1, step_ms=(t_hb - iter_t0) * 1000.0)
+                    if obs_on:
+                        phases.add("sync", time.perf_counter() - t_hb)
                 last = step_idx + 1 == cfg.total_steps
-                if (step_idx + 1) % cfg.log_every == 0 or last:
-                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                eval_now = (cfg.eval_every > 0 and eval_it is not None
+                            and ((step_idx + 1) % cfg.eval_every == 0 or last))
+                log_now = (step_idx + 1) % cfg.log_every == 0 or last or eval_now
+                if log_now:
+                    # the step's launches return at once; reading its metrics
+                    # back waits for the device, so the window's "compute"
+                    # (its residual wall time) ends here, before eval runs
+                    metrics = {k: float(v) for k, v in metrics.items()}
                     dt = time.perf_counter() - window_t0
+                eval_metrics: dict[str, float] = {}
+                eval_elapsed = 0.0
+                if eval_now:
+                    eval_t0 = time.perf_counter()
+                    eval_metrics = self.evaluate(eval_it)
+                    eval_elapsed = time.perf_counter() - eval_t0
+                    if obs_on:
+                        phases.add("eval", eval_elapsed)
+                    logger.info("step %d eval_loss %.4f eval_acc %.3f", step_idx + 1,
+                                eval_metrics["eval_loss"], eval_metrics["eval_accuracy"])
+                if log_now:
                     metrics["tokens_per_sec"] = window_tokens / max(dt, 1e-9)
                     metrics["input_ms"] = window_input_s / max(window_steps, 1) * 1000.0
                     metrics["input_fraction"] = window_input_s / max(dt, 1e-9)
+                    metrics.update(eval_metrics)
+                    if obs_on:
+                        metrics.update(phases.window_row(steps=window_steps,
+                                                         wall_s=dt + eval_elapsed))
                     writer.write({"step": step_idx + 1, **metrics})
                     if on_metrics:
                         on_metrics(step_idx + 1, metrics)
@@ -294,12 +519,31 @@ class Trainer:
                         time.perf_counter(), 0, 0.0, 0)
                 preempt = guard.requested
                 if (step_idx + 1) % cfg.checkpoint_every == 0 or last or preempt:
+                    # the pending step's device work belongs to compute, not
+                    # to the save that would otherwise wait for it
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    ck_span = spans.start("checkpoint", parent=fit_span, step=step_idx + 1,
+                                          blocking=True)
+                    t_ck = time.perf_counter()
                     ckpt.save(step_idx + 1, self.state_dict())
+                    if obs_on:
+                        phases.add("checkpoint", time.perf_counter() - t_ck)
+                    spans.finish(ck_span)
+                    events_log.emit("checkpoint-committed", step=step_idx + 1, blocking=True)
                 if preempt:
                     logger.warning("exiting on preemption after step %d", step_idx + 1)
+                    events_log.emit("preempt-exit", step=step_idx + 1)
                     raise SystemExit(143)
+        except BaseException:
+            spans.finish(fit_span, status="error", start_step=start_step)
+            raise
+        else:
+            spans.finish(fit_span, status="ok", start_step=start_step)
+            events_log.emit("train-finished", step=cfg.total_steps)
         finally:
-            if prefetch is not None:
-                prefetch.close()
+            self._heartbeat = None
+            for p in prefetch_its:
+                p.close()
             writer.close()
             guard.uninstall()

@@ -115,6 +115,46 @@ def test_serving_slice_imports_resolve_inside_the_port(path):
             f"{path.relative_to(ROOT)}:{line} imports {module}"
 
 
+HF_SLICE = sorted(
+    [PORT / "models" / f for f in ("safetensors_io.py", "hf_import.py", "hf_export.py",
+                                   "generate_cli.py")]
+    + [PORT / "obs" / f for f in ("__init__.py", "events.py", "trace.py", "phase.py")]
+    + [PORT / "resilience" / "heartbeat.py", PORT / "data" / "corpus.py",
+       PORT / "fidelity.py"])
+#: what the card machine lacks, or the port must not lean on: the HF slice
+#: reads and writes safetensors itself
+HF_FORBIDDEN = ("safetensors", "transformers", "peft", "msgpack", "aiohttp")
+
+
+@pytest.mark.parametrize("path", HF_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_hf_slice_imports_resolve_inside_the_port(path):
+    """The HF I/O, observability and fidelity modules, relative imports
+    resolved, stay out of JAX, the JAX package, ``safetensors``,
+    ``transformers``, ``peft``, ``msgpack`` and ``aiohttp``."""
+    assert path.exists()
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in HF_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_hf_slice_loads_without_the_hf_packages():
+    """Importing the HF slice in a fresh interpreter loads none of the
+    packages it must do without."""
+    code = (
+        "import importlib, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % ([".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+          for p in HF_SLICE], HF_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_serving_entry_points_default_to_cuda(tmp_path):
     """The loader and a fleet's engines run on the card unless the caller
     passes the CPU: without a card the default raises."""

@@ -203,10 +203,10 @@ def test_cli_rejects_unconsumed_arguments_and_unknown_task(tmp_path):
 @pytest.mark.parametrize("spec,match", [
     ({"training": {"task": "dpo"}}, "preference plane"),
     ({"mesh": {"dp": 2}}, "multi-GPU"),
-    ({"model": {"preset": "tiny-test", "weights_dir": "/x"}}, "Queue A item 4"),
+    ({"training": {"transfer_guard": "disallow"}}, "transfer guard"),
     ({"model": {"preset": "tiny-mm-test"}}, "multimodal"),
     ({"model": {"preset": "tiny-moe-test"}}, "MoE"),
-    ({"training": {"eval_every": 5}}, "evaluation"),
+    ({"training": {"recompile_budget": 2}}, "recompile guard"),
 ])
 def test_cli_refuses_what_the_slice_cannot_train(spec, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
