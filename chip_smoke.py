@@ -59,9 +59,10 @@ Phases (any failure exits non-zero and prints no result line):
    spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
    the losses printed beside those of the same run from a random-init
    base at 32 layers.
-   H1, T2, H2 and S2 run ``HF_LAYERS`` = 28 of the 32 layers: the run may
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 26 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
-   merged export and checkpoints (46.3 GiB) exceed;
+   merged export and checkpoints (46.3 GiB) exceed, and phase C's
+   checkpoint, exports and their copies need about 3 GB beside them;
    (H2) the exported adapter against the step-8 LoRA tensors (bit for
    bit), and the merged checkpoint reloaded into a bf16 model through
    ``load_pretrained_`` against ``load_serving_model(merge_lora=True)``:
@@ -85,17 +86,36 @@ Phases (any failure exits non-zero and prints no result line):
    device time per step under ``torch.profiler``), demote and restore ms
    per page, failover recovery, peak memory; (c) the unpaged engine serves 4
    requests, each token checked against ``cached_generate``'s cached path;
-10. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
+10. (C) the control plane on the card: the port's HTTP server in this
+    process (stdlib ``controller/web.py``, an ephemeral port, its own
+    event-loop thread, state and objects under ``build/chip_smoke_ctrl``,
+    the paged KV cache on).  A dev token's user uploads T2's seeded
+    documents (``POST /datasets``) and submits ``llama3-8b-lora`` on the
+    ``h100`` flavor as multipart (LoRA rank 16, batch 4 x 2048 in 2
+    microbatches, 6 steps, one checkpoint, a profiler window over steps 3
+    and 4), at full width and full depth from random weights drawn from
+    the job's seed.  The fair-share scheduler admits it, the local backend
+    runs ``python -m finetune_controller_tpu_torch.train.cli`` on the card,
+    the monitor follows it to SUCCEEDED.  Checked: the statuses, 6 metrics
+    rows with finite losses, the logs, the timeline, ``/trace`` without
+    problems, and the job's ``profile/`` trace listing launches of the
+    three ``wg::`` flash kernels.  The job is promoted and loaded, and 4
+    greedy requests of 20-500 prompt tokens go to ``POST
+    /jobs/{id}/generate``: their tokens must equal those of an in-process
+    ``BatchEngine`` (the service's ``EngineConfig``) on the model the
+    loader builds from the same promoted prefix, and the paged kernel's
+    count (zeroed just before the requests) must rise;
+11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
-11. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
+12. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
     Hkv=8, D=128, bf16, the packed microbatch's segment ids): kernel, plain
     and library times beside the bound, the error against the plain
     version, the share of tile pairs it executes (``live_tiles`` at its tile
     sizes), its rate on that executed work and its share of the bound, each
     with no segment ids too (every causal tile pair), beside its time before
     the Hopper redesign; each launched twice must give the same bits;
-12. (F) the fidelity proof at the reference's default scale
+13. (F) the fidelity proof at the reference's default scale
     (``fidelity.py:286-299``), on the card through the port's CLI:
     ``pretrain_base`` (``tiny-test``, 600 steps on a 400 KB stdlib corpus,
     batch 16 x 128, exported as an HF directory), a LoRA SFT job (rank 8,
@@ -106,8 +126,8 @@ Phases (any failure exits non-zero and prints no result line):
     the job).  ``tiny-test`` runs the plain attention by its config (head
     dim 16, ``attention_impl="xla"``); the kernels are held on the
     full-width phases;
-13. print the ``kernels``, ``serve``, ``serve_tenants``, ``hf_io``,
-    ``fidelity`` and ``train`` lines, the card line, and
+14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
+    ``hf_io``, ``fidelity`` and ``train`` lines, the card line, and
     last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
@@ -122,6 +142,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -224,6 +245,10 @@ def kernel_check_small() -> float:
 
 
 FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+#: each flash kernel's function name in ``csrc/flash_attention.cu``, as a
+#: profiler trace names its launches
+FLASH_KERNEL_SYMBOLS = {"flash_forward": "flash_fwd_wg", "flash_backward_dq": "flash_bwd_dq_wg",
+                        "flash_backward_dkv": "flash_bwd_dkv_wg"}
 
 
 def flash_inputs(gen, b, s, h, hkv, d, dtype, segments):
@@ -742,6 +767,7 @@ def serve_phase(args):
         "source": "finetune_controller_tpu_torch/csrc/paged_attention.cu",
         "replaces": "finetune_controller_tpu/ops/pallas/paged_attention.py:65",
         "launches": launches,
+        "launches_by_path": {"s1": launches},
         "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
@@ -763,8 +789,10 @@ def serve_phase(args):
 #: depth of the model H1 writes, T2 trains and H2 and S2 load: the run may
 #: write 45 GiB to its disk at most, and at 32 layers H1's bf16 base (16.06
 #: GB), T2's f32 merged export (32.12 GB) and T2's three checkpoints (1.51
-#: GB) are 49.7 GB (46.3 GiB); at 28 layers they are 44.3 GB (41.2 GiB)
-HF_LAYERS = 28
+#: GB) are 49.7 GB (46.3 GiB); at 28 layers 44.3 GB, at 26 about 41.7 GB,
+#: which leaves room for phase C's checkpoint, exports, profile and their
+#: copies (about 3 GB)
+HF_LAYERS = 26
 #: the llama3-8b preset's depth, which S1 serves
 PRESETS_DEPTH = 32
 #: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
@@ -1594,6 +1622,323 @@ def serve_tenants_phase(art, seed: int) -> tuple[int, dict]:
     return launches, summary
 
 
+#: phase C: the model, flavor and arguments submitted through the port's
+#: server (``seq_len`` 2048 of packed documents: the flash kernels skip
+#: tiles); ``profile_steps`` 2 opens the trainer's profiler window at the
+#: default ``profile_start_step``, 2, so steps 3 and 4 are traced
+CONTROL_MODEL = "llama3-8b-lora"
+CONTROL_FLAVOR = "h100"
+CONTROL_ARGS = {"lora_rank": 16, "batch_size": 4, "seq_len": 2048, "grad_accum_steps": 2,
+                "total_steps": 6, "checkpoint_every": 6, "log_every": 1, "profile_steps": 2,
+                "warmup_steps": 2, "learning_rate": 2e-4}
+#: the greedy requests sent to ``POST /jobs/{id}/generate`` (prompt tokens)
+CONTROL_PROMPTS = (20, 130, 377, 500)
+CONTROL_NEW_TOKENS = 32
+#: the control plane's settings (``FTC_*``): the monitor in process at a
+#: short interval, the paged KV cache on so ``/generate`` reaches the paged
+#: kernel; auth on with a dev token; no retries, so a failed job fails the run
+CONTROL_ENV = {
+    "FTC_ENVIRONMENT": "local", "FTC_BACKEND": "local", "FTC_MONITOR_IN_PROCESS": "true",
+    "FTC_JOB_MONITOR_INTERVAL_S": "0.5", "FTC_ARTIFACT_SYNC_INTERVAL_S": "5",
+    "FTC_SERVE_PAGED_KV": "true", "FTC_AUTH_ENABLED": "true", "FTC_RETRY_MAX_ATTEMPTS": "0",
+}
+#: how long the job may take from submit to SUCCEEDED
+CONTROL_JOB_TIMEOUT_S = 900
+
+
+class _Api:
+    """A ``urllib`` client of the control plane's HTTP API."""
+
+    def __init__(self, base: str, token: str = ""):
+        self.base = base
+        self.token = token
+
+    def call(self, method: str, path: str, body=None, *, fields=None, files=None,
+             raw: bool = False):
+        import urllib.error
+        import urllib.request
+
+        headers = {"Authorization": f"Bearer {self.token}"} if self.token else {}
+        data = None
+        if fields is not None or files is not None:
+            boundary = f"chipsmoke{os.urandom(8).hex()}"
+            parts = []
+            for name, value in (fields or {}).items():
+                parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                             f'name="{name}"\r\n\r\n{value}\r\n'.encode())
+            for name, (filename, payload) in (files or {}).items():
+                parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"; '
+                             f'filename="{filename}"\r\nContent-Type: application/jsonl'
+                             f'\r\n\r\n'.encode() + payload + b"\r\n")
+            data = b"".join(parts) + f"--{boundary}--\r\n".encode()
+            headers["Content-Type"] = f"multipart/form-data; boundary={boundary}"
+        elif body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        req = urllib.request.Request(self.base + path, data=data, method=method,
+                                     headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                status, payload = resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            status, payload = e.code, e.read()
+        return status, (payload.decode() if raw else json.loads(payload or b"null"))
+
+    def ok(self, method: str, path: str, body=None, want=(200,), **kw):
+        status, out = self.call(method, path, body, **kw)
+        if status not in want:
+            raise SmokeFailure(f"C: {method} {path} answered {status}: {out}")
+        return out
+
+
+def tree_bytes(path) -> int:
+    """Bytes of the files under ``path`` (what a phase left on disk: its
+    writes, less what it deleted)."""
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _prom_value(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return 0.0
+
+
+def control_phase(work, seed: int) -> tuple[int, dict]:
+    """C: the control plane on the card.  The port's server runs in this
+    process on an ephemeral port, on its own event-loop thread, with a fresh
+    state dir and object store under ``build/chip_smoke_ctrl``.  A dev
+    token's user uploads T2's seeded documents (``POST /datasets``),
+    submits ``CONTROL_MODEL`` on ``CONTROL_FLAVOR`` as multipart, and
+    follows the job QUEUED -> RUNNING -> SUCCEEDED: the fair-share
+    scheduler admits it, the local backend runs ``python -m
+    finetune_controller_tpu_torch.train.cli`` on the card, the monitor
+    reads it to the end.  Checked: 6 metrics rows with finite losses, the
+    logs, the timeline, ``/trace`` with no problems, and the profiler
+    trace the job wrote (``profile/``), which must list launches of each
+    flash kernel (``FLASH_KERNEL_SYMBOLS``).  Then the job is promoted,
+    loaded, and 4 greedy requests go to ``POST /jobs/{id}/generate``; their
+    tokens must equal an in-process ``BatchEngine``'s (the service's
+    ``EngineConfig``) on the model the loader builds from the same promoted
+    prefix.  Returns the paged kernel's launches during the requests and
+    the phase's record."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from finetune_controller_tpu_torch.controller import config as ctl_config
+    from finetune_controller_tpu_torch.controller import registry, web
+    from finetune_controller_tpu_torch.controller.runtime import build_runtime
+    from finetune_controller_tpu_torch.controller.server import build_app
+    from finetune_controller_tpu_torch.ops.kernels import paged_attention as pa
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine, GenRequest
+    from finetune_controller_tpu_torch.serve.loader import load_promoted
+
+    t_phase = time.perf_counter()
+    ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_ctrl"
+    shutil.rmtree(ctrl, ignore_errors=True)
+    ctrl.mkdir(parents=True)
+    docs = Path(work) / "train.jsonl"
+    if not docs.exists():
+        write_documents(docs, seed)
+    env = {**CONTROL_ENV, "FTC_STATE_DIR": str(ctrl / "state"),
+           "FTC_OBJECT_STORE_ROOT": str(ctrl / "objects"), "FTC_DEVICE": DEVICE}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    ctl_config.set_settings(None)
+    settings = ctl_config.get_settings()
+    registry.reset()
+    rt = build_runtime(settings)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="control-plane", daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout=None):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    runner = web.AppRunner(build_app(rt))
+    try:
+        on_loop(runner.setup(), 60)
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        on_loop(site.start(), 60)
+        api = _Api(f"http://127.0.0.1:{site.port}{settings.api_prefix}")
+        scrape = _Api(f"http://127.0.0.1:{site.port}")  # /metrics sits at the root
+        api.ok("GET", "/health")
+        api.token = api.ok("POST", "/auth/dev-token",
+                           {"user_id": "chip-smoke", "is_admin": True})["access_token"]
+        dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
+                         want=(201,))
+        t_submit = time.time()
+        job_id = api.ok("POST", "/jobs", fields={
+            "model_name": CONTROL_MODEL, "device": CONTROL_FLAVOR,
+            "dataset_id": dataset["dataset_id"], "arguments": json.dumps(CONTROL_ARGS)})["job_id"]
+        seen, job = {}, {}
+        while time.time() - t_submit < CONTROL_JOB_TIMEOUT_S:
+            job = api.ok("GET", f"/jobs/{job_id}")
+            seen.setdefault(job["status"], time.time())
+            if job["status"] in ("succeeded", "failed", "cancelled"):
+                break
+            time.sleep(0.5)
+        logs = api.ok("GET", f"/jobs/{job_id}/logs")["lines"]
+        if job.get("status") != "succeeded":
+            tail = "\n".join(logs[-30:])
+            raise SmokeFailure(f"C: job {job_id} ended {job.get('status')} "
+                               f"({job.get('message') or job.get('metadata')}); log tail:\n{tail}")
+        order = [st for st in ("queued", "running", "succeeded") if st in seen]
+        if "running" not in seen:
+            raise SmokeFailure(f"C: the job was never seen RUNNING (seen {sorted(seen)})")
+        records = api.ok("GET", f"/jobs/{job_id}/metrics")["records"][::-1]
+        losses = [r.get("loss") for r in records]
+        if [r.get("step") for r in records] != list(range(1, 7)) or not all(
+                isinstance(x, float) and math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"C: /metrics rows {[(r.get('step'), r.get('loss')) for r in records]}")
+        timeline = api.ok("GET", f"/jobs/{job_id}/timeline")["events"]
+        at = {}
+        for e in timeline:
+            at.setdefault(e["event"], e["ts"])
+        for want in ("submitted", "running", "train-started", "checkpoint-committed",
+                     "profile-captured", "train-finished", "succeeded"):
+            if want not in at:
+                raise SmokeFailure(f"C: no {want!r} on the timeline {sorted(at)}")
+        trace = api.ok("GET", f"/jobs/{job_id}/trace")
+        if trace["problems"]:
+            raise SmokeFailure(f"C: /trace problems {trace['problems']}")
+        listing = api.ok("GET", f"/jobs/{job_id}/artifacts?list=1")["artifacts"]
+        profiles = [a["path"] for a in listing if a["path"].startswith("profile/")
+                    and a["path"].endswith(".json")]
+        if not profiles:
+            raise SmokeFailure(f"C: the job's artifacts hold no profile/ trace: "
+                               f"{sorted(a['path'] for a in listing)[:20]}")
+        profile_bytes = on_loop(rt.store.get_bytes(f"{job['artifacts_uri']}/{profiles[0]}"), 300)
+        events = json.loads(profile_bytes).get("traceEvents", [])
+        kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        seen_launches = {name: sum(sym in k for k in kernel_names)
+                         for name, sym in FLASH_KERNEL_SYMBOLS.items()}
+        missing = [n for n in FLASH_KERNELS if seen_launches.get(n, 0) <= 0]
+        if missing:
+            raise SmokeFailure(f"C: the job's profile lists no launch of {missing} "
+                               f"({len(kernel_names)} kernel events)")
+        tokens = CONTROL_ARGS["batch_size"] * CONTROL_ARGS["seq_len"]
+        step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
+        # the window's 0-based steps [a, b) are the rows of steps a+1 .. b
+        m = re.fullmatch(r"profile/steps_(\d+)-(\d+)\.pt\.trace\.json", profiles[0])
+        if m is None:
+            raise SmokeFailure(f"C: unexpected profile trace name {profiles[0]!r}")
+        profiled_steps = list(range(int(m.group(1)) + 1, int(m.group(2)) + 1))
+        phases = {c: [r.get(c) for r in records]
+                  for c in ("phase_compute_ms", "phase_input_ms", "phase_sync_ms",
+                            "phase_checkpoint_ms")}
+        first_row_ts = records[0]["timestamp"]
+
+        # promote, load, serve
+        t0 = time.time()
+        api.ok("POST", f"/jobs/{job_id}/promote", want=(202,))
+        while time.time() - t0 < 600:
+            job = api.ok("GET", f"/jobs/{job_id}")
+            if job["promotion_status"] in ("completed", "failed"):
+                break
+            time.sleep(0.2)
+        promote_s = time.time() - t0
+        if job["promotion_status"] != "completed":
+            raise SmokeFailure(f"C: promotion ended {job['promotion_status']}")
+        t0 = time.time()
+        meta = api.ok("POST", f"/admin/serve/{job_id}/load")["model"]
+        load_s = time.time() - t0
+        rng = np.random.default_rng(seed + 7)
+        vocab = meta["vocab_size"]
+        prompts = [rng.integers(0, vocab, n).tolist() for n in CONTROL_PROMPTS]
+        metrics0 = scrape.ok("GET", "/metrics", raw=True)
+        pa.paged_attention.launches = 0
+
+        def generate(i):
+            return api.ok("POST", f"/jobs/{job_id}/generate", {
+                "tokens": prompts[i], "max_new_tokens": CONTROL_NEW_TOKENS,
+                "request_id": f"c{i}"})
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            answers = list(pool.map(generate, range(len(prompts))))
+        wall = time.perf_counter() - t0
+        launches = pa.paged_attention.launches
+        prom = scrape.ok("GET", "/metrics", raw=True)
+        ttft_n = _prom_value(prom, "ftc_serve_ttft_seconds_count") - _prom_value(
+            metrics0, "ftc_serve_ttft_seconds_count")
+        ttft_s = (_prom_value(prom, "ftc_serve_ttft_seconds_sum") - _prom_value(
+            metrics0, "ftc_serve_ttft_seconds_sum")) / max(ttft_n, 1)
+        ok = [a for a in answers if len(a["tokens"]) == CONTROL_NEW_TOKENS
+              and a["finish_reason"] == "length"]
+        generated = sum(len(a["tokens"]) for a in answers)
+
+        # the in-process engine on the model the loader builds from the prefix
+        ref_model, _ = on_loop(load_promoted(
+            rt.state, rt.store, job_id, ctrl / "reference",
+            merge_lora=settings.serve_merge_lora, device=DEVICE), 900)
+        engine = BatchEngine(ref_model, rt.serve._engine_config())
+        ref = engine.run([GenRequest(request_id=f"c{i}", tokens=p,
+                                     max_new_tokens=CONTROL_NEW_TOKENS)
+                          for i, p in enumerate(prompts)])
+        differ = [a["request_id"] for a in answers
+                  if a["tokens"] != ref[a["request_id"]].generated]
+        del engine, ref_model
+        gc.collect()
+        if len(ok) != len(prompts) or differ:
+            raise SmokeFailure(f"C: {len(ok)}/{len(prompts)} requests complete; tokens differ "
+                               f"from the in-process engine on {differ}")
+        on_loop(rt.serve.unload(job_id), 300)
+        job_bytes = tree_bytes(settings.state_path / "sandboxes" / job_id)
+    finally:
+        on_loop(runner.cleanup(), 300)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        ctl_config.set_settings(None)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    # step 1 pays the first-use costs and the profiled steps pay the
+    # profiler: the job's step time is the median of the others
+    steady = sorted(ms for r, ms in zip(records, step_ms)
+                    if r["step"] > 1 and r["step"] not in profiled_steps)
+    median = steady[len(steady) // 2]
+    record = {
+        "job_id": job_id, "model": CONTROL_MODEL, "device": CONTROL_FLAVOR,
+        "statuses": order, "losses": losses,
+        "submit_to_running_s": seen["running"] - t_submit,
+        "submit_to_train_started_s": at["train-started"] - at["submitted"],
+        "submit_to_first_step_s": first_row_ts - at["submitted"],
+        "ms_per_step": step_ms, "phase_ms": phases, "profiled_steps": profiled_steps,
+        "ms_per_step_median": median, "tokens_per_s_median": tokens / (median / 1e3),
+        "median_over_steps": [r["step"] for r in records
+                              if r["step"] > 1 and r["step"] not in profiled_steps],
+        "promote_s": promote_s, "model_load_s": load_s, "ttft_s": ttft_s,
+        "decode_tokens_per_s": generated / wall, "requests_ok": len(ok),
+        "requests": len(prompts), "generated_tokens": generated,
+        "paged_launches": launches, "flash_launches_in_profile": seen_launches,
+        "profile": profiles[0], "profile_bytes": len(profile_bytes),
+        "log_lines": len(logs), "timeline_events": len(timeline),
+        "job_sandbox_bytes": job_bytes, "control_dir_bytes": tree_bytes(ctrl),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"control: {CONTROL_MODEL} on {CONTROL_FLAVOR} through the port's server: "
+        f"{' -> '.join(order)}; submit -> RUNNING {record['submit_to_running_s']:.1f} s, "
+        f"-> train-started {record['submit_to_train_started_s']:.1f} s, -> first step "
+        f"{record['submit_to_first_step_s']:.1f} s; steps "
+        f"{[round(x) for x in step_ms]} ms (steps {profiled_steps} profiled), "
+        f"{median:.0f} ms/step median of steps {record['median_over_steps']}, "
+        f"{record['tokens_per_s_median']:.0f} tokens/s; promote {promote_s:.2f} s, "
+        f"model load {load_s:.1f} s; TTFT {ttft_s * 1e3:.1f} ms, decode "
+        f"{record['decode_tokens_per_s']:.1f} tokens/s over {len(prompts)} requests "
+        f"({len(ok)}/{len(prompts)} ok, tokens equal to the in-process engine); flash "
+        f"launches in the profile {seen_launches}; paged launches {launches}; the job's "
+        f"sandbox holds {job_bytes / 1e9:.2f} GB, build/chip_smoke_ctrl "
+        f"{record['control_dir_bytes'] / 1e9:.2f} GB; {record['phase_s']:.1f} s")
+    return launches, record
+
+
 def packed_segments(work, seed: int):
     """Segment ids (2, 2048) int32 of the microbatch of T2's 8 steps (the
     loader seeded as the run's) that holds the most documents, so the
@@ -1761,6 +2106,14 @@ def main(argv=None) -> int:
         if s2_launches <= 0:
             raise SmokeFailure("S2: the paged-attention kernel was not launched on its path")
         paged_entry["launches"] += s2_launches
+        paged_entry["launches_by_path"]["s2"] = s2_launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        c_launches, control = control_phase(work, args.seed)
+        if c_launches <= 0:
+            raise SmokeFailure("C: the paged-attention kernel was not launched by /generate")
+        paged_entry["launches"] += c_launches
+        paged_entry["launches_by_path"]["c_generate"] = c_launches
         gc.collect()
         torch.cuda.empty_cache()
         seg = packed_segments(work, args.seed)
@@ -1811,7 +2164,11 @@ def main(argv=None) -> int:
                 "flash_backward_dkv": f"{ref}:397"}
     kernels = [paged_entry] + [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-        "launches": train["launches"][name], "max_abs_err": flash[name]["max_abs_err"],
+        "launches": train["launches"][name],
+        "launches_by_path": {
+            "t2_in_process": train["launches"][name],
+            "c_job_profile_steps": control["flash_launches_in_profile"][name]},
+        "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
         "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
         "library_ms": flash[name]["library_ms"],
@@ -1819,12 +2176,15 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serve": serve_summary}), flush=True)
     print(json.dumps({"serve_tenants": serve_tenants}), flush=True)
+    print(json.dumps({"control": control}), flush=True)
     print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
     print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",
                               "ms_no_segments", "tflops_no_segments")}
         for k, r in flash.items()}}}), flush=True)
+    log(f"files left on disk: build/chip_smoke_train {tree_bytes(work) / 1e9:.2f} GB, "
+        f"build/chip_smoke_ctrl {control['control_dir_bytes'] / 1e9:.2f} GB")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ holds its own counterparts of the modules it needs and imports nothing from
 it (nor ``jax``/``flax``).  The slices ported so far are paged
 continuous-batching serving, LoRA SFT training through the spec CLI,
 serving what it trains (multi-tenant adapters, a host KV tier, a replica
-fleet and router), and HF checkpoints in and out with held-out evaluation,
-the trainer's observability and the fidelity proof:
+fleet and router), HF checkpoints in and out with held-out evaluation,
+the trainer's observability and the fidelity proof, and the control plane
+that submits, schedules, trains, promotes and serves jobs over HTTP:
 
 * ``models`` — ``LlamaConfig``/``PRESETS``, the decoder as ``nn.Module``s
   (serving and training forwards, remat, LoRA dropout), the flax-tree
@@ -20,12 +21,17 @@ the trainer's observability and the fidelity proof:
   (paged or unpaged, multi-tenant), the asyncio ``Batcher``, the adapter
   registry, the replica fleet and router, and the checkpoint loader;
 * ``resilience`` — failure classification, retry backoff, the serve
-  fault injector and the trainer's heartbeat;
-* ``obs`` — the trainer's lifecycle events, spans and step-phase clock;
+  fault injector, the trainer's heartbeat and the retry supervisor;
+* ``obs`` — lifecycle events, spans and their trace assembly, the
+  step-phase clock and the Prometheus hub;
 * ``data`` and ``train`` — the packing loader, the stdlib corpus, the
   trainer, optimizer, checkpoints and ``python -m
   finetune_controller_tpu_torch.train.cli``;
-* ``fidelity`` — the fidelity proof's base pretraining and SFT data.
+* ``fidelity`` — the fidelity proof's base pretraining and SFT data;
+* ``controller`` and ``sched`` — the HTTP server (on the stdlib
+  ``controller/web.py``), state and object stores, the local backend that
+  launches the trainer CLI, the monitor, promotion, and the fair-share
+  scheduler; ``serve/service.py`` serves promoted jobs over HTTP.
 
 Submodules load lazily, so ``import finetune_controller_tpu_torch`` costs
 nothing until a name is used.

@@ -1,4 +1,4 @@
-"""Observability of the port's trainer: lifecycle events (``events``),
-spans (``trace``) and the step-phase clock (``phase``), copies of the
-reference's stdlib-only modules, written in the reference's formats so the
-controller's readers parse them."""
+"""Observability of the port: the job-lifecycle events (``events``), spans
+and the controller's trace assembly (``trace``), the trainer's step-phase
+clock (``phase``) and the control plane's Prometheus hub (``prom``), copies
+of the reference's stdlib-only modules, written in the reference's formats."""

@@ -1,18 +1,22 @@
-"""Trainer-side job-lifecycle events (a copy of the reference's
-``obs/events.py`` without its control-plane emitter).
+"""The job-lifecycle event timeline (docs/observability.md §Timeline).
 
-The trainer, which has no state-store access, appends structured events to
-``events.jsonl`` in its artifacts dir; the artifact sidecar ships it and the
-controller's monitor ingests new rows into the job document (the same
-channel ``heartbeat.json`` rides).
+Every plane that moves a job appends a structured event to the job document
+(``StateStore.append_job_event``): the API on submit/cancel/promote, the
+monitor on every observed status transition, the retry supervisor on
+preempt/resize/retry/resubmit, the serve manager on load/unload.  The trainer
+— which has no state-store access — appends to ``events.jsonl`` in its
+artifacts dir instead; the artifact sidecar ships it and the monitor ingests
+new rows into the job document (the same channel ``heartbeat.json`` rides).
+
+Exactly-once: every emitter stamps an idempotency ``key`` and
+``append_job_event`` drops duplicates, so an emitter that retries after a
+crash (the monitor appends the event BEFORE the status write it describes)
+converges to one event per transition instance.
 
 Event dict shape (the timeline API serves these verbatim)::
 
-    {"ts": 1722700000.0, "event": "train-started", "key": "...",
-     "attrs": {"attempt": 1, "step": 0}}
-
-The canonical names are the reference's, so the controller's timeline
-reads the port's events unchanged.
+    {"ts": 1722700000.0, "event": "running", "key": "running:a1",
+     "attrs": {"attempt": 1, "slices": 2}}
 """
 
 from __future__ import annotations
@@ -75,6 +79,24 @@ def make_event(
     if key:
         doc["key"] = key
     return doc
+
+
+async def append_event_safe(
+    state, job_id: str, event: str, *, key: str | None = None,
+    ts: float | None = None, **attrs: Any,
+) -> bool:
+    """Best-effort timeline append shared by every control-plane emitter
+    (monitor, supervisor, API, serve) — observability must never stall the
+    plane that carries it.  ``state`` is duck-typed (StateStore)."""
+    try:
+        await state.append_job_event(
+            job_id, make_event(event, key=key, ts=ts, **attrs)
+        )
+        return True
+    except Exception:
+        logger.debug("timeline append (%s) failed for %s", event, job_id,
+                     exc_info=True)
+        return False
 
 
 class EventLogWriter:

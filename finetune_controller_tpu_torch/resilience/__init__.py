@@ -1,4 +1,4 @@
-"""Resilience helpers of the port: failure classification and retry backoff
-(``policy``), the serve-plane fault injector (``faults``) and the trainer's
-liveness heartbeat (``heartbeat``), copies of the reference's stdlib-only
-modules."""
+"""Resilience of the port: failure classification and retry backoff
+(``policy``), the serve-plane fault injector (``faults``), the trainer's
+liveness heartbeat and the monitor's lease (``heartbeat``), and the retry
+supervisor (``supervisor``), copies of the reference's stdlib-only modules."""

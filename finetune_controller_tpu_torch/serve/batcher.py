@@ -2,7 +2,8 @@
 
 A copy of the reference's ``serve/batcher.py`` (free of JAX), kept by the
 port so that it imports nothing of the reference package; the only change
-is that the port's engine reports no compile count.
+is that the port's engine runs eagerly, so its ``compilations`` stat stays
+0 (no program is traced or compiled per shape).
 
 The engine is host-driven and synchronous; this wraps it in the control
 plane's event loop:
@@ -568,6 +569,7 @@ class Batcher:
             "requests_rejected_total": self.rejected_total,
             "deadline_drops_total": self.deadline_drops_total,
             "step_errors_total": self.step_errors_total,
+            "compilations": self.engine.compilations,
             # prefix-reuse KV cache (docs/serving.md) — all zeros when off
             "prefix_hits_total": self.engine.prefix_hits_total,
             "prefix_misses_total": self.engine.prefix_misses_total,

@@ -258,6 +258,9 @@ class BatchEngine:
         if self.adapters is not None:
             self.sync_adapters()
         # counters the /metrics gauges read
+        #: programs compiled for serving; the eager engine compiles none
+        #: (the reference counts its XLA compiles here)
+        self.compilations = 0
         self.steps_total = 0
         self.tokens_generated_total = 0
         self.requests_finished_total = 0

@@ -40,7 +40,7 @@ import enum
 import itertools
 import logging
 import time
-from typing import Any
+from typing import Any, Awaitable, Callable
 
 from ..resilience.faults import ServeFaultInjector
 from ..resilience.policy import RETRYABLE, RetryPolicy, classify_failure
@@ -107,9 +107,9 @@ class ReplicaFleet:
     """The replica set for one served job.
 
     ``model`` is the loaded serving model, shared by every replica; engine
-    construction (cache allocation, warm-up) runs in a worker thread.  (The
-    reference's ``event_cb`` timeline hook belongs to the controller, which
-    is not ported.)
+    construction (cache allocation, warm-up) runs in a worker thread.
+    ``event_cb`` (async, best-effort) lands fleet lifecycle events on the
+    job's timeline (the serve manager passes one).
     """
 
     #: per-replica stats that are cumulative COUNTERS: folded into
@@ -124,7 +124,7 @@ class ReplicaFleet:
     )
     #: point-in-time gauges: summed over LIVE replicas only
     _GAUGE_KEYS = (
-        "queue_depth", "slots_busy", "slots_total",
+        "queue_depth", "slots_busy", "slots_total", "compilations",
         "prefix_cache_bytes", "prefix_cache_entries",
         "kv_pages_total", "kv_pages_free", "kv_pages_used",
         "kv_pages_shared", "kv_tier_host_pages_total",
@@ -150,6 +150,7 @@ class ReplicaFleet:
         fault: ServeFaultInjector | None = None,
         warm_start: bool = True,
         adapters: "Any | None" = None,
+        event_cb: Callable[..., Awaitable[Any]] | None = None,
         transport: "Any | None" = None,
     ):
         self.job_id = job_id
@@ -193,6 +194,7 @@ class ReplicaFleet:
         self._last_restart_delay: float | None = None
         self._health_task: asyncio.Task | None = None
         self._closed = False
+        self._event_cb = event_cb
         # counters (/metrics + GET /admin/serve)
         self.replica_restarts_total = 0
         self.replicas_failed_total = 0
@@ -207,6 +209,17 @@ class ReplicaFleet:
         self._retired_dict_totals: dict[str, dict[str, int]] = {
             k: {} for k in self._DICT_COUNTER_KEYS
         }
+
+    # ---- events ------------------------------------------------------------
+
+    async def _event(self, event: str, **attrs) -> None:
+        if self._event_cb is None:
+            return
+        try:
+            await self._event_cb(event, **attrs)
+        # logged: a timeline write must never fail the fleet operation
+        except Exception:
+            logger.debug("fleet event %s failed", event, exc_info=True)
 
     # ---- lifecycle ---------------------------------------------------------
 
@@ -237,6 +250,10 @@ class ReplicaFleet:
             started_at=now, last_progress=now,
         )
         self._replicas[rid] = replica
+        await self._event(
+            "serve-replica-started", replica=rid, generation=self.generation,
+            transport="inproc",
+        )
         logger.info("serve replica %s started (job=%s gen=%d)", rid, self.job_id,
                     self.generation)
         return replica
@@ -265,6 +282,10 @@ class ReplicaFleet:
                 # the install: an admission racing the drop can only
                 # re-seed the namespace with new-weight KV
                 await asyncio.to_thread(replica.engine.drop_prefix_namespace, adapter_id)
+        await self._event(
+            "serve-adapter-loaded", adapter=adapter_id, slot=entry.slot,
+            rank=rank,
+        )
         logger.info("adapter %s installed on %d replica(s) (job=%s slot=%d)",
                     adapter_id, len(self._replicas), self.job_id, entry.slot)
         return entry.slot
@@ -294,6 +315,7 @@ class ReplicaFleet:
             await asyncio.to_thread(
                 replica.engine.remove_adapter, adapter_id, entry.slot
             )
+        await self._event("serve-adapter-unloaded", adapter=adapter_id)
 
     def healthy_replicas(self) -> list[Replica]:
         return [r for r in self._replicas.values() if r.healthy]
@@ -317,6 +339,10 @@ class ReplicaFleet:
         replica.state = ReplicaState.STOPPED
         self._retire(replica)
         self._replicas.pop(replica_id, None)
+        await self._event(
+            "serve-replica-drained", replica=replica_id, reason=reason,
+            clean=drained,
+        )
         logger.info("serve replica %s drained (%s, clean=%s)",
                     replica_id, reason, drained)
         return drained
@@ -339,6 +365,10 @@ class ReplicaFleet:
         ))
         failure = classify_failure(None, error)
         self._failure_streak += 1
+        await self._event(
+            "serve-replica-unhealthy", replica=replica_id, error=error,
+            failure_class=failure.value,
+        )
         if not restart or self._closed:
             return
         if failure in RETRYABLE \
@@ -472,6 +502,10 @@ class ReplicaFleet:
                 continue
             self.replica_restarts_total += 1
             actions["restarted"].append(replica.replica_id)
+            await self._event(
+                "serve-replica-restarted", replica=replica.replica_id,
+                after=pending.reason,
+            )
         return actions
 
     def start_health_loop(self, interval_s: float) -> None:
@@ -502,11 +536,18 @@ class ReplicaFleet:
         self._model = model
         self.generation += 1
         self.rollovers_total += 1
+        await self._event(
+            "serve-rollover-started", generation=self.generation,
+            reason=reason, old_replicas=len(old),
+        )
         for _ in range(max(1, len(old))):
             await self.spawn_replica()
         await asyncio.gather(*(
             self.drain_replica(r.replica_id, reason=reason) for r in old
         ))
+        await self._event(
+            "serve-rollover-completed", generation=self.generation,
+        )
 
     async def close(self) -> None:
         self._closed = True

@@ -24,15 +24,20 @@ into a model the serving engine decodes with:
   checkpoint's trainable tensors), never the base; :func:`stage_meta` reads
   only the spec and the checkpoint listing.
 
+The store-facing half serves a promoted job: :func:`resolve_promoted` (only
+a COMPLETED promotion is servable), :func:`fetch_promoted` (stage the
+spec and checkpoints of the deploy prefix), :func:`load_promoted` (resolve
+→ stage → load, on the caller's device), :func:`load_adapter` (a tenant's
+deltas only) and :func:`stage_for_workers` (resolve → stage → meta, no
+weights).
+
 Every entry point refuses what cannot be served with the reference's
-messages (:class:`ServeLoadError`).  The store-facing half of the reference
-(``resolve_promoted``, ``fetch_promoted``, ``load_adapter``,
-``stage_for_workers``, ``load_promoted``) waits for the controller's port
-(ROADMAP Queue A).
+messages (:class:`ServeLoadError`).
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import logging
@@ -267,3 +272,151 @@ def stage_meta(local_dir: Path | str, *, merge_lora: bool = True) -> dict:
         "max_seq_len": model_cfg.max_seq_len,
         "weights_dir": spec.get("model", {}).get("weights_dir") or None,
     }
+
+
+# ---------------------------------------------------------------------------
+# The store half: promoted prefix -> staged directory -> model
+# ---------------------------------------------------------------------------
+
+
+async def resolve_promoted(state, job_id: str):
+    """The serve-side gate: only a COMPLETED promotion is servable.
+
+    IN_PROGRESS/DELETING would read a half-copied prefix; FAILED and
+    NOT_PROMOTED have no (trustworthy) deploy copy at all.  The error names
+    the observed state so operators see *why*, not just a 409.
+    """
+    from ..controller.schemas import PromotionStatus
+
+    job = await state.get_job(job_id)
+    if job is None:
+        raise ServeLoadError(f"job {job_id!r} not found", status=404)
+    if job.promotion_status is not PromotionStatus.COMPLETED:
+        raise ServeLoadError(
+            f"job {job_id!r} is not servable: promotion_status is "
+            f"{job.promotion_status.value!r} (serving requires 'completed' — "
+            "promote the job and wait for the copy to finish)"
+        )
+    if not job.promotion_uri:
+        raise ServeLoadError(
+            f"job {job_id!r} has promotion_status=completed but no "
+            "promotion_uri recorded — re-promote it"
+        )
+    return job
+
+
+async def fetch_promoted(store, promotion_uri: str, dest_dir: Path | str) -> Path:
+    """Stage the servable slice of the deploy prefix to a local directory:
+    the resolved job spec + the checkpoints tree (adapter/merged exports and
+    metrics are not needed to serve)."""
+    import shutil
+
+    dest = Path(dest_dir)
+    # stage FRESH: leftovers from a previous load (e.g. a higher step_N from
+    # a promotion that was since rolled back and re-promoted) would win the
+    # latest-checkpoint pick and silently serve stale weights
+    if dest.exists():
+        await asyncio.to_thread(shutil.rmtree, dest, ignore_errors=True)
+    prefix = promotion_uri.rstrip("/") + "/"
+    objs = await store.list_prefix(promotion_uri)
+    if not objs:
+        raise ServeLoadError(f"no objects under promotion uri {promotion_uri}")
+    n = 0
+    for obj in objs:
+        rel = obj["uri"][len(prefix):]
+        if rel != "resolved_config.json" and not rel.startswith("checkpoints/"):
+            continue
+        await store.get_file(obj["uri"], dest / rel)
+        n += 1
+    if n == 0:
+        raise ServeLoadError(
+            f"promotion prefix {promotion_uri} holds no resolved_config.json/"
+            "checkpoints — was this job trained by this stack?"
+        )
+    logger.info("staged %d promoted objects <- %s", n, promotion_uri)
+    return dest
+
+
+async def load_adapter(state, store, job_id: str, work_dir: Path | str, *,
+                       base_meta: dict | None = None) -> tuple[dict, dict]:
+    """Stage ONLY a promoted LoRA job's adapter for multi-tenant serving:
+    ``(adapter, meta)`` ready for ``AdapterRegistry.register``.
+    ``base_meta`` (the serving session's meta) guards against serving an
+    adapter on the wrong base: preset and pretrained weights must match."""
+    import shutil
+    import uuid
+
+    job = await resolve_promoted(state, job_id)
+    job_dir = Path(work_dir) / job_id
+    local = await fetch_promoted(
+        store, job.promotion_uri, job_dir / f"adapter-{uuid.uuid4().hex[:8]}"
+    )
+    try:
+        adapter, meta = await asyncio.to_thread(_load_adapter_tree, local)
+    finally:
+        await asyncio.to_thread(shutil.rmtree, local, ignore_errors=True)
+    if base_meta is not None:
+        for field in ("preset", "weights_dir"):
+            if meta.get(field) != base_meta.get(field):
+                raise ServeLoadError(
+                    f"adapter job {job_id!r} was trained on "
+                    f"{field}={meta.get(field)!r} but the base fleet serves "
+                    f"{field}={base_meta.get(field)!r} — an adapter only "
+                    "composes with the exact base it was trained against"
+                )
+        if base_meta.get("lora_merged"):
+            raise ServeLoadError(
+                "the base fleet serves MERGED weights; multi-tenant "
+                "adapters need the pristine base — reload it with "
+                "serve_merge_lora=false"
+            )
+    meta["job_id"] = job_id
+    meta["promotion_uri"] = job.promotion_uri
+    return adapter, meta
+
+
+async def stage_for_workers(state, store, job_id: str, work_dir: Path | str, *,
+                            merge_lora: bool = True) -> tuple[Path, dict]:
+    """resolve → stage → meta, WITHOUT loading weights into this process.
+    The staged dir is returned (not removed: a reader that rebuilds the
+    weights from it needs it for as long as it serves) along with the meta
+    :func:`load_promoted` produces."""
+    import uuid
+
+    job = await resolve_promoted(state, job_id)
+    job_dir = Path(work_dir) / job_id
+    local = await fetch_promoted(
+        store, job.promotion_uri, job_dir / f"workers-{uuid.uuid4().hex[:8]}"
+    )
+    meta = await asyncio.to_thread(stage_meta, local, merge_lora=merge_lora)
+    meta["job_id"] = job_id
+    meta["promotion_uri"] = job.promotion_uri
+    return local, meta
+
+
+async def load_promoted(state, store, job_id: str, work_dir: Path | str, *,
+                        merge_lora: bool = True, device=None
+                        ) -> tuple[LlamaForCausalLM, dict]:
+    """resolve → stage → load, the whole serve-side path for one job, on
+    ``device`` (the CUDA card unless the caller passes another).
+
+    Each load stages into its OWN ``stage-<nonce>`` directory and removes it
+    once the weights are loaded, so two racing loads for one job never
+    interleave writes under a shared prefix."""
+    import shutil
+    import uuid
+
+    job = await resolve_promoted(state, job_id)
+    job_dir = Path(work_dir) / job_id
+    local = await fetch_promoted(
+        store, job.promotion_uri, job_dir / f"stage-{uuid.uuid4().hex[:8]}"
+    )
+    try:
+        model, meta = await asyncio.to_thread(
+            load_serving_model, local, merge_lora=merge_lora, device=device
+        )
+    finally:
+        await asyncio.to_thread(shutil.rmtree, local, ignore_errors=True)
+    meta["job_id"] = job_id
+    meta["promotion_uri"] = job.promotion_uri
+    return model, meta

@@ -11,16 +11,19 @@ thread when ``prefetch_to_device``), pretrained HF weights
 (:meth:`Trainer.load_pretrained`), evaluation every ``eval_every`` steps,
 the PEFT adapter and merged HF exports (:meth:`Trainer.export_artifacts`),
 and, as the reference writes them, ``heartbeat.json``, ``events.jsonl``,
-``trace/trainer.jsonl`` and the ``phase_*_ms`` columns.  Configurations it
-cannot train raise ``NotImplementedError`` naming the ROADMAP item that
-ports them: the preference tasks, MoE and int4 bases, profiler windows, and
-the guard fields ``transfer_guard``, ``shard_audit`` and a
-``recompile_budget`` above 0.
+``trace/trainer.jsonl`` and the ``phase_*_ms`` columns.  A profiler window
+(``profile_steps`` from ``profile_start_step``, or one requested on a live
+job through ``profile_request.json``) writes a ``torch.profiler`` Chrome
+trace under ``profile/``.  Configurations it cannot train raise
+``NotImplementedError`` naming the ROADMAP item that ports them: the
+preference tasks, MoE and int4 bases, and the guard fields
+``transfer_guard``, ``shard_audit`` and a ``recompile_budget`` above 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import logging
 import signal
@@ -88,7 +91,6 @@ def refuse_untrainable(model_cfg: LlamaConfig, cfg: TrainConfig) -> None:
         (cfg.task != "sft", f"task {cfg.task!r}: the preference plane (ROADMAP Queue A item 6)"),
         (bool(model_cfg.n_experts), "MoE configs (ROADMAP Queue A item 5)"),
         (model_cfg.quantize_base, "int4 QLoRA bases (ROADMAP Queue A item 5)"),
-        (cfg.profile_steps > 0, "profile_steps > 0: profiler windows (ROADMAP Queue A item 2e)"),
         (bool(cfg.transfer_guard),
          f"transfer_guard {cfg.transfer_guard!r}: the transfer guard (ROADMAP Queue A item 9)"),
         (bool(cfg.shard_audit),
@@ -106,6 +108,67 @@ def _torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dtype
+
+
+class ProfileWindow:
+    """A ``torch.profiler`` window over training steps, written as a Chrome
+    trace under ``{artifacts_dir}/profile/`` (the reference opens a
+    ``jax.profiler`` window there).  Device activity is traced when the
+    trainer runs on a CUDA card."""
+
+    def __init__(self, artifacts_dir: str, device: torch.device):
+        self.dir = os.path.join(artifacts_dir, "profile")
+        self.device = device
+        self._prof = None
+        self.first_step = 0
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def start(self, step: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        self.first_step = step
+
+    def stop(self, step: int) -> str:
+        """End the window after ``step`` (exclusive end) and write its trace;
+        returns the trace's path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"steps_{self.first_step}-{step}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
+
+def consume_profile_request(path: str) -> int:
+    """Read and retire an on-demand profiler request delivered through the
+    artifact channel (``POST /jobs/{id}/profile`` → ``backend.deliver_file``
+    → ``profile_request.json``): the requested step count, 0 when the file
+    is unreadable.  The file is renamed either way so a bad payload cannot
+    re-trigger every step (the reference's ``_consume_profile_request``)."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        steps = max(1, min(int(doc.get("steps", 5)), 1000))
+    except (OSError, ValueError, TypeError):
+        steps = 0
+    try:
+        os.replace(path, path + ".consumed")
+    except OSError:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    return steps
 
 
 class PreemptionGuard:
@@ -464,8 +527,43 @@ class Trainer:
                 prefetch_its.append(eval_it)
         tokens_per_batch = cfg.batch_size * cfg.seq_len
         window_t0, window_tokens, window_input_s, window_steps = time.perf_counter(), 0, 0.0, 0
+        # the profiler window, as the reference places it: the configured
+        # one from profile_start_step (clamped into the run), and on-demand
+        # ones from profile_request.json, polled at the reference's
+        # preemption-sync cadence.  FTC_PROFILE=0 stops the poll; the poll
+        # does not depend on the tracing kill switch
+        window = ProfileWindow(artifacts_dir, self.device)
+        prof_first = start_step + cfg.profile_start_step
+        want_profile = cfg.profile_steps > 0
+        if want_profile and start_step >= cfg.total_steps:
+            logger.warning("profiling requested but the run is already complete "
+                           "(resumed at step %d of %d); no trace will be captured",
+                           start_step, cfg.total_steps)
+            want_profile = False
+        elif want_profile and prof_first >= cfg.total_steps:
+            logger.warning("profile_start_step %d is past the run (total_steps %d); "
+                           "profiling from the first step instead",
+                           cfg.profile_start_step, cfg.total_steps)
+            prof_first = start_step
+        prof_last = prof_first + cfg.profile_steps  # exclusive
+        profile_poll_on = os.environ.get("FTC_PROFILE", "1").strip().lower() not in (
+            "0", "false", "no", "off")
+        profile_poll = max(1, min(cfg.log_every, cfg.checkpoint_every))
+        profile_req_path = os.path.join(artifacts_dir, "profile_request.json")
         try:
             for step_idx in range(start_step, cfg.total_steps):
+                if want_profile and not window.active and step_idx >= prof_first:
+                    # >= not ==: an on-demand window may span the configured
+                    # start; the configured one then begins at the first free step
+                    window.start(step_idx)
+                    want_profile = False
+                    prof_last = min(step_idx + cfg.profile_steps, cfg.total_steps)
+                if (profile_poll_on and not window.active and step_idx % profile_poll == 0
+                        and os.path.exists(profile_req_path)):
+                    steps_req = consume_profile_request(profile_req_path)
+                    if steps_req:
+                        window.start(step_idx)
+                        prof_last = min(step_idx + steps_req, cfg.total_steps)
                 iter_t0 = t_in = time.perf_counter()
                 batch = next(it)
                 dt_in = time.perf_counter() - t_in
@@ -480,6 +578,13 @@ class Trainer:
                     heartbeat.beat(step_idx + 1, step_ms=(t_hb - iter_t0) * 1000.0)
                     if obs_on:
                         phases.add("sync", time.perf_counter() - t_hb)
+                if window.active and step_idx + 1 >= prof_last:
+                    trace_path = window.stop(step_idx + 1)
+                    # forced: an operator-requested window must confirm
+                    # even with tracing off
+                    events_log.emit("profile-captured", step=step_idx + 1, force=True)
+                    logger.info("profiler trace for steps [%d, %d) -> %s",
+                                window.first_step, step_idx + 1, trace_path)
                 last = step_idx + 1 == cfg.total_steps
                 eval_now = (cfg.eval_every > 0 and eval_it is not None
                             and ((step_idx + 1) % cfg.eval_every == 0 or last))
@@ -545,5 +650,7 @@ class Trainer:
             self._heartbeat = None
             for p in prefetch_its:
                 p.close()
+            if window.active:
+                window.stop(cfg.total_steps)
             writer.close()
             guard.uninstall()

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX, no reference package.
 
 Importing every module of ``finetune_controller_tpu_torch`` (and the
-``chip_smoke.py`` script) in a fresh interpreter leaves ``jax``, ``flax``
-and ``finetune_controller_tpu`` out of ``sys.modules`` — checked in a
+``chip_smoke.py`` script) in a fresh interpreter leaves ``jax``, ``flax``,
+``aiohttp`` and ``finetune_controller_tpu`` out of ``sys.modules`` — checked in a
 subprocess because this test process has JAX loaded already.  An AST scan
 pins the same for every source file.  Entry points default to the CUDA card
 and raise where there is none, unless the caller asks for the CPU.
@@ -22,7 +22,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "finetune_controller_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "finetune_controller_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "finetune_controller_tpu", "aiohttp")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -150,6 +150,48 @@ def test_hf_slice_loads_without_the_hf_packages():
         "sys.exit(1 if bad else 0)\n"
     ) % ([".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
           for p in HF_SLICE], HF_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+CONTROL_SLICE = sorted(
+    [p for p in (PORT / "controller").rglob("*.py")]
+    + [PORT / "sched" / f for f in ("__init__.py", "queues.py", "preemption.py",
+                                    "backfill.py", "fairshare.py")]
+    + [PORT / "resilience" / "supervisor.py", PORT / "obs" / "prom.py",
+       PORT / "serve" / "service.py"])
+#: the control plane runs on the card machine: no aiohttp (its HTTP server is
+#: ``controller/web.py``) and no msgpack
+CONTROL_FORBIDDEN = ("aiohttp", "msgpack")
+
+
+@pytest.mark.parametrize("path", CONTROL_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_control_slice_imports_resolve_inside_the_port(path):
+    """The control plane's modules (controller, sched, supervisor, prom,
+    the serve routes), relative imports resolved, stay out of JAX, the JAX
+    package, ``aiohttp`` and ``msgpack``."""
+    assert path.exists()
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in CONTROL_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_control_plane_loads_without_aiohttp():
+    """Importing the port's server and every control-plane module in a fresh
+    interpreter loads none of JAX, the JAX package, ``aiohttp`` or
+    ``msgpack``."""
+    code = (
+        "import importlib, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % (["finetune_controller_tpu_torch.controller.server"]
+         + [".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+            for p in CONTROL_SLICE], CONTROL_FORBIDDEN + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
