@@ -19,6 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
    cotangent, and at S=300 on the segment layouts of tile skipping (packed,
    16-token documents, boundaries on tile edges, non-monotonic ids,
    trailing padding); ptxas's register and spill report of every kernel;
+   (Q0) ``quantize_int4`` of a seeded full-width Mixtral expert stack
+   ``(8, 4096, 14336)`` on the card against the plain version on the CPU,
+   bit for bit (packed bytes, scales and the dequantized stack), and
+   ``int4_matmul``'s forward and ``grad_x`` at 1280 rows per expert against
+   dequantize-then-``matmul`` (``INT4_REL_TOL``), timed;
 3. build ``llama3-8b`` at full width (and full depth unless ``--layers``
    cuts it) in bf16 with random weights drawn on the card from ``--seed``;
 4. serve 12 requests through ``Batcher`` -> ``BatchEngine`` -> the paged
@@ -59,10 +64,11 @@ Phases (any failure exits non-zero and prints no result line):
    spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
    the losses printed beside those of the same run from a random-init
    base at 32 layers.
-   H1, T2, H2 and S2 run ``HF_LAYERS`` = 26 of the 32 layers: the run may
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 22 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
-   merged export and checkpoints (46.3 GiB) exceed, and phase C's
-   checkpoint, exports and their copies need about 3 GB beside them;
+   merged export and checkpoints (46.3 GiB) exceed, and phases C, Q and M
+   need about 8 GB beside them; after each phase the script prints what
+   it has written (``DiskTally``) and fails past 45 GiB;
    (H2) the exported adapter against the step-8 LoRA tensors (bit for
    bit), and the merged checkpoint reloaded into a bf16 model through
    ``load_pretrained_`` against ``load_serving_model(merge_lora=True)``:
@@ -104,7 +110,27 @@ Phases (any failure exits non-zero and prints no result line):
     /jobs/{id}/generate``: their tokens must equal those of an in-process
     ``BatchEngine`` (the service's ``EngineConfig``) on the model the
     loader builds from the same promoted prefix, and the paged kernel's
-    count (zeroed just before the requests) must rise;
+    count (zeroed just before the requests) must rise.  (Q) On the same
+    server and dataset, ``mistral-7b-qlora`` (the ``jax_qlora`` framework:
+    an int4 base quantized at init from the job's seed, LoRA rank 16 on all
+    seven projections, C's batch shape, 6 steps, no profiler window) runs
+    to SUCCEEDED, is promoted and loads unmerged (``lora_merged: false``);
+    4 greedy ``/generate`` requests equal an in-process ``BatchEngine`` on
+    the loader's model, the paged kernel's count rising; printed: submit ->
+    RUNNING and first row, the median step over steps 2-6, tokens/s,
+    promote and load s, TTFT, generated tokens/s and the int4 base's bytes;
+    (M) ``mixtral-8x7b`` with int4 experts (``MOE_SPEC``: no mesh, bf16
+    frozen tensors, LoRA rank 16 on the attention projections, batch 4 x
+    2048 in 2 microbatches, full width and 32 layers, the preset's ``full``
+    remat) through ``train.cli.main`` in this process, 4 steps then 2
+    resumed; checked: finite ``loss`` and a finite positive ``moe_aux``,
+    the LoRA ``B`` leaves moved, the flash kernels launched, ``done.txt``,
+    an attention-only adapter, the int4 base drawn identically by both runs
+    and a rebuild; then one more step under ``torch.profiler`` (experts'
+    ``bmm``, dequantization, routing and dispatch, flash), and in f32 a
+    greedy generation whose cached path matches the uncached oracle's
+    logits at a dropless capacity; printed: ms/step and tokens/s (median of
+    steps 2-4), peak memory, the int4 base's bytes;
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
@@ -127,8 +153,8 @@ Phases (any failure exits non-zero and prints no result line):
     dim 16, ``attention_impl="xla"``); the kernels are held on the
     full-width phases;
 14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
-    ``hf_io``, ``fidelity`` and ``train`` lines, the card line, and
-    last ``{"ok": true, "device": {...}}``.
+    ``qlora``, ``moe``, ``hf_io``, ``fidelity`` and ``train`` lines, the
+    card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -162,6 +188,54 @@ LOGITS_REL_TOL = 0.05
 #: beside the new time
 EARLIER_MS = {"flash_forward": 0.733, "flash_backward_dq": 1.066, "flash_backward_dkv": 1.997,
               "paged decode": 0.0656, "paged prefill": 0.3408}
+
+
+#: the most a run may write to the card machine's disk (deleted files count)
+DISK_CAP_BYTES = 45 * 2**30
+
+
+class DiskTally:
+    """What the run has written to the disk of the checkout, printed after
+    each phase with the phase's share; past ``DISK_CAP_BYTES`` the run
+    fails.  Two lower bounds are kept, and the larger one counts: the bytes
+    this process and its reaped children have passed to ``write()``
+    (``wchar`` of ``/proc/self/io``, deleted files included, but not the
+    kernel-side copies of ``shutil.copyfile``), and the growth of the file
+    system's used space (every copy, but not the files deleted since).
+    (``write_bytes``, the bytes sent to a block device, reads 0 on the card
+    machine's file system.)"""
+
+    def __init__(self, root: Path = Path(__file__).resolve().parent):
+        self.root = root
+        self.start = self.last = self.read()
+
+    def read(self) -> tuple[int, int]:
+        try:
+            with open("/proc/self/io") as f:
+                wchar = next(int(line.split()[1]) for line in f if line.startswith("wchar"))
+        except (OSError, StopIteration, ValueError):
+            wchar = 0
+        return wchar, shutil.disk_usage(self.root).used
+
+    def written(self, since=None) -> int:
+        now, since = self.read(), since or self.start
+        return max(now[0] - since[0], now[1] - since[1])
+
+    def mark(self, phase: str) -> int:
+        now = self.read()
+        total = self.written()
+        log(f"disk: {phase} wrote {self.written(self.last) / 1e9:.2f} GB; {total / 1e9:.2f} GB "
+            f"({total / 2**30:.2f} GiB) since the start (write() calls "
+            f"{(now[0] - self.start[0]) / 1e9:.2f} GB, used space "
+            f"{(now[1] - self.start[1]) / 1e9:.2f} GB), cap {DISK_CAP_BYTES / 2**30:.0f} GiB")
+        self.last = now
+        if total > DISK_CAP_BYTES:
+            raise SmokeFailure(f"the run wrote {total / 2**30:.2f} GiB, past the "
+                               f"{DISK_CAP_BYTES / 2**30:.0f} GiB cap")
+        return total
+
+
+DISK = DiskTally()
 
 
 def log(msg: str) -> None:
@@ -789,10 +863,11 @@ def serve_phase(args):
 #: depth of the model H1 writes, T2 trains and H2 and S2 load: the run may
 #: write 45 GiB to its disk at most, and at 32 layers H1's bf16 base (16.06
 #: GB), T2's f32 merged export (32.12 GB) and T2's three checkpoints (1.51
-#: GB) are 49.7 GB (46.3 GiB); at 28 layers 44.3 GB, at 26 about 41.7 GB,
-#: which leaves room for phase C's checkpoint, exports, profile and their
-#: copies (about 3 GB)
-HF_LAYERS = 26
+#: GB) are 49.7 GB (46.3 GiB); each layer is 1.31 GB of bf16 base and f32
+#: export, so 22 layers are about 36.5 GB, which leaves room for phases C
+#: and Q (a checkpoint, exports and their copies each, about 3.5-4.3 GB)
+#: and M (about 0.4 GB)
+HF_LAYERS = 22
 #: the llama3-8b preset's depth, which S1 serves
 PRESETS_DEPTH = 32
 #: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
@@ -1644,6 +1719,11 @@ CONTROL_ENV = {
 }
 #: how long the job may take from submit to SUCCEEDED
 CONTROL_JOB_TIMEOUT_S = 900
+#: Q: the int4 QLoRA example through the same server (``mistral-7b``, the
+#: ``jax_qlora`` framework sets ``quantize_base``), C's batch shape and
+#: steps with no profiler window
+QLORA_MODEL = "mistral-7b-qlora"
+QLORA_ARGS = {k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"}
 
 
 class _Api:
@@ -1704,35 +1784,177 @@ def _prom_value(text: str, name: str) -> float:
     return 0.0
 
 
-def control_phase(work, seed: int) -> tuple[int, dict]:
-    """C: the control plane on the card.  The port's server runs in this
-    process on an ephemeral port, on its own event-loop thread, with a fresh
-    state dir and object store under ``build/chip_smoke_ctrl``.  A dev
-    token's user uploads T2's seeded documents (``POST /datasets``),
-    submits ``CONTROL_MODEL`` on ``CONTROL_FLAVOR`` as multipart, and
-    follows the job QUEUED -> RUNNING -> SUCCEEDED: the fair-share
-    scheduler admits it, the local backend runs ``python -m
-    finetune_controller_tpu_torch.train.cli`` on the card, the monitor
-    reads it to the end.  Checked: 6 metrics rows with finite losses, the
-    logs, the timeline, ``/trace`` with no problems, and the profiler
-    trace the job wrote (``profile/``), which must list launches of each
-    flash kernel (``FLASH_KERNEL_SYMBOLS``).  Then the job is promoted,
-    loaded, and 4 greedy requests go to ``POST /jobs/{id}/generate``; their
-    tokens must equal an in-process ``BatchEngine``'s (the service's
+def _follow_job(api, job_id: str, t_submit: float, tag: str) -> tuple[dict, dict, list]:
+    """Poll ``GET /jobs/{id}`` until the job ends; fail unless it SUCCEEDED
+    after being seen RUNNING.  Returns (job, first time each status was
+    seen, log lines)."""
+    seen, job = {}, {}
+    while time.time() - t_submit < CONTROL_JOB_TIMEOUT_S:
+        job = api.ok("GET", f"/jobs/{job_id}")
+        seen.setdefault(job["status"], time.time())
+        if job["status"] in ("succeeded", "failed", "cancelled"):
+            break
+        time.sleep(0.5)
+    logs = api.ok("GET", f"/jobs/{job_id}/logs")["lines"]
+    if job.get("status") != "succeeded":
+        tail = "\n".join(logs[-30:])
+        raise SmokeFailure(f"{tag}: job {job_id} ended {job.get('status')} "
+                           f"({job.get('message') or job.get('metadata')}); log tail:\n{tail}")
+    if "running" not in seen:
+        raise SmokeFailure(f"{tag}: the job was never seen RUNNING (seen {sorted(seen)})")
+    return job, seen, logs
+
+
+def _job_rows(api, job_id: str, steps: int, tag: str) -> list[dict]:
+    """The job's ``/metrics`` rows, oldest first: one per step, finite losses."""
+    records = api.ok("GET", f"/jobs/{job_id}/metrics")["records"][::-1]
+    losses = [r.get("loss") for r in records]
+    if [r.get("step") for r in records] != list(range(1, steps + 1)) or not all(
+            isinstance(x, float) and math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"{tag}: /metrics rows "
+                           f"{[(r.get('step'), r.get('loss')) for r in records]}")
+    return records
+
+
+def _timeline(api, job_id: str, want: tuple[str, ...], tag: str) -> tuple[list, dict]:
+    """The job's timeline events and the first time of each; fails when an
+    event of ``want`` is missing."""
+    timeline = api.ok("GET", f"/jobs/{job_id}/timeline")["events"]
+    at = {}
+    for e in timeline:
+        at.setdefault(e["event"], e["ts"])
+    for name in want:
+        if name not in at:
+            raise SmokeFailure(f"{tag}: no {name!r} on the timeline {sorted(at)}")
+    return timeline, at
+
+
+def _promote_and_load(api, job_id: str, tag: str) -> tuple[float, float, dict]:
+    """``POST /promote`` until COMPLETED, then ``POST /admin/serve/{id}/load``:
+    (promote s, load s, the served model's meta)."""
+    t0 = time.time()
+    api.ok("POST", f"/jobs/{job_id}/promote", want=(202,))
+    job = {}
+    while time.time() - t0 < 600:
+        job = api.ok("GET", f"/jobs/{job_id}")
+        if job["promotion_status"] in ("completed", "failed"):
+            break
+        time.sleep(0.2)
+    promote_s = time.time() - t0
+    if job.get("promotion_status") != "completed":
+        raise SmokeFailure(f"{tag}: promotion ended {job.get('promotion_status')}")
+    t0 = time.time()
+    meta = api.ok("POST", f"/admin/serve/{job_id}/load")["model"]
+    return promote_s, time.time() - t0, meta
+
+
+def int4_base_bytes(model) -> dict:
+    """Bytes of a model's base on the card: int4 packed kernels, their
+    scales, and every other base tensor (embedding, head, norms, router),
+    the LoRA leaves left out."""
+    out = {"packed": 0, "scales": 0, "float": 0}
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if name.endswith((".lora_a", ".lora_b")) or name == "inv_freqs":
+            continue
+        kind = ("packed" if name.endswith("_packed") else
+                "scales" if name.endswith("_scales") else "float")
+        out[kind] += t.numel() * t.element_size()
+    return out
+
+
+def _generate_against_engine(ctx, job_id: str, vocab: int, prompt_lens, new_tokens: int,
+                             seed: int, tag: str) -> dict:
+    """Greedy ``POST /jobs/{id}/generate`` requests, sent concurrently, held
+    token for token against an in-process ``BatchEngine`` (the service's
     ``EngineConfig``) on the model the loader builds from the same promoted
-    prefix.  Returns the paged kernel's launches during the requests and
-    the phase's record."""
-    import threading
+    prefix.  The paged kernel's count is zeroed just before the requests
+    and read just after; it must rise."""
     from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import paged_attention as pa
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine, GenRequest
+    from finetune_controller_tpu_torch.serve.loader import load_promoted
+
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
+    metrics0 = scrape.ok("GET", "/metrics", raw=True)
+    pa.paged_attention.launches = 0
+
+    def generate(i):
+        return api.ok("POST", f"/jobs/{job_id}/generate", {
+            "tokens": prompts[i], "max_new_tokens": new_tokens, "request_id": f"{tag}{i}"})
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        answers = list(pool.map(generate, range(len(prompts))))
+    wall = time.perf_counter() - t0
+    launches = pa.paged_attention.launches
+    prom = scrape.ok("GET", "/metrics", raw=True)
+    ttft_n = _prom_value(prom, "ftc_serve_ttft_seconds_count") - _prom_value(
+        metrics0, "ftc_serve_ttft_seconds_count")
+    ttft_s = (_prom_value(prom, "ftc_serve_ttft_seconds_sum") - _prom_value(
+        metrics0, "ftc_serve_ttft_seconds_sum")) / max(ttft_n, 1)
+    ok = [a for a in answers if len(a["tokens"]) == new_tokens
+          and a["finish_reason"] == "length"]
+    generated = sum(len(a["tokens"]) for a in answers)
+
+    ref_model, _ = on_loop(load_promoted(
+        rt.state, rt.store, job_id, ctrl / f"reference_{tag}",
+        merge_lora=settings.serve_merge_lora, device=DEVICE), 900)
+    base_bytes = int4_base_bytes(ref_model)
+    engine = BatchEngine(ref_model, rt.serve._engine_config())
+    ref = engine.run([GenRequest(request_id=f"{tag}{i}", tokens=p, max_new_tokens=new_tokens)
+                      for i, p in enumerate(prompts)])
+    differ = [a["request_id"] for a in answers
+              if a["tokens"] != ref[a["request_id"]].generated]
+    del engine, ref_model
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    if len(ok) != len(prompts) or differ:
+        raise SmokeFailure(f"{tag}: {len(ok)}/{len(prompts)} requests complete; tokens differ "
+                           f"from the in-process engine on {differ}")
+    if DEVICE == "cuda" and launches <= 0:
+        raise SmokeFailure(f"{tag}: the paged-attention kernel was not launched by /generate")
+    on_loop(rt.serve.unload(job_id), 300)
+    return {"paged_launches": launches, "ttft_s": ttft_s,
+            "decode_tokens_per_s": generated / wall, "requests_ok": len(ok),
+            "requests": len(prompts), "generated_tokens": generated,
+            "base_bytes": base_bytes}
+
+
+def control_phase(work, seed: int) -> tuple[dict, dict]:
+    """C and Q: the control plane on the card.  The port's server runs in
+    this process on an ephemeral port, on its own event-loop thread, with a
+    fresh state dir and object store under ``build/chip_smoke_ctrl``.  A dev
+    token's user uploads T2's seeded documents (``POST /datasets``).
+
+    C submits ``CONTROL_MODEL`` on ``CONTROL_FLAVOR`` as multipart and
+    follows the job QUEUED -> RUNNING -> SUCCEEDED: the fair-share scheduler
+    admits it, the local backend runs ``python -m
+    finetune_controller_tpu_torch.train.cli`` on the card, the monitor reads
+    it to the end.  Checked: 6 metrics rows with finite losses, the logs,
+    the timeline, ``/trace`` with no problems, and the profiler trace the
+    job wrote (``profile/``), which must list launches of each flash kernel
+    (``FLASH_KERNEL_SYMBOLS``).  Then the job is promoted, loaded, and 4
+    greedy requests go to ``POST /jobs/{id}/generate``
+    (:func:`_generate_against_engine`).
+
+    Q then submits ``QLORA_MODEL`` (an int4 base quantized at init from the
+    job's seed) on the same server and dataset, with no profiler window,
+    and follows it the same way; its promoted checkpoint must load
+    unmerged (``lora_merged: false``) and serve 4 ``/generate`` requests
+    equal to the in-process engine on the int4 base.  Returns C's and Q's
+    records."""
+    import threading
 
     import torch
     from finetune_controller_tpu_torch.controller import config as ctl_config
     from finetune_controller_tpu_torch.controller import registry, web
     from finetune_controller_tpu_torch.controller.runtime import build_runtime
     from finetune_controller_tpu_torch.controller.server import build_app
-    from finetune_controller_tpu_torch.ops.kernels import paged_attention as pa
-    from finetune_controller_tpu_torch.serve.engine import BatchEngine, GenRequest
-    from finetune_controller_tpu_torch.serve.loader import load_promoted
 
     t_phase = time.perf_counter()
     ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_ctrl"
@@ -1763,129 +1985,19 @@ def control_phase(work, seed: int) -> tuple[int, dict]:
         on_loop(site.start(), 60)
         api = _Api(f"http://127.0.0.1:{site.port}{settings.api_prefix}")
         scrape = _Api(f"http://127.0.0.1:{site.port}")  # /metrics sits at the root
+        ctx = (api, scrape, rt, settings, on_loop, ctrl)
         api.ok("GET", "/health")
         api.token = api.ok("POST", "/auth/dev-token",
                            {"user_id": "chip-smoke", "is_admin": True})["access_token"]
         dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
                          want=(201,))
-        t_submit = time.time()
-        job_id = api.ok("POST", "/jobs", fields={
-            "model_name": CONTROL_MODEL, "device": CONTROL_FLAVOR,
-            "dataset_id": dataset["dataset_id"], "arguments": json.dumps(CONTROL_ARGS)})["job_id"]
-        seen, job = {}, {}
-        while time.time() - t_submit < CONTROL_JOB_TIMEOUT_S:
-            job = api.ok("GET", f"/jobs/{job_id}")
-            seen.setdefault(job["status"], time.time())
-            if job["status"] in ("succeeded", "failed", "cancelled"):
-                break
-            time.sleep(0.5)
-        logs = api.ok("GET", f"/jobs/{job_id}/logs")["lines"]
-        if job.get("status") != "succeeded":
-            tail = "\n".join(logs[-30:])
-            raise SmokeFailure(f"C: job {job_id} ended {job.get('status')} "
-                               f"({job.get('message') or job.get('metadata')}); log tail:\n{tail}")
-        order = [st for st in ("queued", "running", "succeeded") if st in seen]
-        if "running" not in seen:
-            raise SmokeFailure(f"C: the job was never seen RUNNING (seen {sorted(seen)})")
-        records = api.ok("GET", f"/jobs/{job_id}/metrics")["records"][::-1]
-        losses = [r.get("loss") for r in records]
-        if [r.get("step") for r in records] != list(range(1, 7)) or not all(
-                isinstance(x, float) and math.isfinite(x) for x in losses):
-            raise SmokeFailure(f"C: /metrics rows {[(r.get('step'), r.get('loss')) for r in records]}")
-        timeline = api.ok("GET", f"/jobs/{job_id}/timeline")["events"]
-        at = {}
-        for e in timeline:
-            at.setdefault(e["event"], e["ts"])
-        for want in ("submitted", "running", "train-started", "checkpoint-committed",
-                     "profile-captured", "train-finished", "succeeded"):
-            if want not in at:
-                raise SmokeFailure(f"C: no {want!r} on the timeline {sorted(at)}")
-        trace = api.ok("GET", f"/jobs/{job_id}/trace")
-        if trace["problems"]:
-            raise SmokeFailure(f"C: /trace problems {trace['problems']}")
-        listing = api.ok("GET", f"/jobs/{job_id}/artifacts?list=1")["artifacts"]
-        profiles = [a["path"] for a in listing if a["path"].startswith("profile/")
-                    and a["path"].endswith(".json")]
-        if not profiles:
-            raise SmokeFailure(f"C: the job's artifacts hold no profile/ trace: "
-                               f"{sorted(a['path'] for a in listing)[:20]}")
-        profile_bytes = on_loop(rt.store.get_bytes(f"{job['artifacts_uri']}/{profiles[0]}"), 300)
-        events = json.loads(profile_bytes).get("traceEvents", [])
-        kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-        seen_launches = {name: sum(sym in k for k in kernel_names)
-                         for name, sym in FLASH_KERNEL_SYMBOLS.items()}
-        missing = [n for n in FLASH_KERNELS if seen_launches.get(n, 0) <= 0]
-        if missing:
-            raise SmokeFailure(f"C: the job's profile lists no launch of {missing} "
-                               f"({len(kernel_names)} kernel events)")
-        tokens = CONTROL_ARGS["batch_size"] * CONTROL_ARGS["seq_len"]
-        step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
-        # the window's 0-based steps [a, b) are the rows of steps a+1 .. b
-        m = re.fullmatch(r"profile/steps_(\d+)-(\d+)\.pt\.trace\.json", profiles[0])
-        if m is None:
-            raise SmokeFailure(f"C: unexpected profile trace name {profiles[0]!r}")
-        profiled_steps = list(range(int(m.group(1)) + 1, int(m.group(2)) + 1))
-        phases = {c: [r.get(c) for r in records]
-                  for c in ("phase_compute_ms", "phase_input_ms", "phase_sync_ms",
-                            "phase_checkpoint_ms")}
-        first_row_ts = records[0]["timestamp"]
-
-        # promote, load, serve
-        t0 = time.time()
-        api.ok("POST", f"/jobs/{job_id}/promote", want=(202,))
-        while time.time() - t0 < 600:
-            job = api.ok("GET", f"/jobs/{job_id}")
-            if job["promotion_status"] in ("completed", "failed"):
-                break
-            time.sleep(0.2)
-        promote_s = time.time() - t0
-        if job["promotion_status"] != "completed":
-            raise SmokeFailure(f"C: promotion ended {job['promotion_status']}")
-        t0 = time.time()
-        meta = api.ok("POST", f"/admin/serve/{job_id}/load")["model"]
-        load_s = time.time() - t0
-        rng = np.random.default_rng(seed + 7)
-        vocab = meta["vocab_size"]
-        prompts = [rng.integers(0, vocab, n).tolist() for n in CONTROL_PROMPTS]
-        metrics0 = scrape.ok("GET", "/metrics", raw=True)
-        pa.paged_attention.launches = 0
-
-        def generate(i):
-            return api.ok("POST", f"/jobs/{job_id}/generate", {
-                "tokens": prompts[i], "max_new_tokens": CONTROL_NEW_TOKENS,
-                "request_id": f"c{i}"})
-
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(prompts)) as pool:
-            answers = list(pool.map(generate, range(len(prompts))))
-        wall = time.perf_counter() - t0
-        launches = pa.paged_attention.launches
-        prom = scrape.ok("GET", "/metrics", raw=True)
-        ttft_n = _prom_value(prom, "ftc_serve_ttft_seconds_count") - _prom_value(
-            metrics0, "ftc_serve_ttft_seconds_count")
-        ttft_s = (_prom_value(prom, "ftc_serve_ttft_seconds_sum") - _prom_value(
-            metrics0, "ftc_serve_ttft_seconds_sum")) / max(ttft_n, 1)
-        ok = [a for a in answers if len(a["tokens"]) == CONTROL_NEW_TOKENS
-              and a["finish_reason"] == "length"]
-        generated = sum(len(a["tokens"]) for a in answers)
-
-        # the in-process engine on the model the loader builds from the prefix
-        ref_model, _ = on_loop(load_promoted(
-            rt.state, rt.store, job_id, ctrl / "reference",
-            merge_lora=settings.serve_merge_lora, device=DEVICE), 900)
-        engine = BatchEngine(ref_model, rt.serve._engine_config())
-        ref = engine.run([GenRequest(request_id=f"c{i}", tokens=p,
-                                     max_new_tokens=CONTROL_NEW_TOKENS)
-                          for i, p in enumerate(prompts)])
-        differ = [a["request_id"] for a in answers
-                  if a["tokens"] != ref[a["request_id"]].generated]
-        del engine, ref_model
-        gc.collect()
-        if len(ok) != len(prompts) or differ:
-            raise SmokeFailure(f"C: {len(ok)}/{len(prompts)} requests complete; tokens differ "
-                               f"from the in-process engine on {differ}")
-        on_loop(rt.serve.unload(job_id), 300)
-        job_bytes = tree_bytes(settings.state_path / "sandboxes" / job_id)
+        record = _control_job(ctx, dataset["dataset_id"], seed)
+        record["control_dir_bytes"] = tree_bytes(ctrl)
+        record["phase_s"] = time.perf_counter() - t_phase
+        DISK.mark("C")
+        t_q = time.perf_counter()
+        qlora = _qlora_job(ctx, dataset["dataset_id"], seed)
+        qlora["phase_s"] = time.perf_counter() - t_q
     finally:
         on_loop(runner.cleanup(), 300)
         loop.call_soon_threadsafe(loop.stop)
@@ -1899,6 +2011,58 @@ def control_phase(work, seed: int) -> tuple[int, dict]:
         ctl_config.set_settings(None)
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
+    qlora["control_dir_bytes"] = tree_bytes(ctrl)
+    return record, qlora
+
+
+def _control_job(ctx, dataset_id: str, seed: int) -> dict:
+    """C's job: ``CONTROL_MODEL`` with a profiler window, through SUCCEEDED,
+    promotion and ``/generate``."""
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    t_submit = time.time()
+    job_id = api.ok("POST", "/jobs", fields={
+        "model_name": CONTROL_MODEL, "device": CONTROL_FLAVOR,
+        "dataset_id": dataset_id, "arguments": json.dumps(CONTROL_ARGS)})["job_id"]
+    job, seen, logs = _follow_job(api, job_id, t_submit, "C")
+    order = [st for st in ("queued", "running", "succeeded") if st in seen]
+    records = _job_rows(api, job_id, CONTROL_ARGS["total_steps"], "C")
+    losses = [r["loss"] for r in records]
+    timeline, at = _timeline(api, job_id, (
+        "submitted", "running", "train-started", "checkpoint-committed", "profile-captured",
+        "train-finished", "succeeded"), "C")
+    trace = api.ok("GET", f"/jobs/{job_id}/trace")
+    if trace["problems"]:
+        raise SmokeFailure(f"C: /trace problems {trace['problems']}")
+    listing = api.ok("GET", f"/jobs/{job_id}/artifacts?list=1")["artifacts"]
+    profiles = [a["path"] for a in listing if a["path"].startswith("profile/")
+                and a["path"].endswith(".json")]
+    if not profiles:
+        raise SmokeFailure(f"C: the job's artifacts hold no profile/ trace: "
+                           f"{sorted(a['path'] for a in listing)[:20]}")
+    profile_bytes = on_loop(rt.store.get_bytes(f"{job['artifacts_uri']}/{profiles[0]}"), 300)
+    events = json.loads(profile_bytes).get("traceEvents", [])
+    kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    seen_launches = {name: sum(sym in k for k in kernel_names)
+                     for name, sym in FLASH_KERNEL_SYMBOLS.items()}
+    missing = [n for n in FLASH_KERNELS if seen_launches.get(n, 0) <= 0]
+    if missing:
+        raise SmokeFailure(f"C: the job's profile lists no launch of {missing} "
+                           f"({len(kernel_names)} kernel events)")
+    tokens = CONTROL_ARGS["batch_size"] * CONTROL_ARGS["seq_len"]
+    step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
+    # the window's 0-based steps [a, b) are the rows of steps a+1 .. b
+    m = re.fullmatch(r"profile/steps_(\d+)-(\d+)\.pt\.trace\.json", profiles[0])
+    if m is None:
+        raise SmokeFailure(f"C: unexpected profile trace name {profiles[0]!r}")
+    profiled_steps = list(range(int(m.group(1)) + 1, int(m.group(2)) + 1))
+    phases = {c: [r.get(c) for r in records]
+              for c in ("phase_compute_ms", "phase_input_ms", "phase_sync_ms",
+                        "phase_checkpoint_ms")}
+    first_row_ts = records[0]["timestamp"]
+    promote_s, load_s, meta = _promote_and_load(api, job_id, "C")
+    served = _generate_against_engine(ctx, job_id, meta["vocab_size"], CONTROL_PROMPTS,
+                                      CONTROL_NEW_TOKENS, seed, "c")
+    job_bytes = tree_bytes(settings.state_path / "sandboxes" / job_id)
     # step 1 pays the first-use costs and the profiled steps pay the
     # profiler: the job's step time is the median of the others
     steady = sorted(ms for r, ms in zip(records, step_ms)
@@ -1914,14 +2078,13 @@ def control_phase(work, seed: int) -> tuple[int, dict]:
         "ms_per_step_median": median, "tokens_per_s_median": tokens / (median / 1e3),
         "median_over_steps": [r["step"] for r in records
                               if r["step"] > 1 and r["step"] not in profiled_steps],
-        "promote_s": promote_s, "model_load_s": load_s, "ttft_s": ttft_s,
-        "decode_tokens_per_s": generated / wall, "requests_ok": len(ok),
-        "requests": len(prompts), "generated_tokens": generated,
-        "paged_launches": launches, "flash_launches_in_profile": seen_launches,
+        "promote_s": promote_s, "model_load_s": load_s,
+        **{k: served[k] for k in ("ttft_s", "decode_tokens_per_s", "requests_ok", "requests",
+                                  "generated_tokens", "paged_launches")},
+        "flash_launches_in_profile": seen_launches,
         "profile": profiles[0], "profile_bytes": len(profile_bytes),
         "log_lines": len(logs), "timeline_events": len(timeline),
-        "job_sandbox_bytes": job_bytes, "control_dir_bytes": tree_bytes(ctrl),
-        "phase_s": time.perf_counter() - t_phase,
+        "job_sandbox_bytes": job_bytes,
     }
     log(f"control: {CONTROL_MODEL} on {CONTROL_FLAVOR} through the port's server: "
         f"{' -> '.join(order)}; submit -> RUNNING {record['submit_to_running_s']:.1f} s, "
@@ -1930,13 +2093,486 @@ def control_phase(work, seed: int) -> tuple[int, dict]:
         f"{[round(x) for x in step_ms]} ms (steps {profiled_steps} profiled), "
         f"{median:.0f} ms/step median of steps {record['median_over_steps']}, "
         f"{record['tokens_per_s_median']:.0f} tokens/s; promote {promote_s:.2f} s, "
-        f"model load {load_s:.1f} s; TTFT {ttft_s * 1e3:.1f} ms, decode "
-        f"{record['decode_tokens_per_s']:.1f} tokens/s over {len(prompts)} requests "
-        f"({len(ok)}/{len(prompts)} ok, tokens equal to the in-process engine); flash "
-        f"launches in the profile {seen_launches}; paged launches {launches}; the job's "
-        f"sandbox holds {job_bytes / 1e9:.2f} GB, build/chip_smoke_ctrl "
-        f"{record['control_dir_bytes'] / 1e9:.2f} GB; {record['phase_s']:.1f} s")
-    return launches, record
+        f"model load {load_s:.1f} s; TTFT {served['ttft_s'] * 1e3:.1f} ms, decode "
+        f"{served['decode_tokens_per_s']:.1f} tokens/s over {served['requests']} requests "
+        f"({served['requests_ok']}/{served['requests']} ok, tokens equal to the in-process "
+        f"engine); flash launches in the profile {seen_launches}; paged launches "
+        f"{served['paged_launches']}; the job's sandbox holds {job_bytes / 1e9:.2f} GB")
+    return record
+
+
+class CardMemorySampler:
+    """The card's used memory (``nvidia-smi``, MB, every process on it)
+    sampled on a thread: its growth over the value at start measures a job
+    that runs in another process (caching allocator and CUDA context
+    included).  ``None`` without a card."""
+
+    def __init__(self, interval_s: float = 0.5):
+        import threading
+
+        self.interval_s = interval_s
+        self.samples: list[float] = []
+        self._stop = threading.Event()
+        self.base = self.read()
+        self._thread = threading.Thread(target=self._run, name="memory-sampler", daemon=True)
+
+    @staticmethod
+    def read() -> float | None:
+        if DEVICE != "cuda":
+            return None
+        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30)
+        return float(out.stdout.split()[0]) if out.returncode == 0 else None
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            value = self.read()
+            if value is not None:
+                self.samples.append(value)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(30)
+
+    @property
+    def peak_gb(self) -> float | None:
+        if self.base is None or not self.samples:
+            return None
+        return (max(self.samples) - self.base) * 2**20 / 1e9
+
+
+def _qlora_job(ctx, dataset_id: str, seed: int) -> dict:
+    """Q's job: ``QLORA_MODEL`` (int4 base from the job's seed, LoRA rank 16
+    on all seven projections) through SUCCEEDED, promotion, an unmerged
+    load and ``/generate``."""
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    t_submit = time.time()
+    with CardMemorySampler() as memory:
+        job_id = api.ok("POST", "/jobs", fields={
+            "model_name": QLORA_MODEL, "device": CONTROL_FLAVOR,
+            "dataset_id": dataset_id, "arguments": json.dumps(QLORA_ARGS)})["job_id"]
+        job, seen, logs = _follow_job(api, job_id, t_submit, "Q")
+    order = [st for st in ("queued", "running", "succeeded") if st in seen]
+    records = _job_rows(api, job_id, QLORA_ARGS["total_steps"], "Q")
+    _, at = _timeline(api, job_id, ("submitted", "running", "train-started",
+                                    "checkpoint-committed", "train-finished", "succeeded"), "Q")
+    tokens = QLORA_ARGS["batch_size"] * QLORA_ARGS["seq_len"]
+    step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
+    steady = sorted(step_ms[1:])
+    median = steady[len(steady) // 2]
+    promote_s, load_s, meta = _promote_and_load(api, job_id, "Q")
+    if meta.get("lora_merged") is not False:
+        raise SmokeFailure(f"Q: the int4 job loaded with lora_merged={meta.get('lora_merged')}")
+    served = _generate_against_engine(ctx, job_id, meta["vocab_size"], CONTROL_PROMPTS,
+                                      CONTROL_NEW_TOKENS, seed + 1, "q")
+    base = served["base_bytes"]
+    if not base["packed"]:
+        raise SmokeFailure(f"Q: the served model holds no int4 kernels ({base})")
+    record = {
+        "job_id": job_id, "model": QLORA_MODEL, "device": CONTROL_FLAVOR,
+        "statuses": order, "losses": [r["loss"] for r in records],
+        "submit_to_running_s": seen["running"] - t_submit,
+        "submit_to_train_started_s": at["train-started"] - at["submitted"],
+        "submit_to_first_step_s": records[0]["timestamp"] - at["submitted"],
+        "ms_per_step": step_ms, "ms_per_step_median": median,
+        "tokens_per_s_median": tokens / (median / 1e3),
+        "phase_compute_ms": [r.get("phase_compute_ms") for r in records],
+        "promote_s": promote_s, "model_load_s": load_s, "lora_merged": meta["lora_merged"],
+        **{k: served[k] for k in ("ttft_s", "decode_tokens_per_s", "requests_ok", "requests",
+                                  "generated_tokens", "paged_launches")},
+        "served_base_bytes": base, "job_peak_memory_gb": memory.peak_gb,
+        "log_lines": len(logs),
+        "job_sandbox_bytes": tree_bytes(settings.state_path / "sandboxes" / job_id),
+    }
+    log(f"qlora: {QLORA_MODEL} on {CONTROL_FLAVOR} through the port's server: "
+        f"{' -> '.join(order)}; submit -> RUNNING {record['submit_to_running_s']:.1f} s, "
+        f"-> first step {record['submit_to_first_step_s']:.1f} s; steps "
+        f"{[round(x) for x in step_ms]} ms, {median:.0f} ms/step median of steps 2-"
+        f"{len(records)}, {record['tokens_per_s_median']:.0f} tokens/s; the job's peak "
+        f"card memory (nvidia-smi, above the value at submit) "
+        f"{memory.peak_gb if memory.peak_gb is None else round(memory.peak_gb, 2)} GB; promote "
+        f"{promote_s:.2f} s, load {load_s:.1f} s (lora_merged false); TTFT "
+        f"{served['ttft_s'] * 1e3:.1f} ms, {served['decode_tokens_per_s']:.1f} generated "
+        f"tokens/s, {served['requests_ok']}/{served['requests']} equal to the in-process "
+        f"engine; paged launches {served['paged_launches']}; int4 base on the card: packed "
+        f"{base['packed'] / 1e9:.3f} GB, scales {base['scales'] / 1e9:.3f} GB, other base "
+        f"tensors {base['float'] / 1e9:.3f} GB (serving dtype)")
+    return record
+
+
+#: Q0: one full-width Mixtral expert stack ``(E, d, d_ff)`` and the rows per
+#: expert of M's microbatch (capacity 1280 at t = 4096)
+INT4_STACK = (8, 4096, 14336)
+INT4_ROWS = 1280
+#: Q0: the int4 product and its ``grad_x`` against dequantize-then-matmul:
+#: max |diff| / max |reference| (both round one bf16 product; 2**-8 is one
+#: bf16 ulp at the largest element)
+INT4_REL_TOL = 2.0 ** -8
+
+
+def int4_check(seed: int) -> dict:
+    """Q0: ``quantize_int4`` of a seeded full-width expert stack on the card
+    equals the plain version on the CPU bit for bit (packed bytes, scales,
+    and the dequantized bf16 stack); ``int4_matmul``'s forward and
+    ``grad_x`` at M's expert shapes against dequantize-then-``matmul``
+    (``INT4_REL_TOL``), with CUDA-event times of both."""
+    import torch
+    from finetune_controller_tpu_torch.models import quant
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    w = torch.randn(INT4_STACK, generator=gen, device=DEVICE) * INT4_STACK[1] ** -0.5
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    packed, scales = quant.quantize_int4(w)
+    sync()
+    card_s = time.perf_counter() - t0
+    w_cpu = w.cpu()
+    del w
+    t0 = time.perf_counter()
+    p_cpu, s_cpu = quant.quantize_int4(w_cpu)
+    cpu_s = time.perf_counter() - t0
+    del w_cpu
+    diff_p = int((packed.cpu() != p_cpu).sum())
+    diff_s = int((scales.cpu().view(torch.int16) != s_cpu.view(torch.int16)).sum())
+    if diff_p or diff_s:
+        raise SmokeFailure(f"Q0: quantize_int4 on the card differs from the CPU's in {diff_p} "
+                           f"packed bytes and {diff_s} scales")
+    deq = quant.dequantize_int4(packed, scales, dtype=torch.bfloat16)
+    if not torch.equal(deq.cpu().view(torch.int16),
+                       quant.dequantize_int4(p_cpu, s_cpu, dtype=torch.bfloat16).view(torch.int16)):
+        raise SmokeFailure("Q0: dequantize_int4 on the card differs from the CPU's")
+    del p_cpu, s_cpu
+    e, d, f = INT4_STACK
+    x = (torch.randn((e, INT4_ROWS, d), generator=gen, device=DEVICE)
+         .to(torch.bfloat16).requires_grad_(True))
+    gy = torch.randn((e, INT4_ROWS, f), generator=gen, device=DEVICE).to(torch.bfloat16)
+    y = quant.int4_matmul(x, packed, scales, torch.bfloat16)
+    y.backward(gy)
+    with torch.no_grad():
+        y_ref = x @ deq
+        gx_ref = gy @ deq.transpose(-1, -2)
+    err_y = ((y.detach() - y_ref).abs().max() / y_ref.abs().max()).item()
+    err_gx = ((x.grad - gx_ref).abs().max() / gx_ref.abs().max()).item()
+    if not (err_y <= INT4_REL_TOL and err_gx <= INT4_REL_TOL):
+        raise SmokeFailure(f"Q0: int4_matmul vs dequantize-then-matmul: forward {err_y:.3g}, "
+                           f"grad_x {err_gx:.3g} (tolerance {INT4_REL_TOL:.3g})")
+
+    def timed(fn, reps=5):
+        fn()
+        if DEVICE != "cuda":
+            return None  # a device time only
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    with torch.no_grad():
+        ms = {"dequantize": timed(lambda: quant.dequantize_int4(packed, scales)),
+              "int4_matmul": timed(lambda: quant.int4_matmul(x, packed, scales, torch.bfloat16)),
+              "bf16_matmul": timed(lambda: x @ deq)}
+    out = {"shape": list(INT4_STACK), "rows": INT4_ROWS, "quantize_card_s": card_s,
+           "quantize_cpu_s": cpu_s, "bit_equal": True, "err_forward": err_y,
+           "err_grad_x": err_gx, "ms": ms,
+           "packed_bytes": packed.numel(), "scales_bytes": scales.numel() * 2}
+    del packed, scales, deq, x, gy, y, y_ref, gx_ref
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    if DEVICE != "cuda":
+        return out
+    log(f"Q0 int4: quantize_int4 of {INT4_STACK} on the card ({card_s:.2f} s) equals the CPU's "
+        f"({cpu_s:.1f} s) bit for bit, dequantized too; int4_matmul at ({e}, {INT4_ROWS}, {d}) "
+        f"forward rel err {err_y:.3g}, grad_x {err_gx:.3g} (tolerance {INT4_REL_TOL:.3g}); "
+        f"dequantize {ms['dequantize']:.3f} ms, int4_matmul {ms['int4_matmul']:.3f} ms, "
+        f"bf16 matmul on the dequantized stack {ms['bf16_matmul']:.3f} ms")
+    return out
+
+
+#: M: Mixtral-8x7B with int4 experts at full width and depth (the preset's
+#: ``full`` remat), LoRA rank 16 on the attention projections (the experts
+#: carry none), bf16 for the other frozen tensors; T2's batch shape
+MOE_SPEC = {
+    "job_id": "chip-smoke-moe",
+    "model": {"preset": "mixtral-8x7b", "lora": {"rank": 16, "alpha": 32.0},
+              "overrides": {"quantize_base": True}},
+    "training": {"mode": "lora", "frozen_dtype": "bfloat16", "batch_size": 4, "seq_len": 2048,
+                 "grad_accum_steps": 2, "total_steps": 4, "warmup_steps": 2,
+                 "learning_rate": 2e-4, "log_every": 1, "checkpoint_every": 4,
+                 "heartbeat_interval_s": 0},
+}
+#: M: the greedy sanity generation (prompt tokens, new tokens)
+MOE_PROMPT, MOE_NEW_TOKENS = 64, 16
+
+
+def set_compute_dtype(model, dtype) -> None:
+    """Switch a built model's compute dtype in place (its config and every
+    module's ``dtype``); the stored tensors are cast at use as before."""
+    import torch
+
+    cfg = model.cfg.replace(dtype=dtype)
+    for module in model.modules():
+        if hasattr(module, "cfg"):
+            module.cfg = cfg
+        if isinstance(getattr(module, "dtype", None), torch.dtype):
+            module.dtype = dtype
+
+
+def cached_vs_oracle(model, tokens, prompt_len: int) -> float:
+    """The cached path teacher-forced on ``tokens`` (1, P + N) against the
+    uncached oracle: max over the N steps of max |diff| / max |logit| of the
+    next-token logits (the reference's ``test_cached_logits_match_oracle``
+    on the card's shapes)."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import DenseKV
+
+    n = tokens.shape[1] - prompt_len
+    kv = DenseKV.zeros(model.cfg, 1, tokens.shape[1], model.device)
+    dev = tokens.device
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(n):
+            t = prompt_len + i
+            if i == 0:
+                cached = model.forward_cached(
+                    tokens[:, :t], torch.arange(t, device=dev)[None], kv,
+                    torch.zeros((1,), dtype=torch.int32, device=dev), fresh=True,
+                    last_idx=t - 1)
+            else:
+                cached = model.forward_cached(
+                    tokens[:, t - 1:t], torch.full((1, 1), t - 1, device=dev), kv,
+                    torch.full((1,), t - 1, dtype=torch.int32, device=dev), last_idx=0)
+            oracle = model(tokens[:, :t])[:, -1]
+            worst = max(worst, ((cached.float() - oracle.float()).abs().max()
+                                / oracle.float().abs().max()).item())
+    return worst
+
+
+def int4_digest(model) -> tuple:
+    """A digest of a model's int4 buffers (the sums of each packed kernel's
+    bytes and of its scales): equal digests, the same draw."""
+    import torch
+
+    return tuple((name, int(t.to(torch.int64).sum()) if t.dtype == torch.uint8
+                  else float(t.double().sum()))
+                 for name, t in model.named_buffers() if name.endswith(("_packed", "_scales")))
+
+
+def moe_step_breakdown(prof, wall_s: float) -> dict:
+    """Device ms of one profiled step by part: the experts' batched products
+    (``aten::bmm``), the other products (``aten::mm``), int4 dequantization,
+    routing and dispatch (the ``record_function`` ranges of
+    ``models/quant.py`` and ``models/moe.py``), and the flash kernels."""
+    from torch.autograd import DeviceType
+
+    def device_us(evt):
+        us = getattr(evt, "device_time_total", None)
+        return us if us is not None else getattr(evt, "cuda_time_total", 0.0)
+
+    parts = dict.fromkeys(("experts_bmm", "other_mm", "int4_dequantize", "moe_route",
+                           "moe_dispatch"), 0.0)
+    names = {"aten::bmm": "experts_bmm", "aten::mm": "other_mm"}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            continue
+        part = names.get(evt.key, evt.key)
+        if part in parts:
+            parts[part] += device_us(evt) / 1e3
+    kernels = device_time_by_kernel(prof, wall_s)
+    parts["flash"] = sum(ms for _, ms in kernels["flash"])
+    return {"wall_ms": kernels["wall_ms"], "device_ms": kernels["device_ms"],
+            "device_busy": kernels["device_busy"], "parts_ms": parts, "top": kernels["top"]}
+
+
+def moe_phase(work, seed: int) -> dict:
+    """M: ``MOE_SPEC`` through ``train.cli.main`` in this process, 4 steps
+    then 2 resumed from the step-4 checkpoint, on T2's documents.  Every
+    ``init_random_`` of the phase records a digest of the int4 base: the
+    two runs and the model rebuilt after them must draw the same one.  The
+    flash kernels' counts are zeroed just before the first run and read
+    just after the second.  The rebuilt model with the step-6 tensors takes
+    one more step under ``torch.profiler`` (:func:`moe_step_breakdown`).
+    Then, in f32 compute, it generates ``MOE_NEW_TOKENS`` greedy tokens from
+    a ``MOE_PROMPT``-token prompt with the uncached oracle, and the cached
+    path teacher-forced on them gives its logits within ``LOGITS_REL_TOL``
+    at a dropless capacity, as the reference's test holds them: drops
+    depend on each call's token count, which differs between a one-token
+    decode and a full recompute, and in bf16 the rounding of two attention
+    paths flips near-tied expert choices of this random-init router, so f32
+    keeps the check on the cache.
+    ``cached_generate``'s free-running tokens are printed beside the
+    oracle's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from finetune_controller_tpu_torch.models.generate import cached_generate, greedy_generate
+    from finetune_controller_tpu_torch.models.safetensors_io import SafetensorsFile
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.train import cli
+    from finetune_controller_tpu_torch.train import trainer as trainer_mod
+    from finetune_controller_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    spec = json.loads(json.dumps(MOE_SPEC))
+    spec["training"]["seed"] = seed
+    docs = work / "train.jsonl"
+    if not docs.exists():
+        write_documents(docs, seed)
+    art = work / "moe_artifacts"
+    shutil.rmtree(art, ignore_errors=True)
+    spec["dataset"] = {"path": str(docs)}
+    spec["artifacts_dir"] = str(art)
+    model_cfg, train_cfg = cli.build_model_config(spec), cli.build_train_config(spec)
+    spec_path = work / "moe_job.json"
+    digests = []
+    draw = trainer_mod.init_random_
+
+    def recording_init(model, s):
+        out = draw(model, s)
+        digests.append(int4_digest(model))
+        return out
+
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+    walls, peaks = [], []
+    trainer_mod.init_random_ = recording_init
+    try:
+        with _Capture("finetune_controller_tpu_torch.train.trainer") as capture:
+            for total in (4, 6):
+                spec["training"]["total_steps"] = total
+                spec_path.write_text(json.dumps(spec))
+                if DEVICE == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    rc = cli.main(["--spec", str(spec_path)] + DEVICE_ARGS)
+                except Exception as e:
+                    raise SmokeFailure(f"M: training CLI ({total} steps): "
+                                       f"{type(e).__name__}: {e}") from e
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+                walls.append(time.perf_counter() - t0)
+                if rc != 0:
+                    raise SmokeFailure(f"M: training CLI returned {rc}")
+                gc.collect()
+                if DEVICE == "cuda":
+                    torch.cuda.empty_cache()
+        launches = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+        trainer = trainer_mod.Trainer(model_cfg, train_cfg, device=None if DEVICE == "cuda"
+                                      else DEVICE)
+    finally:
+        trainer_mod.init_random_ = draw
+    rows = _rows(art / "metrics.csv")
+    if [int(r["step"]) for r in rows] != list(range(1, 7)):
+        raise SmokeFailure(f"M: metrics.csv steps {[r['step'] for r in rows]}")
+    if not any("resumed from checkpoint step 4" in m for m in capture.messages):
+        raise SmokeFailure("M: the second run did not resume from checkpoint step 4")
+    losses = [float(r["loss"]) for r in rows]
+    aux = [float(r["moe_aux"]) for r in rows]
+    if not all(math.isfinite(x) for x in losses) or not all(
+            math.isfinite(a) and a > 0 for a in aux):
+        raise SmokeFailure(f"M: losses {losses}, moe_aux {aux}")
+    if len(digests) != 3 or len(set(digests)) != 1:
+        raise SmokeFailure(f"M: the int4 base drawn {len(digests)} times, "
+                           f"{len(set(digests))} distinct draws")
+    state = CheckpointManager(art / "checkpoints").restore(6)
+    n_layers = model_cfg.n_layers
+    n_b = sum(k.endswith(".lora_b") for k in state["trainable"])
+    moved = sum(k.endswith(".lora_b") and v.abs().max().item() > 0
+                for k, v in state["trainable"].items())
+    if moved != n_b or n_b != n_layers * 4:
+        raise SmokeFailure(f"M: {moved} of {n_b} LoRA B leaves moved off zero")
+    if DEVICE == "cuda" and min(launches.values()) <= 0:
+        raise SmokeFailure(f"M: flash kernels not launched on the main path: {launches}")
+    adapter = SafetensorsFile(art / "adapter" / "adapter_model.safetensors")
+    adapter_cfg = json.loads((art / "adapter" / "adapter_config.json").read_text())
+    if (len(adapter.keys()), adapter_cfg["target_modules"]) != (
+            n_layers * 4 * 2, ["k_proj", "o_proj", "q_proj", "v_proj"]) \
+            or not (art / "done.txt").exists():
+        raise SmokeFailure(f"M: adapter/ holds {len(adapter.keys())} tensors for "
+                           f"{adapter_cfg['target_modules']}; done.txt "
+                           f"{(art / 'done.txt').exists()}")
+    del adapter
+    trainer.load_state(state)
+    del state
+    base = int4_base_bytes(trainer.model)
+    batch = next(cli.build_batches(spec, model_cfg, train_cfg))
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    breakdown = moe_step_breakdown(prof, wall)
+    del prof
+    model = trainer.model.eval()
+    set_compute_dtype(model, torch.float32)
+    for layer in model.layers:  # dropless for the generation check
+        layer.moe.capacity_factor = float(model_cfg.n_experts)
+    rng = np.random.default_rng(seed + 11)
+    prompt = torch.as_tensor(rng.integers(0, model_cfg.vocab_size, (1, MOE_PROMPT)),
+                             device=model.device)
+    t0 = time.perf_counter()
+    forced = greedy_generate(model, prompt, max_new_tokens=MOE_NEW_TOKENS)
+    greedy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cached = cached_generate(model, prompt, max_new_tokens=MOE_NEW_TOKENS)[0, MOE_PROMPT:]
+    cached_s = time.perf_counter() - t0
+    greedy = forced[0, MOE_PROMPT:]
+    agree = next((i for i, (a, b) in enumerate(zip(greedy.tolist(), cached.tolist()))
+                  if a != b), MOE_NEW_TOKENS)
+    cached_rel = cached_vs_oracle(model, forced, MOE_PROMPT)
+    if not (cached_rel <= LOGITS_REL_TOL
+            and all(0 <= t < model_cfg.vocab_size for t in greedy.tolist())):
+        raise SmokeFailure(f"M: cached vs uncached next-token logits rel {cached_rel:.4g} "
+                           f"(tolerance {LOGITS_REL_TOL}); greedy {greedy.tolist()}")
+    del trainer, model
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    tokens = train_cfg.batch_size * train_cfg.seq_len
+    step_ms = [tokens / float(r["tokens_per_sec"]) * 1e3 for r in rows]
+    steady = sorted(step_ms[1:4])
+    median = steady[len(steady) // 2]
+    record = {
+        "preset": "mixtral-8x7b", "layers": n_layers, "steps": len(rows), "loss": losses,
+        "moe_aux": aux, "ms_per_step": step_ms, "ms_per_step_median": median,
+        "tokens_per_s_median": tokens / (median / 1e3), "peak_memory_gb": max(peaks or [0.0]),
+        "peak_memory_gb_by_run": peaks, "wall_s": walls, "launches": launches,
+        "lora_b_moved": moved, "base_bytes": base, "int4_draws_equal": len(digests),
+        "greedy_tokens": greedy.tolist(), "cached_tokens": cached.tolist(),
+        "tokens_agreeing": agree, "cached_logits_rel": cached_rel,
+        "greedy_s": greedy_s, "cached_s": cached_s,
+        "step_profile": breakdown, "artifacts_bytes": tree_bytes(art),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    parts = breakdown["parts_ms"]
+    log(f"M: {spec['model']['preset']}, int4 experts, {n_layers} layers, LoRA r16 on attention: losses "
+        f"{[round(x, 4) for x in losses]}, moe_aux {[round(a, 4) for a in aux]}; "
+        f"{[round(x) for x in step_ms]} ms/step, {median:.0f} ms median of steps 2-4, "
+        f"{record['tokens_per_s_median']:.0f} tokens/s; peak memory {peaks} GB; int4 base "
+        f"packed {base['packed'] / 1e9:.2f} GB + scales {base['scales'] / 1e9:.2f} GB + bf16 "
+        f"tensors {base['float'] / 1e9:.2f} GB, drawn identically {len(digests)} times; flash "
+        f"launches {launches}; f32 greedy {MOE_NEW_TOKENS} tokens ({greedy_s:.1f} s), cached path "
+        f"teacher-forced logits rel {cached_rel:.4g} (tolerance {LOGITS_REL_TOL}), "
+        f"cached_generate ({cached_s:.1f} s) agrees on the first {agree} tokens; "
+        f"{record['phase_s']:.1f} s")
+    log(f"M step profile: {breakdown['wall_ms']:.0f} ms wall, device "
+        f"{breakdown['device_ms'] or 0:.0f} ms, busy {breakdown['device_busy'] or 0:.3f}; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items()))
+    for name, ms in breakdown["top"]:
+        log(f"  {ms:9.3f} ms  {name}")
+    return record
 
 
 def packed_segments(work, seed: int):
@@ -2007,6 +2643,11 @@ def model_check(seg, seed: int) -> dict:
             "profile": profiled}
 
 
+#: the port's ``record_function`` ranges: on the device timeline they span
+#: kernels that are counted on their own
+PROFILER_RANGES = ("int4_dequantize", "moe_route", "moe_dispatch")
+
+
 def device_time_by_kernel(prof, wall_s: float, top: int = 10) -> dict:
     """Wall ms, device ms, device-busy share, the ``top`` kernels (ms) and
     every flash-attention kernel (ms) of a ``torch.profiler`` window."""
@@ -2015,7 +2656,8 @@ def device_time_by_kernel(prof, wall_s: float, top: int = 10) -> dict:
     by_name: dict[str, float] = {}
     for evt in prof.key_averages():
         # device-side events only: an operator's row repeats its kernels' time
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or evt.key in PROFILER_RANGES \
+                or getattr(evt, "is_user_annotation", False):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -2078,12 +2720,16 @@ def main(argv=None) -> int:
         return fail(f"small-shape kernel check: {e}")
     log(f"small-shape kernel checks ok (bf16 max abs err: paged {small_err:.4g}, "
         + ", ".join(f"{k} {v:.4g}" for k, v in flash_small.items()) + ")")
-
-    # 3-7. serving
     try:
+        DISK.mark("the build and T1")
+        int4 = int4_check(args.seed)
+        # 3-7. serving
         paged_entry, serve_summary = serve_phase(args)
+        DISK.mark("S1")
     except SmokeFailure as e:
         return fail(str(e))
+    except (AssertionError, RuntimeError, ValueError) as e:
+        return fail(f"Q0/S1: {type(e).__name__}: {e}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2093,7 +2739,9 @@ def main(argv=None) -> int:
     work.mkdir(parents=True)
     try:
         hf_base = hf_base_phase(work, args.seed)
+        DISK.mark("H1")
         train = train_phase(work, args.seed)
+        DISK.mark("T2")
         log(f"train: llama3-8b LoRA SFT from the HF directory, {train['steps']} steps "
             f"(6 + 2 resumed), eval every 3 steps, "
             f"{train['ms_per_step_median']:.0f} ms/step median, "
@@ -2102,18 +2750,24 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         merged = merged_roundtrip_phase(work / "artifacts", train["export_s"])
+        DISK.mark("H2")
         s2_launches, serve_tenants = serve_tenants_phase(work / "artifacts", args.seed)
         if s2_launches <= 0:
             raise SmokeFailure("S2: the paged-attention kernel was not launched on its path")
         paged_entry["launches"] += s2_launches
         paged_entry["launches_by_path"]["s2"] = s2_launches
+        DISK.mark("S2")
         gc.collect()
         torch.cuda.empty_cache()
-        c_launches, control = control_phase(work, args.seed)
-        if c_launches <= 0:
-            raise SmokeFailure("C: the paged-attention kernel was not launched by /generate")
-        paged_entry["launches"] += c_launches
-        paged_entry["launches_by_path"]["c_generate"] = c_launches
+        control, qlora = control_phase(work, args.seed)
+        for path, record in (("c_generate", control), ("q_generate", qlora)):
+            paged_entry["launches"] += record["paged_launches"]
+            paged_entry["launches_by_path"][path] = record["paged_launches"]
+        DISK.mark("Q")
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = moe_phase(work, args.seed)
+        DISK.mark("M")
         gc.collect()
         torch.cuda.empty_cache()
         seg = packed_segments(work, args.seed)
@@ -2139,6 +2793,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         fidelity = fidelity_phase(work, args.seed)
+        DISK.mark("T3, T4 and F")
     except SmokeFailure as e:
         return fail(str(e))
     except (AssertionError, RuntimeError, ValueError) as e:
@@ -2164,10 +2819,11 @@ def main(argv=None) -> int:
                 "flash_backward_dkv": f"{ref}:397"}
     kernels = [paged_entry] + [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-        "launches": train["launches"][name],
+        "launches": train["launches"][name] + moe["launches"][name],
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
-            "c_job_profile_steps": control["flash_launches_in_profile"][name]},
+            "c_job_profile_steps": control["flash_launches_in_profile"][name],
+            "m_in_process": moe["launches"][name]},
         "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
         "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
@@ -2177,6 +2833,8 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": serve_summary}), flush=True)
     print(json.dumps({"serve_tenants": serve_tenants}), flush=True)
     print(json.dumps({"control": control}), flush=True)
+    print(json.dumps({"qlora": {**qlora, "int4_check": int4}}), flush=True)
+    print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
     print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
@@ -2184,7 +2842,8 @@ def main(argv=None) -> int:
                               "ms_no_segments", "tflops_no_segments")}
         for k, r in flash.items()}}}), flush=True)
     log(f"files left on disk: build/chip_smoke_train {tree_bytes(work) / 1e9:.2f} GB, "
-        f"build/chip_smoke_ctrl {control['control_dir_bytes'] / 1e9:.2f} GB")
+        f"build/chip_smoke_ctrl {qlora['control_dir_bytes'] / 1e9:.2f} GB; "
+        f"{DISK.written() / 2**30:.2f} GiB written in all")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ The port's catalog names the NVIDIA H100 card (flavor ``h100``: one chip,
 ``runtime="cuda"``, requested as ``nvidia.com/gpu``, the upstream
 reference's own GPU model) in place of the JAX package's TPU slices, and
 keeps the ``cpu-test`` flavor whose jobs train on the host (``--device
-cpu``).  The port trains on one device: :func:`default_mesh_for` renders a
-one-device mesh and refuses anything wider (ROADMAP Queue A item 7).
+cpu``).  The port trains on one device: :func:`default_mesh_for` checks a
+spec's mesh policy against the flavor's chips as the reference does,
+renders the one-device mesh and refuses anything wider (ROADMAP Queue A
+item 7).
 
 What follows is the reference's description of the catalog it copies.
 
@@ -32,6 +34,7 @@ from __future__ import annotations
 import enum
 import json
 import logging
+import math
 import re
 from pathlib import Path
 
@@ -175,6 +178,27 @@ def load_catalog(path: Path | str | None) -> DeviceCatalog:
 _POLICY_AXES = ("fsdp", "ep", "pp", "sp", "tp")
 
 
+def _resolve(axes: dict[str, int], n_devices: int) -> dict[str, int]:
+    """Mesh axis sizes over ``n_devices``, at most one of them ``-1`` (the
+    reference's ``MeshSpec.resolve``, ``parallel/mesh.py:56-80``, with its
+    messages)."""
+    sizes = {a: axes.get(a, 1) for a in ("dp", "fsdp", "ep", "pp", "sp", "tp")}
+    unknown = [k for k, v in sizes.items() if v == -1]
+    if len(unknown) > 1:
+        raise ValueError(f"at most one mesh axis may be -1, got {unknown}")
+    known = math.prod(v for v in sizes.values() if v != -1)
+    if unknown:
+        if n_devices % known:
+            raise ValueError(
+                f"cannot infer {unknown[0]}: {n_devices} devices not divisible "
+                f"by product of fixed axes {known}"
+            )
+        sizes[unknown[0]] = n_devices // known
+    elif known != n_devices:
+        raise ValueError(f"mesh {sizes} needs {known} devices but {n_devices} are available")
+    return sizes
+
+
 def default_mesh_for(
     flavor: DeviceFlavor,
     num_slices: int = 1,
@@ -184,9 +208,9 @@ def default_mesh_for(
 
     ``policy`` is the job spec's intra-slice axis declaration (fsdp/ep/pp/
     sp/tp; one value may be ``-1``, "all remaining chips"), validated as the
-    reference validates it (``ValueError``, a 400 at submit).  The port
-    trains on one device, so a grant of one chip renders every axis as 1
-    whatever the policy asks, and a wider grant raises
+    reference validates it: a policy the flavor's chips cannot satisfy
+    (``{"ep": 8}`` on one card) raises the reference's ``ValueError``.  The
+    port trains on one device, so a grant of more than one chip raises
     ``NotImplementedError`` (ROADMAP Queue A item 7, multi-GPU).
     """
     policy = dict(policy) if policy else {"fsdp": -1}
@@ -196,6 +220,13 @@ def default_mesh_for(
     for a, v in policy.items():
         if v != -1 and v < 1:
             raise ValueError(f"mesh policy axis {a}={v} must be >= 1 or -1")
+    try:
+        _resolve({"dp": 1, "fsdp": 1, **policy}, flavor.total_chips)
+    except ValueError as exc:
+        raise ValueError(
+            f"device {flavor.name!r} ({flavor.total_chips} chips) cannot "
+            f"satisfy the model's mesh policy {policy}: {exc}"
+        ) from None
     chips = flavor.total_chips * max(1, num_slices)
     if chips > 1:
         raise NotImplementedError(

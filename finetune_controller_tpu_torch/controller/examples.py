@@ -12,9 +12,12 @@ Each module is also executable as a self-test by convention (reference:
 
 In the port's copy every spec whose default device was a TPU slice
 defaults to the ``h100`` card; the ``tiny-*`` specs run on ``cpu-test``.
-Specs whose trainer path the port refuses (MoE, multimodal, QLoRA and the
-preference tasks) stay listed: such a job fails in its trainer with a
-``NotImplementedError`` that names the ROADMAP item porting it.
+Specs whose trainer path the port refuses (multimodal, the preference
+tasks) stay listed: such a job fails in its trainer with a
+``NotImplementedError`` that names the ROADMAP item porting it.  A spec
+whose mesh policy one card cannot satisfy (the MoE specs' ``ep``, the
+long-context spec's ``sp``) is refused with the reference's
+``ValueError``.  ``mistral-7b-qlora`` (an int4 base) runs.
 """
 
 from __future__ import annotations
@@ -257,8 +260,12 @@ class Mistral7B_QLoRA(BaseFineTuneJob):
 
 
 class Mixtral8x7B_MoE_LoRA(BaseFineTuneJob):
-    """BASELINE config #4 — MoE LoRA with expert parallelism (the port's
-    trainer refuses MoE until ROADMAP Queue A item 5).
+    """BASELINE config #4 — MoE LoRA with expert parallelism.  The port
+    trains MoE on one card, but one card cannot satisfy this spec's mesh
+    policy ``{"ep": 8}``: ``controller/devices.py::default_mesh_for``
+    refuses it with the reference's ``ValueError`` until multi-card meshes
+    are ported (ROADMAP Queue A item 7).  A trainer spec with no mesh
+    trains Mixtral-8x7B (with ``quantize_base`` its int4 experts fit).
 
     The mesh policy puts the 8 experts on the ``ep`` axis (expert matmuls stay
     chip-local, token exchange is an all-to-all over ICI) and FSDP-shards the

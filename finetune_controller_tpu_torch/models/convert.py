@@ -11,7 +11,11 @@ reference are read:
 * unscanned: ``params/layer_{i}/<...>``.
 
 Kernels keep flax's ``(in, out)`` layout — the port's ``LoRADense`` computes
-``x @ W`` — so no leaf is transposed.  ``lm_head`` is absent for tied
+``x @ W`` — so no leaf is transposed.  An int4 base (``quantize_base``)
+carries ``kernel_packed``/``kernel_scales`` in place of ``kernel``; an MoE
+layer carries ``moe/{router_kernel, experts_{gate,up,down}}`` (or their
+``_packed``/``_scales`` pairs) in place of ``mlp``, each with the layer
+axis in the scanned layout.  bf16 leaves (the int4 scales) cross as bf16.  ``lm_head`` is absent for tied
 embeddings (the head reuses ``embed_tokens.embedding``); q/k/v biases come
 along where the config has them.
 
@@ -36,22 +40,29 @@ import numpy as np
 import torch
 
 from .lora import LoRAConfig
-
-_LAYER_LEAVES = {
-    "attn_norm": ("scale",),
-    "mlp_norm": ("scale",),
-    "attn/q_proj": ("kernel", "bias"),
-    "attn/k_proj": ("kernel", "bias"),
-    "attn/v_proj": ("kernel", "bias"),
-    "attn/o_proj": ("kernel",),
-    "mlp/gate_proj": ("kernel",),
-    "mlp/up_proj": ("kernel",),
-    "mlp/down_proj": ("kernel",),
-}
-
+from .moe import EXPERT_KERNELS
 
 #: the seven projections, as ``module/projection`` paths of a layer
-_PROJECTIONS = tuple(m for m in _LAYER_LEAVES if "/" in m)
+_PROJECTIONS = ("attn/q_proj", "attn/k_proj", "attn/v_proj", "attn/o_proj",
+                "mlp/gate_proj", "mlp/up_proj", "mlp/down_proj")
+
+
+def _layer_leaves(cfg) -> dict[str, tuple[str, ...]]:
+    """A layer's ``module -> leaves`` of the ``params`` collection for
+    ``cfg`` (int4 kernels as their packed/scales pairs; ``moe`` in place of
+    ``mlp`` for an MoE config)."""
+    quant = ("_packed", "_scales") if getattr(cfg, "quantize_base", False) else ("",)
+    kernel = tuple(f"kernel{q}" for q in quant)
+    out: dict[str, tuple[str, ...]] = {"attn_norm": ("scale",), "mlp_norm": ("scale",)}
+    for module in _PROJECTIONS[:3]:
+        out[module] = kernel + ("bias",)
+    out["attn/o_proj"] = kernel
+    if getattr(cfg, "n_experts", 0):
+        out["moe"] = ("router_kernel",) + tuple(f"{n}{q}" for n in EXPERT_KERNELS for q in quant)
+    else:
+        for module in _PROJECTIONS[4:]:
+            out[module] = kernel
+    return out
 
 
 def _walk(tree: Mapping, path: str):
@@ -64,7 +75,10 @@ def _walk(tree: Mapping, path: str):
 
 def _tensor(x) -> torch.Tensor:
     # np.array copies: the state dict must not alias the caller's buffers
-    return torch.from_numpy(np.array(x))
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
 
 
 def _layer_trees(collection: Mapping | None, n_layers: int) -> list[Mapping | None]:
@@ -103,14 +117,14 @@ def from_flax(variables: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
     l_layers = _layer_trees(lora, cfg.n_layers)
     for i, (p, lo) in enumerate(zip(p_layers, l_layers)):
         where = f"params/layer {i}"
-        for module, leaves in _LAYER_LEAVES.items():
+        for module, leaves in _layer_leaves(cfg).items():
             name = f"layers.{i}.{module.replace('/', '.')}"
             for leaf in leaves:
                 if leaf == "bias" and not cfg.attention_qkv_bias:
                     continue
                 state[f"{name}.{leaf}"] = need(p, f"{module}/{leaf}", where)
             proj = module.split("/")[-1]
-            if cfg.lora.enabled_for(proj):
+            if module in _PROJECTIONS and cfg.lora.enabled_for(proj):
                 for leaf in ("lora_a", "lora_b"):
                     state[f"{name}.{leaf}"] = need(lo, f"{module}/{leaf}", f"lora/layer {i}")
     if cfg.lora_tenant_slots:
@@ -144,7 +158,12 @@ def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
     ``layer_{i}``.  Entries the state lacks are left out."""
 
     def leaf(key):
-        return state[key].detach().to("cpu").numpy().copy()
+        t = state[key].detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes  # jax's bf16 numpy type (a test-side conversion)
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+        return t.numpy().copy()
 
     def put(tree, path, value):
         *parents, last = path.split("/")
@@ -163,7 +182,7 @@ def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
     for i in range(cfg.n_layers):
         p_layer: dict[str, Any] = {}
         l_layer: dict[str, Any] = {}
-        for module, leaves in _LAYER_LEAVES.items():
+        for module, leaves in _layer_leaves(cfg).items():
             name = f"layers.{i}.{module.replace('/', '.')}"
             for name_leaf, tree in [(lf, p_layer) for lf in leaves] + [
                     ("lora_a", l_layer), ("lora_b", l_layer)]:

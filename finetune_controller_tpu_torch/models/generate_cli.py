@@ -4,9 +4,11 @@ port's ``ftc-generate``, counterpart of the reference's
 
 ``python -m finetune_controller_tpu_torch.models.generate_cli --artifacts DIR
 --prompt "..." [--device cpu]`` rebuilds the trained model from the job
-directory through ``serve/loader.load_serving_model`` (the job's
-``resolved_config.json``, its seeded base or ``model.weights_dir``, and the
-latest checkpoint's trained tensors, adapters left unmerged), then decodes
+directory through ``serve/loader.load_trained_model`` (the job's
+``resolved_config.json``, its seeded base, int4 ones included, or
+``model.weights_dir``, and the latest checkpoint's trained tensors,
+adapters left unmerged; an MoE job too, as the reference rebuilds it
+through its trainer), then decodes
 with ``cached_generate`` (``generate`` with ``--oracle``).  The flags and
 the output JSON (``checkpoint_step``, ``prompt_tokens``, ``new_tokens``,
 ``text``) are the reference's.  Token IO uses the data pipeline's tokenizer
@@ -113,11 +115,11 @@ def main(argv: list[str] | None = None) -> int:
     # ---- rebuild the trained model (the resume recipe) --------------------
     import torch
 
-    from ..serve.loader import ServeLoadError, load_serving_model
+    from ..serve.loader import ServeLoadError, load_trained_model
     from .generate import cached_generate, generate
 
     try:
-        model, meta = load_serving_model(args.artifacts, merge_lora=False, device=args.device)
+        model, meta = load_trained_model(args.artifacts, device=args.device)
     except ServeLoadError as e:
         raise SystemExit(str(e))
     if len(ids) + args.max_new_tokens > cfg.max_seq_len:

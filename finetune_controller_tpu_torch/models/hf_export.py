@@ -5,7 +5,11 @@ The other half of ``hf_import.py``: after a fine-tune the trainer writes
 either a **PEFT adapter** directory (``adapter_model.safetensors`` +
 ``adapter_config.json``, loadable with ``peft.PeftModel``) or a **merged
 full checkpoint** (``model.safetensors`` + ``config.json``, loadable with
-``transformers``), for dense Llama, Qwen-2 and Gemma.  Both read the port's
+``transformers``), for dense Llama, Qwen-2, Gemma and Mixtral (the stacked
+experts unstacked to per-expert ``w1/w2/w3``, the router as
+``block_sparse_moe.gate``).  An int4 base (QLoRA) exports dequantized, in
+f32 (the reference's ``_base_kernel``/``_expert_stack``); an MoE model's
+adapter holds the attention projections only, where its LoRA lives.  Both read the port's
 state dict (``LlamaForCausalLM.state_dict()`` names, tensors on any
 device); every key of ``config.json`` and ``adapter_config.json`` is the
 reference's.
@@ -14,8 +18,8 @@ Files are written through ``models/safetensors_io.StreamWriter``: the
 header is computed from the config's shapes and each tensor is produced,
 moved to the host and written one at a time, so an 8B merged export never
 holds the 32 GB f32 dict the reference builds.  Merging uses
-``models/convert.merge_kernel``, as the serving loader does.  MoE, int4
-bases and the multimodal projector wait for ROADMAP Queue A item 5.
+``models/convert.merge_kernel``, as the serving loader does.  The
+multimodal projector waits for ROADMAP Queue A item 5.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Iterator, Mapping
 import torch
 
 from .convert import merge_kernel
+from .quant import dequantize_int4
 from .safetensors_io import INDEX_FILENAME, StreamWriter
 
 logger = logging.getLogger(__name__)
@@ -46,13 +51,18 @@ _GROUP = {p: "attn" if m.startswith("self_attn") else "mlp" for p, m in _HF_MODU
 _ST_METADATA = {"format": "pt"}
 
 
-def _refuse_unported(cfg, what: str) -> None:
-    if getattr(cfg, "n_experts", 0):
-        raise NotImplementedError(
-            f"{what} of MoE configs is not ported yet (ROADMAP Queue A item 5)")
-    if getattr(cfg, "quantize_base", False):
-        raise NotImplementedError(
-            f"{what} of int4 QLoRA bases is not ported yet (ROADMAP Queue A item 5)")
+#: the stacked expert kernels -> Mixtral's per-expert weight names, in the
+#: reference's export order (the importer's w1=gate / w2=down / w3=up)
+_HF_EXPERTS = (("experts_gate", "w1"), ("experts_down", "w2"), ("experts_up", "w3"))
+
+
+def _base_kernel(state: Mapping[str, torch.Tensor], stem: str) -> torch.Tensor:
+    """The f32 base kernel ``stem`` (a projection's ``kernel``, or an
+    ``(E, in, out)`` expert stack), dequantizing int4 storage."""
+    if stem in state:
+        return state[stem].to(torch.float32)
+    return dequantize_int4(state[f"{stem}_packed"], state[f"{stem}_scales"],
+                           dtype=torch.float32)
 
 
 def _write(path: Path, specs: list[tuple[str, torch.dtype, tuple]],
@@ -187,6 +197,10 @@ def hf_config(cfg, dtype: torch.dtype = torch.float32) -> dict:
         # both config keys are set for pre/post-4.39 transformers
         config["hidden_act"] = "gelu_pytorch_tanh"
         config["hidden_activation"] = "gelu_pytorch_tanh"
+    if model_type == "mixtral":
+        config["num_local_experts"] = cfg.n_experts
+        config["num_experts_per_tok"] = cfg.moe_top_k
+        config["router_aux_loss_coef"] = cfg.router_aux_weight
     if cfg.rope_scaling_factor:
         # non-llama layouts were refused in _hf_layout, before any write
         config["rope_scaling"] = {
@@ -209,11 +223,24 @@ def _merged_entries(cfg, state: Mapping[str, torch.Tensor]):
 
     def kernel(key):
         def produce():
-            w = state[f"{key}.kernel"].to(torch.float32)              # (in, out)
+            w = _base_kernel(state, f"{key}.kernel")                  # (in, out)
             if f"{key}.lora_a" in state:
                 w = merge_kernel(w, state[f"{key}.lora_a"], state[f"{key}.lora_b"], scale)
             return w.T
         return produce
+
+    def expert(stem, e):
+        # one expert's f32 kernel; an int4 stack dequantizes that expert only
+        if stem in state:
+            return lambda: state[stem][e].to(torch.float32).T
+        return lambda: dequantize_int4(state[f"{stem}_packed"][e], state[f"{stem}_scales"][e],
+                                       dtype=torch.float32).T
+
+    def kernel_shape(stem):                                           # (in, out)
+        if stem in state:
+            return tuple(state[stem].shape[-2:])
+        packed = state[f"{stem}_packed"]
+        return (packed.shape[-2] * 2, packed.shape[-1])
 
     emb = state["embed_tokens.embedding"]
     yield "model.embed_tokens.weight", tuple(emb.shape), plain("embed_tokens.embedding")
@@ -224,11 +251,22 @@ def _merged_entries(cfg, state: Mapping[str, torch.Tensor]):
             key = f"layers.{i}.{leaf}.scale"
             yield f"{prefix}.{hf}.weight", tuple(state[key].shape), plain(key)
         for proj, hf in _HF_MODULE.items():
+            if cfg.n_experts and _GROUP[proj] == "mlp":
+                continue
             key = f"layers.{i}.{_GROUP[proj]}.{proj}"
-            yield (f"{prefix}.{hf}.weight", tuple(reversed(state[f"{key}.kernel"].shape)),
+            yield (f"{prefix}.{hf}.weight", tuple(reversed(kernel_shape(f"{key}.kernel"))),
                    kernel(key))
             if f"{key}.bias" in state:  # Qwen-2 q/k/v biases (frozen, no LoRA)
                 yield f"{prefix}.{hf}.bias", tuple(state[f"{key}.bias"].shape), plain(f"{key}.bias")
+        if cfg.n_experts:
+            moe, mp = f"layers.{i}.moe", f"{prefix}.block_sparse_moe"
+            router = state[f"{moe}.router_kernel"]
+            yield (f"{mp}.gate.weight", tuple(reversed(router.shape)),
+                   lambda router=router: router.to(torch.float32).T)
+            for stem, hf_w in _HF_EXPERTS:
+                shape = tuple(reversed(kernel_shape(f"{moe}.{stem}")))
+                for e in range(cfg.n_experts):
+                    yield f"{mp}.experts.{e}.{hf_w}.weight", shape, expert(f"{moe}.{stem}", e)
     yield "model.norm.weight", tuple(state["final_norm.scale"].shape), plain("final_norm.scale")
     if not cfg.tie_embeddings:
         head = state["lm_head.kernel"]
@@ -251,7 +289,6 @@ def export_merged_checkpoint(
     the tensors, in order, into ``model-0000k-of-0000n.safetensors`` shards
     of at most that size (a larger tensor gets a shard of its own) with a
     ``model.safetensors.index.json``, the layout of the hub's checkpoints."""
-    _refuse_unported(cfg, "merged export")
     config = hf_config(cfg, dtype)  # raises before any file is written
     out_dir = Path(out_dir).expanduser()
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -37,8 +37,15 @@ Rematerialisation keeps numerics: ``none`` runs the block as it is, ``full``
 wraps each block in ``torch.utils.checkpoint`` (non-reentrant), and ``mlp``
 keeps the MLP's gate and up projections by checkpointing only the attention
 half and the activation/down projection.  The reference's other named
-policies are refused.  MoE, QLoRA and multimodal inputs are not ported
-yet; configs that need them are refused.
+policies are refused.
+
+``quantize_base`` stores every projection's kernel as int4 (QLoRA,
+``models/quant.py``; the head and the embedding stay float), and
+``n_experts`` puts a :class:`~.moe.MoEMLP` named ``moe`` in each block in
+place of the dense MLP (``llama.py:620-641``).  The training forward can
+return the blocks' summed load-balancing term beside the logits
+(``return_moe_aux``); the serving paths drop it.  Multimodal inputs are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -60,6 +67,8 @@ from ..ops.attention import (
     xla_causal_attention,
 )
 from .lora import LoRAConfig, LoRADense, TenantRows, TenantStacks
+from .moe import EXPERT_KERNELS, MoEMLP
+from .quant import quantize_int4
 
 #: the reference's remat policies (``remat_policy_fn``); the port runs
 #: ``none``, ``full`` and ``mlp``
@@ -210,24 +219,14 @@ PRESETS: dict[str, LlamaConfig] = {
 }
 
 
-def refuse_unported(cfg: Any) -> None:
-    """Raise for configurations the port cannot build or serve yet; the
-    first two messages are the reference engine's (``engine.py:237-243``)."""
-    if getattr(cfg, "n_experts", 0):
-        raise ValueError(
-            "BatchEngine does not serve MoE configs: expert-capacity "
-            "routing couples batch rows, breaking batching invariance"
-        )
-    if getattr(cfg, "vision", None) is not None:
-        raise ValueError("BatchEngine serves text-only models (no pixels)")
-    if cfg.quantize_base:
-        raise NotImplementedError("int4 QLoRA bases are not ported yet")
-
-
 def remat_mode(cfg: LlamaConfig) -> str:
     """The per-layer remat the forward applies: ``none``, ``full`` or
     ``mlp``.  Raises for an unknown policy (the reference's message) and
-    ``NotImplementedError`` for a named policy the port does not run."""
+    ``NotImplementedError`` for a named policy the port does not run.
+
+    The reference's ``mlp`` policy saves the tensors named ``mlp_gate``,
+    ``mlp_up`` and ``mlp_down`` (``llama.py:603-612``); an MoE block names
+    none of them, so for MoE ``mlp`` recomputes the whole block: ``full``."""
     name = cfg.remat_policy
     if name not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {name!r}; one of {list(REMAT_POLICIES)}")
@@ -238,7 +237,7 @@ def remat_mode(cfg: LlamaConfig) -> str:
             f"remat_policy {name!r} is not ported yet (ROADMAP Queue A item 2); "
             "the port runs none, full and mlp"
         )
-    return name
+    return "full" if cfg.n_experts else name
 
 
 def rope_inv_freqs(cfg: LlamaConfig, device=None) -> torch.Tensor:
@@ -303,7 +302,8 @@ def _proj(cfg: LlamaConfig, name: str, in_features: int, features: int,
         lora_alpha=cfg.lora.alpha,
         lora_dropout=cfg.lora.dropout,
         use_bias=cfg.attention_qkv_bias and name in ("q_proj", "k_proj", "v_proj"),
-        dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, quantize_base=cfg.quantize_base,
+        quant_block=cfg.quant_block, device=device,
     )
 
 
@@ -484,6 +484,9 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """One decoder layer.  :meth:`forward` returns ``(x, aux)``: ``aux`` is
+    the MoE load-balancing term of the layer, ``None`` for a dense MLP."""
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         norm = dict(eps=cfg.rms_eps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
@@ -491,14 +494,27 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(cfg.d_model, **norm)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.d_model, **norm)
-        self.mlp = MLP(cfg, device)
+        if cfg.n_experts:
+            self.moe = MoEMLP(cfg.d_model, cfg.d_ff, cfg.n_experts, top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.capacity_factor, dtype=cfg.dtype,
+                              param_dtype=cfg.param_dtype, quantize_base=cfg.quantize_base,
+                              quant_block=cfg.quant_block, device=device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def _attn_residual(self, x, positions, inv_freqs, segment_ids, tenant=None):
         return x + self.attn(self.attn_norm(x), positions, inv_freqs, segment_ids, tenant)
 
+    def _ffn(self, h, tenant):
+        """The MLP or the experts on the normed ``h``: ``(out, aux)``."""
+        if hasattr(self, "moe"):
+            return self.moe(h)
+        return self.mlp(h, tenant), None
+
     def _forward(self, x, positions, inv_freqs, segment_ids, tenant=None):
         x = self._attn_residual(x, positions, inv_freqs, segment_ids, tenant)
-        return x + self.mlp(self.mlp_norm(x), tenant)
+        out, aux = self._ffn(self.mlp_norm(x), tenant)
+        return x + out, aux
 
     def forward(self, x, positions, inv_freqs, segment_ids=None, remat: str = "none",
                 tenant=None):
@@ -511,20 +527,20 @@ class Block(nn.Module):
             x = checkpoint(self._attn_residual, x, positions, inv_freqs, segment_ids, tenant,
                            use_reentrant=False)
             gate, up = self.mlp.gate_up(self.mlp_norm(x), tenant)
-            return x + checkpoint(self.mlp.down, gate, up, tenant, use_reentrant=False)
+            return x + checkpoint(self.mlp.down, gate, up, tenant, use_reentrant=False), None
         return self._forward(x, positions, inv_freqs, segment_ids, tenant)
 
     def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
                       page_table, idx, write_at, tenant=None):
         x = x + self.attn.forward_paged(self.attn_norm(x), positions, inv_freqs,
                                         k_pool, v_pool, page_table, idx, write_at, tenant)
-        return x + self.mlp(self.mlp_norm(x), tenant)
+        return x + self._ffn(self.mlp_norm(x), tenant)[0]
 
     def forward_cached(self, x, positions, inv_freqs, k_cache, v_cache, idx, fresh,
                        tenant=None):
         x = x + self.attn.forward_cached(self.attn_norm(x), positions, inv_freqs,
                                          k_cache, v_cache, idx, fresh, tenant)
-        return x + self.mlp(self.mlp_norm(x), tenant)
+        return x + self._ffn(self.mlp_norm(x), tenant)[0]
 
 
 class LlamaForCausalLM(nn.Module):
@@ -535,7 +551,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        refuse_unported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed_tokens = nn.Module()
@@ -592,17 +607,25 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 segment_ids: torch.Tensor | None = None,
                 adapter_ids: torch.Tensor | None = None,
-                tenants: TenantStacks | None = None) -> torch.Tensor:
+                tenants: TenantStacks | None = None,
+                return_moe_aux: bool = False):
         """Full-sequence causal forward: (B, S) tokens -> (B, S, V) logits.
         ``segment_ids`` (B, S) keeps packed documents from attending to each
         other; positions run 0..S-1 across the row, as in the reference.
-        ``adapter_ids`` (B,) selects each row's tenant adapter."""
+        ``adapter_ids`` (B,) selects each row's tenant adapter.  With
+        ``return_moe_aux`` it returns ``(logits, aux)``, ``aux`` the f32 sum
+        of the MoE layers' load-balancing terms (0 for a dense model), the
+        reference's ``moe_aux_loss`` of the sown collection."""
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
         remat = remat_mode(self.cfg) if torch.is_grad_enabled() else "none"
         x = self._embed(tokens)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, tenant in zip(self.layers, self._tenant_rows(adapter_ids, tenants)):
-            x = layer(x, positions, self.inv_freqs, segment_ids, remat, tenant)
-        return self._head(x)
+            x, aux = layer(x, positions, self.inv_freqs, segment_ids, remat, tenant)
+            if aux is not None:
+                aux_sum = aux_sum + aux
+        logits = self._head(x)
+        return (logits, aux_sum) if return_moe_aux else logits
 
     def set_dropout_seed(self, seed: int) -> None:
         """Seed every adapter's dropout for the next forward (training mode,
@@ -652,23 +675,76 @@ class LlamaForCausalLM(nn.Module):
         return self._head(x)
 
 
+def int4_stems(module: nn.Module) -> tuple[str, ...]:
+    """The kernels ``module`` itself stores as int4 (``{stem}_packed`` and
+    ``{stem}_scales`` buffers): ``kernel`` of a quantized ``LoRADense``,
+    the three expert stacks of a quantized ``MoEMLP``."""
+    if isinstance(module, LoRADense) and module.kernel is None:
+        return ("kernel",)
+    if isinstance(module, MoEMLP) and module.quantized:
+        return EXPERT_KERNELS
+    return ()
+
+
+def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    """``p`` ~ N(0, std²), drawn in f32 and cast to ``p``'s dtype: a base
+    stored in bf16 (``frozen_dtype``, the serving loader) is the rounding
+    of the f32 draw, and the generator advances as for an f32 base."""
+    if p.dtype == torch.float32:
+        p.normal_(0.0, std, generator=gen)
+    else:
+        p.copy_(torch.empty(p.shape, dtype=torch.float32, device=p.device)
+                .normal_(0.0, std, generator=gen))
+
+
+def _draw_int4_(module: nn.Module, stem: str, gen: torch.Generator) -> None:
+    """Draw ``stem``'s float kernel (or expert stack) ~ N(0, 1/fan_in) in
+    f32, quantize it into its ``_packed``/``_scales`` buffers, free it."""
+    packed = module.get_buffer(f"{stem}_packed")
+    scales = module.get_buffer(f"{stem}_scales")
+    shape = packed.shape[:-2] + (packed.shape[-2] * 2, packed.shape[-1])
+    w = torch.empty(shape, dtype=torch.float32, device=packed.device)
+    w.normal_(0.0, shape[-2] ** -0.5, generator=gen)
+    q, s = quantize_int4(w, shape[-2] // scales.shape[-2])
+    del w
+    packed.copy_(q)
+    scales.copy_(s)
+
+
 @torch.no_grad()
 def init_random_(model: LlamaForCausalLM, seed: int) -> LlamaForCausalLM:
     """Fill every parameter from ``seed`` on the model's own device (no
-    host copy): kernels ~ N(0, 1/fan_in), embeddings ~ N(0, 1/d_model),
-    norm scales at their init (ones, or zeros with an offset), biases and
-    LoRA ``B`` zero, LoRA ``A`` ~ N(0, 0.02²)."""
+    host copy): kernels (dense, router and expert stacks) ~ N(0, 1/fan_in),
+    embeddings ~ N(0, 1/d_model), norm scales at their init (ones, or zeros
+    with an offset), biases and LoRA ``B`` zero, LoRA ``A`` ~ N(0, 0.02²).
+
+    Every draw is taken in f32 whatever the storage dtype, so the same seed
+    gives the same base (rounded to the storage dtype) in the trainer and in
+    the serving loader.  An int4 kernel is drawn in the order a float one
+    would be, then
+    quantized on the device and the draw freed (the reference's "one weight
+    draw" per matrix, ``quant.py:70-96``): one matrix, or one layer's
+    ``(E, in, out)`` expert stack, exists in f32 at a time."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "kernel":
-            p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
-        elif leaf == "embedding":
-            p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
-        elif leaf == "lora_a":
-            p.normal_(0.0, 0.02, generator=gen)
-        elif leaf == "scale":
-            p.fill_(0.0 if model.cfg.norm_offset else 1.0)
-        else:  # bias, lora_b
-            p.zero_()
+    for module in model.modules():
+        stems = int4_stems(module)
+        # registration order, with a quantized LoRADense's ``kernel`` (None)
+        # in its place; an MoE's int4 expert stacks come after the router
+        for leaf, p in module._parameters.items():
+            if p is None:
+                if leaf in stems:
+                    _draw_int4_(module, leaf, gen)
+            elif leaf in ("kernel", "router_kernel") or leaf in EXPERT_KERNELS:
+                _normal_(p, p.shape[-2] ** -0.5, gen)
+            elif leaf == "embedding":
+                _normal_(p, p.shape[1] ** -0.5, gen)
+            elif leaf == "lora_a":
+                _normal_(p, 0.02, gen)
+            elif leaf == "scale":
+                p.fill_(0.0 if model.cfg.norm_offset else 1.0)
+            else:  # bias, lora_b
+                p.zero_()
+        for stem in stems:
+            if stem not in module._parameters:
+                _draw_int4_(module, stem, gen)
     return model

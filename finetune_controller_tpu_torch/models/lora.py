@@ -5,6 +5,13 @@ The frozen base kernel and the adapter factors are parameters of one
 converted from the JAX tree (``models/convert.py``) is used as it is:
 ``y = x @ W``.
 
+With ``quantize_base`` (QLoRA, the reference's ``lora.py`` kernel branch)
+the frozen kernel is stored as blockwise int4 (``models/quant.py``): the
+non-trainable buffers ``kernel_packed`` (uint8, ``(in/2, out)``) and
+``kernel_scales`` (bf16, ``(in/block, out)``) take the place of the
+``kernel`` parameter, and the product runs through ``quant.int4_matmul``,
+which dequantizes at use and keeps no dequantized weight for the backward.
+
 LoRA dropout (``lora.dropout > 0``, training mode) drops adapter inputs as
 flax's ``nn.Dropout`` does (keep with probability 1 - rate, scale kept values
 by 1 / (1 - rate)).  Each adapter draws its mask from a ``torch.Generator``
@@ -34,6 +41,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from .quant import int4_matmul
 
 DEFAULT_TARGETS = (
     "q_proj",
@@ -79,6 +88,8 @@ class LoRADense(nn.Module):
         use_bias: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype = torch.float32,
+        quantize_base: bool = False,
+        quant_block: int = 64,
         device: torch.device | str | None = None,
     ):
         super().__init__()
@@ -90,7 +101,14 @@ class LoRADense(nn.Module):
         self.dropout_index = 0
         self.dropout_seed: int | None = None
         kw = dict(dtype=param_dtype, device=device)
-        self.kernel = nn.Parameter(torch.zeros(in_features, features, **kw))
+        if quantize_base:
+            self.register_parameter("kernel", None)
+            self.register_buffer("kernel_packed", torch.zeros(
+                in_features // 2, features, dtype=torch.uint8, device=device))
+            self.register_buffer("kernel_scales", torch.zeros(
+                in_features // quant_block, features, dtype=torch.bfloat16, device=device))
+        else:
+            self.kernel = nn.Parameter(torch.zeros(in_features, features, **kw))
         self.bias = (nn.Parameter(torch.zeros(features, **kw))
                      if use_bias else None)
         if lora_rank > 0:
@@ -103,7 +121,10 @@ class LoRADense(nn.Module):
         """``tenant`` is this projection's slice of :meth:`TenantStacks.select`:
         per-row ``A (B, in, R)``, ``B (B, R, out)`` and ``scale (B,)`` in the
         compute dtype, applied as ``y_b += scale_b * (x_b @ A_b) @ B_b``."""
-        y = x @ self.kernel.to(self.dtype)
+        if self.kernel is None:
+            y = int4_matmul(x, self.kernel_packed, self.kernel_scales, self.dtype)
+        else:
+            y = x @ self.kernel.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         if self.lora_a is not None:

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from ..models.generate import _sample
-from ..models.llama import DenseKV, PagedKV, refuse_unported, tenant_stacks
+from ..models.llama import DenseKV, PagedKV, tenant_stacks
 from .adapters import AdapterRegistry, UnknownAdapter, install_into
 from .kv_pages import HostPagePool, HostRun, KVPagePool, PageRun, PoolExhausted
 from .prefix_cache import PrefixCache, resolve_reuse_length
@@ -210,7 +210,15 @@ class BatchEngine:
     def __init__(self, model, config: EngineConfig | None = None,
                  adapters: AdapterRegistry | None = None):
         cfg = model.cfg
-        refuse_unported(cfg)
+        # the reference engine's refusals (``engine.py:237-243``); an int4
+        # base serves, dequantized inside each projection
+        if getattr(cfg, "n_experts", 0):
+            raise ValueError(
+                "BatchEngine does not serve MoE configs: expert-capacity "
+                "routing couples batch rows, breaking batching invariance"
+            )
+        if getattr(cfg, "vision", None) is not None:
+            raise ValueError("BatchEngine serves text-only models (no pixels)")
         self.config = config or EngineConfig()
         self.model = model
         self.device = model.device

@@ -17,7 +17,10 @@ into a model the serving engine decodes with:
   (:func:`merge_lora_variables`: in f32, then cast to the serving dtype).
   The base is built in the spec's ``frozen_dtype``, or in the compute dtype
   when the spec names none, and served in the compute dtype: no f32 copy
-  of a bf16-served base is made on the way;
+  of a bf16-served base is made on the way.  An int4 base (QLoRA) is
+  rebuilt by the same ``Trainer`` code from the same seed, so it is the
+  base the job trained on, and it is served with its adapters unmerged
+  (``lora_merged: false``), its packed kernels and scales as stored;
 * :func:`strip_lora_for_multitenant` splits an unmerged model into the
   pristine base and the job's own adapter, which becomes a tenant;
 * :func:`_load_adapter_tree` reads only a LoRA job's adapter (the
@@ -55,6 +58,7 @@ from ..train.cli import MM_PRESET_NAMES, build_model_config, build_train_config
 logger = logging.getLogger(__name__)
 
 _LORA_LEAVES = (".lora_a", ".lora_b")
+_INT4_LEAVES = ("_packed", "_scales")
 
 
 class ServeLoadError(RuntimeError):
@@ -152,10 +156,26 @@ def load_serving_model(local_dir: Path | str, *, merge_lora: bool = True,
     are copied in, and the optimizer state is dropped.  With
     ``merge_lora`` the adapters fold into the base kernels; without it they
     stay as the model's LoRA branch."""
-    from ..train.trainer import Trainer
-
     local_dir = Path(local_dir)
     spec, model_cfg, latest = _resolve_staged_spec(local_dir)
+    return _rebuild(local_dir, spec, model_cfg, latest, merge_lora, device)
+
+
+def load_trained_model(local_dir: Path | str, *, device=None) -> tuple[LlamaForCausalLM, dict]:
+    """The trained model of a job directory with its adapters unmerged, as
+    :func:`load_serving_model` builds it but without the serving guards: an
+    MoE job rebuilds too (the reference's ``generate_cli`` resume recipe,
+    which the sanity generation uses).  Multimodal jobs are refused."""
+    local_dir = Path(local_dir)
+    spec = _read_spec(local_dir)
+    model_cfg = _model_config(spec, "multimodal generation is not ported yet")
+    return _rebuild(local_dir, spec, model_cfg, _latest_step(local_dir), False, device)
+
+
+def _rebuild(local_dir: Path, spec: dict, model_cfg: Any, latest: int, merge_lora: bool,
+             device) -> tuple[LlamaForCausalLM, dict]:
+    from ..train.trainer import Trainer
+
     pretrained = spec.get("model", {}).get("weights_dir")
     train_cfg = build_train_config(spec)
     if train_cfg.mode == "lora" and not train_cfg.frozen_dtype:
@@ -181,11 +201,13 @@ def load_serving_model(local_dir: Path | str, *, merge_lora: bool = True,
     dev = trainer.device
     del trainer, host  # the optimizer state and the host copy go here
     # the base in the serving dtype; the adapters keep their f32 (a cast at
-    # use rounds them the same way)
-    state = {k: v if k.endswith(_LORA_LEAVES) else v.to(model_cfg.dtype)
+    # use rounds them the same way), int4 kernels and their scales stay
+    state = {k: v if k.endswith(_LORA_LEAVES + _INT4_LEAVES) else v.to(model_cfg.dtype)
              for k, v in state.items()}
     merged = False
-    if merge_lora and model_cfg.lora.rank > 0:
+    # an int4 base cannot absorb a dense delta: it serves unmerged (the
+    # reference's ``loader.py:246-249``)
+    if merge_lora and model_cfg.lora.rank > 0 and not model_cfg.quantize_base:
         model_cfg, state = merge_lora_variables(model_cfg, state)
         merged = True
     model = _assemble(model_cfg, state, dev)

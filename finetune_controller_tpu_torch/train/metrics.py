@@ -13,8 +13,10 @@ thread waited per step for its next batch; with the default background
 prefetch this is residual stall, not the overlapped build time) and
 ``input_fraction`` (that wait as a share of the logging window: ~0 means
 device-bound/healthy, toward 1 means input-bound — raise the prefetch depth
-or move host work off the loader). Eval-cadence columns (``eval_*``,
-including ``eval_input_ms``) are declared via ``extra_fields``.
+or move host work off the loader). An MoE run adds ``moe_aux`` (the
+weighted load-balancing term in the objective) to every row. Eval-cadence
+columns (``eval_*``, including ``eval_input_ms``) are declared via
+``extra_fields``.
 """
 
 from __future__ import annotations

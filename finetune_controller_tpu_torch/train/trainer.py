@@ -6,9 +6,13 @@ observability.
 ``TrainConfig`` is copied field for field, so one spec fits both packages.
 What this slice runs: ``task="sft"``, ``mode`` ``lora`` and ``full``,
 ``frozen_dtype``, ``grad_accum_steps``, LoRA dropout, the remat policies of
-``models/llama.py``, prefetch (with the copy to the card on the producer
-thread when ``prefetch_to_device``), pretrained HF weights
-(:meth:`Trainer.load_pretrained`), evaluation every ``eval_every`` steps,
+``models/llama.py``, int4 QLoRA bases (``quantize_base``: the kernels are
+drawn or loaded, then quantized on the device one tensor at a time), MoE
+models (the objective adds ``router_aux_weight`` times the layers'
+load-balancing terms, logged as ``moe_aux``), prefetch (with the copy to
+the card on the producer thread when ``prefetch_to_device``), pretrained
+HF weights (:meth:`Trainer.load_pretrained`), evaluation every
+``eval_every`` steps,
 the PEFT adapter and merged HF exports (:meth:`Trainer.export_artifacts`),
 and, as the reference writes them, ``heartbeat.json``, ``events.jsonl``,
 ``trace/trainer.jsonl`` and the ``phase_*_ms`` columns.  A profiler window
@@ -16,8 +20,8 @@ and, as the reference writes them, ``heartbeat.json``, ``events.jsonl``,
 job through ``profile_request.json``) writes a ``torch.profiler`` Chrome
 trace under ``profile/``.  Configurations it cannot train raise
 ``NotImplementedError`` naming the ROADMAP item that ports them: the
-preference tasks, MoE and int4 bases, and the guard fields
-``transfer_guard``, ``shard_audit`` and a ``recompile_budget`` above 0.
+preference tasks and the guard fields ``transfer_guard``, ``shard_audit``
+and a ``recompile_budget`` above 0.
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ class TrainConfig:
     pp_microbatches: int = 0
     export_merged: bool = False
     #: storage dtype of the frozen base in lora mode (e.g. "bfloat16");
-    #: None keeps the model's param_dtype
+    #: None keeps the model's param_dtype.  Int4 kernels and their bf16
+    #: scales are left as they are
     frozen_dtype: str | None = None
     eval_every: int = 0
     eval_steps: int = 8
@@ -89,8 +94,6 @@ def refuse_untrainable(model_cfg: LlamaConfig, cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice cannot train."""
     refusals = [
         (cfg.task != "sft", f"task {cfg.task!r}: the preference plane (ROADMAP Queue A item 6)"),
-        (bool(model_cfg.n_experts), "MoE configs (ROADMAP Queue A item 5)"),
-        (model_cfg.quantize_base, "int4 QLoRA bases (ROADMAP Queue A item 5)"),
         (bool(cfg.transfer_guard),
          f"transfer_guard {cfg.transfer_guard!r}: the transfer guard (ROADMAP Queue A item 9)"),
         (bool(cfg.shard_audit),
@@ -219,6 +222,9 @@ class Trainer:
         lora = train_cfg.mode == "lora"
         if lora and model_cfg.lora.rank <= 0:
             raise ValueError("mode='lora' but the model has no LoRA params; set lora.rank > 0")
+        if not lora and model_cfg.quantize_base:
+            raise ValueError("mode='full' cannot train an int4-quantized base; "
+                             "use mode='lora' (QLoRA)")
         # the frozen base is created in its storage dtype (no f32 copy of an
         # 8B base on the card), the trained leaves in param_dtype
         frozen_dtype = (_torch_dtype(train_cfg.frozen_dtype)
@@ -298,20 +304,32 @@ class Trainer:
         ``grad_accum_steps`` microbatches contributes its mean loss's
         gradient; the gradients and the metrics are averaged over them,
         ``target_tokens`` summed.  Returns 0-dim tensors: loss, accuracy,
-        target_tokens, grad_norm (before clipping) and learning_rate."""
+        target_tokens, grad_norm (before clipping) and learning_rate, and
+        for an MoE model ``moe_aux`` (the weighted load-balancing term the
+        objective adds to ``loss``)."""
         batch = self._to_device(batch)
         accum = self.cfg.grad_accum_steps
         rows = batch["tokens"].shape[0] // accum
         self.model.train()
+        moe = bool(self.model_cfg.n_experts)
         sums: dict[str, torch.Tensor] = {}
         for i in range(accum):
             micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
             if self.model_cfg.lora.dropout > 0:
                 self.model.set_dropout_seed(
                     (self.cfg.seed * 1_000_003 + self.step_count) * 1_009 + i)
-            logits = self.model(micro["tokens"], segment_ids=micro.get("segment_ids"))
+            logits = self.model(micro["tokens"], segment_ids=micro.get("segment_ids"),
+                                return_moe_aux=moe)
+            if moe:
+                logits, moe_aux = logits
             loss, aux = next_token_loss(logits, micro["tokens"], micro.get("loss_mask"))
             del logits
+            if moe:
+                # the objective carries the weighted load-balancing term;
+                # the ``loss`` column stays the cross-entropy
+                penalty = self.model_cfg.router_aux_weight * moe_aux
+                loss = loss + penalty
+                aux = dict(aux, moe_aux=penalty.detach())
             loss.backward()
             for k, v in aux.items():
                 sums[k] = sums[k] + v if k in sums else v
@@ -385,8 +403,9 @@ class Trainer:
         """Replace the base weights with an HF checkpoint
         (``models/hf_import.load_pretrained_``), in place: in lora mode
         the frozen base, in full mode the trained tensors themselves, so
-        the optimizer's references stay valid.  Call it before the first
-        step."""
+        the optimizer's references stay valid; a kernel the model stores as
+        int4 is quantized on the device as it arrives, one tensor at a time.
+        Call it before the first step."""
         from ..models.hf_import import load_pretrained_
 
         load_pretrained_(self.model, ckpt_dir)

@@ -280,7 +280,15 @@ def test_one_device_mesh_and_wider_grants_refused():
     assert h100.k8s_resource_name() == "nvidia.com/gpu"
     one = {"dp": 1, "fsdp": 1, "ep": 1, "pp": 1, "sp": 1, "tp": 1}
     assert port_devices.default_mesh_for(h100) == one
-    assert port_devices.default_mesh_for(h100, 1, {"ep": 8, "fsdp": -1}) == one
+    assert port_devices.default_mesh_for(h100, 1, {"ep": 1, "fsdp": -1}) == one
+    # a policy one card cannot satisfy is refused as the reference refuses
+    # it: the Mixtral example's {"ep": 8} (its MoE trains with no mesh)
+    policy = PORT_SPECS["mixtral-8x7b-moe-lora"].mesh_policy
+    with pytest.raises(ValueError, match=re.escape(
+            "device 'h100' (1 chips) cannot satisfy the model's mesh policy "
+            "{'ep': 8, 'fsdp': -1}: cannot infer fsdp: 1 devices not divisible by "
+            "product of fixed axes 8")):
+        port_devices.default_mesh_for(h100, 1, policy)
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         port_devices.default_mesh_for(cat.get("cpu-test"), 2)
     with pytest.raises(ValueError, match="not in"):

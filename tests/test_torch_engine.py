@@ -256,3 +256,34 @@ def test_unknown_adapter_is_refused(port_model):
     with pytest.raises(UnknownAdapter, match="'tenant-a' is not loaded .*loaded: none"):
         tenants.admit(GenRequest("t", [1, 2], 2, adapter_id="tenant-a"))
     assert tenants.free_slots == ENGINE["slots"]
+
+
+def test_qlora_engine_tokens_equal_reference():
+    """A QLoRA ``tiny-test`` (int4 base, rank-4 adapters unmerged, f32
+    compute) served paged and unpaged gives the JAX paged engine's greedy
+    tokens on the same variables; the int4 base dequantizes inside each
+    projection, so batching changes no row."""
+    from finetune_controller_tpu.models.lora import LoRAConfig as JaxLoRAConfig
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+
+    jcfg = JAX_PRESETS["tiny-test"].replace(dtype=jnp.float32, quantize_base=True,
+                                            lora=JaxLoRAConfig(rank=4, alpha=8.0))
+    variables = jax.device_get(JaxLlama(jcfg).init({"params": jax.random.PRNGKey(3)},
+                                                   jnp.zeros((1, 4), jnp.int32)))
+    rng = np.random.default_rng(12)
+    variables = jax.tree_util.tree_map(
+        lambda x: (np.asarray(0.05 + 0.3 * rng.standard_normal(x.shape), np.float32)
+                   if np.asarray(x).dtype == np.float32 else np.asarray(x)), variables)
+    reqs = [(rid, p, n) for rid, p, n in _requests() if rid != "b"]
+    jax_engine = JaxEngine(JaxLlama(jcfg), variables, JaxEngineConfig(**ENGINE))
+    want = {rid: r.generated for rid, r in jax_engine.run(
+        [JaxRequest(request_id=rid, tokens=p, max_new_tokens=n) for rid, p, n in reqs]).items()}
+    cfg = PRESETS["tiny-test"].replace(dtype=torch.float32, quantize_base=True,
+                                       lora=LoRAConfig(rank=4, alpha=8.0))
+    model = LlamaForCausalLM(cfg, device="cpu")
+    model.load_state_dict(from_flax(variables, cfg))
+    model.requires_grad_(False).eval()
+    for page_tokens in (ENGINE["page_tokens"], 0):
+        got = _port_engine(model, page_tokens=page_tokens).run(
+            [GenRequest(request_id=rid, tokens=p, max_new_tokens=n) for rid, p, n in reqs])
+        assert {rid: r.generated for rid, r in got.items()} == want, page_tokens

@@ -18,7 +18,12 @@ configs (no download).
   atol 1e-6 (the merge's matmul orders differ) and its ``config.json``,
   the llama3 ``rope_scaling`` block included; ``transformers`` loads it and
   gives the port's merged logits (the reference's tolerances);
-* export then import round-trips.
+* export then import round-trips;
+* Mixtral: a ``transformers`` checkpoint imports to the JAX tree bit for
+  bit; ``load_pretrained_`` into an int4 model (QLoRA base, int4 experts)
+  equals the reference's ``_adapt_loaded_params`` bit for bit; the merged
+  exports of a QLoRA and an int4-expert MoE model equal the JAX exporter's
+  (atol 1e-6), the MoE adapter its files bit for bit.
 """
 
 from __future__ import annotations
@@ -320,10 +325,14 @@ def test_export_then_import_round_trips(hf, tmp_path, family):
 
 def test_unported_layouts_raise_naming_their_item(hf, tmp_path):
     moe = PRESETS["tiny-moe-test"]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # MoE imports and exports now; a dense checkpoint does not fit an MoE
+    # config (the reference's KeyError, its first missing expert tensor),
+    # and Gemma-semantics MoE matches no transformers architecture
+    with pytest.raises(KeyError, match="block_sparse_moe.experts.0.w1.weight"):
         load_llama_params(hf["llama"][1], moe)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        export_merged_checkpoint(moe, {}, tmp_path / "moe")
+    with pytest.raises(NotImplementedError, match="Gemma-semantics MoE"):
+        export_merged_checkpoint(moe.replace(norm_offset=1.0, embed_scale=True, mlp_act="gelu",
+                                             tie_embeddings=True), {}, tmp_path / "moe")
     with pytest.raises(NotImplementedError, match="item 5"):
         load_llava_params(hf["llama"][1], moe)
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -334,3 +343,119 @@ def test_unported_layouts_raise_naming_their_item(hf, tmp_path):
         export_merged_checkpoint(port_cfg("llama").replace(embed_scale=True), {},
                                  tmp_path / "nope")
     assert not (tmp_path / "nope").exists()
+
+
+# ---------------------------------------------------------------------------
+# Mixtral and int4 bases
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mixtral(tmp_path_factory):
+    """A tiny Mixtral checkpoint (the ``tiny-moe-test`` shapes) written by
+    ``transformers`` from a local ``MixtralConfig``."""
+    import transformers as tf
+
+    cfg = PRESETS["tiny-moe-test"]
+    torch.manual_seed(5)
+    model = tf.MixtralForCausalLM(tf.MixtralConfig(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.d_model, num_hidden_layers=cfg.n_layers,
+        num_attention_heads=cfg.n_heads, num_key_value_heads=cfg.n_kv_heads,
+        intermediate_size=cfg.d_ff, num_local_experts=cfg.n_experts,
+        num_experts_per_tok=cfg.moe_top_k, max_position_embeddings=cfg.max_seq_len,
+        rms_norm_eps=cfg.rms_eps, rope_theta=cfg.rope_theta, tie_word_embeddings=False))
+    path = tmp_path_factory.mktemp("mixtral") / "ckpt"
+    model.save_pretrained(str(path), safe_serialization=True)
+    return path
+
+
+def _moe_cfgs(quantize: bool, rank: int = 0):
+    lora = dict(rank=rank, alpha=8.0)
+    return (PRESETS["tiny-moe-test"].replace(dtype=torch.float32, quantize_base=quantize,
+                                             lora=LoRAConfig(**lora)),
+            JAX_PRESETS["tiny-moe-test"].replace(dtype=jnp.float32, quantize_base=quantize,
+                                                 lora=JaxLoRAConfig(**lora)))
+
+
+def test_mixtral_import_equals_jax_import_bit_for_bit(mixtral):
+    """The experts stack as ``(E, in, out)`` (w1 gate, w2 down, w3 up), the
+    router from ``block_sparse_moe.gate``: the JAX tree through
+    ``from_flax``, bit for bit."""
+    cfg, jcfg = _moe_cfgs(False)
+    got = load_llama_params(mixtral, cfg)
+    want = from_flax({"params": jax_import.load_llama_params(mixtral, jcfg, dtype=jnp.float32)},
+                     cfg)
+    _assert_equal_states(got, want)
+    assert got["layers.1.moe.experts_down"].shape == (4, 128, 64)
+
+
+@pytest.mark.parametrize("family", ["qlora", "moe"])
+def test_load_pretrained_quantizes_as_the_reference_adapts(hf, mixtral, family):
+    """``load_pretrained_`` into an int4 model equals the reference's
+    ``_adapt_loaded_params`` (quantize every kernel the model stores as
+    int4), bit for bit, for the dense QLoRA base and the int4 experts."""
+    import jax
+
+    from finetune_controller_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from finetune_controller_tpu.train.trainer import _adapt_loaded_params
+
+    if family == "qlora":
+        cfg = port_cfg("llama").replace(quantize_base=True)
+        jcfg, ckpt = jax_cfg("llama").replace(quantize_base=True), hf["llama"][1]
+    else:
+        (cfg, jcfg), ckpt = _moe_cfgs(True), mixtral
+    # the initialised tree's shapes and dtypes are all the adapter reads
+    target = jax.eval_shape(lambda: JaxLlama(jcfg).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 4), jnp.int32)))["params"]
+    loaded = jax_import.load_llama_params(ckpt, jcfg, dtype=jnp.float32)
+    adapted = _adapt_loaded_params(loaded, target, quant_block=64)
+    want = from_flax({"params": adapted}, cfg)
+    model = load_pretrained_(LlamaForCausalLM(cfg, device="cpu"), ckpt)
+    got = model.state_dict()
+    assert sorted(got) == sorted(want)
+    assert sum(k.endswith("_packed") for k in got) == (14 if family == "qlora" else 2 * 4 + 6)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("family", ["qlora", "moe"])
+def test_int4_and_moe_exports_equal_jax(hf, mixtral, tmp_path, family):
+    """The merged export of a QLoRA model (dequantized base + adapters) and
+    of an int4-expert MoE model (experts unstacked to w1/w2/w3, dequantized;
+    the Mixtral ``config.json`` keys) within atol 1e-6 of the reference
+    exporter's; the MoE adapter (attention projections only) bit for bit."""
+    if family == "qlora":
+        cfg, jcfg, ckpt = (port_cfg("llama", rank=4).replace(quantize_base=True),
+                           jax_cfg("llama", rank=4).replace(quantize_base=True), hf["llama"][1])
+    else:
+        (cfg, jcfg), ckpt = _moe_cfgs(True, rank=4), mixtral
+    model = load_pretrained_(LlamaForCausalLM(cfg, device="cpu"), ckpt)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith((".lora_a", ".lora_b")):
+                p.copy_(torch.from_numpy(rng.normal(0, 0.05, p.shape).astype(np.float32)))
+    state = model.state_dict()
+    variables = to_flax(state, cfg.replace(scan_layers=True))
+    export_merged_checkpoint(cfg, state, tmp_path / "port")
+    jax_export.export_merged_checkpoint(jcfg, variables, tmp_path / "jax")
+    got, want = _read(tmp_path / "port" / "model.safetensors"), \
+        _read(tmp_path / "jax" / "model.safetensors")
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == torch.float32, key
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), atol=1e-6, rtol=0,
+                                   err_msg=key)
+    config = json.loads((tmp_path / "port" / "config.json").read_text())
+    assert config == json.loads((tmp_path / "jax" / "config.json").read_text())
+    if family == "qlora":
+        return
+    assert config["num_local_experts"] == 4 and config["architectures"] == ["MixtralForCausalLM"]
+    export_lora_adapter(cfg, state, tmp_path / "port_adapter")
+    jax_export.export_lora_adapter(jcfg, variables["lora"], tmp_path / "jax_adapter")
+    got = _read(tmp_path / "port_adapter" / "adapter_model.safetensors")
+    _assert_equal_states(got, _read(tmp_path / "jax_adapter" / "adapter_model.safetensors"))
+    assert len(got) == 2 * 4 * 2
+    assert json.loads((tmp_path / "port_adapter" / "adapter_config.json").read_text()) == \
+        json.loads((tmp_path / "jax_adapter" / "adapter_config.json").read_text())

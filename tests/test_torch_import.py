@@ -48,6 +48,12 @@ def test_import_leaves_jax_and_reference_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_scan_covers_the_int4_and_moe_modules():
+    """The int4 base and the experts are the port's own copies."""
+    for name in ("models/quant.py", "models/moe.py"):
+        assert PORT / name in SOURCES, name
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_reference(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -158,8 +158,15 @@ def test_config_fields_match_reference():
 
 
 def test_unported_configs_are_refused():
-    with pytest.raises(ValueError, match="does not serve MoE configs"):
-        LlamaForCausalLM(PRESETS["tiny-moe-test"], device="cpu")
+    """An MoE model builds (it trains); the serving engine refuses it with
+    the reference engine's message (``engine.py:237-241``)."""
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine
+
+    model = LlamaForCausalLM(PRESETS["tiny-moe-test"], device="cpu")
+    assert model.layers[0].moe.n_experts == 4
+    with pytest.raises(ValueError, match="does not serve MoE configs: expert-capacity "
+                                         "routing couples batch rows"):
+        BatchEngine(model)
 
 
 def test_segment_forward_matches_reference(tokens):

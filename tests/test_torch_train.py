@@ -18,6 +18,8 @@ inputs.
   per-step loss to rtol 2e-5, grad_norm (of the drifted parameters) to
   rtol 1e-2, the trained LoRA leaves to atol 1e-3 = 0.1·lr (measured worst
   over six seeds: loss 3.6e-6, grad_norm 5.3e-3, leaves 2.3e-4);
+* a QLoRA and an int4-expert MoE trainer: step-1 ``loss``, ``moe_aux`` and
+  ``evaluate`` within rel 1e-5 of the JAX trainer's;
 * the CLI's rejection messages equal the reference's;
 * a run preempted by SIGTERM and resumed equals an uninterrupted one.
 """
@@ -170,6 +172,45 @@ def test_trainer_matches_reference(case):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("case", ["qlora", "moe"])
+def test_int4_and_moe_trainers_match_reference(case):
+    """A QLoRA ``tiny-test`` and an int4-expert ``tiny-moe-test`` (f32
+    compute, the reference's own int4 draw, noisy float leaves): the first
+    step's ``loss`` (the cross-entropy), ``moe_aux`` (the weighted
+    load-balancing term the objective adds) and ``evaluate`` within rel 1e-5
+    of the JAX trainer's."""
+    preset = "tiny-test" if case == "qlora" else "tiny-moe-test"
+    train_kw = dict(mode="lora", learning_rate=0.01, warmup_steps=1, total_steps=2,
+                    batch_size=4, seq_len=SEQ, grad_accum_steps=2, eval_steps=2, prefetch=0)
+    jcfg = JAX_PRESETS[preset].replace(dtype=jnp.float32, quantize_base=True,
+                                       lora=JaxLoRAConfig(rank=4))
+    jtrainer = JaxTrainer(jcfg, JaxTrainConfig(**train_kw))
+    state = jtrainer.init_state()
+    rng = np.random.default_rng(5)
+    frozen = jax.tree_util.tree_map(
+        lambda x: (np.asarray(0.1 + 0.3 * rng.standard_normal(x.shape), np.float32)
+                   if np.asarray(x).dtype == np.float32 else np.asarray(x)),
+        jax.device_get(state.frozen))
+    trainable = _noisy(jax.device_get(state.trainable), 6)
+    state = state.replace(frozen=frozen, trainable=trainable,
+                          opt_state=jtrainer.tx.init(trainable))
+    cfg = PRESETS[preset].replace(dtype=torch.float32, quantize_base=True,
+                                  lora=LoRAConfig(rank=4))
+    trainer = Trainer(cfg, TrainConfig(**train_kw), device="cpu")
+    trainer.model.load_state_dict(from_flax({**frozen, "lora": trainable}, cfg))
+    batches = _packed_batches(8, 4, 3)
+    want_eval = jtrainer.evaluate(state, iter([dict(b) for b in batches[1:]]))
+    got_eval = trainer.evaluate(iter([dict(b) for b in batches[1:]]))
+    _, jm = jtrainer.step(state, dict(batches[0]))
+    tm = trainer.step(dict(batches[0]))
+    keys = ["loss", "accuracy"] + (["moe_aux"] if case == "moe" else [])
+    assert ("moe_aux" in tm) == (case == "moe")
+    for key in keys:
+        np.testing.assert_allclose(tm[key].item(), float(jm[key]), rtol=1e-5, err_msg=key)
+    for key in ("eval_loss", "eval_accuracy"):
+        np.testing.assert_allclose(got_eval[key], want_eval[key], rtol=1e-5, err_msg=key)
+
+
 # ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
@@ -205,7 +246,9 @@ def test_cli_rejects_unconsumed_arguments_and_unknown_task(tmp_path):
     ({"mesh": {"dp": 2}}, "multi-GPU"),
     ({"training": {"transfer_guard": "disallow"}}, "transfer guard"),
     ({"model": {"preset": "tiny-mm-test"}}, "multimodal"),
-    ({"model": {"preset": "tiny-moe-test"}}, "MoE"),
+    # MoE trains on one card; the Mixtral example's ``ep`` mesh is refused
+    pytest.param({"model": {"preset": "tiny-moe-test"}, "mesh": {"ep": 2}},
+                 r"mesh axes \{'ep': 2\}.*multi-GPU", id="spec4-MoE"),
     ({"training": {"recompile_budget": 2}}, "recompile guard"),
 ])
 def test_cli_refuses_what_the_slice_cannot_train(spec, match, tmp_path):
