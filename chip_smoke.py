@@ -66,8 +66,8 @@ Phases (any failure exits non-zero and prints no result line):
    base at 32 layers.
    H1, T2, H2 and S2 run ``HF_LAYERS`` = 22 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
-   merged export and checkpoints (46.3 GiB) exceed, and phases C, Q and M
-   need about 8 GB beside them; after each phase the script prints what
+   merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M and
+   V need about 12 GB beside them; after each phase the script prints what
    it has written (``DiskTally``) and fails past 45 GiB;
    (H2) the exported adapter against the step-8 LoRA tensors (bit for
    bit), and the merged checkpoint reloaded into a bf16 model through
@@ -131,6 +131,34 @@ Phases (any failure exits non-zero and prints no result line):
     greedy generation whose cached path matches the uncached oracle's
     logits at a dropless capacity; printed: ms/step and tokens/s (median of
     steps 2-4), peak memory, the int4 base's bytes;
+    (V) LLaVA-1.5: (V2, on C's server right after Q) 32 rows, each a
+    336x336x3 image as an NPY ``data:`` URI (neither decode nor resize
+    needs PIL; whether PIL imports is printed) with a prompt and a
+    completion, uploaded with ``POST /datasets``; ``llava-1.5-lora`` on
+    ``h100`` at full width and depth (CLIP ViT-L/14-336 with 23 of its 24
+    blocks run, the projector, the 32-layer 7B decoder; LoRA rank 16 on all
+    seven projections and the projector trained; batch 4 x 1472 text tokens
+    behind the 576-token image prefix, 2048 positions, in 2 microbatches; 6
+    steps, a profiler window over steps 3-4; the API spec's f32 base from
+    the job's seed).  Checked: QUEUED -> RUNNING -> SUCCEEDED, 6 finite
+    metrics rows, the adapter keyed under ``language_model`` and
+    ``projector.safetensors`` (4096, 1024) and (4096, 4096), promotion, and
+    ``/generate`` answering the reference loader's multimodal refusal;
+    the profile lists the three ``wg::`` flash kernels and the
+    ``vision_tower`` and ``mm_projector`` ranges.  Printed: submit -> first
+    row, the median step outside step 1 and the profiled steps, tokens/s,
+    the job's peak card memory and the tower's and projector's shares of
+    the device time.  After M: (V0) the three flash kernels at the
+    decoder's shape (B=2, S=2048, H=Hkv=32, D=128, causal, no segment ids)
+    against their plain versions, twice for the same bits, timed beside
+    SDPA and the bound; (V1) an HF LLaVA directory in the layout of
+    ``llava-hf/llava-1.5-7b-hf`` (f16, the CLIP tower whole with 24 layers
+    and the post norm, ``LLAVA_HF_LAYERS`` = 1 decoder layer for the disk
+    cap; ~1.6 GB) read onto the card through ``load_llava_params`` bit for
+    bit, GB/s printed; (V3) ``generate_cli --image`` on V2's artifacts,
+    cached and ``--oracle``, 8 greedy tokens that must be equal, the
+    rebuilt base's digest equal to that of the job's trainer rebuilt from
+    the seed, TTFT and tokens/s of ``cached_generate`` on the rebuilt model;
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
@@ -153,8 +181,8 @@ Phases (any failure exits non-zero and prints no result line):
     dim 16, ``attention_impl="xla"``); the kernels are held on the
     full-width phases;
 14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
-    ``qlora``, ``moe``, ``hf_io``, ``fidelity`` and ``train`` lines, the
-    card line, and last ``{"ok": true, "device": {...}}``.
+    ``qlora``, ``moe``, ``llava``, ``hf_io``, ``fidelity`` and ``train``
+    lines, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -431,6 +459,58 @@ def executed_pairs(seg, tile_q: int, tile_k: int, skips_segments: bool):
     return pairs, float(live.sum() / causal.sum())
 
 
+#: operations per (query, key) pair of one head, over the head dim: the
+#: forward's two products, dQ's three, dK/dV's four (2 operations each)
+FLASH_OPS_PER_PAIR = {"flash_forward": 4, "flash_backward_dq": 6, "flash_backward_dkv": 8}
+
+
+def flash_variants(q, k, v, dout, lse, delta, seg, library, lib_out, lib_dout) -> dict:
+    """{kernel: (kernel call, plain call, library call)} on one set of
+    inputs: ``library`` is the yardstick's forward call, and its backward
+    (``lib_out`` under ``lib_dout``, dq, dk and dv at once) stands beside
+    both backward kernels."""
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+
+    backward = lambda i: lib_out.backward(lib_dout, retain_graph=True)  # noqa: E731
+    return {
+        "flash_forward": (
+            lambda i: fa.flash_forward(q, k, v, seg, None, True),
+            lambda i: fa.flash_forward_reference(q, k, v, seg, None, True), library),
+        "flash_backward_dq": (
+            lambda i: fa.flash_backward_dq(q, k, v, dout, lse, delta, seg, None, True),
+            lambda i: fa._backward_plain(q, k, v, dout, lse, delta, seg, None, True), backward),
+        "flash_backward_dkv": (
+            lambda i: fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None, True),
+            lambda i: fa._backward_plain(q, k, v, dout, lse, delta, seg, None, True), backward),
+    }
+
+
+def assert_flash_deterministic(q, k, v, dout, lse, delta, seg, tag: str) -> None:
+    """The Hopper kernels are deterministic: a second launch gives the same
+    bits."""
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+
+    first, second = ((*fa.flash_forward(q, k, v, seg, None, True),
+                      fa.flash_backward_dq(q, k, v, dout, lse, delta, seg, None, True),
+                      *fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None, True))
+                     for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        raise AssertionError(f"{tag}flash forward / dQ / dK/dV: two launches differ")
+
+
+def flash_bytes(q, k, seg) -> dict:
+    """Bytes each flash kernel must move: each input read once, each output
+    written once (q, k, v, dO, out, dq, dk, dv, segment ids, lse, delta)."""
+    b, s, h, _ = q.shape
+    item = q.element_size()
+    io = (q.numel() * item, k.numel() * item, 0 if seg is None else seg.numel() * 4,
+          b * h * s * 4)
+    return {"flash_forward": 2 * io[0] + 2 * io[1] + io[2] + io[3],
+            "flash_backward_dq": 3 * io[0] + 2 * io[1] + io[2] + 2 * io[3],
+            "flash_backward_dkv": 2 * io[0] + 4 * io[1] + io[2] + 2 * io[3]}
+
+
 def flash_bench(seg, reps: int, seed: int) -> dict:
     """The flash kernels at the main path's shapes (B=2, S=2048, H=32,
     Hkv=8, D=128, bf16, the packed batch's segment ids ``seg``): kernel,
@@ -461,43 +541,18 @@ def flash_bench(seg, reps: int, seed: int) -> dict:
     lib_err = (lib_out.transpose(1, 2).float() - out.float()).abs().max().item()
     if lib_err > 0.1:
         raise AssertionError(f"library yardstick disagrees with plain by {lib_err}")
-    do_l = dout.transpose(1, 2)
-
-    variants = {
-        "flash_forward": (
-            lambda i: fa.flash_forward(q, k, v, seg, None, True),
-            lambda i: fa.flash_forward_reference(q, k, v, seg, None, True),
-            lambda i: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)),
-        "flash_backward_dq": (
-            lambda i: fa.flash_backward_dq(q, k, v, dout, lse, delta, seg, None, True),
-            lambda i: fa._backward_plain(q, k, v, dout, lse, delta, seg, None, True),
-            lambda i: lib_out.backward(do_l, retain_graph=True)),
-        "flash_backward_dkv": (
-            lambda i: fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None, True),
-            lambda i: fa._backward_plain(q, k, v, dout, lse, delta, seg, None, True),
-            lambda i: lib_out.backward(do_l, retain_graph=True)),
-    }
-    # the Hopper kernels are deterministic: a second launch gives the same bits
-    first, second = ((*fa.flash_forward(q, k, v, seg, None, True),
-                      fa.flash_backward_dq(q, k, v, dout, lse, delta, seg, None, True),
-                      *fa.flash_backward_dkv(q, k, v, dout, lse, delta, seg, None, True))
-                     for _ in range(2))
-    if not all(torch.equal(x, y) for x, y in zip(first, second)):
-        raise AssertionError("flash forward / dQ / dK/dV: two launches differ")
+    variants = flash_variants(
+        q, k, v, dout, lse, delta, seg,
+        lambda i: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
+        lib_out, dout.transpose(1, 2))
+    assert_flash_deterministic(q, k, v, dout, lse, delta, seg, "")
 
     # the work this data needs: the live (query, key) pairs, causal and
     # within one document
     pairs = sum(float((c * (c + 1) / 2).sum()) for c in
                 (torch.bincount(row).double() for row in seg.long()))
-    item = q.element_size()
-    io = q.numel() * item, k.numel() * item, seg.numel() * 4, b * h * s * 4
-    nbytes = {  # each input read once, each output written once
-        "flash_forward": 2 * io[0] + 2 * io[1] + io[2] + io[3],
-        "flash_backward_dq": 3 * io[0] + 2 * io[1] + io[2] + 2 * io[3],
-        "flash_backward_dkv": 2 * io[0] + 4 * io[1] + io[2] + 2 * io[3],
-    }
-    per_pair = {"flash_forward": 4 * h * d, "flash_backward_dq": 6 * h * d,
-                "flash_backward_dkv": 8 * h * d}
+    nbytes = flash_bytes(q, k, seg)
+    per_pair = {name: ops * h * d for name, ops in FLASH_OPS_PER_PAIR.items()}
     # what skipping saves: the Hopper kernels on the same inputs with no
     # segment ids, so every causal tile pair runs
     out_c, lse_c = fa.flash_forward_reference(q, k, v, None, None, True)
@@ -1711,11 +1766,13 @@ CONTROL_PROMPTS = (20, 130, 377, 500)
 CONTROL_NEW_TOKENS = 32
 #: the control plane's settings (``FTC_*``): the monitor in process at a
 #: short interval, the paged KV cache on so ``/generate`` reaches the paged
-#: kernel; auth on with a dev token; no retries, so a failed job fails the run
+#: kernel; auth on with a dev token; no retries, so a failed job fails the run;
+#: C, Q and V2 promote three jobs within a minute (the default allows two)
 CONTROL_ENV = {
     "FTC_ENVIRONMENT": "local", "FTC_BACKEND": "local", "FTC_MONITOR_IN_PROCESS": "true",
     "FTC_JOB_MONITOR_INTERVAL_S": "0.5", "FTC_ARTIFACT_SYNC_INTERVAL_S": "5",
     "FTC_SERVE_PAGED_KV": "true", "FTC_AUTH_ENABLED": "true", "FTC_RETRY_MAX_ATTEMPTS": "0",
+    "FTC_RATE_LIMIT_PROMOTE_PER_MIN": "10",
 }
 #: how long the job may take from submit to SUCCEEDED
 CONTROL_JOB_TIMEOUT_S = 900
@@ -1829,9 +1886,8 @@ def _timeline(api, job_id: str, want: tuple[str, ...], tag: str) -> tuple[list, 
     return timeline, at
 
 
-def _promote_and_load(api, job_id: str, tag: str) -> tuple[float, float, dict]:
-    """``POST /promote`` until COMPLETED, then ``POST /admin/serve/{id}/load``:
-    (promote s, load s, the served model's meta)."""
+def _promote(api, job_id: str, tag: str) -> float:
+    """``POST /promote`` until COMPLETED: the seconds it took."""
     t0 = time.time()
     api.ok("POST", f"/jobs/{job_id}/promote", want=(202,))
     job = {}
@@ -1840,9 +1896,15 @@ def _promote_and_load(api, job_id: str, tag: str) -> tuple[float, float, dict]:
         if job["promotion_status"] in ("completed", "failed"):
             break
         time.sleep(0.2)
-    promote_s = time.time() - t0
     if job.get("promotion_status") != "completed":
         raise SmokeFailure(f"{tag}: promotion ended {job.get('promotion_status')}")
+    return time.time() - t0
+
+
+def _promote_and_load(api, job_id: str, tag: str) -> tuple[float, float, dict]:
+    """:func:`_promote`, then ``POST /admin/serve/{id}/load``: (promote s,
+    load s, the served model's meta)."""
+    promote_s = _promote(api, job_id, tag)
     t0 = time.time()
     meta = api.ok("POST", f"/admin/serve/{job_id}/load")["model"]
     return promote_s, time.time() - t0, meta
@@ -1925,8 +1987,8 @@ def _generate_against_engine(ctx, job_id: str, vocab: int, prompt_lens, new_toke
             "base_bytes": base_bytes}
 
 
-def control_phase(work, seed: int) -> tuple[dict, dict]:
-    """C and Q: the control plane on the card.  The port's server runs in
+def control_phase(work, seed: int) -> tuple[dict, dict, dict]:
+    """C, Q and V2: the control plane on the card.  The port's server runs in
     this process on an ephemeral port, on its own event-loop thread, with a
     fresh state dir and object store under ``build/chip_smoke_ctrl``.  A dev
     token's user uploads T2's seeded documents (``POST /datasets``).
@@ -1946,8 +2008,9 @@ def control_phase(work, seed: int) -> tuple[dict, dict]:
     job's seed) on the same server and dataset, with no profiler window,
     and follows it the same way; its promoted checkpoint must load
     unmerged (``lora_merged: false``) and serve 4 ``/generate`` requests
-    equal to the in-process engine on the int4 base.  Returns C's and Q's
-    records."""
+    equal to the in-process engine on the int4 base.  V2 then runs
+    ``LLAVA_MODEL`` on the same server (:func:`_llava_job`).  Returns C's,
+    Q's and V2's records."""
     import threading
 
     import torch
@@ -1998,6 +2061,11 @@ def control_phase(work, seed: int) -> tuple[dict, dict]:
         t_q = time.perf_counter()
         qlora = _qlora_job(ctx, dataset["dataset_id"], seed)
         qlora["phase_s"] = time.perf_counter() - t_q
+        qlora["control_dir_bytes"] = tree_bytes(ctrl)
+        DISK.mark("Q")
+        t_v = time.perf_counter()
+        llava = _llava_job(ctx, seed)
+        llava["phase_s"] = time.perf_counter() - t_v
     finally:
         on_loop(runner.cleanup(), 300)
         loop.call_soon_threadsafe(loop.stop)
@@ -2011,8 +2079,8 @@ def control_phase(work, seed: int) -> tuple[dict, dict]:
         ctl_config.set_settings(None)
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
-    qlora["control_dir_bytes"] = tree_bytes(ctrl)
-    return record, qlora
+    llava["control_dir_bytes"] = tree_bytes(ctrl)
+    return record, qlora, llava
 
 
 def _control_job(ctx, dataset_id: str, seed: int) -> dict:
@@ -2575,6 +2643,475 @@ def moe_phase(work, seed: int) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# V: LLaVA-1.5 (the vision tower, the projector and the image-prefix decoder)
+# ---------------------------------------------------------------------------
+
+#: V0: the LLaVA-1.5 decoder's attention at V2's microbatch: 2 rows of
+#: [image; text] = 576 + 1472 positions, 32 query and 32 key/value heads
+#: (no grouping), head dim 128, causal, no segment ids
+LLAVA_FLASH_SHAPE = (2, 2048, 32, 32, 128)
+#: V1: the preset of the HF LLaVA directory and its decoder layers (the
+#: tower is whole): one layer, since the run's disk writes (45.0 GB after
+#: V2, deleted files not counted) leave about 3 GB under the 45 GiB cap
+LLAVA_HF_PRESET = "llava-1.5-7b"
+LLAVA_HF_LAYERS = 1
+#: V2: ``llava-1.5-7b`` through C's server.  ``seq_len`` 1472 of text and
+#: the 576 patches of the image prefix make 2048 decoder positions,
+#: LLaVA-1.5's ``model_max_length``; ``profile_steps`` 2 traces steps 3-4
+LLAVA_MODEL = "llava-1.5-lora"
+LLAVA_ARGS = {"lora_rank": 16, "batch_size": 4, "seq_len": 1472, "grad_accum_steps": 2,
+              "total_steps": 6, "checkpoint_every": 6, "log_every": 1, "profile_steps": 2,
+              "warmup_steps": 2, "learning_rate": 2e-4}
+#: V2: image-bearing rows uploaded with ``POST /datasets``, and their
+#: images' side (CLIP ViT-L/14-336's input: no resize)
+LLAVA_ROWS = 32
+LLAVA_IMAGE = 336
+#: V3: greedy tokens generated from V2's artifacts, and the prompt length
+LLAVA_NEW_TOKENS = 8
+LLAVA_PROMPT = 32
+#: what ``POST /jobs/{id}/generate`` answers for a multimodal job: the
+#: reference loader's refusal (its ``serve/loader.py:175-176``), status 409
+MM_SERVE_REFUSAL = (409, "serving multimodal checkpoints is not supported yet")
+
+
+def flash_llava_bench(reps: int, seed: int) -> dict:
+    """V0: the three flash kernels at ``LLAVA_FLASH_SHAPE`` (bf16, causal, no
+    segment ids) against their plain versions, each launched twice for the
+    same bits, and timed beside the plain version, SDPA (``is_causal``) as
+    the library yardstick and the bound (every causal pair, each input read
+    once and each output written once)."""
+    import torch
+    import torch.nn.functional as F
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.ops.kernels.timing import cuda_time_ms
+
+    b, s, h, hkv, d = LLAVA_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dout, _, _ = flash_inputs(gen, b, s, h, hkv, d, torch.bfloat16, segments=False)
+    errs = flash_compare(q, k, v, dout, None, None, None, True)
+    out, lse = fa.flash_forward_reference(q, k, v, None, None, True)
+    delta = fa.flash_delta(out, dout)
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_err = (lib_out.transpose(1, 2).float() - out.float()).abs().max().item()
+    if lib_err > 0.1:
+        raise AssertionError(f"V0: the library yardstick disagrees with plain by {lib_err}")
+    variants = flash_variants(
+        q, k, v, dout, lse, delta, None,
+        lambda i: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+        lib_out, dout.transpose(1, 2))
+    assert_flash_deterministic(q, k, v, dout, lse, delta, None, "V0: ")
+    pairs = b * s * (s + 1) / 2  # every causal (query, key) pair of each row
+    nbytes = flash_bytes(q, k, None)
+    rows = {}
+    for name, (kern, plain, lib) in variants.items():
+        ms = cuda_time_ms(kern, reps)
+        flops = FLASH_OPS_PER_PAIR[name] * h * d * pairs
+        bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOPS * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        rows[name] = dict(
+            ms=ms, plain_ms=cuda_time_ms(plain, max(2, reps // 4)),
+            library_ms=cuda_time_ms(lib, reps), max_abs_err=errs[name], bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+            tflops=flops / (ms * 1e-3) / 1e12, bound_share=bound_ms / ms)
+    return rows
+
+
+def llava_hf_tensors(cfg) -> list[tuple[str, tuple, str | None, str]]:
+    """The tensors of an HF LLaVA checkpoint for ``cfg`` in the layout of
+    ``llava-hf/llava-1.5-7b-hf`` (``LlavaForConditionalGeneration``: the
+    decoder under ``language_model.``, the whole CLIP tower under
+    ``vision_tower.vision_model.``, the projector under
+    ``multi_modal_projector.``): ``(name, shape, port key or None, how the
+    port stores it)``, ``"T"`` transposed, ``"view"`` reshaped, ``""`` as
+    it is; ``None`` for the tower layers and post norm that
+    ``feature_layer=-2`` never runs."""
+    t, vc = cfg.text, cfg.vision
+    d, f, hd = t.d_model, t.d_ff, t.head_dim
+    out = [("language_model.model.embed_tokens.weight", (t.vocab_size, d),
+            "embed_tokens.embedding", "")]
+    for i in range(t.n_layers):
+        hf, port = f"language_model.model.layers.{i}.", f"layers.{i}."
+        for p, shape in (("q_proj", (t.n_heads * hd, d)), ("k_proj", (t.n_kv_heads * hd, d)),
+                         ("v_proj", (t.n_kv_heads * hd, d)), ("o_proj", (d, t.n_heads * hd))):
+            out.append((f"{hf}self_attn.{p}.weight", shape, f"{port}attn.{p}.kernel", "T"))
+        for p, shape in (("gate_proj", (f, d)), ("up_proj", (f, d)), ("down_proj", (d, f))):
+            out.append((f"{hf}mlp.{p}.weight", shape, f"{port}mlp.{p}.kernel", "T"))
+        out += [(f"{hf}input_layernorm.weight", (d,), f"{port}attn_norm.scale", ""),
+                (f"{hf}post_attention_layernorm.weight", (d,), f"{port}mlp_norm.scale", "")]
+    out += [("language_model.model.norm.weight", (d,), "final_norm.scale", ""),
+            ("language_model.lm_head.weight", (t.vocab_size, d), "lm_head.kernel", "T")]
+    v, vt, p = "vision_tower.vision_model.", "vision_tower.", vc.patch_size
+    dv = vc.d_model
+    out += [(f"{v}embeddings.class_embedding", (dv,), f"{vt}cls", "view"),
+            (f"{v}embeddings.patch_embedding.weight", (dv, 3, p, p), f"{vt}patch_embed.kernel",
+             ""),
+            (f"{v}embeddings.position_embedding.weight", (vc.n_patches + 1, dv),
+             f"{vt}pos_embed", "view"),
+            (f"{v}pre_layrnorm.weight", (dv,), f"{vt}pre_norm.scale", ""),
+            (f"{v}pre_layrnorm.bias", (dv,), f"{vt}pre_norm.bias", "")]
+    for i in range(vc.n_layers):
+        hf = f"{v}encoder.layers.{i}."
+        port = f"{vt}blocks.{i}." if i < vc.n_run else None
+        key = (lambda leaf: port + leaf) if port else (lambda leaf: None)
+        for nm, leaf in (("k_proj", "key"), ("v_proj", "value"), ("q_proj", "query"),
+                         ("out_proj", "out")):
+            out += [(f"{hf}self_attn.{nm}.weight", (dv, dv), key(f"attn.{leaf}.kernel"), "T"),
+                    (f"{hf}self_attn.{nm}.bias", (dv,), key(f"attn.{leaf}.bias"), "")]
+        for ln in ("1", "2"):
+            out += [(f"{hf}layer_norm{ln}.weight", (dv,), key(f"ln{ln}.scale"), ""),
+                    (f"{hf}layer_norm{ln}.bias", (dv,), key(f"ln{ln}.bias"), "")]
+        out += [(f"{hf}mlp.fc1.weight", (vc.d_ff, dv), key("fc1.kernel"), "T"),
+                (f"{hf}mlp.fc1.bias", (vc.d_ff,), key("fc1.bias"), ""),
+                (f"{hf}mlp.fc2.weight", (dv, vc.d_ff), key("fc2.kernel"), "T"),
+                (f"{hf}mlp.fc2.bias", (dv,), key("fc2.bias"), "")]
+    out += [(f"{v}post_layernorm.weight", (dv,), None, ""),
+            (f"{v}post_layernorm.bias", (dv,), None, ""),
+            ("multi_modal_projector.linear_1.weight", (cfg.projector_hidden, dv),
+             "projector_fc1.kernel", "T"),
+            ("multi_modal_projector.linear_1.bias", (cfg.projector_hidden,),
+             "projector_fc1.bias", ""),
+            ("multi_modal_projector.linear_2.weight", (d, cfg.projector_hidden),
+             "projector_fc2.kernel", "T"),
+            ("multi_modal_projector.linear_2.bias", (d,), "projector_fc2.bias", "")]
+    return out
+
+
+def llava_hf_phase(work, seed: int) -> dict:
+    """V1: an HF LLaVA directory in the layout of ``llava-hf/llava-1.5-7b-hf``
+    (f16, as that repository ships it; ``model-00001-of-00001.safetensors``,
+    the index and ``config.json``) with the CLIP tower whole (24 layers and
+    the post norm) and ``LLAVA_HF_LAYERS`` decoder layers, every tensor drawn
+    on the card from ``seed``.  Read back onto the card through
+    ``load_llava_params`` and held against the written tensors, bit for
+    bit; the tower's last layer and post norm must be skipped."""
+    import torch
+    from finetune_controller_tpu_torch.models.hf_import import load_llava_params
+    from finetune_controller_tpu_torch.models.multimodal import MM_PRESETS
+    from finetune_controller_tpu_torch.models.safetensors_io import INDEX_FILENAME, StreamWriter
+
+    cfg = MM_PRESETS[LLAVA_HF_PRESET].replace(n_layers=LLAVA_HF_LAYERS)
+    out = Path(work) / "llava_hf"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    spec = llava_hf_tensors(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    written = {name: (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.float16)
+               for name, shape, _, _ in spec}
+    shard = "model-00001-of-00001.safetensors"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StreamWriter(out / shard, [(n, torch.float16, s) for n, s, _, _ in spec],
+                      {"format": "pt"}) as writer:
+        for name, _, _, _ in spec:
+            writer.write(name, written[name].to("cpu"))
+    (out / INDEX_FILENAME).write_text(json.dumps({
+        "metadata": {"total_size": writer.nbytes}, "weight_map": {n: shard for n, *_ in spec}}))
+    t, vc = cfg.text, cfg.vision
+    (out / "config.json").write_text(json.dumps({
+        "architectures": ["LlavaForConditionalGeneration"], "model_type": "llava",
+        "ignore_index": -100, "image_token_index": 32000, "projector_hidden_act": "gelu",
+        "vision_feature_layer": vc.feature_layer, "vision_feature_select_strategy": "default",
+        "torch_dtype": "float16",
+        "text_config": {"model_type": "llama", "vocab_size": t.vocab_size,
+                        "hidden_size": t.d_model, "intermediate_size": t.d_ff,
+                        "num_hidden_layers": t.n_layers, "num_attention_heads": t.n_heads,
+                        "num_key_value_heads": t.n_kv_heads,
+                        "max_position_embeddings": t.max_seq_len, "rms_norm_eps": t.rms_eps},
+        "vision_config": {"model_type": "clip_vision_model", "hidden_size": vc.d_model,
+                          "intermediate_size": vc.d_ff, "num_hidden_layers": vc.n_layers,
+                          "num_attention_heads": vc.n_heads, "image_size": vc.image_size,
+                          "patch_size": vc.patch_size, "hidden_act": "quick_gelu",
+                          "projection_dim": 768}}, indent=2))
+    write_s = time.perf_counter() - t0
+    nbytes = (out / shard).stat().st_size
+    t0 = time.perf_counter()
+    loaded = load_llava_params(out, cfg, dtype=torch.float16, device=DEVICE)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want = {}
+    for name, _, key, how in spec:
+        if key is not None:
+            x = written[name]
+            want[key] = x.T if how == "T" else x.reshape(loaded[key].shape) if how == "view" else x
+    diff = sorted(set(want) ^ set(loaded)) + [k for k in want if k in loaded and not (
+        loaded[k].dtype == want[k].dtype and torch.equal(loaded[k], want[k]))]
+    if diff:
+        raise SmokeFailure(f"V1: {len(diff)} tensors read back differ from the written ones, "
+                           f"first {diff[:3]}")
+    skipped = sum(1 for _, _, key, _ in spec if key is None)
+    del written, loaded, want
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    summary = {"decoder_layers": t.n_layers, "of_layers": MM_PRESETS[LLAVA_HF_PRESET].text.n_layers,
+               "tower_layers": vc.n_layers, "tensors": len(spec), "skipped": skipped,
+               "bytes": nbytes, "write_s": write_s, "write_gb_per_s": nbytes / write_s / 1e9,
+               "read_s": read_s, "read_gb_per_s": nbytes / read_s / 1e9}
+    log(f"V1: wrote an HF LLaVA directory (CLIP tower of {vc.n_layers} layers and post norm, "
+        f"{t.n_layers} of {summary['of_layers']} decoder layers, f16, {nbytes / 1e9:.2f} GB) in {write_s:.1f} s "
+        f"({summary['write_gb_per_s']:.2f} GB/s); load_llava_params read it onto the card in "
+        f"{read_s:.1f} s ({summary['read_gb_per_s']:.2f} GB/s), every tensor bit-equal to the "
+        f"writer's, the {skipped} tensors of the unused tower layer and post norm skipped")
+    return summary
+
+
+def write_mm_documents(path, seed: int, n: int, size: int) -> None:
+    """``n`` image-bearing SFT rows: a seeded ``size``x``size``x3 uint8 image
+    as an NPY ``data:`` URI (decoded and resized without PIL), a short prompt
+    and a completion of 1400-1800 random-text bytes (the byte tokenizer's
+    tokens; rows past ``seq_len`` truncate)."""
+    import base64
+    import io
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+    with open(path, "w") as f:
+        for i in range(n):
+            buf = io.BytesIO()
+            np.save(buf, rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+            chars = letters[rng.integers(0, 26, int(rng.integers(1400, 1801)))]
+            chars[rng.random(len(chars)) < 0.17] = ord(" ")
+            f.write(json.dumps({
+                "image": "data:application/octet-stream;base64,"
+                         + base64.b64encode(buf.getvalue()).decode(),
+                "prompt": f"Describe picture {i}: ", "completion": chars.tobytes().decode(),
+            }) + "\n")
+
+
+def range_device_share(events: list, name: str) -> float | None:
+    """The share of a profile's kernel time that runs inside the device
+    spans (``gpu_user_annotation``) of the ``record_function`` range
+    ``name``; ``None`` when the trace has no device spans of it."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "gpu_user_annotation" and e.get("name") == name)
+    kernels = [(e["ts"], e["dur"]) for e in events if e.get("cat") == "kernel"]
+    total = sum(dur for _, dur in kernels)
+    if not spans or not total:
+        return None
+    inside = sum(dur for ts, dur in kernels
+                 if any(a <= ts and ts + dur <= b for a, b in spans))
+    return inside / total
+
+
+def _llava_job(ctx, seed: int) -> dict:
+    """V2: ``LLAVA_MODEL`` on C's server: ``LLAVA_ROWS`` image rows
+    uploaded with ``POST /datasets``, the job through SUCCEEDED, its
+    profile, exports and promotion, and ``/generate`` refused."""
+    import importlib.util
+
+    from finetune_controller_tpu_torch.models.safetensors_io import SafetensorsFile
+    from finetune_controller_tpu_torch.train import cli
+
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    pil = importlib.util.find_spec("PIL") is not None
+    docs = ctrl / "llava.jsonl"
+    write_mm_documents(docs, seed, LLAVA_ROWS, LLAVA_IMAGE)
+    dataset = api.ok("POST", "/datasets", files={"file": ("llava.jsonl", docs.read_bytes())},
+                     want=(201,))
+    t_submit = time.time()
+    with CardMemorySampler() as memory:
+        job_id = api.ok("POST", "/jobs", fields={
+            "model_name": LLAVA_MODEL, "device": CONTROL_FLAVOR,
+            "dataset_id": dataset["dataset_id"], "arguments": json.dumps(LLAVA_ARGS)})["job_id"]
+        job, seen, logs = _follow_job(api, job_id, t_submit, "V2")
+    order = [st for st in ("queued", "running", "succeeded") if st in seen]
+    if order != ["queued", "running", "succeeded"]:
+        raise SmokeFailure(f"V2: statuses seen {order}")
+    records = _job_rows(api, job_id, LLAVA_ARGS["total_steps"], "V2")
+    _, at = _timeline(api, job_id, ("submitted", "running", "train-started",
+                                    "checkpoint-committed", "profile-captured",
+                                    "train-finished", "succeeded"), "V2")
+    art = settings.state_path / "sandboxes" / job_id / "artifacts"
+    cfg = cli.build_model_config(json.loads((art / "resolved_config.json").read_text()))
+    adapter = SafetensorsFile(art / "adapter" / "adapter_model.safetensors")
+    projector = SafetensorsFile(art / "adapter" / "projector.safetensors")
+    bad = [k for k in adapter.keys()
+           if not k.startswith("base_model.model.language_model.model.layers.")]
+    shapes = {k: tuple(projector.shape(k)) for k in projector.keys()}
+    hidden, d = cfg.projector_hidden, cfg.text.d_model
+    want = {"multi_modal_projector.linear_1.weight": (hidden, cfg.vision.d_model),
+            "multi_modal_projector.linear_1.bias": (hidden,),
+            "multi_modal_projector.linear_2.weight": (d, hidden),
+            "multi_modal_projector.linear_2.bias": (d,)}
+    if bad or len(adapter.keys()) != cfg.text.n_layers * 7 * 2 or shapes != want:
+        raise SmokeFailure(f"V2: adapter keys off the language_model prefix {bad[:3]} "
+                           f"({len(adapter.keys())} tensors), projector {shapes}")
+    profiles = sorted((art / "profile").glob("steps_*.pt.trace.json"))
+    if not profiles:
+        raise SmokeFailure(f"V2: the job wrote no profile/ trace under {art}")
+    events = json.loads(profiles[0].read_text()).get("traceEvents", [])
+    kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    launches = {name: sum(sym in k for k in kernel_names)
+                for name, sym in FLASH_KERNEL_SYMBOLS.items()}
+    ranges = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    missing = [n for n in FLASH_KERNELS if launches[n] <= 0] + [
+        r for r in ("vision_tower", "mm_projector") if r not in ranges]
+    if DEVICE == "cuda" and missing:
+        raise SmokeFailure(f"V2: the job's profile lacks {missing} "
+                           f"({len(kernel_names)} kernel events)")
+    shares = {r: range_device_share(events, r) for r in ("vision_tower", "mm_projector")}
+    m = re.fullmatch(r"steps_(\d+)-(\d+)\.pt\.trace\.json", profiles[0].name)
+    profiled = list(range(int(m.group(1)) + 1, int(m.group(2)) + 1))
+    text_tokens = LLAVA_ARGS["batch_size"] * LLAVA_ARGS["seq_len"]
+    step_ms = [text_tokens / r["tokens_per_sec"] * 1e3 for r in records]
+    steady = sorted(ms for r, ms in zip(records, step_ms)
+                    if r["step"] > 1 and r["step"] not in profiled)
+    median = steady[len(steady) // 2]
+    promote_s = _promote(api, job_id, "V2")
+    status, answer = api.call("POST", f"/jobs/{job_id}/generate",
+                              {"tokens": [1, 2, 3], "max_new_tokens": 2})
+    if (status, answer) != (MM_SERVE_REFUSAL[0], {"detail": MM_SERVE_REFUSAL[1]}):
+        raise SmokeFailure(f"V2: /generate answered {status} {answer}, not the reference's "
+                           f"multimodal refusal")
+    decoder_tokens = LLAVA_ARGS["batch_size"] * (LLAVA_ARGS["seq_len"] + cfg.vision.n_patches)
+    record = {
+        "job_id": job_id, "model": LLAVA_MODEL, "device": CONTROL_FLAVOR, "statuses": order,
+        "pil_on_card": pil, "rows": LLAVA_ROWS, "dataset_bytes": docs.stat().st_size,
+        "losses": [r["loss"] for r in records],
+        "submit_to_running_s": seen["running"] - t_submit,
+        "submit_to_first_step_s": records[0]["timestamp"] - at["submitted"],
+        "ms_per_step": step_ms, "profiled_steps": profiled, "ms_per_step_median": median,
+        "text_tokens_per_s_median": text_tokens / (median / 1e3),
+        "decoder_tokens_per_s_median": decoder_tokens / (median / 1e3),
+        "job_peak_memory_gb": memory.peak_gb, "flash_launches_in_profile": launches,
+        "device_share": shares, "promote_s": promote_s,
+        "generate_answer": [status, answer["detail"]],
+        "artifacts": str(art), "log_lines": len(logs),
+        "job_sandbox_bytes": tree_bytes(settings.state_path / "sandboxes" / job_id),
+    }
+    share = {r: "not measured" if x is None else f"{x:.4f}" for r, x in shares.items()}
+    log(f"V2: {LLAVA_MODEL} on {CONTROL_FLAVOR} through the port's server ({LLAVA_ROWS} rows of "
+        f"{LLAVA_IMAGE}x{LLAVA_IMAGE} NPY images, {docs.stat().st_size / 1e6:.1f} MB; PIL on the card: {pil}): "
+        f"{' -> '.join(order)}; submit -> first step {record['submit_to_first_step_s']:.1f} s; "
+        f"steps {[round(x) for x in step_ms]} ms (steps {profiled} profiled), {median:.0f} ms/step "
+        f"median, {record['text_tokens_per_s_median']:.0f} text tokens/s "
+        f"({record['decoder_tokens_per_s_median']:.0f} decoder positions/s); losses "
+        f"{[round(x, 4) for x in record['losses']]}; the job's peak card memory (nvidia-smi, "
+        f"above the value at submit) "
+        f"{memory.peak_gb if memory.peak_gb is None else round(memory.peak_gb, 2)} GB; device "
+        f"time share: vision_tower {share['vision_tower']}, mm_projector {share['mm_projector']}; "
+        f"flash launches in the profile {launches}; promote {promote_s:.2f} s; /generate "
+        f"answered {status} {answer['detail']!r}")
+    return record
+
+
+def base_digest(model, trained) -> dict:
+    """{name: the sum of the bf16 bit patterns} of every parameter of
+    ``model`` not in ``trained`` (the frozen base), each rounded to bf16
+    first: the same seed's draw gives the same digest in f32 and in bf16."""
+    import torch
+
+    return {name: int(p.detach().to(torch.bfloat16).view(torch.int16).sum(dtype=torch.int64))
+            for name, p in model.named_parameters() if name not in trained}
+
+
+def llava_generate_phase(art, seed: int) -> dict:
+    """V3: ``generate_cli --image`` on V2's artifacts, cached and
+    ``--oracle``, ``LLAVA_NEW_TOKENS`` greedy tokens each: equal tokens.  The
+    model the CLI rebuilds (``load_trained_model``, through the trainer)
+    is kept from the cached run: its base digest must equal that of the
+    job's own trainer rebuilt from the spec (f32, drawn from the seed), and
+    ``cached_generate`` on it is timed (TTFT: the fill and the first token;
+    tokens/s: the decode steps after it)."""
+    import contextlib
+    import io
+
+    import torch
+    from finetune_controller_tpu_torch.data.images import preprocess_image
+    from finetune_controller_tpu_torch.models import generate_cli
+    from finetune_controller_tpu_torch.models.generate import cached_generate
+    from finetune_controller_tpu_torch.serve import loader
+    from finetune_controller_tpu_torch.train import cli
+    from finetune_controller_tpu_torch.train.trainer import Trainer
+
+    art = Path(art)
+    rng = np.random.default_rng(seed + 9)
+    image = art.parent / "v3_image.npy"
+    np.save(image, rng.integers(0, 256, (400, 300, 3), dtype=np.uint8))
+    prompt = rng.integers(0, 256, LLAVA_PROMPT).tolist()
+    argv = ["--artifacts", str(art), "--prompt-tokens", ",".join(map(str, prompt)),
+            "--image", str(image), "--max-new-tokens", str(LLAVA_NEW_TOKENS)] + DEVICE_ARGS
+    built = []
+    real = loader.load_trained_model
+
+    def keep(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    outs, wall = [], []
+    for extra in ([], ["--oracle"]):
+        buf = io.StringIO()
+        loader.load_trained_model = keep
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = generate_cli.main(argv + extra)
+        finally:
+            loader.load_trained_model = real
+        wall.append(time.perf_counter() - t0)
+        if rc != 0:
+            raise SmokeFailure(f"V3: generate_cli {' '.join(extra)} exited {rc}")
+        outs.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+        if not extra:  # keep the cached run's model; drop the oracle's
+            model, meta = built[0]
+            with open(art / "resolved_config.json") as f:
+                spec = json.load(f)
+            cfg = cli.build_model_config(spec)
+            trained = {k for k, _ in model.named_parameters()
+                       if k.endswith((".lora_a", ".lora_b")) or k.startswith("projector_fc")}
+            rebuilt = base_digest(model, trained)
+            pixels = torch.from_numpy(preprocess_image(str(image), cfg.image_size))[None]
+            tokens = torch.tensor([prompt])
+            timed = {}
+            for n in (1, LLAVA_NEW_TOKENS):
+                cached_generate(model, tokens, max_new_tokens=n, pixels=pixels)  # warm
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cached_generate(model, tokens, max_new_tokens=n, pixels=pixels)
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                timed[n] = time.perf_counter() - t0
+            del model, built[:]
+            gc.collect()
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+        else:
+            built.clear()
+            gc.collect()
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    if outs[0]["new_tokens"] != outs[1]["new_tokens"] or len(outs[0]["new_tokens"]) != \
+            LLAVA_NEW_TOKENS:
+        raise SmokeFailure(f"V3: cached tokens {outs[0]['new_tokens']} vs the oracle's "
+                           f"{outs[1]['new_tokens']}")
+    trainer = Trainer(cfg, cli.build_train_config(spec), device=DEVICE)
+    drawn = base_digest(trainer.model, set(trainer.trainable))
+    del trainer
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    if drawn != rebuilt:
+        differ = sorted(k for k in drawn if drawn[k] != rebuilt.get(k))
+        raise SmokeFailure(f"V3: the rebuilt base differs from the trainer's draw on "
+                           f"{len(differ)} tensors, first {differ[:3]}")
+    ttft = timed[1]
+    rate = (LLAVA_NEW_TOKENS - 1) / (timed[LLAVA_NEW_TOKENS] - timed[1])
+    record = {"tokens": outs[0]["new_tokens"], "checkpoint_step": outs[0]["checkpoint_step"],
+              "cli_s": wall, "ttft_s": ttft, "decode_tokens_per_s": rate,
+              "prompt_tokens": LLAVA_PROMPT, "image_prefix": cfg.vision.n_patches,
+              "base_tensors_digested": len(drawn)}
+    log(f"V3: generate_cli --image on V2's artifacts (step {record['checkpoint_step']}): "
+        f"cached and --oracle give the same {LLAVA_NEW_TOKENS} greedy tokens "
+        f"{record['tokens']} ({wall[0]:.1f} s and {wall[1]:.1f} s a call, rebuild included); "
+        f"the rebuilt bf16 base equals the job trainer's f32 draw rounded to bf16 on all "
+        f"{len(drawn)} base tensors; cached_generate over {cfg.vision.n_patches} image + "
+        f"{LLAVA_PROMPT} prompt tokens: TTFT {ttft * 1e3:.1f} ms, {rate:.1f} tokens/s")
+    return record
+
+
 def packed_segments(work, seed: int):
     """Segment ids (2, 2048) int32 of the microbatch of T2's 8 steps (the
     loader seeded as the run's) that holds the most documents, so the
@@ -2645,7 +3182,8 @@ def model_check(seg, seed: int) -> dict:
 
 #: the port's ``record_function`` ranges: on the device timeline they span
 #: kernels that are counted on their own
-PROFILER_RANGES = ("int4_dequantize", "moe_route", "moe_dispatch")
+PROFILER_RANGES = ("int4_dequantize", "moe_route", "moe_dispatch", "vision_tower",
+                   "mm_projector")
 
 
 def device_time_by_kernel(prof, wall_s: float, top: int = 10) -> dict:
@@ -2759,15 +3297,30 @@ def main(argv=None) -> int:
         DISK.mark("S2")
         gc.collect()
         torch.cuda.empty_cache()
-        control, qlora = control_phase(work, args.seed)
+        control, qlora, llava = control_phase(work, args.seed)
         for path, record in (("c_generate", control), ("q_generate", qlora)):
             paged_entry["launches"] += record["paged_launches"]
             paged_entry["launches_by_path"][path] = record["paged_launches"]
-        DISK.mark("Q")
+        DISK.mark("V2")
         gc.collect()
         torch.cuda.empty_cache()
         moe = moe_phase(work, args.seed)
         DISK.mark("M")
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_llava = flash_llava_bench(max(4, args.reps // 8), args.seed)
+        for name, r in flash_llava.items():
+            log(f"V0 {name} at B=2, S=2048 (576 image + 1472 text), H=Hkv=32, D=128, causal, "
+                f"no segment ids: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, share of "
+                f"bound {r['bound_share']:.3f}), plain {r['plain_ms']:.3f} ms, library (SDPA) "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"max abs err {r['max_abs_err']:.4g}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        llava_hf = llava_hf_phase(work, args.seed)
+        DISK.mark("V1")
+        llava_generate = llava_generate_phase(llava["artifacts"], args.seed)
+        DISK.mark("V3")
         gc.collect()
         torch.cuda.empty_cache()
         seg = packed_segments(work, args.seed)
@@ -2823,7 +3376,8 @@ def main(argv=None) -> int:
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
             "c_job_profile_steps": control["flash_launches_in_profile"][name],
-            "m_in_process": moe["launches"][name]},
+            "m_in_process": moe["launches"][name],
+            "v_job_profile_steps": llava["flash_launches_in_profile"][name]},
         "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
         "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
@@ -2835,6 +3389,8 @@ def main(argv=None) -> int:
     print(json.dumps({"control": control}), flush=True)
     print(json.dumps({"qlora": {**qlora, "int4_check": int4}}), flush=True)
     print(json.dumps({"moe": moe}), flush=True)
+    print(json.dumps({"llava": {"flash_v0": flash_llava, "hf": llava_hf, "job": llava,
+                                "generate": llava_generate}}), flush=True)
     print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
     print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
@@ -2842,7 +3398,7 @@ def main(argv=None) -> int:
                               "ms_no_segments", "tflops_no_segments")}
         for k, r in flash.items()}}}), flush=True)
     log(f"files left on disk: build/chip_smoke_train {tree_bytes(work) / 1e9:.2f} GB, "
-        f"build/chip_smoke_ctrl {qlora['control_dir_bytes'] / 1e9:.2f} GB; "
+        f"build/chip_smoke_ctrl {llava['control_dir_bytes'] / 1e9:.2f} GB; "
         f"{DISK.written() / 2**30:.2f} GiB written in all")
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,13 @@ axis in the scanned layout.  bf16 leaves (the int4 scales) cross as bf16.  ``lm_
 embeddings (the head reuses ``embed_tokens.embedding``); q/k/v biases come
 along where the config has them.
 
+A multimodal config (``models/multimodal.LlavaConfig``) adds the
+``vision_tower`` and ``projector_fc1``/``projector_fc2`` subtrees beside the
+text decoder's leaves: the patch convolution's flax ``HWIO`` kernel becomes
+torch's ``OIHW``, and the attention's ``(d, H, hd)`` / ``(H, hd, d)``
+kernels and ``(H, hd)`` biases become ``(d, d)`` ``(in, out)`` kernels and
+``(d,)`` biases; flax's ``block_{i}`` is the port's ``blocks.{i}``.
+
 ``to_flax(state, cfg)`` is the inverse: the port's state dict back into a
 flax variables tree of numpy arrays, in the layout ``cfg.scan_layers``
 names, so tests can compare what the port trained with the JAX tree.
@@ -34,7 +41,7 @@ counterpart of ``serve/loader.py:merge_lora_variables``.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -96,9 +103,62 @@ def _layer_trees(collection: Mapping | None, n_layers: int) -> list[Mapping | No
     return [collection.get(f"layer_{i}") for i in range(n_layers)]
 
 
+def _vision_leaves(vcfg) -> Iterator[tuple[str, str, Callable, Callable]]:
+    """``(flax path under params, port key, flax -> port, port -> flax)`` for
+    every leaf of the tower and the projector of a ``LlavaConfig``'s
+    ``vcfg`` (the tower's config)."""
+    d, heads = vcfg.d_model, vcfg.n_heads
+    same = lambda x: x  # noqa: E731
+    vt = "vision_tower"
+    yield (f"{vt}/patch_embed/kernel", f"{vt}.patch_embed.kernel",
+           lambda x: x.permute(3, 2, 0, 1), lambda x: x.permute(2, 3, 1, 0))
+    if vcfg.patch_bias:
+        yield f"{vt}/patch_embed/bias", f"{vt}.patch_embed.bias", same, same
+    if vcfg.cls_token:
+        yield f"{vt}/cls", f"{vt}.cls", same, same
+    yield f"{vt}/pos_embed", f"{vt}.pos_embed", same, same
+    norms = (("pre_norm",) if vcfg.pre_norm else ())
+    norms += tuple(f"block_{i}/{ln}" for i in range(vcfg.n_run) for ln in ("ln1", "ln2"))
+    norms += (("final_norm",) if vcfg.feature_layer == 0 else ())
+    port = lambda path: path.replace("block_", "blocks.").replace("/", ".")  # noqa: E731
+    for norm in norms:
+        for leaf in ("scale", "bias"):
+            yield f"{vt}/{norm}/{leaf}", f"{vt}.{port(norm)}.{leaf}", same, same
+    to_dd = lambda x: x.reshape(d, d)  # noqa: E731
+    flat = lambda x: x.reshape(d)  # noqa: E731
+    for i in range(vcfg.n_run):
+        blk, pblk = f"{vt}/block_{i}", f"{vt}.blocks.{i}"
+        for nm in ("query", "key", "value"):
+            yield (f"{blk}/attn/{nm}/kernel", f"{pblk}.attn.{nm}.kernel", to_dd,
+                   lambda x: x.reshape(d, heads, d // heads))
+            yield (f"{blk}/attn/{nm}/bias", f"{pblk}.attn.{nm}.bias", flat,
+                   lambda x: x.reshape(heads, d // heads))
+        yield (f"{blk}/attn/out/kernel", f"{pblk}.attn.out.kernel", to_dd,
+               lambda x: x.reshape(heads, d // heads, d))
+        yield f"{blk}/attn/out/bias", f"{pblk}.attn.out.bias", same, same
+        for fc in ("fc1", "fc2"):
+            for leaf in ("kernel", "bias"):
+                yield f"{blk}/{fc}/{leaf}", f"{pblk}.{fc}.{leaf}", same, same
+    for fc in ("projector_fc1", "projector_fc2"):
+        for leaf in ("kernel", "bias"):
+            yield f"{fc}/{leaf}", f"{fc}.{leaf}", same, same
+
+
 def from_flax(variables: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
     """The port's state dict for the reference's ``variables`` (numpy
     leaves).  Raises ``KeyError`` naming the first missing leaf."""
+    if getattr(cfg, "vision", None) is None:
+        return _text_from_flax(variables, cfg)
+    state = _text_from_flax(variables, cfg.text)
+    for path, key, to_port, _ in _vision_leaves(cfg.vision):
+        leaf = _walk(variables["params"], path)
+        if leaf is None:
+            raise KeyError(f"flax variables lack params/{path}")
+        state[key] = to_port(_tensor(leaf)).contiguous()
+    return state
+
+
+def _text_from_flax(variables: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
     params = variables["params"]
     lora = variables.get("lora")
     state: dict[str, torch.Tensor] = {}
@@ -156,28 +216,40 @@ def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
     ``lora``) for the port's ``state`` dict, as f32-or-native numpy leaves,
     stacked under ``blocks/block`` when ``cfg.scan_layers`` else under
     ``layer_{i}``.  Entries the state lacks are left out."""
+    if getattr(cfg, "vision", None) is None:
+        return _text_to_flax(state, cfg)
+    variables = _text_to_flax(state, cfg.text)
+    for path, key, _, to_flax_leaf in _vision_leaves(cfg.vision):
+        if key in state:
+            _put(variables["params"], path, _numpy(to_flax_leaf(state[key].detach())))
+    return variables
 
-    def leaf(key):
-        t = state[key].detach().to("cpu")
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes  # jax's bf16 numpy type (a test-side conversion)
 
-            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
-        return t.numpy().copy()
+def _numpy(t: torch.Tensor):
+    """``t`` as a numpy array on the host (bf16 as jax's numpy bf16)."""
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # jax's bf16 numpy type (a test-side conversion)
 
-    def put(tree, path, value):
-        *parents, last = path.split("/")
-        for key in parents:
-            tree = tree.setdefault(key, {})
-        tree[last] = value
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
 
+
+def _put(tree, path, value):
+    *parents, last = path.split("/")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+def _text_to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
     params: dict[str, Any] = {}
     lora: dict[str, Any] = {}
     for key, path in (("embed_tokens.embedding", "embed_tokens/embedding"),
                       ("final_norm.scale", "final_norm/scale"),
                       ("lm_head.kernel", "lm_head/kernel")):
         if key in state:
-            put(params, path, leaf(key))
+            _put(params, path, _numpy(state[key]))
     per_layer: list[tuple[dict, dict]] = []
     for i in range(cfg.n_layers):
         p_layer: dict[str, Any] = {}
@@ -187,7 +259,7 @@ def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
             for name_leaf, tree in [(lf, p_layer) for lf in leaves] + [
                     ("lora_a", l_layer), ("lora_b", l_layer)]:
                 if f"{name}.{name_leaf}" in state:
-                    put(tree, f"{module}/{name_leaf}", leaf(f"{name}.{name_leaf}"))
+                    _put(tree, f"{module}/{name_leaf}", _numpy(state[f"{name}.{name_leaf}"]))
         per_layer.append((p_layer, l_layer))
 
     def stack(trees):

@@ -7,9 +7,11 @@ port's ``ftc-generate``, counterpart of the reference's
 directory through ``serve/loader.load_trained_model`` (the job's
 ``resolved_config.json``, its seeded base, int4 ones included, or
 ``model.weights_dir``, and the latest checkpoint's trained tensors,
-adapters left unmerged; an MoE job too, as the reference rebuilds it
-through its trainer), then decodes
-with ``cached_generate`` (``generate`` with ``--oracle``).  The flags and
+adapters left unmerged; an MoE or a LLaVA job too, as the reference rebuilds
+it through its trainer), then decodes
+with ``cached_generate`` (``generate`` with ``--oracle``).  A LLaVA job
+needs ``--image`` (a path, a ``data:`` URI or bare base64, preprocessed as
+its dataset's ``image_normalize`` says); a text job refuses one.  The flags and
 the output JSON (``checkpoint_step``, ``prompt_tokens``, ``new_tokens``,
 ``text``) are the reference's.  Token IO uses the data pipeline's tokenizer
 contract (``data/loader.py``): a HuggingFace ``tokenizers`` JSON file when
@@ -55,14 +57,12 @@ def main(argv: list[str] | None = None) -> int:
                    help="uncached O(n^2) forward per token — the numerics "
                         "oracle; impractically slow past ~1B params")
     p.add_argument("--image",
-                   help="image for multimodal jobs (not ported yet)")
+                   help="image for multimodal jobs (path / data URI / "
+                        "base64) — required for LLaVA-family artifacts")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA card)")
     args = p.parse_args(argv)
 
-    if args.image:
-        raise NotImplementedError(
-            "--image: multimodal generation is not ported yet (ROADMAP Queue A item 5)")
     if (args.prompt is None) == (args.prompt_tokens is None):
         raise SystemExit("pass exactly one of --prompt or --prompt-tokens")
 
@@ -75,6 +75,14 @@ def main(argv: list[str] | None = None) -> int:
     from ..train.cli import build_model_config
 
     cfg = build_model_config(spec)
+    multimodal = getattr(cfg, "vision", None) is not None
+    if multimodal and not args.image:
+        raise SystemExit(
+            "this is a multimodal job's artifacts dir — pass --image "
+            "(path / data URI / base64) for the image prefix"
+        )
+    if args.image and not multimodal:
+        raise SystemExit("--image given but the job's model is text-only")
 
     # ---- tokenize ---------------------------------------------------------
     # an explicit --tokenizer always loads; otherwise --prompt mode uses the
@@ -122,19 +130,29 @@ def main(argv: list[str] | None = None) -> int:
         model, meta = load_trained_model(args.artifacts, device=args.device)
     except ServeLoadError as e:
         raise SystemExit(str(e))
-    if len(ids) + args.max_new_tokens > cfg.max_seq_len:
+    prefix = cfg.vision.n_patches if multimodal else 0
+    if prefix + len(ids) + args.max_new_tokens > cfg.max_seq_len:
         print(
-            f"warning: prompt ({len(ids)}) + max_new_tokens ({args.max_new_tokens}) "
-            f"exceeds the model's trained max_seq_len ({cfg.max_seq_len}) — RoPE "
-            "positions past the trained range degrade quality",
+            f"warning: image prefix ({prefix}) + prompt ({len(ids)}) + "
+            f"max_new_tokens ({args.max_new_tokens}) exceeds the model's "
+            f"trained max_seq_len ({cfg.max_seq_len}) — RoPE positions past "
+            "the trained range degrade quality",
             file=sys.stderr,
         )
+    gen_kw: dict = {}
+    if multimodal:
+        from ..data.images import preprocess_image
+
+        gen_kw["pixels"] = torch.from_numpy(preprocess_image(
+            args.image, cfg.image_size,
+            normalize=spec.get("dataset", {}).get("image_normalize", "clip"),
+        ))[None]
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     gen_fn = generate if args.oracle else cached_generate
     out = gen_fn(
         model, torch.tensor([ids]), max_new_tokens=args.max_new_tokens,
         temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
-        generator=gen,
+        generator=gen, **gen_kw,
     )
     new_ids = out[0, len(ids):].tolist()
     if args.eos_id is not None and args.eos_id in new_ids:

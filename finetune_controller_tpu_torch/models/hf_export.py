@@ -18,8 +18,10 @@ Files are written through ``models/safetensors_io.StreamWriter``: the
 header is computed from the config's shapes and each tensor is produced,
 moved to the host and written one at a time, so an 8B merged export never
 holds the 32 GB f32 dict the reference builds.  Merging uses
-``models/convert.merge_kernel``, as the serving loader does.  The
-multimodal projector waits for ROADMAP Queue A item 5.
+``models/convert.merge_kernel``, as the serving loader does.  A LLaVA
+run exports its decoder's adapter under ``hf_prefix``
+``base_model.model.language_model.model.layers`` and the trained projector
+beside it (:func:`export_mm_projector`).
 """
 
 from __future__ import annotations
@@ -123,10 +125,29 @@ def export_lora_adapter(
     return out_dir
 
 
-def export_mm_projector(projector, out_dir: Path | str) -> Path:
-    """The trained LLaVA projector beside the adapter: not ported yet."""
-    raise NotImplementedError(
-        "exporting the multimodal projector is not ported yet (ROADMAP Queue A item 5)")
+#: HF's ``multi_modal_projector`` tensors -> the port's projector leaves
+_HF_PROJECTOR = (("multi_modal_projector.linear_1.weight", "projector_fc1.kernel"),
+                 ("multi_modal_projector.linear_1.bias", "projector_fc1.bias"),
+                 ("multi_modal_projector.linear_2.weight", "projector_fc2.kernel"),
+                 ("multi_modal_projector.linear_2.bias", "projector_fc2.bias"))
+
+
+def export_mm_projector(state: Mapping[str, torch.Tensor], out_dir: Path | str) -> Path:
+    """Write the trained LLaVA projector (``projector_fc{1,2}`` of
+    ``state``) beside the adapter as ``projector.safetensors``, in f32 and
+    HF's ``multi_modal_projector`` naming (weights ``(out, in)``)."""
+    out_dir = Path(out_dir).expanduser()
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def hf(name: str, key: str) -> torch.Tensor:
+        t = state[key].to(torch.float32)
+        return t.T if name.endswith(".weight") else t
+
+    specs = [(name, torch.float32, tuple(hf(name, key).shape)) for name, key in _HF_PROJECTOR]
+    path = out_dir / "projector.safetensors"
+    _write(path, specs, ((name, hf(name, key)) for name, key in _HF_PROJECTOR))
+    logger.info("wrote multimodal projector -> %s", path)
+    return path
 
 
 def _hf_layout(cfg) -> tuple[str, str]:

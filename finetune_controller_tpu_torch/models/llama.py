@@ -44,8 +44,12 @@ policies are refused.
 ``n_experts`` puts a :class:`~.moe.MoEMLP` named ``moe`` in each block in
 place of the dense MLP (``llama.py:620-641``).  The training forward can
 return the blocks' summed load-balancing term beside the logits
-(``return_moe_aux``); the serving paths drop it.  Multimodal inputs are
-not ported yet.
+(``return_moe_aux``); the serving paths drop it.
+
+The stack is open to input embeddings (:meth:`LlamaForCausalLM.
+forward_embeddings` and :meth:`~LlamaForCausalLM.forward_cached_embeddings`),
+which the multimodal subclass (``models/multimodal.py``) runs over an image
+prefix and the text.
 """
 
 from __future__ import annotations
@@ -134,6 +138,13 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.head_dim_override or self.d_model // self.n_heads
+
+    @property
+    def image_size(self) -> int:
+        """Pixels per side of the vision input: 0, a text-only model (the
+        surface a multimodal config overrides, so the data path sizes pixel
+        batches without a family check)."""
+        return 0
 
     def replace(self, **kw) -> "LlamaConfig":
         return dataclasses.replace(self, **kw)
@@ -576,8 +587,14 @@ class LlamaForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.embedding.device
 
+    @property
+    def text_cfg(self) -> LlamaConfig:
+        """The decoder's config (a multimodal subclass's ``cfg`` holds it
+        as ``text``)."""
+        return self.cfg
+
     def _embed(self, tokens):
-        cfg = self.cfg
+        cfg = self.text_cfg
         x = self.embed_tokens.embedding.to(cfg.dtype)[tokens]
         if cfg.embed_scale:
             # the scale rounds through the compute dtype before multiplying
@@ -585,7 +602,7 @@ class LlamaForCausalLM(nn.Module):
         return x
 
     def _head(self, x):
-        cfg = self.cfg
+        cfg = self.text_cfg
         x = self.final_norm(x)
         if cfg.tie_embeddings:
             logits = x @ self.embed_tokens.embedding.to(cfg.dtype).T
@@ -597,7 +614,7 @@ class LlamaForCausalLM(nn.Module):
         """Per layer, the rows' gathered tenant adapters (``None`` entries
         without ``adapter_ids``)."""
         if adapter_ids is None:
-            return [None] * self.cfg.n_layers
+            return [None] * self.text_cfg.n_layers
         stacks = tenants if tenants is not None else self.tenants
         if stacks is None:
             raise ValueError("adapter_ids given, but the model has no tenant stacks "
@@ -617,15 +634,27 @@ class LlamaForCausalLM(nn.Module):
         of the MoE layers' load-balancing terms (0 for a dense model), the
         reference's ``moe_aux_loss`` of the sown collection."""
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        remat = remat_mode(self.cfg) if torch.is_grad_enabled() else "none"
-        x = self._embed(tokens)
+        x, aux_sum = self.forward_embeddings(self._embed(tokens), positions, segment_ids,
+                                             adapter_ids, tenants)
+        logits = self._head(x)
+        return (logits, aux_sum) if return_moe_aux else logits
+
+    def forward_embeddings(self, x: torch.Tensor, positions: torch.Tensor,
+                           segment_ids: torch.Tensor | None = None,
+                           adapter_ids: torch.Tensor | None = None,
+                           tenants: TenantStacks | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The decoder layers over input embeddings ``x`` (B, S, d) at
+        ``positions`` (B, S), rematerialised per ``remat_policy`` while
+        gradients are recorded: ``(hidden, aux)``, the hidden states before
+        the final norm and the summed MoE term."""
+        remat = remat_mode(self.text_cfg) if torch.is_grad_enabled() else "none"
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, tenant in zip(self.layers, self._tenant_rows(adapter_ids, tenants)):
             x, aux = layer(x, positions, self.inv_freqs, segment_ids, remat, tenant)
             if aux is not None:
                 aux_sum = aux_sum + aux
-        logits = self._head(x)
-        return (logits, aux_sum) if return_moe_aux else logits
+        return x, aux_sum
 
     def set_dropout_seed(self, seed: int) -> None:
         """Seed every adapter's dropout for the next forward (training mode,
@@ -665,7 +694,15 @@ class LlamaForCausalLM(nn.Module):
         ``kv`` (written in place): ``fresh`` prefills from position 0,
         otherwise the chunk continues each lane's cache at ``idx`` (B,).
         Returns logits as :meth:`forward_paged` does."""
-        x = self._embed(tokens)
+        return self.forward_cached_embeddings(self._embed(tokens), positions, kv, idx,
+                                              fresh=fresh, last_idx=last_idx,
+                                              adapter_ids=adapter_ids, tenants=tenants)
+
+    @torch.no_grad()
+    def forward_cached_embeddings(self, x, positions, kv: DenseKV, idx, *, fresh: bool = False,
+                                  last_idx: int | None = None, adapter_ids=None,
+                                  tenants: TenantStacks | None = None) -> torch.Tensor:
+        """:meth:`forward_cached` over input embeddings ``x`` (B, S, d)."""
         rows = self._tenant_rows(adapter_ids, tenants)
         for layer, k_cache, v_cache, tenant in zip(self.layers, kv.k, kv.v, rows):
             x = layer.forward_cached(x, positions, self.inv_freqs, k_cache, v_cache, idx,
@@ -697,6 +734,12 @@ def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
                 .normal_(0.0, std, generator=gen))
 
 
+def _fan_in(p: torch.Tensor) -> int:
+    """Inputs per output of a kernel: ``in`` of an ``(in, out)`` matrix or
+    an ``(E, in, out)`` stack, ``in·h·w`` of an ``OIHW`` convolution."""
+    return p[0].numel() if p.ndim == 4 else p.shape[-2]
+
+
 def _draw_int4_(module: nn.Module, stem: str, gen: torch.Generator) -> None:
     """Draw ``stem``'s float kernel (or expert stack) ~ N(0, 1/fan_in) in
     f32, quantize it into its ``_packed``/``_scales`` buffers, free it."""
@@ -714,9 +757,12 @@ def _draw_int4_(module: nn.Module, stem: str, gen: torch.Generator) -> None:
 @torch.no_grad()
 def init_random_(model: LlamaForCausalLM, seed: int) -> LlamaForCausalLM:
     """Fill every parameter from ``seed`` on the model's own device (no
-    host copy): kernels (dense, router and expert stacks) ~ N(0, 1/fan_in),
-    embeddings ~ N(0, 1/d_model), norm scales at their init (ones, or zeros
-    with an offset), biases and LoRA ``B`` zero, LoRA ``A`` ~ N(0, 0.02²).
+    host copy): kernels (dense, router, expert stacks and a vision tower's
+    patch convolution) ~ N(0, 1/fan_in), embeddings ~ N(0, 1/d_model), norm
+    scales at their init (ones, or zeros with an offset), biases and LoRA
+    ``B`` zero, LoRA ``A`` and a vision tower's class and position
+    embeddings ~ N(0, 0.02²).  A multimodal model is filled in module order,
+    its decoder first.
 
     Every draw is taken in f32 whatever the storage dtype, so the same seed
     gives the same base (rounded to the storage dtype) in the trainer and in
@@ -735,13 +781,13 @@ def init_random_(model: LlamaForCausalLM, seed: int) -> LlamaForCausalLM:
                 if leaf in stems:
                     _draw_int4_(module, leaf, gen)
             elif leaf in ("kernel", "router_kernel") or leaf in EXPERT_KERNELS:
-                _normal_(p, p.shape[-2] ** -0.5, gen)
+                _normal_(p, _fan_in(p) ** -0.5, gen)
             elif leaf == "embedding":
                 _normal_(p, p.shape[1] ** -0.5, gen)
-            elif leaf == "lora_a":
+            elif leaf in ("lora_a", "cls", "pos_embed"):
                 _normal_(p, 0.02, gen)
             elif leaf == "scale":
-                p.fill_(0.0 if model.cfg.norm_offset else 1.0)
+                p.fill_(0.0 if getattr(module, "offset", 0.0) else 1.0)
             else:  # bias, lora_b
                 p.zero_()
         for stem in stems:

@@ -52,8 +52,9 @@ import torch
 
 from ..models.convert import merge_kernel, merged_config
 from ..models.llama import LlamaForCausalLM, rope_inv_freqs
+from ..models.multimodal import LlavaForCausalLM
 from ..train.checkpoint import CheckpointManager
-from ..train.cli import MM_PRESET_NAMES, build_model_config, build_train_config
+from ..train.cli import build_model_config, build_train_config
 
 logger = logging.getLogger(__name__)
 
@@ -92,9 +93,12 @@ def _latest_step(local_dir: Path) -> int:
 
 
 def _model_config(spec: dict, multimodal_message: str):
-    if spec.get("model", {}).get("preset") in MM_PRESET_NAMES:
+    """The job's model config; a multimodal one is refused with
+    ``multimodal_message`` (the reference serves text-only models)."""
+    model_cfg = build_model_config(spec)
+    if getattr(model_cfg, "vision", None) is not None:
         raise ServeLoadError(multimodal_message)
-    return build_model_config(spec)
+    return model_cfg
 
 
 def _resolve_staged_spec(local_dir: Path) -> tuple[dict, Any, int]:
@@ -137,12 +141,14 @@ def merge_lora_variables(model_cfg: Any, state: dict[str, torch.Tensor]
 
 def _assemble(cfg: Any, state: dict[str, torch.Tensor], device: torch.device
               ) -> LlamaForCausalLM:
-    """A model for ``cfg`` whose parameters ARE the tensors of ``state``
-    (already on ``device``): built on the meta device and assigned, so no
-    second copy of the weights is ever allocated."""
-    model = LlamaForCausalLM(cfg, device="meta")
+    """A model for ``cfg`` (a ``LlavaForCausalLM`` for a multimodal one)
+    whose parameters ARE the tensors of ``state`` (already on ``device``):
+    built on the meta device and assigned, so no second copy of the weights
+    is ever allocated."""
+    cls = LlavaForCausalLM if getattr(cfg, "vision", None) is not None else LlamaForCausalLM
+    model = cls(cfg, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
-    model.inv_freqs = rope_inv_freqs(cfg, device)  # not in a state dict
+    model.inv_freqs = rope_inv_freqs(model.text_cfg, device)  # not in a state dict
     return model.requires_grad_(False).eval()
 
 
@@ -164,11 +170,12 @@ def load_serving_model(local_dir: Path | str, *, merge_lora: bool = True,
 def load_trained_model(local_dir: Path | str, *, device=None) -> tuple[LlamaForCausalLM, dict]:
     """The trained model of a job directory with its adapters unmerged, as
     :func:`load_serving_model` builds it but without the serving guards: an
-    MoE job rebuilds too (the reference's ``generate_cli`` resume recipe,
-    which the sanity generation uses).  Multimodal jobs are refused."""
+    MoE or a multimodal (LLaVA) job rebuilds too (the reference's
+    ``generate_cli`` resume recipe, through the trainer, which the sanity
+    generation uses)."""
     local_dir = Path(local_dir)
     spec = _read_spec(local_dir)
-    model_cfg = _model_config(spec, "multimodal generation is not ported yet")
+    model_cfg = build_model_config(spec)
     return _rebuild(local_dir, spec, model_cfg, _latest_step(local_dir), False, device)
 
 

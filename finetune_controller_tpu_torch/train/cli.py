@@ -9,7 +9,8 @@ the control plane and the compute plane):
       "model":    {"preset": "tiny-test", "overrides": {...}, "lora": {"rank": 8}},
       "training": {... TrainConfig fields ...},
       "mesh":     {"dp": 1, "fsdp": -1, "tp": 1, "sp": 1, "ep": 1, "pp": 1},
-      "dataset":  {"path": "...", "tokenizer_file": null} | {"synthetic": {"task": "increment"}},
+      "dataset":  {"path": "...", "tokenizer_file": null, "image_normalize": "clip"}
+                  | {"synthetic": {"task": "increment"}},
       "artifacts_dir": "/data/artifacts"
     }
 
@@ -20,9 +21,13 @@ It writes ``resolved_config.json`` first, then what ``Trainer.fit`` writes
 (``metrics.csv``, ``checkpoints/``, ``heartbeat.json``, ``events.jsonl``,
 ``trace/trainer.jsonl``), the HF exports (``adapter/`` for a LoRA run,
 ``merged/`` with ``training.export_merged``) and ``done.txt`` at the end.
-The run is on the CUDA card unless ``--device`` names another.  One device
-only: a mesh axis above 1, multimodal presets and the preference tasks
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+A multimodal preset (``models/multimodal.MM_PRESETS``) reads image-bearing
+rows through ``data/mm_loader.py`` (pixels resized to its tower and
+normalized per ``dataset.image_normalize``), and its synthetic default is
+the ``brightness`` task.  The run is on the CUDA card unless ``--device``
+names another.  One device only: a mesh axis above 1 and the preference
+tasks raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -38,9 +43,6 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-#: the reference's multimodal presets (``models/multimodal.py``), named in
-#: the unknown-preset message as the reference names them
-MM_PRESET_NAMES = ("llava-1.5-7b", "tiny-mm-clip-test", "tiny-mm-test")
 _DTYPE_FIELDS = ("dtype", "param_dtype", "logits_dtype")
 
 
@@ -60,18 +62,19 @@ class MeshSpec:
 def build_model_config(spec: dict):
     from ..models.llama import PRESETS
     from ..models.lora import LoRAConfig
+    from ..models.multimodal import MM_PRESETS
 
     model_spec = spec.get("model", {})
     preset = model_spec.get("preset", "tiny-test")
-    if preset in MM_PRESET_NAMES:
-        raise NotImplementedError(
-            f"multimodal preset {preset!r} is not ported yet (ROADMAP Queue A item 5)")
-    if preset not in PRESETS:
+    if preset in PRESETS:
+        cfg = PRESETS[preset]
+    elif preset in MM_PRESETS:
+        cfg = MM_PRESETS[preset]
+    else:
         raise ValueError(
             f"unknown model preset {preset!r}; have "
-            f"{sorted(PRESETS) + sorted(MM_PRESET_NAMES)}"
+            f"{sorted(PRESETS) + sorted(MM_PRESETS)}"
         )
-    cfg = PRESETS[preset]
     overrides = dict(model_spec.get("overrides", {}))
     for name in _DTYPE_FIELDS:  # the spec names dtypes as strings
         if isinstance(overrides.get(name), str):
@@ -113,6 +116,15 @@ def build_batches(spec: dict, model_cfg, train_cfg, split: str = "train"):
 
     ds = spec.get("dataset", {})
     path = ds.get("eval_path") if split == "eval" else ds.get("path")
+    if path and model_cfg.image_size:
+        # image-bearing rows: one sample per row, pixels resized to the
+        # model's vision tower
+        from ..data.mm_loader import mm_jsonl_batches
+
+        return mm_jsonl_batches(path, batch_size=train_cfg.batch_size,
+                                seq_len=train_cfg.seq_len, image_size=model_cfg.image_size,
+                                tokenizer_file=ds.get("tokenizer_file"), seed=train_cfg.seed,
+                                normalize=ds.get("image_normalize", "clip"))
     if path:
         return jsonl_token_batches(path, batch_size=train_cfg.batch_size,
                                    seq_len=train_cfg.seq_len,
@@ -125,9 +137,12 @@ def build_batches(spec: dict, model_cfg, train_cfg, split: str = "train"):
     # the eval stream draws from a disjoint region of the generator's seed
     # space so held-out rows never coincide with training rows
     seed = train_cfg.seed + (100_003 if split == "eval" else 0)
+    # multimodal configs get pixels sized to their vision tower
+    image_size = model_cfg.image_size
     return synthetic_batches(batch_size=train_cfg.batch_size, seq_len=train_cfg.seq_len,
                              vocab_size=model_cfg.vocab_size,
-                             task=synth.get("task", "increment"), seed=seed)
+                             task=synth.get("task", "brightness" if image_size else "increment"),
+                             seed=seed, image_size=image_size)
 
 
 def run_job(spec: dict, device=None) -> None:

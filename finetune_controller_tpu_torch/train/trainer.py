@@ -14,6 +14,9 @@ the card on the producer thread when ``prefetch_to_device``), pretrained
 HF weights (:meth:`Trainer.load_pretrained`), evaluation every
 ``eval_every`` steps,
 the PEFT adapter and merged HF exports (:meth:`Trainer.export_artifacts`),
+LLaVA models (``models/multimodal.py``, selected by the config's type:
+``pixels`` ride in every batch, the projector trains beside the adapters
+while the vision tower stays frozen),
 and, as the reference writes them, ``heartbeat.json``, ``events.jsonl``,
 ``trace/trainer.jsonl`` and the ``phase_*_ms`` columns.  A profiler window
 (``profile_steps`` from ``profile_start_step``, or one requested on a live
@@ -39,6 +42,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import LlamaConfig, LlamaForCausalLM, init_random_
+from ..models.multimodal import LlavaConfig, LlavaForCausalLM
 from .checkpoint import CheckpointManager
 from .losses import next_token_loss
 from .metrics import MetricsWriter
@@ -197,9 +201,11 @@ class PreemptionGuard:
 class Trainer:
     """One model on one device (``cuda`` unless ``device="cpu"``).
 
-    In lora mode the adapters are trained in ``model_cfg.param_dtype`` and
-    the base is stored in ``frozen_dtype`` (or ``param_dtype``); in full
-    mode every parameter is trained.  Parameters start from ``seed``
+    In lora mode the adapters (and a multimodal model's projector, which
+    the LLaVA recipe always trains) are trained in ``model_cfg.param_dtype``
+    and the base (a multimodal model's vision tower included) is stored in
+    ``frozen_dtype`` (or ``param_dtype``); in full mode every parameter is
+    trained.  Parameters start from ``seed``
     (:func:`~..models.llama.init_random_`); :meth:`load_pretrained` (or
     ``fit(pretrained_dir=...)``) replaces the base with an HF checkpoint."""
 
@@ -229,11 +235,21 @@ class Trainer:
         # 8B base on the card), the trained leaves in param_dtype
         frozen_dtype = (_torch_dtype(train_cfg.frozen_dtype)
                         if lora and train_cfg.frozen_dtype else model_cfg.param_dtype)
-        self.model = LlamaForCausalLM(model_cfg.replace(param_dtype=frozen_dtype),
-                                      device=self.device)
+        # the model family follows the config's type (the duck-type surface
+        # the multimodal config mirrors)
+        self.multimodal = isinstance(model_cfg, LlavaConfig)
+        if self.multimodal:
+            frozen_cfg = model_cfg.replace(
+                param_dtype=frozen_dtype,
+                vision=model_cfg.vision.replace(param_dtype=frozen_dtype))
+            self.model = LlavaForCausalLM(frozen_cfg, device=self.device)
+        else:
+            self.model = LlamaForCausalLM(model_cfg.replace(param_dtype=frozen_dtype),
+                                          device=self.device)
         self.trainable: dict[str, torch.nn.Parameter] = {}
         for name, p in self.model.named_parameters():
-            train = not lora or name.endswith((".lora_a", ".lora_b"))
+            train = not lora or name.endswith((".lora_a", ".lora_b")) or (
+                self.multimodal and name.startswith(self.MM_TRAINED_PARAMS))
             if train:
                 p.data = p.data.to(model_cfg.param_dtype)
                 self.trainable[name] = p
@@ -247,6 +263,10 @@ class Trainer:
         #: the running fit's heartbeat, so a long evaluate() beats too
         self._heartbeat = None
         self._warned_eval_unsplit = False
+
+    #: a multimodal model's leaves trained beside the adapters (the LLaVA
+    #: recipe always trains the vision→text projector)
+    MM_TRAINED_PARAMS = ("projector_fc1.", "projector_fc2.")
 
     # ---- batches -----------------------------------------------------------
 
@@ -298,9 +318,17 @@ class Trainer:
 
     # ---- the step ----------------------------------------------------------
 
+    def _logits(self, batch: dict, **kw):
+        """The model's forward on a (micro)batch: ``pixels`` go to a
+        multimodal model."""
+        if self.multimodal:
+            kw["pixels"] = batch.get("pixels")
+        return self.model(batch["tokens"], segment_ids=batch.get("segment_ids"), **kw)
+
     def step(self, batch: dict) -> dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (numpy or tensors: ``tokens``,
-        optional ``loss_mask`` and ``segment_ids``).  Each of the
+        optional ``loss_mask`` and ``segment_ids``, and a multimodal
+        model's ``pixels`` (B, H, W, 3), split per microbatch like the rest).  Each of the
         ``grad_accum_steps`` microbatches contributes its mean loss's
         gradient; the gradients and the metrics are averaged over them,
         ``target_tokens`` summed.  Returns 0-dim tensors: loss, accuracy,
@@ -318,8 +346,7 @@ class Trainer:
             if self.model_cfg.lora.dropout > 0:
                 self.model.set_dropout_seed(
                     (self.cfg.seed * 1_000_003 + self.step_count) * 1_009 + i)
-            logits = self.model(micro["tokens"], segment_ids=micro.get("segment_ids"),
-                                return_moe_aux=moe)
+            logits = self._logits(micro, return_moe_aux=moe)
             if moe:
                 logits, moe_aux = logits
             loss, aux = next_token_loss(logits, micro["tokens"], micro.get("loss_mask"))
@@ -381,7 +408,7 @@ class Trainer:
                     batch = self._to_device(
                         {k: v[c * size:(c + 1) * size] for k, v in host_batch.items()})
                     input_s += time.perf_counter() - t_in
-                    logits = self.model(batch["tokens"], segment_ids=batch.get("segment_ids"))
+                    logits = self._logits(batch)
                     _, metrics = next_token_loss(logits, batch["tokens"], batch.get("loss_mask"))
                     del logits
                     for k, v in metrics.items():
@@ -405,7 +432,9 @@ class Trainer:
         the frozen base, in full mode the trained tensors themselves, so
         the optimizer's references stay valid; a kernel the model stores as
         int4 is quantized on the device as it arrives, one tensor at a time.
-        Call it before the first step."""
+        A LLaVA checkpoint fills the decoder and the tower (frozen) and the
+        projector, in place in the trained set.  Call it before the first
+        step."""
         from ..models.hf_import import load_pretrained_
 
         load_pretrained_(self.model, ckpt_dir)
@@ -415,12 +444,28 @@ class Trainer:
         single-process branch): a PEFT ``adapter/`` for every LoRA run, and
         ``merged/`` (the adapters folded into the base, f32) when
         ``cfg.export_merged``.  A full fine-tune exports nothing here, as in
-        the reference."""
+        the reference.  A multimodal run exports the decoder's adapter under
+        HF LLaVA's ``language_model`` prefix and the trained projector
+        (``adapter/projector.safetensors``); no merged form exists for it."""
         if self.cfg.mode != "lora":
             return
-        from ..models.hf_export import export_lora_adapter, export_merged_checkpoint
+        from ..models.hf_export import (
+            export_lora_adapter,
+            export_merged_checkpoint,
+            export_mm_projector,
+        )
 
         state = {k: v.detach() for k, v in self.model.state_dict().items()}
+        if self.multimodal:
+            export_lora_adapter(self.model_cfg.text, state, f"{artifacts_dir}/adapter",
+                                hf_prefix="base_model.model.language_model.model.layers")
+            export_mm_projector(state, f"{artifacts_dir}/adapter")
+            if self.cfg.export_merged:
+                logger.warning(
+                    "export_merged skipped: multimodal runs export the "
+                    "adapter + projector (no single-file HF merge exists)"
+                )
+            return
         export_lora_adapter(self.model_cfg, state, f"{artifacts_dir}/adapter")
         if self.cfg.export_merged:
             try:

@@ -333,10 +333,21 @@ def test_unported_layouts_raise_naming_their_item(hf, tmp_path):
     with pytest.raises(NotImplementedError, match="Gemma-semantics MoE"):
         export_merged_checkpoint(moe.replace(norm_offset=1.0, embed_scale=True, mlp_act="gelu",
                                              tie_embeddings=True), {}, tmp_path / "moe")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        load_llava_params(hf["llama"][1], moe)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # LLaVA imports and exports now: a text checkpoint does not fit a LLaVA
+    # config (the reference's ValueError, word for word), and a state
+    # without a projector writes no projector file
+    from finetune_controller_tpu.models.multimodal import MM_PRESETS as JAX_MM
+    from finetune_controller_tpu_torch.models.multimodal import MM_PRESETS
+
+    with pytest.raises(ValueError) as port_error:
+        load_llava_params(hf["llama"][1], MM_PRESETS["tiny-mm-clip-test"])
+    with pytest.raises(ValueError) as jax_error:
+        jax_import.load_llava_params(hf["llama"][1], JAX_MM["tiny-mm-clip-test"])
+    assert str(port_error.value) == str(jax_error.value)
+    assert str(port_error.value).startswith("unexpected checkpoint tensors")
+    with pytest.raises(KeyError, match="projector_fc1"):
         export_mm_projector({}, tmp_path / "mm")
+    assert not (tmp_path / "mm" / "projector.safetensors").exists()
     # partial Gemma semantics refuse before any file is written (the
     # reference's message)
     with pytest.raises(NotImplementedError, match="adapter"):

@@ -54,6 +54,12 @@ def test_scan_covers_the_int4_and_moe_modules():
         assert PORT / name in SOURCES, name
 
 
+def test_scan_covers_the_multimodal_modules():
+    """The LLaVA model and its image data path are the port's own copies."""
+    for name in ("models/multimodal.py", "data/images.py", "data/mm_loader.py"):
+        assert PORT / name in SOURCES, name
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_reference(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -245,7 +245,10 @@ def test_cli_rejects_unconsumed_arguments_and_unknown_task(tmp_path):
     ({"training": {"task": "dpo"}}, "preference plane"),
     ({"mesh": {"dp": 2}}, "multi-GPU"),
     ({"training": {"transfer_guard": "disallow"}}, "transfer guard"),
-    ({"model": {"preset": "tiny-mm-test"}}, "multimodal"),
+    # multimodal trains on one card (tests/test_torch_multimodal.py); a
+    # LLaVA spec with a mesh one card cannot form is refused
+    pytest.param({"model": {"preset": "tiny-mm-test"}, "mesh": {"fsdp": 2}},
+                 r"mesh axes \{'fsdp': 2\}.*multi-GPU", id="spec3-multimodal"),
     # MoE trains on one card; the Mixtral example's ``ep`` mesh is refused
     pytest.param({"model": {"preset": "tiny-moe-test"}, "mesh": {"ep": 2}},
                  r"mesh axes \{'ep': 2\}.*multi-GPU", id="spec4-MoE"),
