@@ -64,10 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
    spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
    the losses printed beside those of the same run from a random-init
    base at 32 layers.
-   H1, T2, H2 and S2 run ``HF_LAYERS`` = 22 of the 32 layers: the run may
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 18 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
-   merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M and
-   V need about 12 GB beside them; after each phase the script prints what
+   merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M, V
+   and P need about 16 GB beside them; after each phase the script prints what
    it has written (``DiskTally``) and fails past 45 GiB;
    (H2) the exported adapter against the step-8 LoRA tensors (bit for
    bit), and the merged checkpoint reloaded into a bf16 model through
@@ -159,6 +159,36 @@ Phases (any failure exits non-zero and prints no result line):
     cached and ``--oracle``, 8 greedy tokens that must be equal, the
     rebuilt base's digest equal to that of the job's trainer rebuilt from
     the seed, TTFT and tokens/s of ``cached_generate`` on the rebuilt model;
+    (P) the preference plane: (P1, on C's server after V2) 64 seeded
+    pre-tokenized ``{prompt_tokens, chosen_tokens, rejected_tokens}`` rows
+    (most right-padded to 512, some truncated) uploaded with ``POST
+    /datasets``, and ``llama3-8b-dpo`` on ``h100`` at full width and depth
+    (the API spec's f32 base, LoRA rank 16, 8 pairs x 512 in 2
+    microbatches, 6 steps, evaluation every 3 steps on 16 held-out rows,
+    which an operator plugin names since the API has no held-out field, a
+    profiler window over steps 3-4).  Checked: SUCCEEDED, 6 finite rows
+    with ``reward_margin``, ``dpo_accuracy`` and their ``eval_`` twins,
+    ``ftc_dpo_reward_margin`` on ``/metrics`` while the job runs, the
+    adapter, and in the profile the forward launches of steps 3-4 less
+    those in ``evaluate`` exceeding twice the dQ launches (the SFT ratio)
+    by exactly the reference forward's 32 x 2 x 2; promoted, 4
+    ``/generate`` requests through the paged kernel equal an in-process
+    engine.  After it: (P0) the DPO loss, margins and LoRA gradients of 2
+    full-width layers on the first 8 pairs, flash kernels against plain
+    (T3's bounds), the forward kernel's lse finite on the padded rows, and
+    the three flash kernels timed at the DPO shape (B=16, S=512, H=32,
+    Hkv=8, D=128) beside SDPA and the bound; (P2) a reward model
+    (``task: reward``, ``PREF_LAYERS`` = 8 layers, bf16 base, 4 steps) through
+    ``train.cli.main`` on the same rows: step-0 scores through the kernels
+    equal the plain path's mean completion logprob, finite
+    ``bt_accuracy``, ``reward_head.msgpack`` read back (``w`` of 128256),
+    the job served by the loader with the head dropped; (P3) the in-process
+    RLHF-lite loop (``task: rlhf``, 8 layers, 6 steps, a checkpoint every
+    2, the actor's engine with 4 slots and 16 new tokens): at least 2 actor
+    reloads, the learner's base digest unchanged, paged launches by the
+    actor and flash launches by the learner (each zeroed before and read
+    after); buffer depth, staleness, bootstrap pairs and actor tokens/s
+    printed;
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
@@ -181,8 +211,8 @@ Phases (any failure exits non-zero and prints no result line):
     dim 16, ``attention_impl="xla"``); the kernels are held on the
     full-width phases;
 14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
-    ``qlora``, ``moe``, ``llava``, ``hf_io``, ``fidelity`` and ``train``
-    lines, the card line, and last ``{"ok": true, "device": {...}}``.
+    ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``, ``fidelity`` and
+    ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -919,10 +949,10 @@ def serve_phase(args):
 #: write 45 GiB to its disk at most, and at 32 layers H1's bf16 base (16.06
 #: GB), T2's f32 merged export (32.12 GB) and T2's three checkpoints (1.51
 #: GB) are 49.7 GB (46.3 GiB); each layer is 1.31 GB of bf16 base and f32
-#: export, so 22 layers are about 36.5 GB, which leaves room for phases C
-#: and Q (a checkpoint, exports and their copies each, about 3.5-4.3 GB)
-#: and M (about 0.4 GB)
-HF_LAYERS = 22
+#: export, so 18 layers are about 31.3 GB, which leaves room for phases C,
+#: Q, V2 and P1 (a checkpoint, exports and their copies each, about 3.5-4.3
+#: GB), M (about 0.4 GB), V1 (1.6 GB) and P2 and P3 (about 0.6 GB)
+HF_LAYERS = 18
 #: the llama3-8b preset's depth, which S1 serves
 PRESETS_DEPTH = 32
 #: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
@@ -1841,16 +1871,19 @@ def _prom_value(text: str, name: str) -> float:
     return 0.0
 
 
-def _follow_job(api, job_id: str, t_submit: float, tag: str) -> tuple[dict, dict, list]:
-    """Poll ``GET /jobs/{id}`` until the job ends; fail unless it SUCCEEDED
-    after being seen RUNNING.  Returns (job, first time each status was
-    seen, log lines)."""
+def _follow_job(api, job_id: str, t_submit: float, tag: str,
+                on_poll=None) -> tuple[dict, dict, list]:
+    """Poll ``GET /jobs/{id}`` until the job ends (``on_poll(job)`` after
+    each poll of a live job); fail unless it SUCCEEDED after being seen
+    RUNNING.  Returns (job, first time each status was seen, log lines)."""
     seen, job = {}, {}
     while time.time() - t_submit < CONTROL_JOB_TIMEOUT_S:
         job = api.ok("GET", f"/jobs/{job_id}")
         seen.setdefault(job["status"], time.time())
         if job["status"] in ("succeeded", "failed", "cancelled"):
             break
+        if on_poll is not None:
+            on_poll(job)
         time.sleep(0.5)
     logs = api.ok("GET", f"/jobs/{job_id}/logs")["lines"]
     if job.get("status") != "succeeded":
@@ -1987,8 +2020,8 @@ def _generate_against_engine(ctx, job_id: str, vocab: int, prompt_lens, new_toke
             "base_bytes": base_bytes}
 
 
-def control_phase(work, seed: int) -> tuple[dict, dict, dict]:
-    """C, Q and V2: the control plane on the card.  The port's server runs in
+def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
+    """C, Q, V2 and P1: the control plane on the card.  The port's server runs in
     this process on an ephemeral port, on its own event-loop thread, with a
     fresh state dir and object store under ``build/chip_smoke_ctrl``.  A dev
     token's user uploads T2's seeded documents (``POST /datasets``).
@@ -2009,8 +2042,11 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict]:
     and follows it the same way; its promoted checkpoint must load
     unmerged (``lora_merged: false``) and serve 4 ``/generate`` requests
     equal to the in-process engine on the int4 base.  V2 then runs
-    ``LLAVA_MODEL`` on the same server (:func:`_llava_job`).  Returns C's,
-    Q's and V2's records."""
+    ``LLAVA_MODEL`` on the same server (:func:`_llava_job`), and P1
+    ``DPO_MODEL`` on seeded preference rows uploaded with ``POST /datasets``
+    (:func:`_dpo_job`; the held-out rows through ``DPO_PLUGIN``, from the
+    registry's plugin directory).  Returns C's, Q's, V2's and P1's
+    records."""
     import threading
 
     import torch
@@ -2026,6 +2062,10 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict]:
     docs = Path(work) / "train.jsonl"
     if not docs.exists():
         write_documents(docs, seed)
+    prefs, prefs_eval = preference_rows(work, seed)
+    (ctrl / "plugins").mkdir()
+    (ctrl / "plugins" / "dpo_held_out.py").write_text(
+        DPO_PLUGIN.format(eval_path=str(prefs_eval)))
     env = {**CONTROL_ENV, "FTC_STATE_DIR": str(ctrl / "state"),
            "FTC_OBJECT_STORE_ROOT": str(ctrl / "objects"), "FTC_DEVICE": DEVICE}
     saved_env = {k: os.environ.get(k) for k in env}
@@ -2033,7 +2073,7 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict]:
     ctl_config.set_settings(None)
     settings = ctl_config.get_settings()
     registry.reset()
-    rt = build_runtime(settings)
+    rt = build_runtime(settings, plugin_dir=str(ctrl / "plugins"))
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, name="control-plane", daemon=True)
     thread.start()
@@ -2066,6 +2106,13 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict]:
         t_v = time.perf_counter()
         llava = _llava_job(ctx, seed)
         llava["phase_s"] = time.perf_counter() - t_v
+        llava["control_dir_bytes"] = tree_bytes(ctrl)
+        DISK.mark("V2")
+        t_p = time.perf_counter()
+        dpo_dataset = api.ok("POST", "/datasets",
+                             files={"file": ("prefs.jsonl", prefs.read_bytes())}, want=(201,))
+        dpo = _dpo_job(ctx, dpo_dataset["dataset_id"], seed)
+        dpo["phase_s"] = time.perf_counter() - t_p
     finally:
         on_loop(runner.cleanup(), 300)
         loop.call_soon_threadsafe(loop.stop)
@@ -2079,8 +2126,8 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict]:
         ctl_config.set_settings(None)
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
-    llava["control_dir_bytes"] = tree_bytes(ctrl)
-    return record, qlora, llava
+    dpo["control_dir_bytes"] = tree_bytes(ctrl)
+    return record, qlora, llava, dpo
 
 
 def _control_job(ctx, dataset_id: str, seed: int) -> dict:
@@ -2675,33 +2722,36 @@ LLAVA_PROMPT = 32
 MM_SERVE_REFUSAL = (409, "serving multimodal checkpoints is not supported yet")
 
 
-def flash_llava_bench(reps: int, seed: int) -> dict:
-    """V0: the three flash kernels at ``LLAVA_FLASH_SHAPE`` (bf16, causal, no
-    segment ids) against their plain versions, each launched twice for the
-    same bits, and timed beside the plain version, SDPA (``is_causal``) as
-    the library yardstick and the bound (every causal pair, each input read
-    once and each output written once)."""
+def flash_shape_bench(shape, reps: int, seed: int, tag: str) -> dict:
+    """The three flash kernels at ``shape`` = (B, S, H, Hkv, D) (bf16,
+    causal, no segment ids) against their plain versions, each launched
+    twice for the same bits, and timed beside the plain version, SDPA
+    (``is_causal``, K/V repeated to every head under GQA) as the library
+    yardstick and the bound (every causal pair, each input read once and
+    each output written once): V0 at the LLaVA decoder's shape, P0 at the
+    DPO step's stacked pairs."""
     import torch
     import torch.nn.functional as F
     from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
     from finetune_controller_tpu_torch.ops.kernels.timing import cuda_time_ms
 
-    b, s, h, hkv, d = LLAVA_FLASH_SHAPE
+    b, s, h, hkv, d = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, dout, _, _ = flash_inputs(gen, b, s, h, hkv, d, torch.bfloat16, segments=False)
     errs = flash_compare(q, k, v, dout, None, None, None, True)
     out, lse = fa.flash_forward_reference(q, k, v, None, None, True)
     delta = fa.flash_delta(out, dout)
-    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in
+                  (q, k.repeat_interleave(h // hkv, 2), v.repeat_interleave(h // hkv, 2)))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     lib_err = (lib_out.transpose(1, 2).float() - out.float()).abs().max().item()
     if lib_err > 0.1:
-        raise AssertionError(f"V0: the library yardstick disagrees with plain by {lib_err}")
+        raise AssertionError(f"{tag}: the library yardstick disagrees with plain by {lib_err}")
     variants = flash_variants(
         q, k, v, dout, lse, delta, None,
         lambda i: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
         lib_out, dout.transpose(1, 2))
-    assert_flash_deterministic(q, k, v, dout, lse, delta, None, "V0: ")
+    assert_flash_deterministic(q, k, v, dout, lse, delta, None, f"{tag}: ")
     pairs = b * s * (s + 1) / 2  # every causal (query, key) pair of each row
     nbytes = flash_bytes(q, k, None)
     rows = {}
@@ -2997,6 +3047,463 @@ def _llava_job(ctx, seed: int) -> dict:
     return record
 
 
+#: P1: ``llama3-8b-dpo`` through C's server at full width and depth (the
+#: API spec's f32 base from the job's seed): the preset's batch of 8 pairs x
+#: 512 tokens in 2 microbatches (one (2b, S) = (8, 512) stacked forward per
+#: model each), 6 steps, evaluation every 3 steps on the held-out file (2
+#: batches), a profiler window over steps 3-4
+DPO_MODEL = "llama3-8b-dpo"
+DPO_ARGS = {"lora_rank": 16, "batch_size": 8, "seq_len": 512, "grad_accum_steps": 2,
+            "total_steps": 6, "checkpoint_every": 6, "log_every": 1, "profile_steps": 2,
+            "eval_every": 3, "eval_steps": 2, "warmup_steps": 2, "learning_rate": 2e-4,
+            "beta": 0.1}
+#: P1: pre-tokenized preference rows uploaded with ``POST /datasets`` and
+#: the held-out rows; prompt and completion lengths are drawn so most pairs
+#: are right-padded to 512 and some are truncated
+DPO_ROWS, DPO_EVAL_ROWS = 64, 16
+LLAMA3_VOCAB = 128256
+#: P1: the API names no held-out file (the reference's neither); an
+#: operator plugin (the registry's plugin directory) renders ``llama3-8b-dpo``
+#: with the held-out file as ``dataset.eval_path``
+DPO_PLUGIN = '''"""``llama3-8b-dpo`` whose trainer spec names a held-out preference file."""
+
+from finetune_controller_tpu_torch.controller.examples import Llama3_8B_DPO
+
+
+class Llama3_8B_DPO_HeldOut(Llama3_8B_DPO):
+    def build_trainer_spec(self, job_id, artifacts_dir, **kw):
+        spec = super().build_trainer_spec(job_id, artifacts_dir, **kw)
+        spec["dataset"]["eval_path"] = {eval_path!r}
+        return spec
+'''
+
+
+def write_preference_rows(path, seed: int, n: int, vocab: int) -> None:
+    """``n`` pre-tokenized ``{prompt_tokens, chosen_tokens, rejected_tokens}``
+    rows: prompts of 16-300 tokens, completions of 8-320."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            row = {"prompt_tokens": rng.integers(0, vocab, int(rng.integers(16, 301))).tolist()}
+            for side in ("chosen_tokens", "rejected_tokens"):
+                row[side] = rng.integers(0, vocab, int(rng.integers(8, 321))).tolist()
+            f.write(json.dumps(row) + "\n")
+
+
+def preference_rows(work, seed: int) -> tuple[Path, Path]:
+    """P1's uploaded rows and held-out rows under ``work`` (written once;
+    P0 and P2 read them too)."""
+    train, held_out = Path(work) / "prefs.jsonl", Path(work) / "prefs_eval.jsonl"
+    if not train.exists():
+        write_preference_rows(train, seed + 11, DPO_ROWS, LLAMA3_VOCAB)
+        write_preference_rows(held_out, seed + 12, DPO_EVAL_ROWS, LLAMA3_VOCAB)
+    return train, held_out
+
+
+def kernels_inside(events, range_name: str, symbol: str) -> int:
+    """Launches of kernels named ``*symbol*`` inside the device spans
+    (``gpu_user_annotation``) of the ``record_function`` range ``range_name``."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "gpu_user_annotation" and e.get("name") == range_name]
+    return sum(1 for e in events if e.get("cat") == "kernel" and symbol in e.get("name", "")
+               and any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in spans))
+
+
+def _dpo_job(ctx, dataset_id: str, seed: int) -> dict:
+    """P1: ``DPO_MODEL`` on C's server through SUCCEEDED (the
+    ``ftc_dpo_reward_margin`` gauge scraped from ``/metrics`` while it
+    runs), its rows, profile, adapter, promotion and ``/generate``.
+
+    The profile proves the reference forward runs the flash kernel: with
+    ``mlp`` remat an SFT step launches the forward twice per dQ launch (the
+    forward and its recompute), so the forward launches of steps 3-4, less
+    those inside ``evaluate`` (step 3's held-out pass), must exceed twice
+    the dQ launches by exactly layers x microbatches x 2 steps."""
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    t_submit = time.time()
+    job_id = api.ok("POST", "/jobs", fields={
+        "model_name": DPO_MODEL, "device": CONTROL_FLAVOR, "dataset_id": dataset_id,
+        "arguments": json.dumps(DPO_ARGS)})["job_id"]
+    gauges = []
+
+    def scrape_gauge(job):
+        if job["status"] == "running" and not gauges:
+            gauges.extend(float(line.rsplit(" ", 1)[1])
+                          for line in scrape.ok("GET", "/metrics", raw=True).splitlines()
+                          if line.startswith(f'ftc_dpo_reward_margin{{job_id="{job_id}"'))
+
+    job, seen, logs = _follow_job(api, job_id, t_submit, "P1", on_poll=scrape_gauge)
+    gauge = gauges[0] if gauges else None
+    order = [st for st in ("queued", "running", "succeeded") if st in seen]
+    records = _job_rows(api, job_id, DPO_ARGS["total_steps"], "P1")
+    _, at = _timeline(api, job_id, ("submitted", "running", "train-started",
+                                    "checkpoint-committed", "profile-captured",
+                                    "train-finished", "succeeded"), "P1")
+    for r in records:
+        keys = ["reward_margin", "dpo_accuracy"] + (
+            ["eval_reward_margin", "eval_dpo_accuracy"] if r["step"] % 3 == 0 else [])
+        bad = [k for k in keys if not (isinstance(r.get(k), float) and math.isfinite(r[k]))]
+        if bad:
+            raise SmokeFailure(f"P1: step {r['step']} lacks finite {bad}: {r}")
+    if gauge is None or not math.isfinite(gauge):
+        raise SmokeFailure(f"P1: /metrics carried no ftc_dpo_reward_margin for {job_id} "
+                           "while it ran")
+    listing = {a["path"] for a in api.ok("GET", f"/jobs/{job_id}/artifacts?list=1")["artifacts"]}
+    if "adapter/adapter_model.safetensors" not in listing:
+        raise SmokeFailure(f"P1: no exported adapter in {sorted(listing)[:20]}")
+    profiles = sorted(p for p in listing if p.startswith("profile/") and p.endswith(".json"))
+    if not profiles:
+        raise SmokeFailure("P1: the job's artifacts hold no profile/ trace")
+    events = json.loads(on_loop(rt.store.get_bytes(
+        f"{job['artifacts_uri']}/{profiles[0]}"), 300)).get("traceEvents", [])
+    kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    launches = {name: sum(sym in k for k in kernel_names)
+                for name, sym in FLASH_KERNEL_SYMBOLS.items()}
+    fwd_sym = FLASH_KERNEL_SYMBOLS["flash_forward"]
+    in_eval = kernels_inside(events, "evaluate", fwd_sym)
+    in_ref = kernels_inside(events, "dpo_reference_forward", fwd_sym)
+    m = re.fullmatch(r"profile/steps_(\d+)-(\d+)\.pt\.trace\.json", profiles[0])
+    profiled = list(range(int(m.group(1)) + 1, int(m.group(2)) + 1))
+    layers, micro = PRESETS_DEPTH, DPO_ARGS["grad_accum_steps"]
+    excess = launches["flash_forward"] - in_eval - 2 * launches["flash_backward_dq"]
+    want = layers * micro * len(profiled)
+    if DEVICE == "cuda" and (excess != want or launches["flash_backward_dq"] != want):
+        raise SmokeFailure(
+            f"P1: forward launches {launches['flash_forward']} in steps {profiled}, "
+            f"{in_eval} of them in evaluate, dQ {launches['flash_backward_dq']}: the excess "
+            f"over the SFT ratio is {excess}, not the reference forward's {want}")
+    tokens = DPO_ARGS["batch_size"] * DPO_ARGS["seq_len"]
+    step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
+    steady = sorted(ms for r, ms in zip(records, step_ms)
+                    if r["step"] > 1 and r["step"] not in profiled)
+    median = steady[len(steady) // 2]
+    promote_s, load_s, meta = _promote_and_load(api, job_id, "P1")
+    served = _generate_against_engine(ctx, job_id, meta["vocab_size"], CONTROL_PROMPTS,
+                                      CONTROL_NEW_TOKENS, seed + 2, "p")
+    record = {
+        "job_id": job_id, "model": DPO_MODEL, "device": CONTROL_FLAVOR, "statuses": order,
+        "losses": [r["loss"] for r in records],
+        "reward_margin": [r["reward_margin"] for r in records],
+        "dpo_accuracy": [r["dpo_accuracy"] for r in records],
+        "eval_reward_margin": [r["eval_reward_margin"] for r in records if r["step"] % 3 == 0],
+        "eval_dpo_accuracy": [r["eval_dpo_accuracy"] for r in records if r["step"] % 3 == 0],
+        "gauge_reward_margin_while_running": gauge,
+        "submit_to_running_s": seen["running"] - t_submit,
+        "submit_to_first_step_s": records[0]["timestamp"] - at["submitted"],
+        "ms_per_step": step_ms, "profiled_steps": profiled, "ms_per_step_median": median,
+        "positions_per_s_median": 2 * tokens / (median / 1e3),
+        "flash_launches_in_profile": launches, "forward_launches_in_evaluate": in_eval,
+        "forward_launches_in_reference_ranges": in_ref,
+        "forward_excess_over_sft_ratio": excess, "reference_forward_launches_expected": want,
+        "promote_s": promote_s, "model_load_s": load_s, "lora_merged": meta["lora_merged"],
+        **{k: served[k] for k in ("ttft_s", "decode_tokens_per_s", "requests_ok", "requests",
+                                  "generated_tokens", "paged_launches")},
+        "log_lines": len(logs),
+        "job_sandbox_bytes": tree_bytes(settings.state_path / "sandboxes" / job_id),
+    }
+    log(f"P1: {DPO_MODEL} on {CONTROL_FLAVOR} through the port's server ({DPO_ROWS} uploaded "
+        f"pairs, {DPO_EVAL_ROWS} held out): {' -> '.join(order)}; submit -> first step "
+        f"{record['submit_to_first_step_s']:.1f} s; steps {[round(x) for x in step_ms]} ms "
+        f"(steps {profiled} profiled), {median:.0f} ms/step median, "
+        f"{record['positions_per_s_median']:.0f} positions/s (chosen + rejected); losses "
+        f"{[round(x, 4) for x in record['losses']]}; reward_margin "
+        f"{[round(x, 4) for x in record['reward_margin']]}; eval_dpo_accuracy "
+        f"{record['eval_dpo_accuracy']}; ftc_dpo_reward_margin while running {gauge:.4g}; "
+        f"flash launches in the profile {launches}: forward {launches['flash_forward']} = "
+        f"2 x dQ {launches['flash_backward_dq']} (the SFT ratio) + {in_eval} in evaluate + "
+        f"{excess} (the reference forward: {layers} layers x {micro} microbatches x "
+        f"{len(profiled)} steps = {want}); {in_ref} forward launches inside "
+        f"dpo_reference_forward ranges; promote {promote_s:.2f} s, load {load_s:.1f} s; TTFT "
+        f"{served['ttft_s'] * 1e3:.1f} ms, {served['decode_tokens_per_s']:.1f} generated "
+        f"tokens/s, {served['requests_ok']}/{served['requests']} equal to the in-process engine; "
+        f"paged launches {served['paged_launches']}")
+    return record
+
+
+# ---------------------------------------------------------------------------
+# P: the preference plane (DPO objective, reward model, RLHF-lite loop)
+# ---------------------------------------------------------------------------
+
+#: P0: the DPO step's flash shape: 8 pairs stacked to 16 rows of 512
+DPO_FLASH_SHAPE = (16, 512, 32, 8, 128)
+#: P2 and P3: llama3-8b at full width cut to this depth.  P1 keeps all 32;
+#: at 32 layers P2's and P3's checkpoints with optimizer state (0.5 GB each,
+#: 5 of them) and exports would add ~3 GB to the run's writes, and P3's
+#: learner steps and actor decode would take ~4x longer
+PREF_LAYERS = 8
+#: P2/P3 job specs (``train.cli.main`` in this process, bf16 base)
+PREF_TRAINING = {"frozen_dtype": "bfloat16", "batch_size": 8, "seq_len": 512,
+                 "warmup_steps": 1, "learning_rate": 2e-4, "log_every": 1,
+                 "checkpoint_every": 2, "heartbeat_interval_s": 0}
+#: P3: the actor's engine: 4 decode lanes, 16 new tokens a candidate, 16
+#: prompts (32 candidates) a round, the learner's batch once 16 pairs are in
+RLHF_ROLLOUT = {"slots": 4, "max_new_tokens": 16, "pairs_per_round": 16, "min_fill": 16}
+
+
+def dpo_objective_check(rows, seed: int) -> dict:
+    """P0: the DPO objective of llama3-8b cut to 2 layers (full width, rank
+    16, bf16 base, non-zero B) on the first batch of 8 pairs x 512 of
+    ``rows`` (right-padded, no segment ids), with ``FTC_FLASH_ATTN=kernel``
+    against ``plain``: the four per-sequence logprob vectors (policy and
+    reference, chosen and rejected) within ``MODEL_LOSS_REL_TOL`` of the
+    largest, the LoRA gradients within ``MODEL_GRAD_REL_TOL`` of each leaf's
+    largest (T3's bounds), and the forward kernel's lse finite on every row,
+    padded positions included.  The loss and the margin are printed with
+    their differences, beside the plain path run in f32 (the same bf16
+    weights cast at use), and not bounded: the margin is beta x the
+    difference of sequence sums of ~300 token logprobs of ~-12 nats each,
+    so the bf16 rounding that T3's mean loss averages away survives in it
+    (on an NVIDIA H100 80GB HBM3 at 700 W the loss moved by 1.03e-2 of
+    itself while the sums it is made of agreed within T3's bound)."""
+    import torch
+    from finetune_controller_tpu_torch.data.preference import preference_jsonl_batches
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.prefs.dpo_trainer import DPOTrainer
+    from finetune_controller_tpu_torch.prefs.losses import dpo_loss
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig
+
+    cfg = PRESETS["llama3-8b"].replace(n_layers=2, lora=LoRAConfig(rank=16, alpha=32.0))
+    trainer = DPOTrainer(cfg, TrainConfig(task="dpo", frozen_dtype="bfloat16", batch_size=8,
+                                          seq_len=512, seed=seed, dpo_beta=0.1), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():  # non-zero B: the policy leaves the reference
+        for name, p in trainer.trainable.items():
+            if name.endswith(".lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    batch = trainer._to_device(next(preference_jsonl_batches(str(rows), 8, 512, seed=seed)))
+    # a row is right-padded where its completion stops short of the last position
+    padded = int((batch["chosen_mask"][:, -1] == 0).sum()
+                 + (batch["rejected_mask"][:, -1] == 0).sum())
+    lse_finite = []
+    kernel_fwd = fa.flash_forward
+
+    def checked_forward(*a, **kw):
+        out, lse = kernel_fwd(*a, **kw)
+        lse_finite.append(bool(torch.isfinite(lse).all()))
+        return out, lse
+
+    out = {}
+    fa.flash_forward = checked_forward
+    try:
+        for impl, dtype in (("kernel", cfg.dtype), ("plain", cfg.dtype),
+                            ("plain", torch.float32)):
+            os.environ["FTC_FLASH_ATTN"] = impl
+            set_compute_dtype(trainer.model, dtype)
+            for name in FLASH_KERNELS:
+                getattr(fa, name).launches = 0
+            pc, pr = trainer._pair_logprobs(batch)
+            rc, rr = trainer.reference_logprobs(batch)
+            loss, metrics = dpo_loss(pc, pr, rc, rr, trainer.cfg.dpo_beta)
+            lps = torch.stack([pc.detach(), pr.detach(), rc, rr])
+            grads = None
+            if dtype != torch.float32:
+                loss.backward()
+                grads = {n: p.grad.float() for n, p in trainer.trainable.items()}
+            out[f"{impl}_{str(dtype).removeprefix('torch.')}"] = (
+                loss.item(), float(metrics["reward_margin"]), lps, grads,
+                {name: getattr(fa, name).launches for name in FLASH_KERNELS})
+            for p in trainer.trainable.values():
+                p.grad = None
+    finally:
+        fa.flash_forward = kernel_fwd
+        os.environ.pop("FTC_FLASH_ATTN", None)
+        set_compute_dtype(trainer.model, cfg.dtype)
+    (lk, mk, sk, gk, nk), (lp, mp, sp, gp, _) = out["kernel_bfloat16"], out["plain_bfloat16"]
+    l32, m32, s32, _, _ = out["plain_float32"]
+    lp_rel = ((sk - sp).abs().max() / sp.abs().max()).item()
+    grad_rel = max(((gk[n] - gp[n]).abs().max() / gp[n].abs().max()).item() for n in gp)
+    if DEVICE == "cuda" and (min(nk.values()) <= 0 or not lse_finite or not all(lse_finite)):
+        raise SmokeFailure(f"P0: kernel launches {nk}, lse finite per forward {lse_finite}")
+    if not (math.isfinite(lk) and lp_rel <= MODEL_LOSS_REL_TOL
+            and grad_rel <= MODEL_GRAD_REL_TOL):
+        raise SmokeFailure(f"P0: sequence logprobs rel {lp_rel:.3g}, worst LoRA grad rel "
+                           f"{grad_rel:.3g} (tolerances {MODEL_LOSS_REL_TOL}, "
+                           f"{MODEL_GRAD_REL_TOL}); loss {lk} vs {lp}")
+    del trainer
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_plain_f32": l32,
+            "loss_rel": abs(lk - lp) / abs(lp), "loss_rel_kernel_vs_f32": abs(lk - l32) / l32,
+            "loss_rel_plain_vs_f32": abs(lp - l32) / l32,
+            "margin_kernel": mk, "margin_plain": mp, "margin_plain_f32": m32,
+            "seq_logprob_rel": lp_rel,
+            "seq_logprob_abs_err": (sk - sp).abs().max().item(),
+            "seq_logprob_abs_err_kernel_vs_f32": (sk - s32).abs().max().item(),
+            "seq_logprob_abs_err_plain_vs_f32": (sp - s32).abs().max().item(),
+            "grad_rel": grad_rel, "kernel_launches": nk,
+            "lse_finite_forwards": len(lse_finite), "padded_rows": padded}
+
+
+def _pref_spec(work, task: str, seed: int, **training) -> dict:
+    return {"job_id": f"chip-smoke-{task}", "model": {
+        "preset": "llama3-8b", "lora": {"rank": 16, "alpha": 32.0},
+        "overrides": {"n_layers": PREF_LAYERS}},
+        "training": {**PREF_TRAINING, "task": task, "seed": seed, **training},
+        "artifacts_dir": str(Path(work) / task / "artifacts")}
+
+
+def _run_cli(spec: dict) -> tuple[float, list[dict]]:
+    """``train.cli.main`` on ``spec`` in this process: (seconds, rows)."""
+    from finetune_controller_tpu_torch.train import cli
+
+    art = Path(spec["artifacts_dir"])
+    shutil.rmtree(art.parent, ignore_errors=True)
+    art.mkdir(parents=True)
+    path = art.parent / "spec.json"
+    path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    if cli.main(["--spec", str(path), *DEVICE_ARGS]) != 0:
+        raise SmokeFailure(f"{spec['job_id']}: the CLI failed")
+    return time.perf_counter() - t0, _rows(art / "metrics.csv")
+
+
+def reward_phase(work, rows, eval_rows, seed: int) -> dict:
+    """P2: a Bradley–Terry reward model of llama3-8b (``PREF_LAYERS`` deep)
+    through ``train.cli.main`` on P1's uploaded rows (4 steps, evaluation
+    every 2 on the held-out rows).  Before the run, the job's step-0 trainer
+    (the same seed) scores the first batch through the flash kernels, and
+    each score must equal the mean completion logprob the plain path gives
+    (``MODEL_LOSS_REL_TOL`` of the largest).  After it: finite ``bt_accuracy``,
+    ``reward_head.msgpack`` read back by the port's reader (``w`` of the
+    vocabulary's width), and the job's directory served by the loader with
+    the head left out."""
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.prefs.dpo_trainer import stack_pairs
+    from finetune_controller_tpu_torch.prefs.losses import masked_sequence_logprobs
+    from finetune_controller_tpu_torch.prefs.reward_trainer import read_reward_head
+    from finetune_controller_tpu_torch.serve.loader import load_serving_model
+    from finetune_controller_tpu_torch.train import cli
+
+    spec = _pref_spec(work, "reward", seed, total_steps=4, eval_every=2, eval_steps=2)
+    spec["dataset"] = {"path": str(rows), "eval_path": str(eval_rows)}
+    model_cfg, train_cfg = cli.build_model_config(spec), cli.build_train_config(spec)
+    trainer = cli.trainer_class("reward")(model_cfg, train_cfg, device=DEVICE)
+    batch = trainer._to_device(next(cli.build_batches(spec, model_cfg, train_cfg)))
+    try:
+        with torch.no_grad():
+            os.environ["FTC_FLASH_ATTN"] = "kernel"
+            scores = trainer.scores(batch)
+            os.environ["FTC_FLASH_ATTN"] = "plain"
+            _, tokens, masks = stack_pairs(batch)
+            mean_lp = masked_sequence_logprobs(trainer.model(tokens), tokens, masks) / \
+                masks[:, 1:].sum(-1).clamp(min=1.0)
+    finally:
+        os.environ.pop("FTC_FLASH_ATTN", None)
+    score_rel = ((scores - mean_lp).abs().max() / mean_lp.abs().max()).item()
+    del trainer, batch
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    if score_rel > MODEL_LOSS_REL_TOL:
+        raise SmokeFailure(f"P2: step-0 scores (kernel) vs mean completion logprob (plain): "
+                           f"rel {score_rel:.3g} > {MODEL_LOSS_REL_TOL}")
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+    seconds, rows_out = _run_cli(spec)
+    launches = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+    art = Path(spec["artifacts_dir"])
+    acc = [float(r["bt_accuracy"]) for r in rows_out]
+    eval_acc = [float(r["eval_bt_accuracy"]) for r in rows_out if r.get("eval_bt_accuracy")]
+    head = read_reward_head(str(art))
+    shapes = {k: tuple(v.shape) for k, v in head.items()}
+    if (len(rows_out) != 4 or not all(map(math.isfinite, acc + eval_acc)) or len(eval_acc) != 2
+            or shapes != {"a": (), "w": (model_cfg.vocab_size,), "b": ()}):
+        raise SmokeFailure(f"P2: bt_accuracy {acc}, eval {eval_acc}, head shapes {shapes}")
+    if DEVICE == "cuda" and min(launches.values()) <= 0:
+        raise SmokeFailure(f"P2: the flash kernels were not launched ({launches})")
+    model, meta = load_serving_model(art, merge_lora=False, device=DEVICE)
+    heads = [k for k in model.state_dict() if k.startswith("head")]
+    if meta["task"] != "reward" or heads:
+        raise SmokeFailure(f"P2: the loader served {meta} with head tensors {heads}")
+    del model
+    gc.collect()
+    record = {"layers": PREF_LAYERS, "seconds": seconds, "step0_score_rel": score_rel,
+              "losses": [float(r["loss"]) for r in rows_out], "bt_accuracy": acc,
+              "eval_bt_accuracy": eval_acc, "head": {k: head[k].tolist() for k in ("a", "b")},
+              "head_w_abs_max": float(head["w"].abs().max()), "flash_launches": launches,
+              "loader_meta": meta, "artifacts_bytes": tree_bytes(art)}
+    log(f"P2: reward model (llama3-8b, {PREF_LAYERS} layers, bf16 base) through "
+        f"train.cli.main, 4 steps in {seconds:.1f} s: step-0 score vs mean completion "
+        f"logprob rel {score_rel:.3g}; losses {[round(x, 4) for x in record['losses']]}; "
+        f"bt_accuracy {acc}, eval {eval_acc}; head a {record['head']['a']:.5f}, b "
+        f"{record['head']['b']:.5f}, max |w| {record['head_w_abs_max']:.3g} (w {shapes['w']}); "
+        f"flash launches {launches}; loader: task {meta['task']}, step "
+        f"{meta['checkpoint_step']}, head dropped")
+    return record
+
+
+def rlhf_phase(work, seed: int) -> dict:
+    """P3: the in-process RLHF-lite loop through ``train.cli.main``:
+    llama3-8b (``PREF_LAYERS`` deep, bf16 base), 6 learner steps, a checkpoint
+    every 2, the actor's paged engine per ``RLHF_ROLLOUT``.  The actor is
+    taken from ``build_rlhf_loop`` as the CLI builds it.  Checked: at least
+    2 reloads, the learner's base digest unchanged by them, the paged kernel
+    launched by the actor and the flash kernels by the learner (both counts
+    zeroed before the run and read after)."""
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.ops.kernels import paged_attention as pa
+    from finetune_controller_tpu_torch.prefs import learner
+
+    spec = _pref_spec(work, "rlhf", seed, total_steps=6)
+    spec["rollout"] = dict(RLHF_ROLLOUT)
+    built = {}
+    build = learner.build_rlhf_loop
+
+    def capture(trainer, artifacts_dir, **kw):
+        stream, actor, buffer = build(trainer, artifacts_dir, **kw)
+        built.update(trainer=trainer, actor=actor, buffer=buffer,
+                     digest=base_digest(trainer.model, trainer.trainable))
+        return stream, actor, buffer
+
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+    pa.paged_attention.launches = 0
+    learner.build_rlhf_loop = capture
+    try:
+        seconds, rows_out = _run_cli(spec)
+    finally:
+        learner.build_rlhf_loop = build
+    flash = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+    paged = pa.paged_attention.launches
+    trainer, actor, buffer = built["trainer"], built["actor"], built["buffer"]
+    unchanged = base_digest(trainer.model, trainer.trainable) == built["digest"]
+    versions = [int(float(r["actor_version"])) for r in rows_out]
+    if actor.reloads < 2 or not unchanged or len(rows_out) != 6:
+        raise SmokeFailure(f"P3: {actor.reloads} actor reloads, base unchanged {unchanged}, "
+                           f"{len(rows_out)} rows")
+    if DEVICE == "cuda" and (paged <= 0 or min(flash.values()) <= 0):
+        raise SmokeFailure(f"P3: paged launches (actor) {paged}, flash launches (learner) "
+                           f"{flash}")
+    record = {
+        "layers": PREF_LAYERS, "seconds": seconds, "rollout": RLHF_ROLLOUT,
+        "losses": [float(r["loss"]) for r in rows_out],
+        "reward_margin": [float(r["reward_margin"]) for r in rows_out],
+        "actor_version": versions, "reloads": actor.reloads, "rounds": actor.rounds,
+        "base_unchanged": unchanged, "buffer_depth": buffer.depth,
+        "staleness": buffer.staleness, "buffer_pushed_total": buffer.pushed_total,
+        "bootstrap_pairs": actor.bootstrap_pairs, "pairs_generated": actor.pairs_generated,
+        "actor_tokens": actor.tokens_generated, "actor_generate_s": actor.generate_seconds,
+        "actor_tokens_per_s": actor.tokens_per_sec, "paged_launches": paged,
+        "flash_launches": flash, "artifacts_bytes": tree_bytes(Path(spec["artifacts_dir"])),
+    }
+    del trainer, actor, buffer, built
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    log(f"P3: RLHF-lite (llama3-8b, {PREF_LAYERS} layers, bf16 base) through train.cli.main, "
+        f"6 steps in {seconds:.1f} s: actor versions per row {versions}, {record['reloads']} "
+        f"reloads over {record['rounds']} rounds, the learner's base digest unchanged; buffer "
+        f"depth {record['buffer_depth']}, staleness {record['staleness']} checkpoints, "
+        f"{record['buffer_pushed_total']} pairs pushed ({record['bootstrap_pairs']} oracle "
+        f"bootstrap); actor {record['actor_tokens']} tokens in {record['actor_generate_s']:.1f} "
+        f"s = {record['actor_tokens_per_s']:.1f} tokens/s; losses "
+        f"{[round(x, 4) for x in record['losses']]}; paged launches (actor) {paged}, flash "
+        f"launches (learner) {flash}")
+    return record
+
+
 def base_digest(model, trained) -> dict:
     """{name: the sum of the bf16 bit patterns} of every parameter of
     ``model`` not in ``trained`` (the frozen base), each rounded to bf16
@@ -3183,7 +3690,7 @@ def model_check(seg, seed: int) -> dict:
 #: the port's ``record_function`` ranges: on the device timeline they span
 #: kernels that are counted on their own
 PROFILER_RANGES = ("int4_dequantize", "moe_route", "moe_dispatch", "vision_tower",
-                   "mm_projector")
+                   "mm_projector", "evaluate", "dpo_reference_forward")
 
 
 def device_time_by_kernel(prof, wall_s: float, top: int = 10) -> dict:
@@ -3297,18 +3804,57 @@ def main(argv=None) -> int:
         DISK.mark("S2")
         gc.collect()
         torch.cuda.empty_cache()
-        control, qlora, llava = control_phase(work, args.seed)
-        for path, record in (("c_generate", control), ("q_generate", qlora)):
+        control, qlora, llava, dpo = control_phase(work, args.seed)
+        for path, record in (("c_generate", control), ("q_generate", qlora),
+                             ("p_generate", dpo)):
             paged_entry["launches"] += record["paged_launches"]
             paged_entry["launches_by_path"][path] = record["paged_launches"]
-        DISK.mark("V2")
+        DISK.mark("P1")
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefs, prefs_eval = preference_rows(work, args.seed)
+        dpo_check = dpo_objective_check(prefs, args.seed)
+        log(f"P0 DPO objective (2 full-width layers, 8 pairs x 512, {dpo_check['padded_rows']} "
+            f"of 16 rows right-padded, kernel vs plain): sequence logprobs rel "
+            f"{dpo_check['seq_logprob_rel']:.3g} (max abs {dpo_check['seq_logprob_abs_err']:.4g} "
+            f"nats; against the plain path in f32: kernel "
+            f"{dpo_check['seq_logprob_abs_err_kernel_vs_f32']:.4g}, plain bf16 "
+            f"{dpo_check['seq_logprob_abs_err_plain_vs_f32']:.4g}), worst LoRA grad rel "
+            f"{dpo_check['grad_rel']:.3g}; loss {dpo_check['loss_kernel']:.6f} vs "
+            f"{dpo_check['loss_plain']:.6f} (rel {dpo_check['loss_rel']:.3g}; f32 "
+            f"{dpo_check['loss_plain_f32']:.6f}: kernel rel {dpo_check['loss_rel_kernel_vs_f32']:.3g}, "
+            f"plain bf16 rel {dpo_check['loss_rel_plain_vs_f32']:.3g}), reward_margin "
+            f"{dpo_check['margin_kernel']:.5g} vs {dpo_check['margin_plain']:.5g} (f32 "
+            f"{dpo_check['margin_plain_f32']:.5g}); kernel launches "
+            f"{dpo_check['kernel_launches']}, lse finite on all "
+            f"{dpo_check['lse_finite_forwards']} forward launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_dpo = flash_shape_bench(DPO_FLASH_SHAPE, max(4, args.reps // 8), args.seed, "P0")
+        for name, r in flash_dpo.items():
+            log(f"P0 {name} at B=16, S=512, H=32, Hkv=8, D=128, causal, no segment ids: "
+                f"kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, share of bound "
+                f"{r['bound_share']:.3f}), plain {r['plain_ms']:.3f} ms, library (SDPA) "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"max abs err {r['max_abs_err']:.4g}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reward = reward_phase(work, prefs, prefs_eval, args.seed)
+        DISK.mark("P2")
+        gc.collect()
+        torch.cuda.empty_cache()
+        rlhf = rlhf_phase(work, args.seed)
+        paged_entry["launches"] += rlhf["paged_launches"]
+        paged_entry["launches_by_path"]["p_rlhf_actor"] = rlhf["paged_launches"]
+        DISK.mark("P3")
         gc.collect()
         torch.cuda.empty_cache()
         moe = moe_phase(work, args.seed)
         DISK.mark("M")
         gc.collect()
         torch.cuda.empty_cache()
-        flash_llava = flash_llava_bench(max(4, args.reps // 8), args.seed)
+        flash_llava = flash_shape_bench(LLAVA_FLASH_SHAPE, max(4, args.reps // 8), args.seed,
+                                        "V0")
         for name, r in flash_llava.items():
             log(f"V0 {name} at B=2, S=2048 (576 image + 1472 text), H=Hkv=32, D=128, causal, "
                 f"no segment ids: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, share of "
@@ -3372,12 +3918,16 @@ def main(argv=None) -> int:
                 "flash_backward_dkv": f"{ref}:397"}
     kernels = [paged_entry] + [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-        "launches": train["launches"][name] + moe["launches"][name],
+        "launches": (train["launches"][name] + moe["launches"][name]
+                     + reward["flash_launches"][name] + rlhf["flash_launches"][name]),
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
             "c_job_profile_steps": control["flash_launches_in_profile"][name],
             "m_in_process": moe["launches"][name],
-            "v_job_profile_steps": llava["flash_launches_in_profile"][name]},
+            "v_job_profile_steps": llava["flash_launches_in_profile"][name],
+            "p_dpo_job_profile_steps": dpo["flash_launches_in_profile"][name],
+            "p_reward_in_process": reward["flash_launches"][name],
+            "p_rlhf_learner": rlhf["flash_launches"][name]},
         "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
         "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
@@ -3391,6 +3941,9 @@ def main(argv=None) -> int:
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"llava": {"flash_v0": flash_llava, "hf": llava_hf, "job": llava,
                                 "generate": llava_generate}}), flush=True)
+    print(json.dumps({"prefs": {"p0_objective": dpo_check, "p0_flash": flash_dpo,
+                                "p1_dpo_job": dpo, "p2_reward": reward, "p3_rlhf": rlhf}}),
+          flush=True)
     print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
     print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {

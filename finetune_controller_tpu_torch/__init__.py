@@ -6,8 +6,9 @@ it (nor ``jax``/``flax``).  The slices ported so far are paged
 continuous-batching serving, LoRA SFT training through the spec CLI,
 serving what it trains (multi-tenant adapters, a host KV tier, a replica
 fleet and router), HF checkpoints in and out with held-out evaluation,
-the trainer's observability and the fidelity proof, and the control plane
-that submits, schedules, trains, promotes and serves jobs over HTTP:
+the trainer's observability and the fidelity proof, the control plane
+that submits, schedules, trains, promotes and serves jobs over HTTP, int4
+QLoRA, MoE, LLaVA, and the preference plane:
 
 * ``models`` — ``LlamaConfig``/``PRESETS``, the decoder as ``nn.Module``s
   (serving and training forwards, remat, LoRA dropout), the flax-tree
@@ -32,6 +33,10 @@ that submits, schedules, trains, promotes and serves jobs over HTTP:
   ``controller/web.py``), state and object stores, the local backend that
   launches the trainer CLI, the monitor, promotion, and the fair-share
   scheduler; ``serve/service.py`` serves promoted jobs over HTTP.
+* ``prefs`` — the preference plane: the DPO trainer, the Bradley–Terry
+  reward model and the in-process RLHF-lite actor/learner loop, on the
+  pair batches of ``data/preference.py``; ``utils/flax_msgpack.py`` writes
+  and reads flax's msgpack format (the reward head's file).
 
 Submodules load lazily, so ``import finetune_controller_tpu_torch`` costs
 nothing until a name is used.

@@ -12,9 +12,11 @@ Each module is also executable as a self-test by convention (reference:
 
 In the port's copy every spec whose default device was a TPU slice
 defaults to the ``h100`` card; the ``tiny-*`` specs run on ``cpu-test``.
-Specs whose trainer path the port refuses (the preference tasks) stay
-listed: such a job fails in its trainer with a ``NotImplementedError`` that
-names the ROADMAP item porting it.  A spec whose mesh policy one card
+The preference specs (DPO, RLHF and the reward model) train through the
+port's ``prefs/`` trainers and promote and serve as LoRA jobs; an RLHF job
+with ``rollout_workers > 0`` fails in its trainer with a
+``NotImplementedError`` naming the ROADMAP item that ports the
+disaggregated rollout plane.  A spec whose mesh policy one card
 cannot satisfy (the MoE specs' ``ep``, the long-context spec's ``sp``) is
 refused with the reference's ``ValueError``.  ``mistral-7b-qlora`` (an
 int4 base) runs, and so do ``llava-1.5-lora`` and ``tiny-mm-test-lora``

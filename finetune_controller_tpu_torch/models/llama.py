@@ -54,6 +54,7 @@ prefix and the text.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -655,6 +656,20 @@ class LlamaForCausalLM(nn.Module):
             if aux is not None:
                 aux_sum = aux_sum + aux
         return x, aux_sum
+
+    @contextlib.contextmanager
+    def adapters_disabled(self):
+        """Within the block every ``LoRADense`` skips its adapter branch: the
+        forward is the adapterless base's, on the same weights (no second
+        copy), and no gradient can reach the adapters."""
+        layers = [m for m in self.modules() if isinstance(m, LoRADense)]
+        for m in layers:
+            m.adapter_enabled = False
+        try:
+            yield self
+        finally:
+            for m in layers:
+                m.adapter_enabled = True
 
     def set_dropout_seed(self, seed: int) -> None:
         """Seed every adapter's dropout for the next forward (training mode,

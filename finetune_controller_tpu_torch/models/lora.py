@@ -12,6 +12,11 @@ non-trainable buffers ``kernel_packed`` (uint8, ``(in/2, out)``) and
 ``kernel`` parameter, and the product runs through ``quant.int4_matmul``,
 which dequantizes at use and keeps no dequantized weight for the backward.
 
+``adapter_enabled = False`` (set for a whole model by
+``LlamaForCausalLM.adapters_disabled``) skips the ``lora_a``/``lora_b``
+branch, so the same weights give the adapterless base's output: the DPO
+reference forward.  An int4 base still runs ``int4_matmul``.
+
 LoRA dropout (``lora.dropout > 0``, training mode) drops adapter inputs as
 flax's ``nn.Dropout`` does (keep with probability 1 - rate, scale kept values
 by 1 / (1 - rate)).  Each adapter draws its mask from a ``torch.Generator``
@@ -97,6 +102,8 @@ class LoRADense(nn.Module):
         self.lora_rank = lora_rank
         self.scale = lora_alpha / lora_rank if lora_rank else 0.0
         self.dropout = lora_dropout
+        #: False skips the adapter branch (the adapterless base's output)
+        self.adapter_enabled = True
         #: set by the model: the adapter's index and the trainer's seed
         self.dropout_index = 0
         self.dropout_seed: int | None = None
@@ -127,7 +134,7 @@ class LoRADense(nn.Module):
             y = x @ self.kernel.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
-        if self.lora_a is not None:
+        if self.lora_a is not None and self.adapter_enabled:
             h = self._dropout(x) if self.dropout > 0.0 and self.training else x
             # same evaluation order as the reference: ((h @ A) @ B) * scale
             y = y + (h @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype) * self.scale

@@ -1,0 +1,16 @@
+"""Preference optimization (counterpart of ``prefs/``): DPO as a job type,
+the Bradley–Terry reward model and the in-process RLHF-lite actor/learner
+loop.  The disaggregated rollout plane (``rollout_plane.py``) is not
+ported."""
+
+from .dpo_trainer import DPOTrainer
+from .losses import dpo_loss, masked_sequence_logprobs
+from .rollout_buffer import PreferencePair, RolloutBuffer
+
+__all__ = [
+    "DPOTrainer",
+    "PreferencePair",
+    "RolloutBuffer",
+    "dpo_loss",
+    "masked_sequence_logprobs",
+]

@@ -181,7 +181,12 @@ def load_trained_model(local_dir: Path | str, *, device=None) -> tuple[LlamaForC
 
 def _rebuild(local_dir: Path, spec: dict, model_cfg: Any, latest: int, merge_lora: bool,
              device) -> tuple[LlamaForCausalLM, dict]:
-    from ..train.trainer import Trainer
+    """Rebuild through the job's own trainer class (the reference's
+    ``serve/loader.py:209-218``): a DPO or RLHF job serves its adapter as
+    any LoRA job does; a reward job's checkpoint also carries the head
+    (``head.*``), which the reward trainer restores and the model state
+    leaves out — ``/generate`` serves the trunk."""
+    from ..train.cli import trainer_class
 
     pretrained = spec.get("model", {}).get("weights_dir")
     train_cfg = build_train_config(spec)
@@ -189,7 +194,7 @@ def _rebuild(local_dir: Path, spec: dict, model_cfg: Any, latest: int, merge_lor
         # serve the base in the compute dtype without building it in f32
         train_cfg = dataclasses.replace(
             train_cfg, frozen_dtype=str(model_cfg.dtype).removeprefix("torch."))
-    trainer = Trainer(model_cfg, train_cfg, device=device)
+    trainer = trainer_class(train_cfg.task)(model_cfg, train_cfg, device=device)
     if pretrained and train_cfg.mode != "full":
         # the base from the HF directory, in place (no second copy), then
         # the checkpoint's trainable tensors, the reference's order; a full

@@ -24,10 +24,14 @@ It writes ``resolved_config.json`` first, then what ``Trainer.fit`` writes
 A multimodal preset (``models/multimodal.MM_PRESETS``) reads image-bearing
 rows through ``data/mm_loader.py`` (pixels resized to its tower and
 normalized per ``dataset.image_normalize``), and its synthetic default is
-the ``brightness`` task.  The run is on the CUDA card unless ``--device``
-names another.  One device only: a mesh axis above 1 and the preference
-tasks raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+the ``brightness`` task.  ``training.task`` picks the trainer
+(:func:`trainer_class`): ``dpo`` and ``rlhf`` the DPO trainer, ``reward``
+the reward model, each on preference-pair batches (``data/preference.py``);
+``rlhf`` draws them from the in-process actor/learner loop configured by the
+spec's ``rollout`` section (``prefs/learner.py``).  The run is on the CUDA
+card unless ``--device`` names another.  One device only: a mesh axis above
+1 raises ``NotImplementedError`` naming the ROADMAP item that ports it, and
+so does ``rlhf`` with ``rollout_workers > 0``.
 """
 
 from __future__ import annotations
@@ -109,13 +113,30 @@ def check_mesh(spec: dict) -> None:
 
 def build_batches(spec: dict, model_cfg, train_cfg, split: str = "train"):
     """The job's batch stream: ``dataset.path`` (``dataset.eval_path`` for
-    ``split="eval"``) or the synthetic task.  ``None`` for an eval split of
-    a file dataset that names no ``eval_path``."""
+    ``split="eval"``) or the synthetic task; preference pairs for the
+    ``dpo``, ``rlhf`` and ``reward`` tasks.  ``None`` for an eval split of a
+    file dataset that names no ``eval_path``."""
     from ..data.loader import jsonl_token_batches
     from ..data.synthetic import synthetic_batches
 
     ds = spec.get("dataset", {})
     path = ds.get("eval_path") if split == "eval" else ds.get("path")
+    if train_cfg.task in ("dpo", "rlhf", "reward"):
+        from ..data.preference import preference_jsonl_batches, synthetic_preference_batches
+
+        if path:
+            return preference_jsonl_batches(path, batch_size=train_cfg.batch_size,
+                                            seq_len=train_cfg.seq_len,
+                                            tokenizer_file=ds.get("tokenizer_file"),
+                                            seed=train_cfg.seed)
+        if split == "eval" and ds.get("path"):
+            # real preference data but no eval split configured
+            return None
+        # eval holds out a disjoint seed region, like the SFT synthetic path
+        return synthetic_preference_batches(
+            batch_size=train_cfg.batch_size, seq_len=train_cfg.seq_len,
+            vocab_size=model_cfg.vocab_size,
+            seed=train_cfg.seed + (100_003 if split == "eval" else 0))
     if path and model_cfg.image_size:
         # image-bearing rows: one sample per row, pixels resized to the
         # model's vision tower
@@ -145,9 +166,27 @@ def build_batches(spec: dict, model_cfg, train_cfg, split: str = "train"):
                              seed=seed, image_size=image_size)
 
 
-def run_job(spec: dict, device=None) -> None:
-    from .trainer import Trainer
+def trainer_class(task: str):
+    """The trainer class of ``training.task`` (the reference's dispatch in
+    ``run_job`` and the serving loader)."""
+    if task == "sft":
+        from .trainer import Trainer
 
+        return Trainer
+    if task in ("dpo", "rlhf"):
+        from ..prefs.dpo_trainer import DPOTrainer
+
+        return DPOTrainer
+    if task == "reward":
+        from ..prefs.reward_trainer import RewardModelTrainer
+
+        return RewardModelTrainer
+    raise ValueError(
+        f"unknown training task {task!r}; one of ['sft', 'dpo', 'rlhf', 'reward']"
+    )
+
+
+def run_job(spec: dict, device=None) -> None:
     extra = spec.get("extra_arguments")
     if extra:
         raise ValueError(
@@ -163,12 +202,7 @@ def run_job(spec: dict, device=None) -> None:
     check_mesh(spec)
     with open(os.path.join(artifacts_dir, "resolved_config.json"), "w") as f:
         json.dump(spec, f, indent=2, default=str)
-    if train_cfg.task not in ("sft", "dpo", "rlhf", "reward"):
-        raise ValueError(
-            f"unknown training task {train_cfg.task!r}; one of "
-            "['sft', 'dpo', 'rlhf', 'reward']"
-        )
-    trainer = Trainer(model_cfg, train_cfg, device=device)
+    trainer = trainer_class(train_cfg.task)(model_cfg, train_cfg, device=device)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.info("job %s: %s params=%.1fM device=%s", spec.get("job_id", "?"),
                 spec.get("model", {}).get("preset"), n_params / 1e6, trainer.device)
@@ -181,9 +215,15 @@ def run_job(spec: dict, device=None) -> None:
                 "set dataset.eval_path (or use a synthetic dataset, which "
                 "holds out a disjoint stream automatically)"
             )
+    if train_cfg.task == "rlhf":
+        from ..prefs.learner import RolloutConfig, build_rlhf_loop
+
+        batches, _actor, _buffer = build_rlhf_loop(
+            trainer, artifacts_dir, rollout=RolloutConfig(**spec.get("rollout", {})))
+    else:
+        batches = build_batches(spec, model_cfg, train_cfg)
     weights_dir = spec.get("model", {}).get("weights_dir")
-    trainer.fit(build_batches(spec, model_cfg, train_cfg), artifacts_dir,
-                pretrained_dir=weights_dir, eval_batches=eval_batches)
+    trainer.fit(batches, artifacts_dir, pretrained_dir=weights_dir, eval_batches=eval_batches)
     # deployable artifacts: the PEFT adapter (+ the merged checkpoint)
     trainer.export_artifacts(artifacts_dir)
     with open(os.path.join(artifacts_dir, "done.txt"), "w") as f:

@@ -21,10 +21,19 @@ and, as the reference writes them, ``heartbeat.json``, ``events.jsonl``,
 ``trace/trainer.jsonl`` and the ``phase_*_ms`` columns.  A profiler window
 (``profile_steps`` from ``profile_start_step``, or one requested on a live
 job through ``profile_request.json``) writes a ``torch.profiler`` Chrome
-trace under ``profile/``.  Configurations it cannot train raise
+trace under ``profile/``.
+
+The objective is a hook, as in the reference: :meth:`Trainer._loss` (one
+microbatch's loss and metrics), :meth:`Trainer._eval_metrics`,
+:meth:`Trainer._writer_extra_fields` and :meth:`Trainer._row_extras` (merged
+into every metrics row), and ``_extra_trainable`` (leaves trained beside the
+model's); the preference trainers (``prefs/``) override them.  A batch is
+split into microbatches by the rows of its first leaf, so a pair batch
+splits pair-wise.  Configurations it cannot train raise
 ``NotImplementedError`` naming the ROADMAP item that ports them: the
-preference tasks and the guard fields ``transfer_guard``, ``shard_audit``
-and a ``recompile_budget`` above 0.
+disaggregated rollout plane (``task="rlhf"`` with ``rollout_workers > 0``)
+and the guard fields ``transfer_guard``, ``shard_audit`` and a
+``recompile_budget`` above 0.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ logger = logging.getLogger(__name__)
 class TrainConfig:
     mode: str = "lora"            # "lora" | "full"
     #: training objective: "sft" (this class) | "dpo" | "rlhf" | "reward"
-    #: (the preference plane, not ported yet)
+    #: (the preference trainers of ``prefs/``)
     task: str = "sft"
     dpo_beta: float = 0.1
     rollout_workers: int = 0
@@ -97,7 +106,9 @@ class TrainConfig:
 def refuse_untrainable(model_cfg: LlamaConfig, cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice cannot train."""
     refusals = [
-        (cfg.task != "sft", f"task {cfg.task!r}: the preference plane (ROADMAP Queue A item 6)"),
+        (cfg.task == "rlhf" and cfg.rollout_workers > 0,
+         f"task 'rlhf' with rollout_workers {cfg.rollout_workers}: the disaggregated "
+         "rollout plane (ROADMAP Queue A item 8 / item 6 part 2)"),
         (bool(cfg.transfer_guard),
          f"transfer_guard {cfg.transfer_guard!r}: the transfer guard (ROADMAP Queue A item 9)"),
         (bool(cfg.shard_audit),
@@ -255,6 +266,7 @@ class Trainer:
                 self.trainable[name] = p
             p.requires_grad_(train)
         init_random_(self.model, train_cfg.seed)
+        self.trainable.update(self._extra_trainable())
         self.sched = build_schedule(train_cfg.learning_rate, train_cfg.warmup_steps,
                                     train_cfg.total_steps, train_cfg.schedule)
         self.optimizer = AdamW(self.trainable, self.sched, weight_decay=train_cfg.weight_decay,
@@ -267,6 +279,17 @@ class Trainer:
     #: a multimodal model's leaves trained beside the adapters (the LLaVA
     #: recipe always trains the vision→text projector)
     MM_TRAINED_PARAMS = ("projector_fc1.", "projector_fc2.")
+
+    #: commit every checkpoint before the next step (the reference's flag,
+    #: which its rlhf learner sets).  Every save of the port is synchronous
+    #: already, so the flag only names the commit in the checkpoint span
+    #: and event
+    _blocking_checkpoints = True
+
+    def _extra_trainable(self) -> dict[str, torch.nn.Parameter]:
+        """Trained leaves outside the model (their checkpoint names as
+        keys), created on the trainer's device; none here."""
+        return {}
 
     # ---- batches -----------------------------------------------------------
 
@@ -325,38 +348,52 @@ class Trainer:
             kw["pixels"] = batch.get("pixels")
         return self.model(batch["tokens"], segment_ids=batch.get("segment_ids"), **kw)
 
+    def _loss(self, micro: dict) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """One microbatch's objective (the reference's ``_loss_fn``): the
+        loss to differentiate and its detached metrics.  Here the masked
+        next-token cross-entropy, plus for an MoE model the weighted
+        load-balancing term (logged as ``moe_aux``; the ``loss`` column stays
+        the cross-entropy)."""
+        moe = bool(self.model_cfg.n_experts)
+        logits = self._logits(micro, return_moe_aux=moe)
+        if moe:
+            logits, moe_aux = logits
+        loss, aux = next_token_loss(logits, micro["tokens"], micro.get("loss_mask"))
+        del logits
+        if moe:
+            penalty = self.model_cfg.router_aux_weight * moe_aux
+            loss = loss + penalty
+            aux = dict(aux, moe_aux=penalty.detach())
+        return loss, aux
+
+    def _eval_metrics(self, batch: dict) -> dict[str, torch.Tensor]:
+        """Forward-only metrics of one held-out (micro)batch (the
+        reference's ``_eval_step``), called under ``no_grad`` in eval mode."""
+        logits = self._logits(batch)
+        return next_token_loss(logits, batch["tokens"], batch.get("loss_mask"))[1]
+
     def step(self, batch: dict) -> dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (numpy or tensors: ``tokens``,
         optional ``loss_mask`` and ``segment_ids``, and a multimodal
-        model's ``pixels`` (B, H, W, 3), split per microbatch like the rest).  Each of the
-        ``grad_accum_steps`` microbatches contributes its mean loss's
-        gradient; the gradients and the metrics are averaged over them,
-        ``target_tokens`` summed.  Returns 0-dim tensors: loss, accuracy,
-        target_tokens, grad_norm (before clipping) and learning_rate, and
-        for an MoE model ``moe_aux`` (the weighted load-balancing term the
-        objective adds to ``loss``)."""
+        model's ``pixels`` (B, H, W, 3); a preference trainer's pair
+        leaves).  The batch splits into ``grad_accum_steps`` microbatches by
+        the rows of its first leaf, every leaf alike; each microbatch
+        contributes the gradient of :meth:`_loss`, and the gradients and the
+        metrics are averaged over them, ``target_tokens`` summed.  Returns
+        0-dim tensors: the objective's metrics (here loss, accuracy,
+        target_tokens, and for an MoE model ``moe_aux``), grad_norm (before
+        clipping) and learning_rate."""
         batch = self._to_device(batch)
         accum = self.cfg.grad_accum_steps
-        rows = batch["tokens"].shape[0] // accum
+        rows = next(iter(batch.values())).shape[0] // accum
         self.model.train()
-        moe = bool(self.model_cfg.n_experts)
         sums: dict[str, torch.Tensor] = {}
         for i in range(accum):
             micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
             if self.model_cfg.lora.dropout > 0:
                 self.model.set_dropout_seed(
                     (self.cfg.seed * 1_000_003 + self.step_count) * 1_009 + i)
-            logits = self._logits(micro, return_moe_aux=moe)
-            if moe:
-                logits, moe_aux = logits
-            loss, aux = next_token_loss(logits, micro["tokens"], micro.get("loss_mask"))
-            del logits
-            if moe:
-                # the objective carries the weighted load-balancing term;
-                # the ``loss`` column stays the cross-entropy
-                penalty = self.model_cfg.router_aux_weight * moe_aux
-                loss = loss + penalty
-                aux = dict(aux, moe_aux=penalty.detach())
+            loss, aux = self._loss(micro)
             loss.backward()
             for k, v in aux.items():
                 sums[k] = sums[k] + v if k in sums else v
@@ -380,43 +417,42 @@ class Trainer:
         (the reference's ``evaluate``): no gradients, dropout off, each
         batch split into ``grad_accum_steps`` microbatches as the step
         splits it; the model is back in train mode after.  Returns
-        ``eval_loss``, ``eval_accuracy`` and ``eval_input_ms`` (host build +
-        transfer time per eval batch)."""
+        :meth:`_eval_metrics`'s keys prefixed ``eval_`` (``eval_loss``,
+        ``eval_accuracy``) and ``eval_input_ms`` (host build + transfer time
+        per eval batch).  The pass is the profiler range ``evaluate``."""
         sums: dict[str, float] = {}
         n = 0
         n_batches = max(1, self.cfg.eval_steps)
         input_s = 0.0
         self.model.eval()
         try:
-            for _ in range(n_batches):
-                t_in = time.perf_counter()
-                host_batch = next(eval_batches)
-                input_s += time.perf_counter() - t_in
-                # grad accumulation exists because the full batch's
-                # activations don't fit the card — eval microbatches the same way
-                accum = self.cfg.grad_accum_steps
-                rows = next(iter(host_batch.values())).shape[0]
-                chunks = accum if accum > 1 and rows % accum == 0 else 1
-                if accum > 1 and chunks == 1 and not self._warned_eval_unsplit:
-                    self._warned_eval_unsplit = True
-                    logger.warning(
-                        "eval batch rows (%d) not divisible by grad_accum_steps (%d): "
-                        "evaluating UNSPLIT", rows, accum)
-                size = rows // chunks
-                for c in range(chunks):
+            with torch.profiler.record_function("evaluate"):
+                for _ in range(n_batches):
                     t_in = time.perf_counter()
-                    batch = self._to_device(
-                        {k: v[c * size:(c + 1) * size] for k, v in host_batch.items()})
+                    host_batch = next(eval_batches)
                     input_s += time.perf_counter() - t_in
-                    logits = self._logits(batch)
-                    _, metrics = next_token_loss(logits, batch["tokens"], batch.get("loss_mask"))
-                    del logits
-                    for k, v in metrics.items():
-                        sums[k] = sums.get(k, 0.0) + float(v)
-                    n += 1
-                if self._heartbeat is not None:
-                    # liveness through a long eval pass (float() above synced)
-                    self._heartbeat.beat(self.step_count)
+                    # grad accumulation exists because the full batch's
+                    # activations don't fit the card — eval microbatches the same way
+                    accum = self.cfg.grad_accum_steps
+                    rows = next(iter(host_batch.values())).shape[0]
+                    chunks = accum if accum > 1 and rows % accum == 0 else 1
+                    if accum > 1 and chunks == 1 and not self._warned_eval_unsplit:
+                        self._warned_eval_unsplit = True
+                        logger.warning(
+                            "eval batch rows (%d) not divisible by grad_accum_steps (%d): "
+                            "evaluating UNSPLIT", rows, accum)
+                    size = rows // chunks
+                    for c in range(chunks):
+                        t_in = time.perf_counter()
+                        batch = self._to_device(
+                            {k: v[c * size:(c + 1) * size] for k, v in host_batch.items()})
+                        input_s += time.perf_counter() - t_in
+                        for k, v in self._eval_metrics(batch).items():
+                            sums[k] = sums.get(k, 0.0) + float(v)
+                        n += 1
+                    if self._heartbeat is not None:
+                        # liveness through a long eval pass (float() above synced)
+                        self._heartbeat.beat(self.step_count)
         finally:
             self.model.train()
         # target_tokens is a per-batch count: averaging it is meaningless
@@ -501,6 +537,11 @@ class Trainer:
         if eval_enabled:
             fields += ("eval_loss", "eval_accuracy", "eval_input_ms")
         return fields
+
+    def _row_extras(self) -> dict:
+        """Host-side metrics merged into every metrics row (the rlhf
+        learner's rollout columns); none here."""
+        return {}
 
     # ---- the loop ----------------------------------------------------------
 
@@ -677,6 +718,7 @@ class Trainer:
                     if obs_on:
                         metrics.update(phases.window_row(steps=window_steps,
                                                          wall_s=dt + eval_elapsed))
+                    metrics.update(self._row_extras())
                     writer.write({"step": step_idx + 1, **metrics})
                     if on_metrics:
                         on_metrics(step_idx + 1, metrics)
@@ -693,13 +735,14 @@ class Trainer:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     ck_span = spans.start("checkpoint", parent=fit_span, step=step_idx + 1,
-                                          blocking=True)
+                                          blocking=self._blocking_checkpoints)
                     t_ck = time.perf_counter()
                     ckpt.save(step_idx + 1, self.state_dict())
                     if obs_on:
                         phases.add("checkpoint", time.perf_counter() - t_ck)
                     spans.finish(ck_span)
-                    events_log.emit("checkpoint-committed", step=step_idx + 1, blocking=True)
+                    events_log.emit("checkpoint-committed", step=step_idx + 1,
+                                    blocking=self._blocking_checkpoints)
                 if preempt:
                     logger.warning("exiting on preemption after step %d", step_idx + 1)
                     events_log.emit("preempt-exit", step=step_idx + 1)

@@ -23,8 +23,12 @@ submission apart from paths; the reference's trainer CLI runs that spec
 to give the column set.  Random initialisation through the API differs
 between the two packages, so no losses are compared here (the trainer's
 numbers are held against the JAX trainer in ``tests/test_torch_train.py``).
-A job whose trainer path the port refuses (``tiny-dpo-test``) ends FAILED
-with the trainer's ``NotImplementedError`` in its logs and is not retried.
+A ``tiny-dpo-test`` job (the DPO trainer of ``prefs/``) runs beside it:
+SUCCEEDED, the ``ftc_dpo_*`` gauges on ``/metrics`` while it runs, promoted
+and answering ``/generate``.  A job whose trainer path the port refuses
+(``tiny-rlhf-test`` with ``rollout_workers: 1``, the disaggregated rollout
+plane) ends FAILED with the trainer's ``NotImplementedError`` in its logs and
+is not retried.
 """
 
 from __future__ import annotations
@@ -357,10 +361,26 @@ def lifecycle(parity, tmp_path_factory):
             files={"dataset_file": ("train.jsonl", DATASET)})
         assert status == 200, resp
         job_id = out["job_id"] = resp["job_id"]
+        status, dpo = http(served.base, "POST", "/jobs", {
+            "model_name": "tiny-dpo-test", "arguments": {
+                "total_steps": 20, "warmup_steps": 1, "batch_size": 2, "seq_len": 16,
+                "lora_rank": 2, "log_every": 1, "beta": 0.2, "learning_rate": 0.005}})
+        assert status == 200, dpo
         status, refused = http(served.base, "POST", "/jobs", {
-            "model_name": "tiny-dpo-test", "arguments": {"total_steps": 2, "batch_size": 2,
-                                                         "seq_len": 16, "lora_rank": 2}})
+            "model_name": "tiny-rlhf-test", "num_slices": 1, "arguments": {
+                "total_steps": 2, "batch_size": 2, "seq_len": 16, "lora_rank": 2,
+                "rollout_workers": 1}})
         assert status == 200, refused
+        # the preference gauges exist while the job is active: scrape until
+        # they carry its synced row or it has finished
+        root = f"http://127.0.0.1:{served.port}"
+        out["dpo_gauges"] = ""
+        while "ftc_dpo_reward_margin{" not in out["dpo_gauges"]:
+            job = http(served.base, "GET", f"/jobs/{dpo['job_id']}")[1]
+            if job["status"] in ("succeeded", "failed", "cancelled"):
+                break
+            out["dpo_gauges"] = http(root, "GET", "/metrics")[1]
+            time.sleep(0.05)
         out["job"] = _wait(served.base, job_id, lambda j: j["status"] in (
             "succeeded", "failed", "cancelled"))
         out["logs"] = http(served.base, "GET", f"/jobs/{job_id}/logs")
@@ -375,15 +395,23 @@ def lifecycle(parity, tmp_path_factory):
         rt.settings.serve_paged_kv = True  # the next load builds paged engines
         out["paged"] = http(served.base, "POST", f"/jobs/{job_id}/generate", req)
         out["paged_stats"] = http(served.base, "GET", "/admin/serve")
+        out["dpo"] = _wait(served.base, dpo["job_id"],
+                           lambda j: j["status"] in ("succeeded", "failed", "cancelled"))
+        out["dpo_metrics"] = http(served.base, "GET", f"/jobs/{dpo['job_id']}/metrics")
+        out["dpo_promote"] = http(served.base, "POST", f"/jobs/{dpo['job_id']}/promote")
+        _wait(served.base, dpo["job_id"],
+              lambda j: j["promotion_status"] in ("completed", "failed"))
+        out["dpo_generate"] = http(served.base, "POST", f"/jobs/{dpo['job_id']}/generate", req)
         # FTC_DEVICE=cuda (the default) on a host without a card: the load
         # raises, it does not fall back to the CPU
         http(served.base, "POST", f"/admin/serve/{job_id}/unload")
         rt.settings.device = "cuda"
         out["cuda_load"] = http(served.base, "POST", f"/admin/serve/{job_id}/load")
-        out["dpo"] = _wait(served.base, refused["job_id"],
-                           lambda j: j["status"] in ("succeeded", "failed", "cancelled"))
-        out["dpo_logs"] = http(served.base, "GET", f"/jobs/{refused['job_id']}/logs")
-        out["dpo_timeline"] = http(served.base, "GET", f"/jobs/{refused['job_id']}/timeline")
+        out["refused"] = _wait(served.base, refused["job_id"],
+                               lambda j: j["status"] in ("succeeded", "failed", "cancelled"))
+        out["refused_logs"] = http(served.base, "GET", f"/jobs/{refused['job_id']}/logs")
+        out["refused_timeline"] = http(served.base, "GET",
+                                       f"/jobs/{refused['job_id']}/timeline")
         assert ref_proc.wait(timeout=120) == 0
         ref_csv = (tmp / "ref_artifacts" / "metrics.csv").read_text().splitlines()
         out["ref_columns"] = ref_csv[0].split(",")
@@ -432,14 +460,44 @@ def test_generate_unpaged_and_paged_give_the_same_tokens(lifecycle):
 
 
 def test_refused_spec_fails_in_its_trainer_and_is_not_retried(lifecycle):
-    job = lifecycle["dpo"]
+    job = lifecycle["refused"]
     assert job["status"] == "failed", job
     assert job["metadata"]["failure_class"] == "user"
     assert job["metadata"]["exit_code"] == 1
-    lines = "\n".join(lifecycle["dpo_logs"][1]["lines"])
-    assert "NotImplementedError" in lines and "preference plane" in lines
-    events = [e["event"] for e in lifecycle["dpo_timeline"][1]["events"]]
+    lines = "\n".join(lifecycle["refused_logs"][1]["lines"])
+    assert "NotImplementedError" in lines and "disaggregated rollout plane" in lines
+    assert "ROADMAP Queue A item 8" in lines
+    events = [e["event"] for e in lifecycle["refused_timeline"][1]["events"]]
     assert "retrying" not in events and "failed" in events
+
+
+def test_dpo_job_succeeds_promotes_and_serves(lifecycle):
+    """``tiny-dpo-test`` through the port's controller: SUCCEEDED with the
+    DPO columns, promoted, and ``/generate`` answering from its adapter."""
+    job = lifecycle["dpo"]
+    assert job["status"] == "succeeded", job
+    status, body = lifecycle["dpo_metrics"]
+    assert status == 200
+    records = body["records"]
+    assert records[0]["step"] == 20
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["reward_margin"])
+               for r in records)
+    assert {"dpo_accuracy", "policy_chosen_logprob"} <= set(records[0])
+    assert lifecycle["dpo_promote"][0] == 202
+    status, answer = lifecycle["dpo_generate"]
+    assert status == 200, answer
+    assert len(answer["tokens"]) == 6
+    assert answer["model"]["checkpoint_step"] == 20 and answer["model"]["lora_merged"]
+
+
+def test_dpo_gauges_while_running(lifecycle):
+    text = lifecycle["dpo_gauges"]
+    job_id = lifecycle["dpo"]["job_id"]
+    for gauge in ("ftc_dpo_reward_margin", "ftc_dpo_accuracy"):
+        lines = [line for line in text.splitlines()
+                 if line.startswith(f'{gauge}{{job_id="{job_id}"')]
+        assert len(lines) == 1, (gauge, text[-2000:])
+        assert math.isfinite(float(lines[0].rsplit(" ", 1)[1]))
 
 
 def test_serving_on_the_default_device_without_a_card_raises(lifecycle):

@@ -2,7 +2,8 @@
 
 Importing every module of ``finetune_controller_tpu_torch`` (and the
 ``chip_smoke.py`` script) in a fresh interpreter leaves ``jax``, ``flax``,
-``aiohttp`` and ``finetune_controller_tpu`` out of ``sys.modules`` — checked in a
+``aiohttp`` and ``finetune_controller_tpu`` out of ``sys.modules`` (and the
+preference slice ``msgpack`` too) — checked in a
 subprocess because this test process has JAX loaded already.  An AST scan
 pins the same for every source file.  Entry points default to the CUDA card
 and raise where there is none, unless the caller asks for the CPU.
@@ -204,6 +205,52 @@ def test_control_plane_loads_without_aiohttp():
     ) % (["finetune_controller_tpu_torch.controller.server"]
          + [".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
             for p in CONTROL_SLICE], CONTROL_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+PREFS_SLICE = sorted(
+    [PORT / "prefs" / f for f in ("__init__.py", "losses.py", "rollout_buffer.py",
+                                  "dpo_trainer.py", "reward_trainer.py", "actor.py",
+                                  "learner.py")]
+    + [PORT / "data" / "preference.py", PORT / "utils" / "__init__.py",
+       PORT / "utils" / "flax_msgpack.py"])
+#: the reward head's file is written without flax's or msgpack's packages
+PREFS_FORBIDDEN = ("msgpack", "aiohttp")
+
+
+def test_scan_covers_the_preference_modules():
+    """The preference plane and its data and msgpack coder are the port's
+    own copies, seen by the AST scan above."""
+    for path in PREFS_SLICE:
+        assert path in SOURCES, path
+
+
+@pytest.mark.parametrize("path", PREFS_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_preference_slice_imports_resolve_inside_the_port(path):
+    """The preference modules, relative imports resolved, stay out of JAX,
+    flax, the JAX package (even its JAX-free ``data/preference.py`` and
+    ``prefs/rollout_buffer.py``), ``msgpack`` and ``aiohttp``."""
+    assert path.exists()
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in PREFS_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_preference_slice_loads_without_jax_flax_or_msgpack():
+    """Importing the preference modules in a fresh interpreter loads none of
+    JAX, flax, the JAX package, ``msgpack`` or ``aiohttp``."""
+    code = (
+        "import importlib, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % ([".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+          for p in PREFS_SLICE], PREFS_FORBIDDEN + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

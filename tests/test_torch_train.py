@@ -242,7 +242,11 @@ def test_cli_rejects_unconsumed_arguments_and_unknown_task(tmp_path):
 
 
 @pytest.mark.parametrize("spec,match", [
-    ({"training": {"task": "dpo"}}, "preference plane"),
+    # the preference trainers run (tests/test_torch_prefs.py); the
+    # disaggregated rollout plane of an rlhf job is refused
+    pytest.param({"training": {"task": "rlhf", "rollout_workers": 1}},
+                 r"disaggregated rollout plane \(ROADMAP Queue A item 8 / item 6 part 2\)",
+                 id="spec0-preference plane"),
     ({"mesh": {"dp": 2}}, "multi-GPU"),
     ({"training": {"transfer_guard": "disallow"}}, "transfer guard"),
     # multimodal trains on one card (tests/test_torch_multimodal.py); a
