@@ -64,10 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
    spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
    the losses printed beside those of the same run from a random-init
    base at 32 layers.
-   H1, T2, H2 and S2 run ``HF_LAYERS`` = 18 of the 32 layers: the run may
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 16 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
-   merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M, V
-   and P need about 16 GB beside them; after each phase the script prints what
+   merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M, V,
+   P and R need about 20 GB beside them; after each phase the script prints what
    it has written (``DiskTally``) and fails past 45 GiB;
    (H2) the exported adapter against the step-8 LoRA tensors (bit for
    bit), and the merged checkpoint reloaded into a bf16 model through
@@ -173,9 +173,11 @@ Phases (any failure exits non-zero and prints no result line):
     those in ``evaluate`` exceeding twice the dQ launches (the SFT ratio)
     by exactly the reference forward's 32 x 2 x 2; promoted, 4
     ``/generate`` requests through the paged kernel equal an in-process
-    engine.  After it: (P0) the DPO loss, margins and LoRA gradients of 2
-    full-width layers on the first 8 pairs, flash kernels against plain
-    (T3's bounds), the forward kernel's lse finite on the padded rows, and
+    engine.  After it and R: (P0) the DPO loss, margins and LoRA gradients
+    of 2 full-width layers on the first 8 pairs, flash kernels against plain
+    (T3's bounds on the sequence logprobs and gradients, the loss within
+    ``DPO_LOSS_F32_REL_TOL`` of the plain path in f32), the forward
+    kernel's lse finite on the padded rows, and
     the three flash kernels timed at the DPO shape (B=16, S=512, H=32,
     Hkv=8, D=128) beside SDPA and the bound; (P2) a reward model
     (``task: reward``, ``PREF_LAYERS`` = 8 layers, bf16 base, 4 steps) through
@@ -189,9 +191,36 @@ Phases (any failure exits non-zero and prints no result line):
     actor and flash launches by the learner (each zeroed before and read
     after); buffer depth, staleness, bootstrap pairs and actor tokens/s
     printed;
+    (R) resilience after P1, on a server of its own whose retry supervisor
+    may resubmit once (the backend restarts nothing): ``llama3-8b-lora`` at
+    full width and depth with C's arguments, dataset and seed, a checkpoint
+    every 2 steps and no profiler window, submitted by ``python -m
+    finetune_controller_tpu_torch.controller.ctl submit ... --watch`` in a
+    subprocess, and SIGKILLed after step 3 by the trainer's chaos hook
+    (``StepFault`` through the backend's ``extra_env``).  Checked: RUNNING
+    -> RETRYING -> RUNNING -> SUCCEEDED, one ``infra`` attempt in
+    ``attempt_history``, the resume from step 2 when step 2's async save
+    committed before the kill, else a sweep of its staging and a start
+    from step 0, 6 metrics rows, a manifest matching its state in every
+    committed step, no staging left in the sandbox or the object store,
+    every flash kernel launched by each attempt, each loss within ``RESILIENCE_LOSS_REL_TOL`` of C's, at most
+    ``RESILIENCE_DISK_BYTES`` written; printed: submit -> first row, kill
+    -> resumed first row, each save's host time and snapshot time (async
+    steps 2 and 4, blocking step 6), its writer's commit time, and each
+    async save's cost with the step it overlaps.  (R2) a 2-layer trainer
+    in this process whose asynchronous step-4 save, read back, equals the
+    live tensors after step 4, and the snapshot of C's adapter state timed
+    into fresh pageable, fresh pinned and reused pinned host memory;
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
+    (T5) the same 2 layers once under each remat policy (``none``,
+    ``full``, ``mlp``, ``attn``, ``mlp_qkv``, ``flash``, ``mlp_flash``,
+    ``wide``, ``matmuls``): loss and gradients against ``none``'s within
+    T3's bounds, the flash forward launches of the step equal to
+    ``REMAT_FLASH_FORWARDS`` per layer (zeroed before each policy's step,
+    read after it, and summed over the policies for the ``kernels``
+    line), ms/step and memory printed;
 12. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
     Hkv=8, D=128, bf16, the packed microbatch's segment ids): kernel, plain
     and library times beside the bound, the error against the plain
@@ -200,19 +229,21 @@ Phases (any failure exits non-zero and prints no result line):
     with no segment ids too (every causal tile pair), beside its time before
     the Hopper redesign; each launched twice must give the same bits;
 13. (F) the fidelity proof at the reference's default scale
-    (``fidelity.py:286-299``), on the card through the port's CLI:
-    ``pretrain_base`` (``tiny-test``, 600 steps on a 400 KB stdlib corpus,
-    batch 16 x 128, exported as an HF directory), a LoRA SFT job (rank 8,
-    lr 3e-3, 120 steps) through ``train.cli.main`` from it, and
-    ``generate_cli`` on the job's artifacts with a held-out prompt; the
+    (``fidelity.py:286-299``), on the card through the port's controller
+    (``fidelity.run_proof``): ``pretrain_base`` (``tiny-test``, 600 steps
+    on a 400 KB stdlib corpus, batch 16 x 128, exported as an HF
+    directory), a LoRA SFT job (rank 8, lr 3e-3, 120 steps) from it
+    submitted with ``task_builder`` to the local backend, whose subprocess
+    trainer is ``train/cli.py``, and ``generate_cli`` on the job's synced
+    artifacts with a held-out prompt; the
     reference's three checks (step-1 loss < 0.75 x random-init loss, final
     < 0.75 x step 1, the generation starts with ``SFT_PREFIX`` only after
     the job).  ``tiny-test`` runs the plain attention by its config (head
     dim 16, ``attention_impl="xla"``); the kernels are held on the
     full-width phases;
 14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
-    ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``, ``fidelity`` and
-    ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
+    ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``, ``fidelity``,
+    ``resilience``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -222,6 +253,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import gc
 import json
 import math
@@ -949,10 +981,11 @@ def serve_phase(args):
 #: write 45 GiB to its disk at most, and at 32 layers H1's bf16 base (16.06
 #: GB), T2's f32 merged export (32.12 GB) and T2's three checkpoints (1.51
 #: GB) are 49.7 GB (46.3 GiB); each layer is 1.31 GB of bf16 base and f32
-#: export, so 18 layers are about 31.3 GB, which leaves room for phases C,
-#: Q, V2 and P1 (a checkpoint, exports and their copies each, about 3.5-4.3
-#: GB), M (about 0.4 GB), V1 (1.6 GB) and P2 and P3 (about 0.6 GB)
-HF_LAYERS = 18
+#: export.  At 18 layers the whole run, R included, wrote 44.13 GiB on an
+#: H100 machine, and one job phase alone (Q) wrote 1.00 GB more than in the
+#: run before (what the artifact sync catches of a save varies), so 18
+#: layers can pass the cap; 16 layers leave about 3.5 GiB
+HF_LAYERS = 16
 #: the llama3-8b preset's depth, which S1 serves
 PRESETS_DEPTH = 32
 #: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
@@ -986,6 +1019,9 @@ RANDOM_INIT_T2_LOSSES = [12.108512878417969, 12.082706451416016, 11.533029556274
 #: different orders; bf16 activations carry that through both layers)
 MODEL_LOSS_REL_TOL = 5e-3
 MODEL_GRAD_REL_TOL = 0.05
+#: P0: |DPO loss through the kernels - the plain path's in f32| / the f32
+#: loss (the plain path in bf16 is itself ~1.1e-2 off the f32 one)
+DPO_LOSS_F32_REL_TOL = 5e-3
 
 
 def write_documents(path, seed: int, n: int = 120) -> None:
@@ -1297,93 +1333,34 @@ def merged_roundtrip_phase(art, export_s: float) -> dict:
             "reload_gb_per_s": nbytes / reload_s / 1e9, "logits_rel": rel}
 
 
-def fidelity_phase(work, seed: int) -> dict:
+def fidelity_phase(work) -> dict:
     """F: the fidelity proof on the card at the reference's default scale,
-    through the port's CLI: ``pretrain_base`` (full mode on the stdlib
-    corpus, exported as an HF directory), a LoRA SFT job through
-    ``train.cli.main`` from that base, and ``generate_cli`` on the job's
-    artifacts with a held-out prompt; the reference's three checks."""
-    import contextlib
-    import io
-
+    through the port's controller, as ``fidelity.run_proof`` runs it:
+    ``pretrain_base`` (full mode on the stdlib corpus, exported as an HF
+    directory), a LoRA SFT job from that base submitted with
+    ``task_builder`` to the local backend (whose subprocess trainer is
+    ``train/cli.py``), read by the monitor and synced to the object store,
+    and ``generate_cli`` on the synced artifacts with a held-out prompt;
+    the reference's three checks."""
     import torch
-    from finetune_controller_tpu_torch.data.loader import jsonl_token_batches
-    from finetune_controller_tpu_torch.fidelity import (
-        HOLDOUT_TOPICS, SFT_PREFIX, _generate_text, _read_metrics_csv, build_sft_jsonl,
-        pretrain_base, sft_prompt,
-    )
-    from finetune_controller_tpu_torch.models import generate_cli
-    from finetune_controller_tpu_torch.models.llama import PRESETS
-    from finetune_controller_tpu_torch.models.lora import LoRAConfig
-    from finetune_controller_tpu_torch.train import cli
-    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+    from finetune_controller_tpu_torch.fidelity import run_proof
 
-    f = FIDELITY
-    fid = work / "fidelity"
-    t_phase = time.perf_counter()
-    base = pretrain_base(fid / "base", steps=f["pretrain_steps"], corpus_bytes=f["corpus_bytes"],
-                         batch_size=f["batch_size"], seq_len=f["seq_len"], seed=seed,
-                         device=DEVICE)
-    pretrain_s = time.perf_counter() - t_phase
-    sft = fid / "sft.jsonl"
-    build_sft_jsonl(sft)
-    probe = sft_prompt(HOLDOUT_TOPICS[0])
-    cfg = PRESETS["tiny-test"].replace(lora=LoRAConfig(rank=f["lora_rank"]))
-    trainer = Trainer(cfg, TrainConfig(mode="lora", batch_size=f["batch_size"],
-                                       seq_len=f["seq_len"], eval_steps=4), device=DEVICE)
-
-    def eval_loss() -> float:
-        return trainer.evaluate(jsonl_token_batches(
-            str(sft), batch_size=f["batch_size"], seq_len=f["seq_len"], seed=7))["eval_loss"]
-
-    random_init_loss = eval_loss()
-    trainer.load_pretrained(base["base_dir"])
-    base_eval_loss = eval_loss()
-    before = _generate_text(trainer.model, probe, f["max_new_tokens"])
-    del trainer
-    art = fid / "job"
-    steps = f["sft_steps"]
-    spec = {"job_id": "fidelity-1",
-            "model": {"preset": "tiny-test", "weights_dir": base["base_dir"],
-                      "lora": {"rank": f["lora_rank"]}},
-            "training": {"mode": "lora", "learning_rate": f["sft_learning_rate"],
-                         "total_steps": steps, "warmup_steps": max(1, steps // 20),
-                         "batch_size": f["batch_size"], "seq_len": f["seq_len"],
-                         "seed": seed, "log_every": 1, "checkpoint_every": 100},
-            "dataset": {"path": str(sft)}, "artifacts_dir": str(art)}
-    (fid / "job.json").write_text(json.dumps(spec))
     t0 = time.perf_counter()
-    if cli.main(["--spec", str(fid / "job.json")] + DEVICE_ARGS) != 0:
-        raise SmokeFailure("F: the SFT job's CLI failed")
-    sft_s = time.perf_counter() - t0
-    rows = _read_metrics_csv(art / "metrics.csv")
-    step0_loss, final_loss = rows[0]["loss"], rows[-1]["loss"]
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        generate_cli.main(["--artifacts", str(art), "--prompt", probe,
-                           "--max-new-tokens", str(f["max_new_tokens"])] + DEVICE_ARGS)
-    after = json.loads(buf.getvalue().strip().splitlines()[-1])["text"]
-    checks = {
-        "base_transfers": step0_loss < 0.75 * random_init_loss,
-        "finetune_learns": final_loss < 0.75 * step0_loss,
-        "style_acquired": after.startswith(SFT_PREFIX) and not before.startswith(SFT_PREFIX),
-    }
-    record = {**{k: v for k, v in base.items() if k != "base_dir"}, "sft_steps": steps,
-              "lora_rank": f["lora_rank"], "random_init_loss": random_init_loss,
-              "base_eval_loss": base_eval_loss, "base_step0_loss": step0_loss,
-              "final_loss": final_loss, "before_generation": before,
-              "after_generation": after, "checks": checks, "pretrain_s": pretrain_s,
-              "sft_s": sft_s, "phase_s": time.perf_counter() - t_phase,
-              "attention": "plain (tiny-test: head dim 16, attention_impl xla)"}
-    log(f"F: tiny-test on the card with the plain attention path (head dim 16, "
-        f"attention_impl 'xla': the flash kernels are held on the full-width phases); "
-        f"pretrain {f['pretrain_steps']} steps on {base['corpus_bytes']} corpus bytes: loss "
-        f"{base['pretrain_first_loss']:.3f} -> {base['pretrain_final_loss']:.3f} "
-        f"({pretrain_s:.1f} s); SFT loss random init {random_init_loss:.3f}, base "
-        f"{base_eval_loss:.3f}; job step 1 {step0_loss:.3f} -> step {steps} {final_loss:.3f} "
-        f"({sft_s:.1f} s); before {before!r}, after {after!r}; checks {checks}")
-    if not all(checks.values()):
-        raise SmokeFailure(f"F: fidelity checks failed: {checks}")
+    record = run_proof(work / "fidelity", **FIDELITY, device=DEVICE)
+    record["phase_s"] = time.perf_counter() - t0
+    record["attention"] = "plain (tiny-test: head dim 16, attention_impl xla)"
+    log(f"F: tiny-test on the card through the port's controller, with the plain attention "
+        f"path (head dim 16, attention_impl 'xla': the flash kernels are held on the "
+        f"full-width phases); pretrain {record['pretrain_steps']} steps on "
+        f"{record['corpus_bytes']} corpus bytes: loss {record['pretrain_first_loss']:.3f} -> "
+        f"{record['pretrain_final_loss']:.3f}; SFT loss random init "
+        f"{record['random_init_loss']:.3f}, base {record['base_eval_loss']:.3f}; job step 1 "
+        f"{record['base_step0_loss']:.3f} -> step {record['sft_steps']} "
+        f"{record['final_loss']:.3f}; before {record['before_generation']!r}, after "
+        f"{record['after_generation']!r}; checks {record['checks']} "
+        f"({record['phase_s']:.1f} s)")
+    if not record["passed"]:
+        raise SmokeFailure(f"F: fidelity checks failed: {record['checks']}")
     torch.cuda.empty_cache()
     return record
 
@@ -2047,14 +2024,6 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
     (:func:`_dpo_job`; the held-out rows through ``DPO_PLUGIN``, from the
     registry's plugin directory).  Returns C's, Q's, V2's and P1's
     records."""
-    import threading
-
-    import torch
-    from finetune_controller_tpu_torch.controller import config as ctl_config
-    from finetune_controller_tpu_torch.controller import registry, web
-    from finetune_controller_tpu_torch.controller.runtime import build_runtime
-    from finetune_controller_tpu_torch.controller.server import build_app
-
     t_phase = time.perf_counter()
     ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_ctrl"
     shutil.rmtree(ctrl, ignore_errors=True)
@@ -2066,32 +2035,8 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
     (ctrl / "plugins").mkdir()
     (ctrl / "plugins" / "dpo_held_out.py").write_text(
         DPO_PLUGIN.format(eval_path=str(prefs_eval)))
-    env = {**CONTROL_ENV, "FTC_STATE_DIR": str(ctrl / "state"),
-           "FTC_OBJECT_STORE_ROOT": str(ctrl / "objects"), "FTC_DEVICE": DEVICE}
-    saved_env = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    ctl_config.set_settings(None)
-    settings = ctl_config.get_settings()
-    registry.reset()
-    rt = build_runtime(settings, plugin_dir=str(ctrl / "plugins"))
-    loop = asyncio.new_event_loop()
-    thread = threading.Thread(target=loop.run_forever, name="control-plane", daemon=True)
-    thread.start()
-
-    def on_loop(coro, timeout=None):
-        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
-
-    runner = web.AppRunner(build_app(rt))
-    try:
-        on_loop(runner.setup(), 60)
-        site = web.TCPSite(runner, "127.0.0.1", 0)
-        on_loop(site.start(), 60)
-        api = _Api(f"http://127.0.0.1:{site.port}{settings.api_prefix}")
-        scrape = _Api(f"http://127.0.0.1:{site.port}")  # /metrics sits at the root
-        ctx = (api, scrape, rt, settings, on_loop, ctrl)
-        api.ok("GET", "/health")
-        api.token = api.ok("POST", "/auth/dev-token",
-                           {"user_id": "chip-smoke", "is_admin": True})["access_token"]
+    with control_plane(ctrl, CONTROL_ENV, plugin_dir=ctrl / "plugins") as ctx:
+        api = ctx[0]
         dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
                          want=(201,))
         record = _control_job(ctx, dataset["dataset_id"], seed)
@@ -2113,6 +2058,51 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
                              files={"file": ("prefs.jsonl", prefs.read_bytes())}, want=(201,))
         dpo = _dpo_job(ctx, dpo_dataset["dataset_id"], seed)
         dpo["phase_s"] = time.perf_counter() - t_p
+    dpo["control_dir_bytes"] = tree_bytes(ctrl)
+    return record, qlora, llava, dpo
+
+
+@contextlib.contextmanager
+def control_plane(ctrl: Path, env_overrides: dict, plugin_dir: Path | None = None):
+    """The port's server in this process on an ephemeral port, on its own
+    event-loop thread, with ``env_overrides`` (``FTC_*``) set and a fresh
+    state dir and object store under ``ctrl``; an admin dev token is minted.
+    Yields ``(api, scrape, rt, settings, on_loop, ctrl)``; the environment
+    is restored on exit."""
+    import threading
+
+    import torch
+    from finetune_controller_tpu_torch.controller import config as ctl_config
+    from finetune_controller_tpu_torch.controller import registry, web
+    from finetune_controller_tpu_torch.controller.runtime import build_runtime
+    from finetune_controller_tpu_torch.controller.server import build_app
+
+    env = {**env_overrides, "FTC_STATE_DIR": str(ctrl / "state"),
+           "FTC_OBJECT_STORE_ROOT": str(ctrl / "objects"), "FTC_DEVICE": DEVICE}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    ctl_config.set_settings(None)
+    settings = ctl_config.get_settings()
+    registry.reset()
+    rt = build_runtime(settings, plugin_dir=str(plugin_dir) if plugin_dir else None)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="control-plane", daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout=None):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    runner = web.AppRunner(build_app(rt))
+    try:
+        on_loop(runner.setup(), 60)
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        on_loop(site.start(), 60)
+        api = _Api(f"http://127.0.0.1:{site.port}{settings.api_prefix}")
+        scrape = _Api(f"http://127.0.0.1:{site.port}")  # /metrics sits at the root
+        api.ok("GET", "/health")
+        api.token = api.ok("POST", "/auth/dev-token",
+                           {"user_id": "chip-smoke", "is_admin": True})["access_token"]
+        yield api, scrape, rt, settings, on_loop, ctrl
     finally:
         on_loop(runner.cleanup(), 300)
         loop.call_soon_threadsafe(loop.stop)
@@ -2126,8 +2116,6 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
         ctl_config.set_settings(None)
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
-    dpo["control_dir_bytes"] = tree_bytes(ctrl)
-    return record, qlora, llava, dpo
 
 
 def _control_job(ctx, dataset_id: str, seed: int) -> dict:
@@ -3247,14 +3235,15 @@ def dpo_objective_check(rows, seed: int) -> dict:
     against ``plain``: the four per-sequence logprob vectors (policy and
     reference, chosen and rejected) within ``MODEL_LOSS_REL_TOL`` of the
     largest, the LoRA gradients within ``MODEL_GRAD_REL_TOL`` of each leaf's
-    largest (T3's bounds), and the forward kernel's lse finite on every row,
-    padded positions included.  The loss and the margin are printed with
-    their differences, beside the plain path run in f32 (the same bf16
-    weights cast at use), and not bounded: the margin is beta x the
-    difference of sequence sums of ~300 token logprobs of ~-12 nats each,
-    so the bf16 rounding that T3's mean loss averages away survives in it
-    (on an NVIDIA H100 80GB HBM3 at 700 W the loss moved by 1.03e-2 of
-    itself while the sums it is made of agreed within T3's bound)."""
+    largest (T3's bounds), the forward kernel's lse finite on every row,
+    padded positions included, and the kernel path's loss within
+    ``DPO_LOSS_F32_REL_TOL`` of the plain path run in f32 (the same bf16
+    weights cast at use).  The bf16 plain path's loss is printed beside it
+    and not bounded: the margin is beta x the difference of sequence sums
+    of ~300 token logprobs of ~-12 nats each, so the bf16 rounding that
+    T3's mean loss averages away survives in it (on an NVIDIA H100 80GB
+    HBM3 at 700 W the two bf16 losses differed by 1.03e-2 of themselves
+    while the kernel path was 1.11e-3 off the f32 one)."""
     import torch
     from finetune_controller_tpu_torch.data.preference import preference_jsonl_batches
     from finetune_controller_tpu_torch.models.llama import PRESETS
@@ -3316,14 +3305,17 @@ def dpo_objective_check(rows, seed: int) -> dict:
     grad_rel = max(((gk[n] - gp[n]).abs().max() / gp[n].abs().max()).item() for n in gp)
     if DEVICE == "cuda" and (min(nk.values()) <= 0 or not lse_finite or not all(lse_finite)):
         raise SmokeFailure(f"P0: kernel launches {nk}, lse finite per forward {lse_finite}")
+    loss_rel_f32 = abs(lk - l32) / abs(l32)
     if not (math.isfinite(lk) and lp_rel <= MODEL_LOSS_REL_TOL
-            and grad_rel <= MODEL_GRAD_REL_TOL):
+            and grad_rel <= MODEL_GRAD_REL_TOL and loss_rel_f32 <= DPO_LOSS_F32_REL_TOL):
         raise SmokeFailure(f"P0: sequence logprobs rel {lp_rel:.3g}, worst LoRA grad rel "
-                           f"{grad_rel:.3g} (tolerances {MODEL_LOSS_REL_TOL}, "
-                           f"{MODEL_GRAD_REL_TOL}); loss {lk} vs {lp}")
+                           f"{grad_rel:.3g}, loss rel to the f32 plain path {loss_rel_f32:.3g} "
+                           f"(tolerances {MODEL_LOSS_REL_TOL}, {MODEL_GRAD_REL_TOL}, "
+                           f"{DPO_LOSS_F32_REL_TOL}); loss {lk} vs {lp}, f32 {l32}")
     del trainer
     return {"loss_kernel": lk, "loss_plain": lp, "loss_plain_f32": l32,
-            "loss_rel": abs(lk - lp) / abs(lp), "loss_rel_kernel_vs_f32": abs(lk - l32) / l32,
+            "loss_rel": abs(lk - lp) / abs(lp), "loss_rel_kernel_vs_f32": loss_rel_f32,
+            "loss_rel_kernel_vs_f32_tolerance": DPO_LOSS_F32_REL_TOL,
             "loss_rel_plain_vs_f32": abs(lp - l32) / l32,
             "margin_kernel": mk, "margin_plain": mp, "margin_plain_f32": m32,
             "seq_logprob_rel": lp_rel,
@@ -3619,6 +3611,493 @@ def llava_generate_phase(art, seed: int) -> dict:
     return record
 
 
+#: R: resilience at full width — C's job with a checkpoint every 2 steps and
+#: no profiler window, submitted through ``ftc-ctl`` and SIGKILLed after step
+#: ``RESILIENCE_KILL_AT``; the server's retry budget lets the supervisor
+#: resubmit it once, the backend restarts nothing itself
+RESILIENCE_ARGS = {**{k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"},
+                   "checkpoint_every": 2}
+RESILIENCE_KILL_AT = 3
+RESILIENCE_ENV = {**CONTROL_ENV, "FTC_RETRY_MAX_ATTEMPTS": "2",
+                  "FTC_RETRY_BASE_DELAY_S": "0.5", "FTC_RETRY_MAX_DELAY_S": "1"}
+#: R: |R's loss - C's loss| / |C's loss| at each step (the same seed, data
+#: and kernels: bit-equal is expected)
+RESILIENCE_LOSS_REL_TOL = 1e-4
+#: R: the phase's bytes written, at most
+RESILIENCE_DISK_BYTES = 4 * 2**30
+#: R: tokens a step
+RESILIENCE_TOKENS = RESILIENCE_ARGS["batch_size"] * RESILIENCE_ARGS["seq_len"]
+
+
+def resume_outcome(logs: list[str], step2_mtime: float, kill_ts: float) -> tuple[int, str]:
+    """R: the step the second attempt must resume from, and why.  The
+    SIGKILL after step 3 may land inside step 2's asynchronous save, as the
+    reference's own SIGKILL test allows.  ``step2_mtime`` is the mtime of
+    the committed ``step_2/manifest.json`` (written inside the staging, so
+    older than the commit), ``kill_ts`` that of the once-file the hook
+    writes just before the kill.  Older: the save committed before the
+    kill, so the second attempt resumes from step 2 and sweeps nothing.
+    Newer: the second attempt saved step 2 again, so the kill caught the
+    save in flight, and the second attempt sweeps its staging
+    (``step_2.tmp``) and starts from step 0.  Raises ``SmokeFailure`` when
+    the logs say otherwise."""
+    resumed = [int(m.group(1)) for ln in logs
+               for m in [re.search(r"resumed from checkpoint step (\d+)", ln)] if m]
+    swept = [ln for ln in logs if "swept stale uncommitted checkpoint staging step_2.tmp" in ln]
+    if step2_mtime < kill_ts:
+        step, why, ok = 2, "step 2's async save committed before the kill", (
+            resumed == [2] and not swept)
+    else:
+        step, why, ok = 0, "the kill landed inside step 2's async save", (
+            resumed == [] and len(swept) == 1)
+    if not ok:
+        raise SmokeFailure(f"R: {why}, so the second attempt must resume from step {step}"
+                           f"{' and sweep step_2.tmp' if step == 0 else ''}; resumed from "
+                           f"{resumed}, swept {swept}")
+    return step, why
+
+
+def attempt_launches(events: list[dict]) -> list[dict]:
+    """R: the flash launches of each attempt's trainer, in order: the
+    ``kernel_launches`` of its last event that carries them (its process's
+    counts so far); attempts begin at ``train-started``."""
+    out: list[dict] = []
+    for e in events:
+        if e["event"] == "train-started":
+            out.append({})
+        elif out and e["attrs"].get("kernel_launches"):
+            out[-1] = dict(e["attrs"]["kernel_launches"])
+    return out
+
+
+def save_cost(records: list[dict], checkpoint_ms: dict, resumed_from: int) -> dict:
+    """R: what the last attempt's asynchronous saves cost against its
+    blocking last save.  The rows past ``resumed_from`` are the last
+    attempt's, and its first is a warm-up.  The row after an asynchronous
+    save ran while the writer thread serialized it; the others ran with no
+    writer.  An asynchronous save costs its span (snapshot and handoff)
+    plus its next step's compute above the median of the writer-free
+    steps; a blocking save costs its span (snapshot and write)."""
+    compute = {int(r["step"]): r.get("phase_compute_ms") for r in records}
+    if any(v is None for v in compute.values()):
+        return {"not measured": "no phase_compute_ms column"}
+    saves = {k: v for k, v in checkpoint_ms.items() if k > resumed_from}
+    overlapped = {k + 1 for k, v in saves.items() if not v["blocking"]}
+    free = [k for k in compute if k > resumed_from + 1 and k not in overlapped]
+    base = float(np.median([compute[k] for k in free]))
+    out = {"writer_free_steps": free, "writer_free_compute_ms": base, "async": {},
+           "blocking": {}}
+    for k, v in sorted(saves.items()):
+        if v["blocking"]:
+            out["blocking"][k] = {"span_ms": v["ms"], "snapshot_ms": v["snapshot_ms"]}
+        elif k + 1 in compute:
+            extra = compute[k + 1] - base
+            out["async"][k] = {"span_ms": v["ms"], "snapshot_ms": v["snapshot_ms"],
+                               "next_step_extra_ms": extra, "total_ms": v["ms"] + extra}
+    return out
+
+
+def resilience_phase(work, seed: int, control: dict) -> dict:
+    """R: a ``llama3-8b-lora`` job at full width and depth submitted with
+    ``python -m finetune_controller_tpu_torch.controller.ctl submit ...
+    --watch`` (a subprocess) to the port's server in this process, with C's
+    arguments, dataset and seed, a checkpoint every 2 steps and no profiler
+    window.  The local backend's ``extra_env`` arms the trainer's chaos hook:
+    ``StepFault(kill_at_step=3, SIGKILL)`` with its once-file in the job's
+    sandbox (the trainer's working directory), the backend's own restart
+    budget is 0 and the retry supervisor's 2 attempts, so recovery runs
+    through the supervisor.  Checked: RUNNING -> RETRYING -> RUNNING ->
+    SUCCEEDED, one ``attempt_history`` entry of class ``infra`` (exit -9),
+    the second attempt's start as :func:`resume_outcome` derives it (from
+    step 2 when step 2's async save committed before the kill, else from
+    step 0 after sweeping its staging), exactly 6 metrics rows (replayed
+    rows not doubled), a ``manifest.json`` in every committed step whose
+    leaves are the saved state's, no staging left and the object store
+    holding the committed steps only, every flash kernel launched by each
+    attempt's steps (the trainer's ``kernel_launches``
+    events), each step's loss within ``RESILIENCE_LOSS_REL_TOL`` of C's,
+    and the phase's writes within ``RESILIENCE_DISK_BYTES``.  Printed: the
+    saves' spans and writer times and :func:`save_cost`.  Then (R2)
+    :func:`snapshot_check`."""
+    import csv
+    import signal
+
+    import torch
+    from finetune_controller_tpu_torch.resilience import StepFault
+    from finetune_controller_tpu_torch.train.checkpoint import MANIFEST_NAME, CheckpointManager
+    from finetune_controller_tpu_torch.train.elastic import leaf_entries
+
+    t_phase = time.perf_counter()
+    disk0 = DISK.written()
+    ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_resilience"
+    shutil.rmtree(ctrl, ignore_errors=True)
+    ctrl.mkdir(parents=True)
+    docs = Path(work) / "train.jsonl"
+    fault = StepFault(kill_at_step=RESILIENCE_KILL_AT, signum=signal.SIGKILL,
+                      once_file="fault_fired")
+    with control_plane(ctrl, RESILIENCE_ENV) as ctx:
+        api, scrape, rt, settings, on_loop, _ = ctx
+        rt.backend.backoff_limit = 0
+        rt.backend.extra_env.update(fault.to_env())
+        dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
+                         want=(201,))
+        argv = [sys.executable, "-m", "finetune_controller_tpu_torch.controller.ctl",
+                "--api", api.base.rsplit("/api/v1", 1)[0], "--token", api.token,
+                "submit", CONTROL_MODEL, "--device", CONTROL_FLAVOR,
+                "--dataset-id", dataset["dataset_id"], "--watch"]
+        for k, v in RESILIENCE_ARGS.items():
+            argv += ["--arg", f"{k}={json.dumps(v)}"]
+        t_submit = time.time()
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, cwd=Path(__file__).resolve().parent)
+        try:
+            head = []
+            for line in proc.stdout:  # the submit answer, printed before the watch
+                head.append(line)
+                if line.rstrip() == "}":
+                    break
+            job_id = json.loads("".join(head))["job_id"]
+            transitions = []
+            while time.time() - t_submit < CONTROL_JOB_TIMEOUT_S:
+                job = api.ok("GET", f"/jobs/{job_id}")
+                if not transitions or transitions[-1][0] != job["status"]:
+                    transitions.append((job["status"], time.time()))
+                if job["status"] in ("succeeded", "failed", "cancelled"):
+                    break
+                time.sleep(0.25)
+            out, err = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        statuses = [st for st, _ in transitions]
+        logs = api.ok("GET", f"/jobs/{job_id}/logs")["lines"]
+        if proc.returncode != 0 or job["status"] != "succeeded":
+            raise SmokeFailure(f"R: ftc-ctl exited {proc.returncode}, job {job['status']} "
+                               f"(statuses {statuses}); ctl stderr {err[-2000:]}; log tail:\n"
+                               + "\n".join(logs[-30:]))
+        want = ["running", "retrying", "running", "succeeded"]
+        it = iter(statuses)
+        if not all(st in it for st in want):
+            raise SmokeFailure(f"R: statuses {statuses}, want the order {want}")
+        history = job["metadata"].get("attempt_history") or []
+        if len(history) != 1 or history[0].get("failure_class") != "infra" \
+                or history[0].get("exit_code") not in (-9, 137):
+            raise SmokeFailure(f"R: attempt_history {history}")
+        records = _job_rows(api, job_id, RESILIENCE_ARGS["total_steps"], "R")
+        sandbox = settings.state_path / "sandboxes" / job_id
+        with open(sandbox / "artifacts" / "metrics.csv") as f:
+            csv_steps = [int(float(r["step"])) for r in csv.DictReader(f)]
+        if csv_steps != list(range(1, RESILIENCE_ARGS["total_steps"] + 1)):
+            raise SmokeFailure(f"R: metrics.csv steps {csv_steps}")
+        ckpt_dir = sandbox / "artifacts" / "checkpoints"
+        staging = [p.name for p in ckpt_dir.iterdir() if ".tmp" in p.name]
+        committed = CheckpointManager(ckpt_dir, sweep=False).steps()
+        if staging or committed != [2, 4, 6]:
+            raise SmokeFailure(f"R: checkpoints {sorted(p.name for p in ckpt_dir.iterdir())}")
+        # the artifact sync ships committed steps only, never a save's staging
+        stored = sorted(p.name for p in
+                        (rt.store.path_for(job["artifacts_uri"]) / "checkpoints").iterdir())
+        if stored != [f"step_{s}" for s in committed]:
+            raise SmokeFailure(f"R: the object store holds checkpoints {stored}")
+        manifests = {}
+        for step in committed:
+            path = ckpt_dir / f"step_{step}"
+            manifest = json.loads((path / MANIFEST_NAME).read_text())
+            state = torch.load(path / "state.pt", map_location="cpu", weights_only=True)
+            got = {k: v["shape"] for k, v in manifest["leaves"].items()}
+            if manifest["step"] != step or got != {
+                    k: v["shape"] for k, v in leaf_entries(state).items()}:
+                raise SmokeFailure(f"R: step_{step}'s manifest does not match its state")
+            manifests[step] = len(got)
+            del state
+        kill_ts = (sandbox / "fault_fired").stat().st_mtime
+        resumed_from, outcome = resume_outcome(
+            logs, (ckpt_dir / "step_2" / MANIFEST_NAME).stat().st_mtime, kill_ts)
+        events = [json.loads(ln) for ln in
+                  (sandbox / "artifacts" / "events.jsonl").read_text().splitlines()]
+        launches = attempt_launches(events)
+        if len(launches) != 2 or any(a.get(name, 0) <= 0 for a in launches
+                                     for name in FLASH_KERNELS):
+            raise SmokeFailure(f"R: flash launches by attempt {launches}: each attempt's "
+                               f"steps must launch every flash kernel")
+        # the host-side cost of each save (snapshot + handoff when async,
+        # snapshot + write when blocking), from the trainer's checkpoint
+        # spans; the phase_checkpoint_ms column carries it in the next row
+        spans = [json.loads(ln) for ln in
+                 (sandbox / "artifacts" / "trace" / "trainer.jsonl").read_text().splitlines()]
+        checkpoint_ms = {sp["attributes"]["step"]: {
+            "ms": (sp["end_ns"] - sp["start_ns"]) / 1e6,
+            "snapshot_ms": sp["attributes"].get("snapshot_ms"),
+            "blocking": sp["attributes"].get("blocking"), "attempt": sp["attributes"].get("attempt")}
+            for sp in spans if sp["name"] == "checkpoint"}
+    losses = [r["loss"] for r in records]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, control["losses"])]
+    if len(gaps) != len(losses) or max(gaps) > RESILIENCE_LOSS_REL_TOL:
+        raise SmokeFailure(f"R: losses {losses} vs C's {control['losses']} "
+                           f"(largest rel gap {max(gaps):.3g}, tolerance "
+                           f"{RESILIENCE_LOSS_REL_TOL})")
+    commits = {}
+    for ln in logs:
+        m = re.search(r"checkpoint step_(\d+) committed in ([0-9.]+) s \((\d+) bytes\)", ln)
+        if m:
+            commits.setdefault(int(m.group(1)), []).append(float(m.group(2)))
+    written = DISK.written() - disk0
+    cost = save_cost(records, checkpoint_ms, resumed_from)
+    record = {
+        "job_id": job_id, "statuses": statuses, "attempt_history": history,
+        "resumed_from": resumed_from, "kill_outcome": outcome,
+        "flash_launches_by_attempt": launches,
+        "flash_launches": {name: sum(a[name] for a in launches) for name in FLASH_KERNELS},
+        "losses": losses, "loss_rel_gap_max": max(gaps), "loss_rel_gaps": gaps,
+        "submit_to_first_row_s": records[0]["timestamp"] - t_submit,
+        "kill_to_resumed_first_row_s": records[RESILIENCE_KILL_AT - 1]["timestamp"] - kill_ts,
+        "checkpoint_ms": checkpoint_ms, "commit_s_by_step": commits, "save_cost": cost,
+        "ms_per_step": [RESILIENCE_TOKENS / r["tokens_per_sec"] * 1e3 for r in records],
+        "phase_ms": {col: [r.get(f"phase_{col}_ms") for r in records]
+                     for col in ("input", "compute", "sync", "checkpoint")},
+        "manifest_leaves": manifests, "bytes_written": written,
+        "ctl_stderr_lines": len(err.splitlines()),
+    }
+    log(f"R: {CONTROL_MODEL} through ftc-ctl, SIGKILL after step {RESILIENCE_KILL_AT}: "
+        f"{' -> '.join(statuses)}; attempt_history {history}; {outcome}, so the second "
+        f"attempt resumed from step {resumed_from}; flash launches by attempt {launches}; "
+        f"submit -> first row {record['submit_to_first_row_s']:.1f} s, kill -> resumed first "
+        f"row {record['kill_to_resumed_first_row_s']:.1f} s; steps "
+        f"{[round(x) for x in record['ms_per_step']]} ms, compute "
+        f"{[round(x or 0) for x in record['phase_ms']['compute']]} ms; checkpoint spans "
+        f"{ {k: (round(v['ms'], 1), round(v['snapshot_ms'] or 0, 1), v['blocking']) for k, v in checkpoint_ms.items()} } "
+        f"(step: (ms, snapshot ms, blocking)); writer commit s {commits}; async save cost "
+        f"{cost}; losses equal C's within rel {max(gaps):.3g} (tolerance "
+        f"{RESILIENCE_LOSS_REL_TOL}); manifests {manifests} leaves, no staging in the "
+        f"sandbox or the store; "
+        f"{written / 1e9:.2f} GB written")
+    if written > RESILIENCE_DISK_BYTES:
+        raise SmokeFailure(f"R: {written / 2**30:.2f} GiB written (budget "
+                           f"{RESILIENCE_DISK_BYTES / 2**30:.0f} GiB)")
+    record["snapshot"] = snapshot_check(work, seed)
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record
+
+
+def snapshot_check(work, seed: int) -> dict:
+    """R2: the asynchronous save's snapshot on the card.  A 2-layer,
+    full-width ``llama3-8b`` LoRA trainer (bf16 base, rank 16, 2 x 2048
+    random tokens a step, no prefetch) fits 5 steps with a checkpoint every
+    2: the saves of steps 2 and 4 are asynchronous and overlap the next
+    step, step 5's blocks.  The live trainable tensors after step 4 (copied
+    in ``on_metrics``, before the save) must equal the step-4 checkpoint
+    read back, bit for bit."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.train.checkpoint import CheckpointManager
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = PRESETS["llama3-8b"].replace(n_layers=2, lora=LoRAConfig(rank=16, alpha=32.0))
+    trainer = Trainer(cfg, TrainConfig(frozen_dtype="bfloat16", batch_size=2, seq_len=2048,
+                                       total_steps=5, checkpoint_every=2, log_every=1,
+                                       warmup_steps=1, prefetch=0, seed=seed,
+                                       heartbeat_interval_s=0), device=DEVICE)
+    rng = np.random.default_rng(seed + 11)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 2048)).astype(np.int32)}
+               for _ in range(5)]
+    live = {}
+
+    def keep(step, _metrics):
+        if step == 4:
+            live.update({k: v.detach().to("cpu", copy=True) for k, v in trainer.trainable.items()})
+
+    art = Path(work) / "snapshot_check"
+    shutil.rmtree(art, ignore_errors=True)
+    trainer.fit(batches, str(art), on_metrics=keep)
+    saved = CheckpointManager(art / "checkpoints", sweep=False).restore(4)["trainable"]
+    differ = [k for k in live if not torch.equal(saved[k], live[k])]
+    events = [json.loads(ln) for ln in (art / "events.jsonl").read_text().splitlines()]
+    commits = {e["attrs"].get("step"): bool(e["attrs"].get("blocking")) for e in events
+               if e["event"] == "checkpoint-committed"}
+    if commits != {2: False, 4: False, 5: True}:
+        raise SmokeFailure(f"R2: checkpoint events (step: blocking) {commits}, want steps 2 "
+                           f"and 4 asynchronous and step 5 blocking")
+    if differ or len(live) != len(saved) or not live:
+        raise SmokeFailure(f"R2: the step-4 checkpoint differs from the live tensors on "
+                           f"{differ[:5]} ({len(live)} live, {len(saved)} saved)")
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"R2: the async step-4 save read back equals the live trainable tensors after step 4 "
+        f"({len(live)} tensors, bit for bit); checkpoint events {commits}")
+    cost = snapshot_cost(seed)
+    log(f"R2: snapshot of C's adapter state ({cost['leaves']} f32 leaves, "
+        f"{cost['bytes'] / 1e9:.3f} GB) to the host, three rounds: fresh pageable tensors "
+        f"{[round(x, 1) for x in cost['ms']['pageable']]} ms, fresh pinned tensors "
+        f"{[round(x, 1) for x in cost['ms']['pinned']]} ms, the same pinned buffers each "
+        f"round (a training run's saves; the first round allocates them) "
+        f"{[round(x, 1) for x in cost['ms']['reused']]} ms")
+    return {"tensors": len(live), "commit_events": commits, "snapshot_cost": cost}
+
+
+def snapshot_cost(seed: int) -> dict:
+    """R2: what a checkpoint's snapshot costs at the size of C's adapter
+    state (llama3-8b, 32 layers, LoRA rank 16 on the seven projections:
+    448 f32 leaves and Adam's two moments of each), made on the card, in
+    three ways: into fresh pageable tensors (``Trainer.state_dict``), into
+    fresh pinned tensors (the second run gets the blocks the first freed
+    to the caching host allocator), and into one set of pinned buffers
+    reused by every run, as a training run's saves reuse theirs
+    (``Trainer._checkpoint_state``).  Three rounds, alternating; each copy
+    is checked bit for bit on its first leaf.  Nothing is written to the
+    disk."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+
+    cfg, rank = PRESETS["llama3-8b"], CONTROL_ARGS["lora_rank"]
+    q, kv = cfg.n_heads * (cfg.d_model // cfg.n_heads), cfg.n_kv_heads * (cfg.d_model // cfg.n_heads)
+    projections = [(cfg.d_model, q), (cfg.d_model, kv), (cfg.d_model, kv), (q, cfg.d_model),
+                   (cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)]
+    shapes = [s for _ in range(cfg.n_layers) for i, o in projections for s in ((i, rank), (rank, o))]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    leaves = [torch.randn(s, generator=gen, device=DEVICE) for s in shapes for _ in range(3)]
+    kept: list = []
+
+    def pageable():
+        return [v.to("cpu", copy=True) for v in leaves]
+
+    def pinned(bufs=None):
+        out = [(b if b is not None else torch.empty(v.shape, dtype=v.dtype, pin_memory=True))
+               .copy_(v, non_blocking=True) for v, b in zip(leaves, bufs or [None] * len(leaves))]
+        torch.cuda.synchronize()
+        return out
+
+    def reused():
+        if not kept:
+            kept.extend(torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for v in leaves)
+        return pinned(kept)
+
+    first = leaves[0].cpu()
+    ms = {"pageable": [], "pinned": [], "reused": []}
+    for _ in range(3):
+        for name, fn in (("pageable", pageable), ("pinned", pinned), ("reused", reused)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = fn()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if not torch.equal(host[0], first):
+                raise SmokeFailure(f"R2: the {name} snapshot differs from the card's tensor")
+            del host
+    nbytes = sum(v.numel() * v.element_size() for v in leaves)
+    del leaves, kept
+    torch.cuda.empty_cache()
+    return {"leaves": len(shapes) * 3, "bytes": nbytes, "ms": ms}
+
+
+#: T5: the reference's remat policies, run once each at T3's shape
+REMAT_PHASE_POLICIES = ("none", "full", "mlp", "attn", "mlp_qkv", "flash", "mlp_flash", "wide",
+                        "matmuls")
+#: T5: flash forward launches per layer and microbatch of a training step:
+#: the port runs the FlashAttention Function outside every checkpointed
+#: segment under none, flash and mlp_flash, inside one under the others.
+#: (The JAX package's gradient holds 2 under every policy but none: its
+#: recompute rebuilds the attention output, which flash and mlp_flash do not
+#: keep; tests/test_torch_remat.py counts both on the CPU.)
+REMAT_FLASH_FORWARDS = {p: 1 if p in ("none", "flash", "mlp_flash") else 2
+                        for p in REMAT_PHASE_POLICIES}
+
+
+def remat_phase(seg, seed: int) -> dict:
+    """T5: one forward and backward of llama3-8b cut to 2 layers (full width,
+    bf16 base, LoRA rank 16 with non-zero B, B=2, S=2048, T3's packed
+    segment ids, the flash kernels) under each remat policy: the loss within
+    ``MODEL_LOSS_REL_TOL`` and every LoRA gradient within
+    ``MODEL_GRAD_REL_TOL`` of its leaf's largest against ``none``'s, and the
+    flash forward launches of the step equal to layers x microbatches (1) x
+    ``REMAT_FLASH_FORWARDS``.  Printed per policy: ms per step (CUDA events,
+    the median of 3 after one warm step), the peak of
+    ``max_memory_allocated`` and the bytes the forward leaves allocated for
+    the backward."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.train.losses import next_token_loss
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = PRESETS["llama3-8b"].replace(n_layers=2, lora=LoRAConfig(rank=16, alpha=32.0))
+    trainer = Trainer(cfg, TrainConfig(frozen_dtype="bfloat16", batch_size=2, seq_len=2048,
+                                       seed=seed), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in trainer.trainable.items():
+            if name.endswith(".lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, seg.shape, generator=gen, device=DEVICE)
+    model = trainer.model
+    out = {}
+
+    def step():
+        logits = model(tokens, segment_ids=seg)
+        loss, _ = next_token_loss(logits, tokens)
+        del logits
+        kept = torch.cuda.memory_allocated()
+        loss.backward()
+        return loss, kept
+
+    try:
+        for policy in REMAT_PHASE_POLICIES:
+            model.cfg = cfg.replace(remat_policy=policy)
+            for p in trainer.trainable.values():
+                p.grad = None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for name in FLASH_KERNELS:
+                getattr(fa, name).launches = 0
+            loss, kept = step()
+            launches = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+            grads = {n: p.grad.float().clone() for n, p in trainer.trainable.items()}
+            peak = torch.cuda.max_memory_allocated() - base
+            times = []
+            for _ in range(3):
+                for p in trainer.trainable.values():
+                    p.grad = None
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+                step()
+                t1.record()
+                torch.cuda.synchronize()
+                times.append(t0.elapsed_time(t1))
+            out[policy] = {"loss": loss.item(), "grads": grads, "launches": launches,
+                           "ms": sorted(times)[1], "peak_bytes": peak,
+                           "kept_bytes": kept - base}
+    finally:
+        model.cfg = cfg
+    l0, g0 = out["none"]["loss"], out["none"]["grads"]
+    record = {}
+    for policy, r in out.items():
+        loss_rel = abs(r["loss"] - l0) / abs(l0)
+        grad_rel = max(((r["grads"][n] - g0[n]).abs().max() / g0[n].abs().max()).item()
+                       for n in g0)
+        want = cfg.n_layers * REMAT_FLASH_FORWARDS[policy]
+        record[policy] = {"loss": r["loss"], "loss_rel": loss_rel, "grad_rel": grad_rel,
+                          "flash_launches": r["launches"], "flash_forwards_expected": want,
+                          "ms_per_step": r["ms"], "peak_gb": r["peak_bytes"] / 1e9,
+                          "kept_for_backward_gb": r["kept_bytes"] / 1e9}
+        log(f"T5 remat {policy:>9}: loss rel {loss_rel:.3g}, worst LoRA grad rel "
+            f"{grad_rel:.3g}; flash launches {r['launches']} (forward expected {want}); "
+            f"{r['ms']:.1f} ms/step, peak {r['peak_bytes'] / 1e9:.3f} GB above the weights, "
+            f"{r['kept_bytes'] / 1e9:.3f} GB kept for the backward")
+        if not (math.isfinite(r["loss"]) and loss_rel <= MODEL_LOSS_REL_TOL
+                and grad_rel <= MODEL_GRAD_REL_TOL):
+            raise SmokeFailure(f"T5: {policy}: loss rel {loss_rel:.3g}, grad rel {grad_rel:.3g} "
+                               f"against none (tolerances {MODEL_LOSS_REL_TOL}, "
+                               f"{MODEL_GRAD_REL_TOL})")
+        if DEVICE == "cuda" and r["launches"]["flash_forward"] != want:
+            raise SmokeFailure(f"T5: {policy}: {r['launches']['flash_forward']} flash forward "
+                               f"launches, want {want}")
+    del trainer, model, out
+    torch.cuda.empty_cache()
+    return record
+
+
 def packed_segments(work, seed: int):
     """Segment ids (2, 2048) int32 of the microbatch of T2's 8 steps (the
     loader seeded as the run's) that holds the most documents, so the
@@ -3812,6 +4291,17 @@ def main(argv=None) -> int:
         DISK.mark("P1")
         gc.collect()
         torch.cuda.empty_cache()
+        for name in FLASH_KERNELS:
+            getattr(fa, name).launches = 0
+        resilience = resilience_phase(work, args.seed, control)
+        # R's job counts its launches in its own trainer processes; this
+        # process's counts are R2's in-process trainer
+        r2_launches = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+        if min(r2_launches.values()) <= 0:
+            raise SmokeFailure(f"R2: flash launches {r2_launches}")
+        DISK.mark("R")
+        gc.collect()
+        torch.cuda.empty_cache()
         prefs, prefs_eval = preference_rows(work, args.seed)
         dpo_check = dpo_objective_check(prefs, args.seed)
         log(f"P0 DPO objective (2 full-width layers, 8 pairs x 512, {dpo_check['padded_rows']} "
@@ -3888,10 +4378,15 @@ def main(argv=None) -> int:
                 log(f"  flash kernel {ms:9.3f} ms  {name}")
         gc.collect()
         torch.cuda.empty_cache()
+        remat = remat_phase(seg, args.seed)
+        t5_launches = {name: sum(r["flash_launches"][name] for r in remat.values())
+                       for name in FLASH_KERNELS}
+        gc.collect()
+        torch.cuda.empty_cache()
         flash = flash_bench(seg, max(4, args.reps // 8), args.seed)
         gc.collect()
         torch.cuda.empty_cache()
-        fidelity = fidelity_phase(work, args.seed)
+        fidelity = fidelity_phase(work)
         DISK.mark("T3, T4 and F")
     except SmokeFailure as e:
         return fail(str(e))
@@ -3919,7 +4414,9 @@ def main(argv=None) -> int:
     kernels = [paged_entry] + [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
         "launches": (train["launches"][name] + moe["launches"][name]
-                     + reward["flash_launches"][name] + rlhf["flash_launches"][name]),
+                     + reward["flash_launches"][name] + rlhf["flash_launches"][name]
+                     + resilience["flash_launches"][name] + r2_launches[name]
+                     + t5_launches[name]),
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
             "c_job_profile_steps": control["flash_launches_in_profile"][name],
@@ -3927,7 +4424,10 @@ def main(argv=None) -> int:
             "v_job_profile_steps": llava["flash_launches_in_profile"][name],
             "p_dpo_job_profile_steps": dpo["flash_launches_in_profile"][name],
             "p_reward_in_process": reward["flash_launches"][name],
-            "p_rlhf_learner": rlhf["flash_launches"][name]},
+            "p_rlhf_learner": rlhf["flash_launches"][name],
+            "r_job_both_attempts": resilience["flash_launches"][name],
+            "r2_snapshot_in_process": r2_launches[name],
+            "t5_remat_in_process_all_policies": t5_launches[name]},
         "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
         "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
@@ -3946,6 +4446,8 @@ def main(argv=None) -> int:
           flush=True)
     print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
     print(json.dumps({"fidelity": fidelity}), flush=True)
+    print(json.dumps({"resilience": resilience}), flush=True)
+    print(json.dumps({"remat": remat}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",
                               "ms_no_segments", "tflops_no_segments")}

@@ -3,25 +3,43 @@ pod-side storage CLI — one implementation of the ``aws s3 sync`` semantics the
 reference delegated to its sidecar container
 (``app/jobs/kubeflow/PyTorchJobDeployer.py:121-168``): glob-pattern selection
 (``store_asset_patterns``, ``finetuning.py:94-97``) + (mtime, size) change
-detection so unchanged bytes are never re-uploaded.
+detection so unchanged bytes are never re-uploaded.  A checkpoint's
+uncommitted staging is never shipped: the trainer renames it into place
+once it is whole, and a copy taken mid-write would stay in the store as a
+partial checkpoint.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 
 from .objectstore import ObjectStore
+
+
+#: a checkpoint save's staging, by the names ``train/checkpoint.py``'s
+#: sweep removes: ``step_N.tmp``, ``step_N.manifest.tmp``, orbax's
+#: ``step_N.orbax-checkpoint-tmp-<ts>`` and the port's earlier
+#: ``.step_N.tmp-<pid>``
+STAGING_RE = re.compile(
+    r"^(step_\d+(\.tmp|\.manifest\.tmp|\.orbax-checkpoint-tmp-.*)|\.step_\d+\.tmp-\d+)$"
+)
+
+
+def _staged(path: Path, src_dir: Path) -> bool:
+    return any(STAGING_RE.match(part) for part in path.relative_to(src_dir).parts)
 
 
 def matched_files(src_dir: Path, patterns: list[str] | None) -> list[Path]:
     if not src_dir.is_dir():
         return []
     if not patterns:
-        return sorted(p for p in src_dir.rglob("*") if p.is_file())
-    out: set[Path] = set()
-    for pattern in patterns:
-        out.update(p for p in src_dir.glob(pattern) if p.is_file())
-    return sorted(out)
+        found = {p for p in src_dir.rglob("*") if p.is_file()}
+    else:
+        found = set()
+        for pattern in patterns:
+            found.update(p for p in src_dir.glob(pattern) if p.is_file())
+    return sorted(p for p in found if not _staged(p, src_dir))
 
 
 async def sync_dir_to_store(

@@ -37,6 +37,11 @@ the port's adapter form: the flat ``layers.{i}.{attn|mlp}.{proj}.lora_a`` /
 
 ``merge_lora(cfg, state)`` folds LoRA deltas into the base kernels, the
 counterpart of ``serve/loader.py:merge_lora_variables``.
+
+``trainable_from_flax(leaves)`` names a reference trainer's ``trainable``
+leaves (flat ``/`` paths, :func:`flat_paths`) as the port's trainer names
+its trained tensors; the checkpoint reader (``train/checkpoint.py``) maps
+the JAX package's ``state.msgpack`` and its manifest through it.
 """
 
 from __future__ import annotations
@@ -280,6 +285,53 @@ def _text_to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
     if lora:
         variables["lora"] = lora
     return variables
+
+
+def flat_paths(tree: Mapping, prefix: str = "") -> dict[str, Any]:
+    """``/``-joined paths of a nested dict's leaves (empty dicts vanish)."""
+    out: dict[str, Any] = {}
+    for key in sorted(tree):
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(tree[key], Mapping):
+            out.update(flat_paths(tree[key], path))
+        else:
+            out[path] = tree[key]
+    return out
+
+
+#: top-level groups of a trainer's ``trainable`` tree whose name the port's
+#: parameters do not carry (the reference's multimodal and reward trainers
+#: hold ``{"lora": ..., "projector": ...}`` / ``{"lora": ..., "head": ...}``)
+_UNNAMED_GROUPS = ("lora/", "projector/")
+
+
+def trainable_from_flax(leaves: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's trainable names for a reference trainer's ``trainable``
+    leaves, given as ``/``-joined flax paths (:func:`flat_paths`): a LoRA
+    collection, a full fine-tune's ``params``, or a grouped tree (the
+    ``lora`` and ``projector`` groups dropped, ``head`` kept as
+    ``head.*``).  A scanned leaf (``blocks/block/...``) splits along its
+    leading layer axis into ``layers.{i}.*``; ``layer_{i}/...`` becomes
+    ``layers.{i}.*``.  A leaf is anything indexable along axis 0, or a shape
+    tuple (split into ``shape[1:]``).  Leaves outside these layouts keep
+    their path with ``.`` for ``/``, so a restore's shape check names them."""
+    out: dict[str, Any] = {}
+    for path, leaf in leaves.items():
+        for group in _UNNAMED_GROUPS:
+            if path.startswith(group):
+                path = path[len(group):]
+                break
+        if path.startswith("blocks/block/"):
+            rest = path[len("blocks/block/"):].replace("/", ".")
+            n = leaf[0] if isinstance(leaf, tuple) else leaf.shape[0]
+            for i in range(n):
+                out[f"layers.{i}.{rest}"] = leaf[1:] if isinstance(leaf, tuple) else leaf[i]
+            continue
+        head, _, rest = path.partition("/")
+        if head.startswith("layer_") and head[len("layer_"):].isdigit():
+            path = f"layers/{head[len('layer_'):]}/{rest}"
+        out[path.replace("/", ".")] = leaf
+    return out
 
 
 def merge_kernel(kernel: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

@@ -33,11 +33,28 @@ Every path takes ``adapter_ids`` (B,): with tenant stacks (built from
 a serving engine that owns its own) each row applies its tenant's adapter
 on all seven projections (``models/lora.py``).
 
-Rematerialisation keeps numerics: ``none`` runs the block as it is, ``full``
-wraps each block in ``torch.utils.checkpoint`` (non-reentrant), and ``mlp``
-keeps the MLP's gate and up projections by checkpointing only the attention
-half and the activation/down projection.  The reference's other named
-policies are refused.
+Rematerialisation keeps numerics and follows the reference's policies
+(``remat_policy_fn``, ``llama.py:31-76``): each keeps the tensors it names
+(:data:`REMAT_SAVED`) and the backward recomputes the rest.  The port runs a
+block as five stages (:meth:`Block._stages`): ``qkv`` (norm, projections,
+RoPE; names ``attn_qkv``), ``flash`` (the attention; ``attn_ctx``, and
+``flash_out``/``flash_lse`` inside the kernel's ``FlashAttention``
+Function), ``o`` (the output projection and residual; ``attn_o``),
+``gate_up`` (norm, gate and up projections; ``mlp_gate``/``mlp_up``) and
+``down`` (activation, down projection, residual).  A stage whose named
+output the policy keeps runs as it is; consecutive stages that it does not
+keep run under one ``torch.utils.checkpoint`` (non-reentrant) segment, split
+where a kept tensor crosses between them (its inputs are what the segment
+saves).  So the backward re-runs the same projections and the same
+attention forwards as the reference's: the flash forward runs once per
+layer and step under ``none``, ``flash`` and ``mlp_flash`` (the Function
+outside every segment) and twice under the others.  What torch keeps beside
+the named tensors differs from what JAX keeps: a stage that runs as it is
+saves what its own backward needs (the ``qkv`` stage its normed input, the
+``FlashAttention`` Function its q, k and v even where the policy recomputes
+them), and the ``down`` segment re-runs the down product as well as the
+activation.  An MoE block's experts name nothing: they form one stage that
+every policy recomputes, so ``mlp`` recomputes an MoE block whole.
 
 ``quantize_base`` stores every projection's kernel as int4 (QLoRA,
 ``models/quant.py``; the head and the embedding stay float), and
@@ -75,10 +92,22 @@ from .lora import LoRAConfig, LoRADense, TenantRows, TenantStacks
 from .moe import EXPERT_KERNELS, MoEMLP
 from .quant import quantize_int4
 
-#: the reference's remat policies (``remat_policy_fn``); the port runs
-#: ``none``, ``full`` and ``mlp``
-REMAT_POLICIES = ("none", "full", "attn", "mlp", "mlp_qkv", "flash", "mlp_flash", "wide",
-                  "matmuls")
+#: the tensors each of the reference's remat policies keeps
+#: (``remat_policy_fn``); ``none`` is no rematerialisation
+REMAT_SAVED = {
+    "full": (),
+    "attn": ("attn_ctx",),
+    "mlp": ("mlp_gate", "mlp_up"),
+    "mlp_qkv": ("mlp_gate", "mlp_up", "attn_qkv"),
+    "flash": ("flash_out", "flash_lse"),
+    "mlp_flash": ("mlp_gate", "mlp_up", "flash_out", "flash_lse"),
+    "wide": ("mlp_gate", "mlp_up", "attn_qkv", "attn_ctx"),
+    "matmuls": ("mlp_gate", "mlp_up", "mlp_down", "attn_qkv", "attn_ctx", "attn_o"),
+}
+REMAT_POLICIES = ("none", *REMAT_SAVED)
+#: the names each policy keeps that an MoE block carries (its experts name
+#: nothing)
+_MOE_NAMES = ("attn_qkv", "attn_ctx", "attn_o", "flash_out", "flash_lse")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,24 +261,21 @@ PRESETS: dict[str, LlamaConfig] = {
 
 
 def remat_mode(cfg: LlamaConfig) -> str:
-    """The per-layer remat the forward applies: ``none``, ``full`` or
-    ``mlp``.  Raises for an unknown policy (the reference's message) and
-    ``NotImplementedError`` for a named policy the port does not run.
+    """The per-layer remat the forward applies: a key of
+    :data:`REMAT_SAVED`, or ``none``.  Raises for an unknown policy (the
+    reference's message).
 
-    The reference's ``mlp`` policy saves the tensors named ``mlp_gate``,
-    ``mlp_up`` and ``mlp_down`` (``llama.py:603-612``); an MoE block names
-    none of them, so for MoE ``mlp`` recomputes the whole block: ``full``."""
+    An MoE block names none of the MLP's tensors, so a policy that keeps
+    nothing an MoE block names (``mlp``) recomputes the whole block:
+    ``full``."""
     name = cfg.remat_policy
     if name not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {name!r}; one of {list(REMAT_POLICIES)}")
     if not cfg.remat or name == "none":
         return "none"
-    if name not in ("full", "mlp"):
-        raise NotImplementedError(
-            f"remat_policy {name!r} is not ported yet (ROADMAP Queue A item 2); "
-            "the port runs none, full and mlp"
-        )
-    return "full" if cfg.n_experts else name
+    if cfg.n_experts and not set(REMAT_SAVED[name]) & set(_MOE_NAMES):
+        return "full"
+    return name
 
 
 def rope_inv_freqs(cfg: LlamaConfig, device=None) -> torch.Tensor:
@@ -495,6 +521,15 @@ class MLP(nn.Module):
         return self.down(*self.gate_up(x, tenant), tenant)
 
 
+def _chain(fns):
+    def run(*carry):
+        for fn in fns:
+            carry = fn(*carry)
+        return carry
+
+    return run
+
+
 class Block(nn.Module):
     """One decoder layer.  :meth:`forward` returns ``(x, aux)``: ``aux`` is
     the MoE load-balancing term of the layer, ``None`` for a dense MLP."""
@@ -528,19 +563,59 @@ class Block(nn.Module):
         out, aux = self._ffn(self.mlp_norm(x), tenant)
         return x + out, aux
 
+    def _stages(self, positions, inv_freqs, segment_ids, tenant, saved):
+        """The block as ``(stage, carry -> carry, keeps its output, output
+        kept for the next stage)`` over a carry tuple, per the policy's
+        ``saved`` names (see the module docstring)."""
+        attn, impl = self.attn, self.attn.cfg.attention_impl
+
+        def qkv(x):
+            return (x, *attn._qkv(self.attn_norm(x), positions, inv_freqs, tenant))
+
+        def flash(x, q, k, v):
+            return x, causal_attention(q, k, v, impl=impl, segment_ids=segment_ids)
+
+        def o(x, ctx):
+            return (x + attn._out(ctx, tenant),)
+
+        stages = [("qkv", qkv, "attn_qkv" in saved, "attn_qkv" in saved),
+                  ("flash", flash, "flash_out" in saved, "attn_ctx" in saved),
+                  ("o", o, "attn_o" in saved, "attn_o" in saved)]
+        if hasattr(self, "moe"):
+            def moe(x):
+                out, aux = self.moe(self.mlp_norm(x))
+                return x + out, aux
+
+            return stages + [("moe", moe, False, True)]
+
+        def gate_up(x):
+            return (x, *self.mlp.gate_up(self.mlp_norm(x), tenant))
+
+        def down(x, gate, up):
+            return x + self.mlp.down(gate, up, tenant), None
+
+        kept = "mlp_gate" in saved
+        return stages + [("gate_up", gate_up, kept, kept), ("down", down, False, True)]
+
     def forward(self, x, positions, inv_freqs, segment_ids=None, remat: str = "none",
                 tenant=None):
-        if remat == "full":
-            return checkpoint(self._forward, x, positions, inv_freqs, segment_ids, tenant,
-                              use_reentrant=False)
-        if remat == "mlp":
-            # keep gate/up (d_ff wide); recompute the attention half and the
-            # activation + down projection in the backward
-            x = checkpoint(self._attn_residual, x, positions, inv_freqs, segment_ids, tenant,
-                           use_reentrant=False)
-            gate, up = self.mlp.gate_up(self.mlp_norm(x), tenant)
-            return x + checkpoint(self.mlp.down, gate, up, tenant, use_reentrant=False), None
-        return self._forward(x, positions, inv_freqs, segment_ids, tenant)
+        if remat == "none":
+            return self._forward(x, positions, inv_freqs, segment_ids, tenant)
+        stages = self._stages(positions, inv_freqs, segment_ids, tenant, REMAT_SAVED[remat])
+        carry, i = (x,), 0
+        while i < len(stages):
+            if stages[i][2]:  # kept: runs as it is, autograd saves its inputs
+                carry = stages[i][1](*carry)
+                i += 1
+                continue
+            segment = []
+            while i < len(stages) and not stages[i][2]:
+                segment.append(stages[i][1])
+                i += 1
+                if stages[i - 1][3]:
+                    break  # its output is kept: the next segment saves it
+            carry = checkpoint(_chain(segment), *carry, use_reentrant=False)
+        return carry
 
     def forward_paged(self, x, positions, inv_freqs, k_pool, v_pool,
                       page_table, idx, write_at, tenant=None):

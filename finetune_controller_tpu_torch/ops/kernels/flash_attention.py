@@ -349,10 +349,16 @@ class FlashAttention(torch.autograd.Function):
     reference's ``custom_vjp`` (``_flash_attention_lse``).  The forward saves
     q, k, v, the segment ids, out and lse; the backward folds the lse
     cotangent into delta and runs the dQ and dK/dV kernels.  ``plain`` runs
-    the plain versions on any device (``FTC_FLASH_ATTN=plain``)."""
+    the plain versions on any device (``FTC_FLASH_ATTN=plain``).
+    ``forwards`` counts the Function's forwards on either path (a
+    rematerialised segment that holds the Function runs it again), beside
+    the kernels' launch counts."""
+
+    forwards = 0
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal: bool, plain: bool):
+        FlashAttention.forwards += 1
         fwd = flash_forward_reference if plain else flash_forward
         out, lse = fwd(q, k, v, segment_ids, kv_segment_ids, causal)
         ctx.save_for_backward(q, k, v, segment_ids, kv_segment_ids, out, lse)

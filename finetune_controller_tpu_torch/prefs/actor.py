@@ -98,7 +98,8 @@ class RolloutActor:
         #: the learner's base tensors, shared (never written here)
         self._base = {k: v for k, v in model.state_dict().items()
                       if not k.endswith(_LORA_LEAVES)}
-        self._ckpt = CheckpointManager(ckpt_dir, keep=10**9) if ckpt_dir else None
+        self._ckpt = (CheckpointManager(ckpt_dir, keep=10**9, sweep=False)
+                      if ckpt_dir else None)
         self._reward_fn = reward_fn
         self._prompts = prompts
         #: cold-start escape hatch: when a WHOLE round ties, ``oracle_fn(prompt,

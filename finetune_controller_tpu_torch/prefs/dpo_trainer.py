@@ -69,15 +69,16 @@ class DPOTrainer(Trainer):
         #: host-side metrics of the rlhf learner (rollout buffer depth and
         #: staleness, actor tokens/s), merged into every logged row
         self.rollout_stats_fn = None
-        # the in-process rlhf loop's actor sees only COMMITTED checkpoints;
-        # the port commits every checkpoint synchronously
-        # (``Trainer._blocking_checkpoints``), which bounds its policy lag
-        # to one round
-        if train_cfg.task == "rlhf" and train_cfg.prefetch:
-            # the rollout stream runs the actor inside next(): a prefetch
-            # thread would decode on the card beside the learner's step
-            logger.info("rlhf task: forcing prefetch=0 (actor runs inline)")
-            train_cfg.prefetch = 0
+        if train_cfg.task == "rlhf":
+            # the in-process loop's actor sees only COMMITTED checkpoints;
+            # synchronous commits bound its policy lag to one round, where
+            # an async save could land arbitrarily many rounds late
+            self._blocking_checkpoints = True
+            if train_cfg.prefetch:
+                # the rollout stream runs the actor inside next(): a prefetch
+                # thread would decode on the card beside the learner's step
+                logger.info("rlhf task: forcing prefetch=0 (actor runs inline)")
+                train_cfg.prefetch = 0
 
     # ---- objective -------------------------------------------------------
 

@@ -1,11 +1,25 @@
-"""Serve-plane fault injection: the chaos hand on a fleet replica.
+"""Deterministic, seeded fault injection: the chaos harness's hand on the
+process (a copy of the reference's stdlib-only ``resilience/faults.py``).
 
-A copy of the serve part of the reference's ``resilience/faults.py``
-(stdlib only).  A :class:`ServeFault` kills a chosen replica (its decode
-step raises :class:`ReplicaKilled`) or wedges it (its decode step stops
-making progress while holding lanes) when that replica's engine reaches a
-chosen decode step.  Armed directly or through ``FTC_FAULT_SERVE_*``; the
-fleet arms it by wrapping the victim engine's ``step``.
+- **kill-at-step** (:class:`StepFault`): the trainer, at a chosen global
+  step, sends a chosen signal to itself.  Armed through the environment
+  (``FTC_FAULT_KILL_AT_STEP``, ``FTC_FAULT_SIGNAL``, ``FTC_FAULT_ONCE_FILE``;
+  the local backend's ``extra_env`` seam), fired at most once per
+  ``once_file`` so the respawned attempt runs clean: one revocation, then a
+  healthy pool.  ``Trainer.fit`` arms it after every completed step; with
+  SIGTERM the trainer saves and exits 143, with SIGKILL it dies without a
+  save.
+- **store faults** (:class:`FaultyObjectStore`): a wrapper over any object
+  store of ``controller/objectstore.py`` whose write paths fail (or stall)
+  on a seeded schedule.
+- **serve faults** (:class:`ServeFault`): a chosen fleet replica is killed
+  (its decode step raises :class:`ReplicaKilled`) or wedged (its decode step
+  stops making progress while holding lanes) when that replica's engine
+  reaches a chosen decode step.  Armed directly or through
+  ``FTC_FAULT_SERVE_*``; the fleet arms it by wrapping the victim engine's
+  ``step``.
+
+Nothing here imports controller or serve modules.
 """
 
 from __future__ import annotations
@@ -13,13 +27,155 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import random
+import signal
 
 logger = logging.getLogger(__name__)
+
+ENV_KILL_AT_STEP = "FTC_FAULT_KILL_AT_STEP"
+ENV_SIGNAL = "FTC_FAULT_SIGNAL"
+ENV_ONCE_FILE = "FTC_FAULT_ONCE_FILE"
 
 ENV_SERVE_REPLICA = "FTC_FAULT_SERVE_REPLICA"
 ENV_SERVE_AT_STEP = "FTC_FAULT_SERVE_AT_STEP"
 ENV_SERVE_MODE = "FTC_FAULT_SERVE_MODE"
 ENV_SERVE_ONCE_FILE = "FTC_FAULT_SERVE_ONCE_FILE"
+
+
+@dataclasses.dataclass(frozen=True)
+class StepFault:
+    """One scheduled kill: ``signum`` to self when training reaches
+    ``kill_at_step``."""
+
+    kill_at_step: int
+    signum: int = signal.SIGTERM
+    #: marker file created when the fault fires; while it exists the fault is
+    #: spent — the respawned attempt (same env) runs clean. None = fire on
+    #: every attempt that reaches the step.
+    once_file: str | None = None
+
+    def to_env(self) -> dict[str, str]:
+        """Render for a backend's ``extra_env`` (the injection seam)."""
+        env = {
+            ENV_KILL_AT_STEP: str(self.kill_at_step),
+            ENV_SIGNAL: str(int(self.signum)),
+        }
+        if self.once_file:
+            env[ENV_ONCE_FILE] = self.once_file
+        return env
+
+    @classmethod
+    def from_env(cls, env=os.environ) -> "StepFault | None":
+        raw = env.get(ENV_KILL_AT_STEP)
+        if not raw:
+            return None
+        try:
+            step = int(raw)
+            signum = int(env.get(ENV_SIGNAL, str(int(signal.SIGTERM))))
+        except ValueError:
+            logger.warning("ignoring malformed fault env: %s=%r",
+                           ENV_KILL_AT_STEP, raw)
+            return None
+        return cls(kill_at_step=step, signum=signum,
+                   once_file=env.get(ENV_ONCE_FILE) or None)
+
+
+class StepFaultInjector:
+    """Trainer-side trigger: call :meth:`maybe_fire` once per completed step."""
+
+    def __init__(self, fault: StepFault):
+        self.fault = fault
+        self.fired = False
+
+    @classmethod
+    def from_env(cls, env=os.environ) -> "StepFaultInjector | None":
+        fault = StepFault.from_env(env)
+        return cls(fault) if fault is not None else None
+
+    def maybe_fire(self, step: int) -> bool:
+        """Send the configured signal to this process when ``step`` matches.
+
+        Returns True when the signal was sent.  With SIGTERM the trainer's
+        PreemptionGuard turns this into the graceful checkpoint-and-exit-143
+        path; SIGKILL tests the crash-without-save path.
+        """
+        if self.fired or step < self.fault.kill_at_step:
+            return False
+        once = self.fault.once_file
+        if once:
+            if os.path.exists(once):
+                return False  # spent on a previous attempt
+            # create BEFORE the kill: a SIGKILL gives no chance afterwards
+            with open(once, "w") as f:
+                f.write(f"fired at step {step}\n")
+        self.fired = True
+        logger.warning("fault injection: sending signal %d to self at step %d",
+                       self.fault.signum, step)
+        os.kill(os.getpid(), self.fault.signum)
+        return True
+
+
+class FaultInjectionError(OSError):
+    """The injected store failure (distinct type so tests can assert on it)."""
+
+
+class FaultyObjectStore:
+    """Seeded write-error / slow-I/O wrapper around any ObjectStore.
+
+    Write-path methods (``put_bytes``/``put_file``/``put_stream``) fail with
+    :class:`FaultInjectionError` with probability ``write_error_rate`` drawn
+    from a seeded RNG — the schedule is a pure function of the seed and the
+    call sequence, so a chaos test replays identically.  ``slow_io_s`` adds a
+    fixed delay before each write.  Everything else delegates to the wrapped
+    store untouched.
+    """
+
+    def __init__(
+        self,
+        inner,
+        *,
+        write_error_rate: float = 0.0,
+        slow_io_s: float = 0.0,
+        seed: int = 0,
+    ):
+        self._inner = inner
+        self.write_error_rate = write_error_rate
+        self.slow_io_s = slow_io_s
+        self._rng = random.Random(seed)
+        self.injected_errors = 0
+        self.write_calls = 0
+
+    async def _maybe_fail(self, op: str, uri: str) -> None:
+        if self.slow_io_s > 0:
+            import asyncio
+
+            await asyncio.sleep(self.slow_io_s)
+        self.write_calls += 1
+        if self._rng.random() < self.write_error_rate:
+            self.injected_errors += 1
+            raise FaultInjectionError(f"injected {op} failure for {uri}")
+
+    async def put_bytes(self, uri, data):
+        await self._maybe_fail("put_bytes", uri)
+        return await self._inner.put_bytes(uri, data)
+
+    async def put_file(self, uri, path):
+        await self._maybe_fail("put_file", uri)
+        return await self._inner.put_file(uri, path)
+
+    async def put_stream(self, uri, chunks):
+        await self._maybe_fail("put_stream", uri)
+        return await self._inner.put_stream(uri, chunks)
+
+    def __getattr__(self, name):
+        # reads, listings, helpers: pass through (slow_io applies to writes
+        # only — read-side degradation is a different experiment)
+        return getattr(self._inner, name)
+
+
+# ---------------------------------------------------------------------------
+# Serve-plane faults
+# ---------------------------------------------------------------------------
 
 
 class ReplicaKilled(RuntimeError):

@@ -86,7 +86,7 @@ def _latest_step(local_dir: Path) -> int:
         raise ServeLoadError(
             f"no checkpoints under {ckpt_dir} — the job produced none"
         )
-    latest = CheckpointManager(ckpt_dir).latest_step()
+    latest = CheckpointManager(ckpt_dir, sweep=False).latest_step()
     if latest is None:
         raise ServeLoadError(f"no committed checkpoint steps under {ckpt_dir}")
     return latest
@@ -200,7 +200,7 @@ def _rebuild(local_dir: Path, spec: dict, model_cfg: Any, latest: int, merge_lor
         # the checkpoint's trainable tensors, the reference's order; a full
         # fine-tune's checkpoint holds every weight
         trainer.load_pretrained(pretrained)
-    host = CheckpointManager(local_dir / "checkpoints").restore(latest)
+    host = CheckpointManager(local_dir / "checkpoints", sweep=False).restore(latest)
     missing = sorted(set(trainer.trainable) - set(host["trainable"]))
     if missing:
         raise ServeLoadError(
@@ -269,7 +269,7 @@ def _load_adapter_tree(local_dir: Path | str) -> tuple[dict, dict]:
             "model instead"
         )
     latest = _latest_step(local_dir)
-    host = CheckpointManager(local_dir / "checkpoints").restore(latest)
+    host = CheckpointManager(local_dir / "checkpoints", sweep=False).restore(latest)
     trainable = host.get("trainable") if isinstance(host, dict) else None
     adapter = {k: v for k, v in (trainable or {}).items() if k.endswith(_LORA_LEAVES)}
     if not adapter:

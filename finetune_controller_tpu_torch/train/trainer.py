@@ -23,6 +23,16 @@ and, as the reference writes them, ``heartbeat.json``, ``events.jsonl``,
 job through ``profile_request.json``) writes a ``torch.profiler`` Chrome
 trace under ``profile/``.
 
+Checkpoints follow the reference's contract (``train/checkpoint.py``):
+mid-run saves are asynchronous (the state is copied to the host and the
+copy synchronized before a writer thread serializes it), the last save and
+a preemption save block, every save carries the topology manifest
+(``train/elastic.py``), and a resume restores through the shape-checked
+``restore(like=)``, from the port's checkpoints or the JAX package's
+``state.msgpack``.  ``fit`` arms the chaos hook of
+``resilience/faults.py`` (``FTC_FAULT_KILL_AT_STEP``, ``FTC_FAULT_SIGNAL``,
+``FTC_FAULT_ONCE_FILE``).
+
 The objective is a hook, as in the reference: :meth:`Trainer._loss` (one
 microbatch's loss and metrics), :meth:`Trainer._eval_metrics`,
 :meth:`Trainer._writer_extra_fields` and :meth:`Trainer._row_extras` (merged
@@ -43,6 +53,7 @@ import json
 import os
 import logging
 import signal
+import sys
 import time
 from typing import Any, Callable, Iterable, Iterator
 
@@ -53,6 +64,13 @@ from ..device import resolve_device
 from ..models.llama import LlamaConfig, LlamaForCausalLM, init_random_
 from ..models.multimodal import LlavaConfig, LlavaForCausalLM
 from .checkpoint import CheckpointManager
+from .elastic import (
+    RULE_FINGERPRINT,
+    SINGLE_DEVICE_AXES,
+    build_manifest,
+    check_fingerprint,
+    check_single_device_resume,
+)
 from .losses import next_token_loss
 from .metrics import MetricsWriter
 from .optimizer import AdamW, build_schedule
@@ -275,16 +293,17 @@ class Trainer:
         #: the running fit's heartbeat, so a long evaluate() beats too
         self._heartbeat = None
         self._warned_eval_unsplit = False
+        #: pinned host buffers of the checkpoint snapshots on a card
+        self._snapshot_buffers: dict = {}
 
     #: a multimodal model's leaves trained beside the adapters (the LLaVA
     #: recipe always trains the vision→text projector)
     MM_TRAINED_PARAMS = ("projector_fc1.", "projector_fc2.")
 
     #: commit every checkpoint before the next step (the reference's flag,
-    #: which its rlhf learner sets).  Every save of the port is synchronous
-    #: already, so the flag only names the commit in the checkpoint span
-    #: and event
-    _blocking_checkpoints = True
+    #: which its in-process rlhf learner sets); mid-run saves are otherwise
+    #: asynchronous, and the last save and a preemption save block
+    _blocking_checkpoints = False
 
     def _extra_trainable(self) -> dict[str, torch.nn.Parameter]:
         """Trained leaves outside the model (their checkpoint names as
@@ -513,22 +532,103 @@ class Trainer:
 
     # ---- state -------------------------------------------------------------
 
+    def _state_tree(self) -> dict[str, Any]:
+        """The live state as a checkpoint lays it out (device tensors, not
+        copied): the template a restore is shape-checked against."""
+        opt = self.optimizer.state_dict()
+        return {"step": self.step_count, "trainable": dict(self.trainable),
+                "opt_state": {"count": opt["count"], "mu": opt["mu"], "nu": opt["nu"]}}
+
     def state_dict(self) -> dict[str, Any]:
         """What a checkpoint holds: the step, the trained tensors and the
-        optimizer state, on the CPU."""
-        opt = self.optimizer.state_dict()
-        cpu = lambda d: {k: v.detach().to("cpu") for k, v in d.items()}  # noqa: E731
-        return {"step": self.step_count,
-                "trainable": cpu(self.trainable),
-                "opt_state": {"count": opt["count"], "mu": cpu(opt["mu"]),
-                              "nu": cpu(opt["nu"])}}
+        optimizer state, as a snapshot on the CPU that later steps do not
+        touch (fresh tensors, copied synchronously from a card)."""
+        return self._host_state(None)
+
+    def _host_state(self, buffers: dict | None) -> dict[str, Any]:
+        """:meth:`state_dict`'s snapshot, into ``buffers`` when given: pinned
+        host tensors by leaf, allocated at the first call and overwritten by
+        each later one.  The pinned copies are issued without blocking and
+        the device is synchronized before returning, so a writer thread that
+        serializes the snapshot reads landed bytes."""
+        tree = self._state_tree()
+
+        def host(part, d):
+            if buffers is None:
+                return {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+            out = {}
+            for k, v in d.items():
+                buf = buffers.get((part, k))
+                if buf is None:
+                    buf = buffers[(part, k)] = torch.empty(v.shape, dtype=v.dtype,
+                                                           pin_memory=True)
+                out[k] = buf.copy_(v.detach(), non_blocking=True)
+            return out
+
+        out = {"step": tree["step"], "trainable": host("trainable", tree["trainable"]),
+               "opt_state": {"count": tree["opt_state"]["count"],
+                             "mu": host("mu", tree["opt_state"]["mu"]),
+                             "nu": host("nu", tree["opt_state"]["nu"])}}
+        if buffers is not None:
+            torch.cuda.synchronize(self.device)
+        return out
+
+    def _checkpoint_state(self, ckpt: CheckpointManager) -> dict[str, Any]:
+        """The state a save hands to the checkpoint writer.  On a card it is
+        copied into pinned buffers the trainer keeps across saves (fresh
+        pinned or pageable buffers cost many times the copy itself: phase
+        R2 of ``chip_smoke.py`` times the three), so the save in flight,
+        whose writer reads those buffers, is waited for first."""
+        if self.device.type != "cuda":
+            return self.state_dict()
+        ckpt.wait()
+        return self._host_state(self._snapshot_buffers)
 
     @torch.no_grad()
     def load_state(self, state: dict[str, Any]) -> None:
+        """Copy a checkpoint's state in, after checking every leaf's name and
+        shape against the live state (``CheckpointShapeError`` names the
+        first mismatch; ``copy_`` alone would broadcast a ``(1, n)`` tensor
+        into an ``(m, n)`` parameter)."""
+        CheckpointManager._validate_like("", state, self._state_tree())
         for name, p in self.trainable.items():
             p.copy_(state["trainable"][name])
         self.optimizer.load_state_dict(state["opt_state"])
         self.step_count = int(state["step"])
+
+    def _kernel_launches(self) -> dict[str, int] | None:
+        """The flash kernels' launches in this process so far (each
+        wrapper's count), carried by the checkpoint and finish events so a
+        run in a subprocess shows which kernels its steps ran; None off a
+        card, where the wrappers run their plain versions."""
+        if self.device.type != "cuda":
+            return None
+        from ..ops.kernels import flash_attention as fa
+
+        return {name: getattr(fa, name).launches
+                for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv")}
+
+    def _build_manifest(self, step: int, host_state: dict) -> dict:
+        """The topology manifest of a checkpoint (``train/elastic.py``): one
+        card, the port's rule fingerprint, the batch decomposition."""
+        return build_manifest(
+            step=step, mesh_axes=SINGLE_DEVICE_AXES, rule_fingerprint=RULE_FINGERPRINT,
+            global_batch_size=self.cfg.batch_size, grad_accum_steps=self.cfg.grad_accum_steps,
+            seq_len=self.cfg.seq_len, seed=self.cfg.seed, host_tree=host_state)
+
+    def _restore(self, ckpt: CheckpointManager, step: int) -> None:
+        """Resume from ``step``: the manifest's fingerprint (the port's own
+        checkpoints; a JAX-written state is whole arrays, which no rule table
+        shards on one card) and batch decomposition, then the shape-checked
+        restore."""
+        layout = ckpt.layout(step)
+        manifest = ckpt.load_manifest(step)
+        if manifest is not None:
+            if layout == "torch":
+                check_fingerprint(manifest, RULE_FINGERPRINT)
+            check_single_device_resume(manifest, batch_size=self.cfg.batch_size,
+                                       grad_accum_steps=self.cfg.grad_accum_steps)
+        self.load_state(ckpt.restore(step, like=self._state_tree()))
 
     def _writer_extra_fields(self, eval_enabled: bool) -> tuple[str, ...]:
         """Metrics-CSV columns that may appear only on later rows and must
@@ -553,7 +653,10 @@ class Trainer:
         ``total_steps``: a ``metrics.csv`` row every ``log_every`` steps, at
         eval steps and at the last; an evaluation every ``eval_every`` steps
         and at the last; a checkpoint every ``checkpoint_every`` steps and
-        at the last; SIGTERM checkpoints and exits with ``SystemExit(143)``.
+        at the last (mid-run saves asynchronous; ``fit`` returns or raises
+        only after every save committed); SIGTERM checkpoints and exits with
+        ``SystemExit(143)``; ``FTC_FAULT_KILL_AT_STEP`` sends
+        ``FTC_FAULT_SIGNAL`` to the process after that step's row.
 
         ``pretrained_dir`` loads an HF base before the checkpoint restore
         (a full fine-tune that resumes skips it: its checkpoint holds every
@@ -566,6 +669,7 @@ class Trainer:
         from ..obs.events import EventLogWriter
         from ..obs.phase import PhaseClock
         from ..obs.trace import SpanRecorder, new_trace_id
+        from ..resilience.faults import StepFaultInjector
         from ..resilience.heartbeat import HeartbeatWriter
 
         cfg = self.cfg
@@ -596,8 +700,8 @@ class Trainer:
         start_step = 0
         if latest is not None:
             restore_span = spans.start("restore", parent=fit_span, step=latest)
-            self.load_state(ckpt.restore(latest))
-            start_step = latest
+            self._restore(ckpt, latest)
+            start_step = self.step_count
             spans.finish(restore_span, step=start_step)
             logger.info("resumed from checkpoint step %d", start_step)
         heartbeat = None
@@ -607,6 +711,9 @@ class Trainer:
         self._heartbeat = heartbeat
         events_log.emit("train-started", step=start_step,
                         resumed_from=start_step if start_step else None)
+        # chaos hook (resilience/faults.py): a kill-at-step armed through
+        # FTC_FAULT_*; None outside fault-injection runs
+        fault = StepFaultInjector.from_env()
         eval_it: Iterator[dict] | None = iter(eval_batches) if eval_batches is not None else None
         if cfg.eval_every > 0 and eval_it is None:
             raise ValueError("eval_every > 0 but no eval_batches were supplied to fit()")
@@ -728,36 +835,64 @@ class Trainer:
                                 metrics["input_ms"], 100.0 * metrics["input_fraction"])
                     window_t0, window_tokens, window_input_s, window_steps = (
                         time.perf_counter(), 0, 0.0, 0)
+                if fault is not None:
+                    # after the step (and its row): a SIGTERM's save reflects
+                    # real progress; a SIGKILL may land inside an async save
+                    # still in flight, whose staging the next attempt sweeps
+                    fault.maybe_fire(step_idx + 1)
                 preempt = guard.requested
                 if (step_idx + 1) % cfg.checkpoint_every == 0 or last or preempt:
                     # the pending step's device work belongs to compute, not
                     # to the save that would otherwise wait for it
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
+                    # mid-run saves overlap the next steps; the last save
+                    # (nothing left to overlap) and a preemption save commit
+                    # before going on
+                    blocking = last or preempt or self._blocking_checkpoints
                     ck_span = spans.start("checkpoint", parent=fit_span, step=step_idx + 1,
-                                          blocking=self._blocking_checkpoints)
+                                          blocking=blocking)
                     t_ck = time.perf_counter()
-                    ckpt.save(step_idx + 1, self.state_dict())
+                    host_state = self._checkpoint_state(ckpt)
+                    # the snapshot, after any wait for the save in flight
+                    snapshot_ms = (time.perf_counter() - t_ck) * 1000.0
+                    ckpt.save(step_idx + 1, host_state, blocking=blocking,
+                              manifest=self._build_manifest(step_idx + 1, host_state))
+                    del host_state
                     if obs_on:
+                        # the host-side cost of the save: snapshot + write for
+                        # a blocking save, snapshot + handoff for an async one
                         phases.add("checkpoint", time.perf_counter() - t_ck)
-                    spans.finish(ck_span)
+                    spans.finish(ck_span, snapshot_ms=snapshot_ms)
                     events_log.emit("checkpoint-committed", step=step_idx + 1,
-                                    blocking=self._blocking_checkpoints)
+                                    blocking=blocking or None,
+                                    kernel_launches=self._kernel_launches())
                 if preempt:
                     logger.warning("exiting on preemption after step %d", step_idx + 1)
                     events_log.emit("preempt-exit", step=step_idx + 1)
                     raise SystemExit(143)
-        except BaseException:
-            spans.finish(fit_span, status="error", start_step=start_step)
-            raise
-        else:
-            spans.finish(fit_span, status="ok", start_step=start_step)
-            events_log.emit("train-finished", step=cfg.total_steps)
         finally:
             self._heartbeat = None
             for p in prefetch_its:
                 p.close()
             if window.active:
                 window.stop(cfg.total_steps)
-            writer.close()
-            guard.uninstall()
+            propagating = sys.exc_info()[1] is not None
+            try:
+                # durability barrier: an async save commits before fit
+                # returns or the process exits
+                ckpt.wait()
+            except Exception:
+                if not propagating:
+                    raise
+                # an exception (the preemption SystemExit 143) is already
+                # propagating: log the save failure, keep the exit's meaning
+                logger.exception("checkpoint save failed during teardown")
+            finally:
+                writer.close()
+                guard.uninstall()
+                spans.finish(fit_span, status="error" if propagating else "ok",
+                             start_step=start_step)
+                if not propagating:
+                    events_log.emit("train-finished", step=cfg.total_steps,
+                                    kernel_launches=self._kernel_launches())

@@ -256,6 +256,45 @@ def test_preference_slice_loads_without_jax_flax_or_msgpack():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+RESILIENCE_SLICE = [PORT / name for name in (
+    "resilience/faults.py", "resilience/__init__.py", "train/checkpoint.py",
+    "train/elastic.py", "controller/ctl.py", "fidelity.py")]
+
+
+@pytest.mark.parametrize("path", RESILIENCE_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_resilience_slice_imports_resolve_inside_the_port(path):
+    """The chaos hook, the checkpoint contract (the JAX package's msgpack
+    layout read with the port's own coder), the manifest, ``ftc-ctl`` and
+    the fidelity proof's controller path stay out of JAX, flax, the JAX
+    package, ``msgpack`` and ``aiohttp``."""
+    assert path in SOURCES
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in PREFS_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_resilience_slice_loads_without_jax_flax_or_msgpack():
+    """Importing the resilience modules and ``ftc-ctl`` in a fresh
+    interpreter loads none of JAX, flax, the JAX package, ``msgpack`` or
+    ``aiohttp``; ``ftc-ctl --help`` runs as a module."""
+    code = (
+        "import importlib, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % ([".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+          for p in RESILIENCE_SLICE], PREFS_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "finetune_controller_tpu_torch.controller.ctl",
+                           "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "dev-token" in proc.stdout, proc.stderr
+
+
 def test_serving_entry_points_default_to_cuda(tmp_path):
     """The loader and a fleet's engines run on the card unless the caller
     passes the CPU: without a card the default raises."""

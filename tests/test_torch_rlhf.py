@@ -107,7 +107,7 @@ def actors(tmp_path_factory):
             if not k.endswith((".lora_a", ".lora_b"))}
     # the learner commits step 5 with the adapter; the JAX actor installs it
     trainer.model.load_state_dict(from_flax({**frozen, "lora": lora}, cfg))
-    CheckpointManager(ckpt_dir).save(5, trainer.state_dict())
+    CheckpointManager(ckpt_dir).save(5, trainer.state_dict(), blocking=True)
     out["reloaded"] = pact.maybe_reload()
     out["reload_again"] = pact.maybe_reload()
     jact.install_policy(5, lora)
