@@ -211,6 +211,25 @@ Phases (any failure exits non-zero and prints no result line):
     in this process whose asynchronous step-4 save, read back, equals the
     live tensors after step 4, and the snapshot of C's adapter state timed
     into fresh pageable, fresh pinned and reused pinned host memory;
+    (W) after R, on C's state and object store: (W1) a server with
+    ``serve_transport=process`` and 2 replicas loads C's promoted job (one
+    staging, two worker processes on the card, each rebuilding the merged
+    model and decoding through the paged kernel); 8 ``/generate`` requests,
+    C's 4 prompts among them, must equal C's answers and an in-process
+    engine over the same staged prefix; each worker's paged launches (its
+    count since warm-up, from its probe), spawn seconds, peak memory, the
+    card's used memory, TTFT and tokens/s per worker are printed; the
+    workers drain to exit 0.  Then a multi-tenant server (C's adapter as
+    tenant #1, P1's loaded through the admin route onto both workers) whose
+    worker r0 SIGKILLs itself at decode step ``W_KILL_AT_STEP``: 8 requests
+    answered once each, a failover and a respawn, the respawned worker's
+    adapters synced at spawn, tokens equal an in-process tenant engine,
+    ``ftc_serve_transport_*`` counters above 0 on ``/metrics``.  (W2) a
+    server with ``warm_workers=1`` prewarms a trainer process; C's job (3
+    steps, one checkpoint) starts in it (the log names the warm pid and the
+    card it applied before touching CUDA), launches 128 / 64 / 64 flash
+    forward / dQ / dK-dV a step, and its submit -> first row is printed
+    beside C's cold start; W writes at most ``W_DISK_BYTES``;
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
@@ -243,7 +262,7 @@ Phases (any failure exits non-zero and prints no result line):
     full-width phases;
 14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
     ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``, ``fidelity``,
-    ``resilience``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
+    ``resilience``, ``workers``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -1991,10 +2010,16 @@ def _generate_against_engine(ctx, job_id: str, vocab: int, prompt_lens, new_toke
     if DEVICE == "cuda" and launches <= 0:
         raise SmokeFailure(f"{tag}: the paged-attention kernel was not launched by /generate")
     on_loop(rt.serve.unload(job_id), 300)
+    # the served model's blocks go back to the card, not to this process's
+    # cache: the next job runs in a process of its own
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return {"paged_launches": launches, "ttft_s": ttft_s,
             "decode_tokens_per_s": generated / wall, "requests_ok": len(ok),
             "requests": len(prompts), "generated_tokens": generated,
-            "base_bytes": base_bytes}
+            "base_bytes": base_bytes, "prompts": prompts,
+            "answers": {a["request_id"]: a["tokens"] for a in answers}}
 
 
 def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
@@ -2183,7 +2208,7 @@ def _control_job(ctx, dataset_id: str, seed: int) -> dict:
                               if r["step"] > 1 and r["step"] not in profiled_steps],
         "promote_s": promote_s, "model_load_s": load_s,
         **{k: served[k] for k in ("ttft_s", "decode_tokens_per_s", "requests_ok", "requests",
-                                  "generated_tokens", "paged_launches")},
+                                  "generated_tokens", "paged_launches", "prompts", "answers")},
         "flash_launches_in_profile": seen_launches,
         "profile": profiles[0], "profile_bytes": len(profile_bytes),
         "log_lines": len(logs), "timeline_events": len(timeline),
@@ -3991,6 +4016,362 @@ def snapshot_cost(seed: int) -> dict:
 
 
 #: T5: the reference's remat policies, run once each at T3's shape
+# ---------------------------------------------------------------------------
+# W: worker-process serving and a warm trainer start
+# ---------------------------------------------------------------------------
+
+#: W1's control plane: C's settings with every replica a worker process
+#: (two of them), a fast health loop and restart backoff
+W_ENV = {**CONTROL_ENV, "FTC_SERVE_TRANSPORT": "process", "FTC_SERVE_REPLICAS": "2",
+         "FTC_SERVE_WORKER_HEARTBEAT_S": "1", "FTC_SERVE_HEALTH_INTERVAL_S": "0.5",
+         "FTC_RETRY_BASE_DELAY_S": "0.5", "FTC_RETRY_MAX_DELAY_S": "2"}
+#: W1's tenant session: C's own adapter as tenant #1 and one more
+W_TENANT_ENV = {**W_ENV, "FTC_SERVE_MAX_ADAPTERS": "2",
+                "FTC_SERVE_ADAPTER_RANK": str(CONTROL_ARGS["lora_rank"])}
+#: the decode step of worker r0 at which the tenant session SIGKILLs it
+W_KILL_AT_STEP = 8
+#: prompt lengths W1 sends beside C's four, in each session
+W_PROMPTS = (64, 200, 333, 480)
+W_TENANT_PROMPTS = (40, 150, 300, 450)
+#: W2: C's job at full width, 3 steps, one checkpoint at the end, no
+#: profiler window, in a warm trainer process
+W2_ARGS = {**{k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"},
+           "total_steps": 3, "checkpoint_every": 3}
+W2_ENV = {**CONTROL_ENV, "FTC_WARM_WORKERS": "1"}
+#: what W may write (its ``DiskTally``)
+W_DISK_BYTES = int(2.5 * 2**30)
+#: flash launches per training step of C's shape (32 layers, 2 microbatches)
+FLASH_PER_STEP = {"flash_forward": 128, "flash_backward_dq": 64, "flash_backward_dkv": 64}
+
+
+def _free_cuda() -> None:
+    gc.collect()
+    if DEVICE == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def card_used_mb() -> float:
+    """The card's used memory (``nvidia-smi``, MB, every process on it)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) if out.returncode == 0 else float("nan")
+
+
+def _workers(on_loop, fleet) -> dict:
+    """Each live worker's probe (its stats carry the paged kernel's launches
+    since warm-up and the process's peak card memory), spawn seconds (spec
+    written -> socket bound, from its sandbox) and pid."""
+    async def probe_all():
+        return {rid: await r.batcher.health_probe() for rid, r in list(fleet.replicas.items())}
+
+    out = {}
+    for rid, probe in on_loop(probe_all(), 120).items():
+        replica = fleet.replicas[rid].batcher
+        box = Path(replica.sandbox)
+        out[rid] = {
+            "pid": replica.pid,
+            "paged_launches": probe["stats"]["paged_launches"],
+            "peak_gb": probe["stats"]["cuda_peak_bytes"] / 1e9,
+            "spawn_s": ((box / "transport.json").stat().st_mtime
+                        - (box / "worker_spec.json").stat().st_mtime),
+            "requests_completed": probe["stats"]["requests_completed_total"],
+        }
+    return out
+
+
+def _drain_all(on_loop, fleet, tag: str) -> dict:
+    """Drain every worker through the fleet; each must exit 0."""
+    procs = {rid: r.batcher._proc for rid, r in fleet.replicas.items()}
+    for rid in list(procs):
+        on_loop(fleet.drain_replica(rid, reason=f"{tag} drain"), 120)
+    codes = {rid: proc.wait(timeout=30) for rid, proc in procs.items()}
+    if any(code != 0 for code in codes.values()):
+        raise SmokeFailure(f"{tag}: drained workers exited {codes}")
+    return codes
+
+
+def _post_all(api, job_id: str, bodies: list[dict]) -> tuple[list[dict], float]:
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        answers = list(pool.map(
+            lambda b: api.ok("POST", f"/jobs/{job_id}/generate", b), bodies))
+    return answers, time.perf_counter() - t0
+
+
+def _ttft_by_replica(on_loop, fleet, prompt, reps: int = 3) -> dict:
+    """Median seconds of a 1-token request sent to each worker alone (the
+    client's clock around the RPC)."""
+    from finetune_controller_tpu_torch.serve.engine import GenRequest
+
+    async def one(replica, i):
+        t0 = time.perf_counter()
+        await replica.batcher.submit(GenRequest(f"ttft-{replica.replica_id}-{i}", prompt, 1))
+        return time.perf_counter() - t0
+
+    out = {}
+    for rid, replica in list(fleet.replicas.items()):
+        times = sorted(on_loop(one(replica, i), 120) for i in range(reps))
+        out[rid] = times[len(times) // 2]
+    return out
+
+
+def _per_replica_rates(answers, wall: float) -> dict:
+    by = {}
+    for a in answers:
+        by[a["replica_id"]] = by.get(a["replica_id"], 0) + len(a["tokens"])
+    return {rid: n / wall for rid, n in sorted(by.items())}
+
+
+def _w1_merged(ctx, control: dict, seed: int) -> dict:
+    """W1a: C's job merged in two worker processes: 8 requests (C's 4
+    prompts among them) equal C's answers and an in-process engine over
+    the same staged prefix."""
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine, GenRequest
+    from finetune_controller_tpu_torch.serve.loader import load_serving_model
+
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    job_id = control["job_id"]
+    t0 = time.time()
+    meta = api.ok("POST", f"/admin/serve/{job_id}/load")["model"]
+    load_s = time.time() - t0
+    session = rt.serve.sessions[job_id]
+    fleet = session.fleet
+    stats = fleet.stats()
+    pids = stats["worker_pids"]
+    if stats["transport"] != "process" or len(set(pids)) != 2 or os.getpid() in pids:
+        raise SmokeFailure(f"W1: transport {stats['transport']}, worker pids {pids}")
+    used_mb = card_used_mb()
+    rng = np.random.default_rng(seed + 11)
+    prompts = list(control["prompts"]) + [
+        rng.integers(0, meta["vocab_size"], n).tolist() for n in W_PROMPTS]
+    bodies = [{"tokens": p, "max_new_tokens": CONTROL_NEW_TOKENS, "request_id": f"w{i}"}
+              for i, p in enumerate(prompts)]
+    answers, wall = _post_all(api, job_id, bodies)
+    got = {a["request_id"]: a["tokens"] for a in answers}
+    if len(got) != len(prompts) or any(len(t) != CONTROL_NEW_TOKENS for t in got.values()):
+        raise SmokeFailure(f"W1: answers {[(k, len(v)) for k, v in got.items()]}")
+    differ_c = [i for i in range(len(control["prompts"]))
+                if got[f"w{i}"] != control["answers"][f"c{i}"]]
+    ttft = _ttft_by_replica(on_loop, fleet, prompts[1])
+    workers = _workers(on_loop, fleet)
+    model, _ = load_serving_model(session.worker_stage_dir,
+                                  merge_lora=settings.serve_merge_lora, device=DEVICE)
+    ref = BatchEngine(model, rt.serve._engine_config()).run(
+        [GenRequest(f"w{i}", p, CONTROL_NEW_TOKENS) for i, p in enumerate(prompts)])
+    differ = [rid for rid, toks in got.items() if toks != ref[rid].generated]
+    del model, ref
+    _free_cuda()
+    if differ_c or differ:
+        raise SmokeFailure(f"W1: tokens differ from C's answers on {differ_c} and from the "
+                           f"in-process engine on {differ}")
+    if DEVICE == "cuda" and any(w["paged_launches"] <= 0 for w in workers.values()):
+        raise SmokeFailure(f"W1: a worker did not launch the paged kernel: {workers}")
+    codes = _drain_all(on_loop, fleet, "W1")
+    api.ok("POST", f"/admin/serve/{job_id}/unload")
+    generated = sum(len(t) for t in got.values())
+    return {"load_s": load_s, "lora_merged": meta["lora_merged"], "workers": workers,
+            "card_used_gb_both_up": used_mb / 1e3, "requests": len(prompts),
+            "requests_equal_c": len(control["prompts"]), "generated_tokens": generated,
+            "decode_tokens_per_s": generated / wall,
+            "decode_tokens_per_s_by_replica": _per_replica_rates(answers, wall),
+            "ttft_s_by_replica": ttft, "drain_exit_codes": codes}
+
+
+def _w1_tenants(ctx, control: dict, dpo: dict, seed: int, once: Path) -> dict:
+    """W1b: C's job multi-tenant in two worker processes, P1's adapter
+    loaded through the admin route; worker r0 SIGKILLs itself at decode
+    step ``W_KILL_AT_STEP``; every request is answered once with the
+    tokens of an in-process tenant engine over the same staged prefix, and
+    the respawned worker (synced by ``stack_sync``) answers the same."""
+    from finetune_controller_tpu_torch.serve.adapters import AdapterRegistry
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine, GenRequest
+    from finetune_controller_tpu_torch.serve.loader import (
+        load_serving_model,
+        strip_lora_for_multitenant,
+    )
+
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    job_id, dpo_id = control["job_id"], dpo["job_id"]
+    meta = api.ok("POST", f"/admin/serve/{job_id}/load")["model"]
+    adapter = api.ok("POST", f"/admin/serve/{job_id}/adapters/{dpo_id}/load")["adapter"]
+    session = rt.serve.sessions[job_id]
+    fleet = session.fleet
+    if not meta.get("self_adapter") or len(fleet.adapters) != 2:
+        raise SmokeFailure(f"W1: tenant session meta {meta}, adapters {fleet.adapters.stats()}")
+    first = dict(fleet.replicas)
+    rng = np.random.default_rng(seed + 12)
+    prompts = list(control["prompts"]) + [
+        rng.integers(0, meta["vocab_size"], n).tolist() for n in W_TENANT_PROMPTS]
+    bodies = [{"tokens": p, "max_new_tokens": CONTROL_NEW_TOKENS, "request_id": f"t{i}",
+               **({"adapter": dpo_id} if i % 2 else {})} for i, p in enumerate(prompts)]
+    answers, _ = _post_all(api, job_id, bodies)
+    ids = [a["request_id"] for a in answers]
+    if sorted(ids) != sorted(b["request_id"] for b in bodies) or not once.exists():
+        raise SmokeFailure(f"W1: answered {ids}; the kill fired: {once.exists()}")
+    t_kill = once.stat().st_mtime
+    deadline = time.time() + 180
+    while fleet.replica_restarts_total < 1 or len(fleet.healthy_replicas()) < 2:
+        if time.time() > deadline:
+            raise SmokeFailure(f"W1: no respawn: {fleet.stats()['replicas']}")
+        time.sleep(0.2)
+    respawn_s = time.time() - t_kill
+    failovers = session.router.failovers_total
+    fresh = [rid for rid in fleet.replicas if rid not in first]
+    if failovers < 1 or len(fresh) != 1:
+        raise SmokeFailure(f"W1: failovers {failovers}, new workers {fresh}")
+    again = {}
+    for i in range(1, len(prompts), 2):
+        req = GenRequest(f"again{i}", prompts[i], CONTROL_NEW_TOKENS, adapter_id=dpo_id)
+        again[f"t{i}"] = on_loop(fleet.replicas[fresh[0]].batcher.submit(req), 300).generated
+    workers = _workers(on_loop, fleet)
+    prom = scrape.ok("GET", "/metrics", raw=True)
+    counters = {name: _prom_value(prom, f"ftc_serve_transport_{name}") for name in
+                ("rpcs_total", "bytes_total", "worker_respawns_total")}
+    # the oracle: the same staged prefix unmerged, both tenants in one engine
+    model, _ = load_serving_model(session.worker_stage_dir, merge_lora=False, device=DEVICE)
+    base, tree, alpha, rank = strip_lora_for_multitenant(model)
+    del model
+    registry = AdapterRegistry(settings.serve_max_adapters + 1, settings.serve_adapter_rank)
+    registry.register(job_id, tree, alpha, rank)
+    entry = fleet.adapters.get(dpo_id)
+    registry.register(dpo_id, entry.tree, entry.alpha, entry.rank)
+    engine = BatchEngine(base, rt.serve._engine_config(), adapters=registry)
+    ref = engine.run([GenRequest(b["request_id"], b["tokens"], CONTROL_NEW_TOKENS,
+                                 adapter_id=b.get("adapter") or job_id) for b in bodies])
+    del engine, base
+    _free_cuda()
+    differ = [a["request_id"] for a in answers if a["tokens"] != ref[a["request_id"]].generated]
+    differ += [f"respawned {rid}" for rid, toks in again.items() if toks != ref[rid].generated]
+    if differ:
+        raise SmokeFailure(f"W1: tenant tokens differ from the in-process tenant engine on "
+                           f"{differ}")
+    if min(counters.values()) <= 0:
+        raise SmokeFailure(f"W1: /metrics transport counters {counters}")
+    if DEVICE == "cuda" and any(w["paged_launches"] <= 0 for w in workers.values()):
+        raise SmokeFailure(f"W1: a worker did not launch the paged kernel: {workers}")
+    codes = _drain_all(on_loop, fleet, "W1")
+    api.ok("POST", f"/admin/serve/{job_id}/unload")
+    return {"adapter_slot": adapter["slot"], "killed": "r0", "kill_at_step": W_KILL_AT_STEP,
+            "requests": len(bodies), "answered_once": len(set(ids)), "failovers": failovers,
+            "respawns": fleet.replica_restarts_total, "kill_to_respawned_s": respawn_s,
+            "respawned": fresh[0], "respawned_requests_equal": len(again),
+            "workers": workers, "transport_counters": counters, "drain_exit_codes": codes}
+
+
+def _w2_warm(ctx, work, control: dict) -> dict:
+    """W2: C's job (3 steps) started in a warm trainer process."""
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    on_loop(rt.backend.prewarm(wait_s=240), 300)
+    pool = [p for procs in rt.backend._warm.values() for p in procs if p.returncode is None]
+    if len(pool) != 1 or not Path(pool[0].ftc_ready_path).exists():
+        raise SmokeFailure(f"W2: warm pool {[(p.pid, p.returncode) for p in pool]} not ready")
+    warm_pid = pool[0].pid
+    docs = Path(work) / "train.jsonl"
+    dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
+                     want=(201,))
+    t_submit = time.time()
+    job_id = api.ok("POST", "/jobs", fields={
+        "model_name": CONTROL_MODEL, "device": CONTROL_FLAVOR,
+        "dataset_id": dataset["dataset_id"], "arguments": json.dumps(W2_ARGS)})["job_id"]
+    job, seen, logs = _follow_job(api, job_id, t_submit, "W2")
+    records = _job_rows(api, job_id, W2_ARGS["total_steps"], "W2")
+    _, at = _timeline(api, job_id, ("submitted", "train-started", "succeeded"), "W2")
+    # the card the backend grants the job (the first visible one)
+    card = "" if rt.catalog.get(CONTROL_FLAVOR).runtime == "cpu" else (
+        os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0] or "0")
+    want = (f"warm worker pid={warm_pid}: CUDA_VISIBLE_DEVICES={card} applied with CUDA "
+            f"initialised before the request: False")
+    if not any(want in line for line in logs):
+        raise SmokeFailure(f"W2: the job's log lacks {want!r}; head:\n" + "\n".join(logs[:10]))
+    sandbox = settings.state_path / "sandboxes" / job_id
+    events = [json.loads(ln) for ln in
+              (sandbox / "artifacts" / "events.jsonl").read_text().splitlines()]
+    launches = attempt_launches(events)
+    steps = W2_ARGS["total_steps"]
+    per_step = {name: launches[0].get(name, 0) / steps for name in FLASH_KERNELS} \
+        if len(launches) == 1 else None
+    if per_step != {name: float(FLASH_PER_STEP[name]) for name in FLASH_KERNELS}:
+        raise SmokeFailure(f"W2: flash launches {launches} over {steps} steps, want "
+                           f"{FLASH_PER_STEP} a step")
+    replenished = [p.pid for procs in rt.backend._warm.values() for p in procs
+                   if p.returncode is None]
+    return {"job_id": job_id, "warm_pid": warm_pid,
+            "submit_to_first_step_s": records[0]["timestamp"] - at["submitted"],
+            "submit_to_train_started_s": at["train-started"] - at["submitted"],
+            "cold_submit_to_first_step_s": control["submit_to_first_step_s"],
+            "cold_submit_to_train_started_s": control["submit_to_train_started_s"],
+            "losses": [r["loss"] for r in records], "flash_launches": launches[0],
+            "flash_launches_per_step": per_step, "pool_after_job": replenished}
+
+
+def worker_phase(work, seed: int, control: dict, dpo: dict) -> dict:
+    """W (after C and P1, on C's state and object store under
+    ``build/chip_smoke_ctrl``): W1 serves C's promoted job from worker
+    processes (:func:`_w1_merged`, then :func:`_w1_tenants` with a
+    SIGKILL), W2 starts C's job in a warm trainer process
+    (:func:`_w2_warm`); the phase's writes stay within ``W_DISK_BYTES``."""
+    from finetune_controller_tpu_torch.resilience.faults import ServeFault
+
+    t_phase = time.perf_counter()
+    disk0 = DISK.written()
+    ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_ctrl"
+    with control_plane(ctrl, W_ENV) as ctx:
+        merged = _w1_merged(ctx, control, seed)
+    once = ctrl / "w1_fault_fired"
+    once.unlink(missing_ok=True)
+    fault = ServeFault(replica_id="r0", at_step=W_KILL_AT_STEP, mode="kill",
+                       once_file=str(once)).to_env()
+    with control_plane(ctrl, {**W_TENANT_ENV, **fault}) as ctx:
+        tenants = _w1_tenants(ctx, control, dpo, seed, once)
+    DISK.mark("W1")
+    with control_plane(ctrl, W2_ENV) as ctx:
+        warm = _w2_warm(ctx, work, control)
+    written = DISK.written() - disk0
+    record = {"w1": merged, "w1_tenants": tenants, "w2": warm, "bytes_written": written,
+              "phase_s": time.perf_counter() - t_phase}
+    launches = {f"{tag}_{rid}": w["paged_launches"]
+                for tag, part in (("merged", merged), ("tenants", tenants))
+                for rid, w in part["workers"].items()}
+    record["paged_launches"] = launches
+    log(f"W1: {CONTROL_MODEL} (C's promoted job) from 2 worker processes on the card: load "
+        f"{merged['load_s']:.1f} s (one staging, workers spawned together), spawn s by worker "
+        f"{ {k: round(w['spawn_s'], 1) for k, w in merged['workers'].items()} }, peak GB by "
+        f"worker { {k: round(w['peak_gb'], 2) for k, w in merged['workers'].items()} }, card "
+        f"used with both up {merged['card_used_gb_both_up']:.1f} GB; {merged['requests']} "
+        f"requests, tokens equal C's answers (4) and an in-process engine over the staged "
+        f"prefix (8); decode {merged['decode_tokens_per_s']:.1f} tokens/s in all, by replica "
+        f"{ {k: round(v, 1) for k, v in merged['decode_tokens_per_s_by_replica'].items()} } "
+        f"(C in process: {control['decode_tokens_per_s']:.1f} over 4 requests); TTFT of a "
+        f"1-token request by replica "
+        f"{ {k: round(v * 1e3, 1) for k, v in merged['ttft_s_by_replica'].items()} } ms "
+        f"(C in process: {control['ttft_s'] * 1e3:.1f} ms, server histogram); drains exit "
+        f"{merged['drain_exit_codes']}")
+    log(f"W1 tenants: C's adapter and P1's (slot {tenants['adapter_slot']}) on both workers; "
+        f"r0 SIGKILLed at decode step {W_KILL_AT_STEP}: {tenants['answered_once']}/"
+        f"{tenants['requests']} answered once, {tenants['failovers']} failover(s), "
+        f"{tenants['respawns']} respawn(s) ({tenants['respawned']}, "
+        f"{tenants['kill_to_respawned_s']:.1f} s after the kill, its adapters by stack_sync, "
+        f"{tenants['respawned_requests_equal']} requests equal), tokens equal an in-process "
+        f"tenant engine; paged launches by worker {launches}; /metrics "
+        f"{tenants['transport_counters']}; drains exit {tenants['drain_exit_codes']}")
+    log(f"W2: {CONTROL_MODEL} ({W2_ARGS['total_steps']} steps) in warm trainer pid "
+        f"{warm['warm_pid']}: submit -> train-started {warm['submit_to_train_started_s']:.1f} "
+        f"s, -> first row {warm['submit_to_first_step_s']:.1f} s (C cold: "
+        f"{warm['cold_submit_to_train_started_s']:.1f} s, "
+        f"{warm['cold_submit_to_first_step_s']:.1f} s); flash launches a step "
+        f"{warm['flash_launches_per_step']}; pool after the job {warm['pool_after_job']}; W "
+        f"wrote {written / 1e9:.2f} GB in {record['phase_s']:.1f} s")
+    if written > W_DISK_BYTES:
+        raise SmokeFailure(f"W: {written / 2**30:.2f} GiB written (budget "
+                           f"{W_DISK_BYTES / 2**30:.1f} GiB)")
+    return record
+
+
 REMAT_PHASE_POLICIES = ("none", "full", "mlp", "attn", "mlp_qkv", "flash", "mlp_flash", "wide",
                         "matmuls")
 #: T5: flash forward launches per layer and microbatch of a training step:
@@ -4302,6 +4683,16 @@ def main(argv=None) -> int:
         DISK.mark("R")
         gc.collect()
         torch.cuda.empty_cache()
+        # W: C's job served from worker processes, and started warm; each
+        # worker counts its own paged launches from its warm-up on, the
+        # warm trainer its flash launches in the job's events
+        workers = worker_phase(work, args.seed, control, dpo)
+        w1_paged = sum(workers["paged_launches"].values())
+        paged_entry["launches"] += w1_paged
+        paged_entry["launches_by_path"]["w1_workers"] = w1_paged
+        DISK.mark("W")
+        gc.collect()
+        torch.cuda.empty_cache()
         prefs, prefs_eval = preference_rows(work, args.seed)
         dpo_check = dpo_objective_check(prefs, args.seed)
         log(f"P0 DPO objective (2 full-width layers, 8 pairs x 512, {dpo_check['padded_rows']} "
@@ -4416,7 +4807,7 @@ def main(argv=None) -> int:
         "launches": (train["launches"][name] + moe["launches"][name]
                      + reward["flash_launches"][name] + rlhf["flash_launches"][name]
                      + resilience["flash_launches"][name] + r2_launches[name]
-                     + t5_launches[name]),
+                     + workers["w2"]["flash_launches"][name] + t5_launches[name]),
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
             "c_job_profile_steps": control["flash_launches_in_profile"][name],
@@ -4427,6 +4818,7 @@ def main(argv=None) -> int:
             "p_rlhf_learner": rlhf["flash_launches"][name],
             "r_job_both_attempts": resilience["flash_launches"][name],
             "r2_snapshot_in_process": r2_launches[name],
+            "w2_warm_job": workers["w2"]["flash_launches"][name],
             "t5_remat_in_process_all_policies": t5_launches[name]},
         "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
@@ -4447,6 +4839,7 @@ def main(argv=None) -> int:
     print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
     print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"resilience": resilience}), flush=True)
+    print(json.dumps({"workers": workers}), flush=True)
     print(json.dumps({"remat": remat}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",

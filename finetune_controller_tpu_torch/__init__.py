@@ -8,7 +8,8 @@ serving what it trains (multi-tenant adapters, a host KV tier, a replica
 fleet and router), HF checkpoints in and out with held-out evaluation,
 the trainer's observability and the fidelity proof, the control plane
 that submits, schedules, trains, promotes and serves jobs over HTTP, int4
-QLoRA, MoE, LLaVA, and the preference plane:
+QLoRA, MoE, LLaVA, the preference plane, fault-tolerant training, and
+serving from worker processes with warm trainer starts:
 
 * ``models`` — ``LlamaConfig``/``PRESETS``, the decoder as ``nn.Module``s
   (serving and training forwards, remat, LoRA dropout), the flax-tree
@@ -36,7 +37,10 @@ QLoRA, MoE, LLaVA, and the preference plane:
 * ``prefs`` — the preference plane: the DPO trainer, the Bradley–Terry
   reward model and the in-process RLHF-lite actor/learner loop, on the
   pair batches of ``data/preference.py``; ``utils/flax_msgpack.py`` writes
-  and reads flax's msgpack format (the reward head's file).
+  and reads flax's msgpack format (the reward head's file);
+* ``transport`` — serve replicas as worker processes behind a framed RPC
+  socket (wire, worker, client, process spawn, payload builders);
+  ``train/warm_worker.py`` is the local backend's pre-warmed trainer.
 
 Submodules load lazily, so ``import finetune_controller_tpu_torch`` costs
 nothing until a name is used.

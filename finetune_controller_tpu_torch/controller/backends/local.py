@@ -23,15 +23,19 @@ elastic-recovery tests (SURVEY.md §5.3 gap).
 
 The port's copy launches the port's trainer: a ``cuda`` flavor's job sees
 only its granted card (``CUDA_VISIBLE_DEVICES``), a ``cpu`` flavor's job
-gets ``--device cpu``.  The reference's warm trainer pool
-(``train/warm_worker.py``) is not ported: ``warm_workers > 0`` raises
-``NotImplementedError`` (ROADMAP Queue A item 8).
+gets ``--device cpu``.  With ``warm_workers > 0`` a job starts in a
+pre-warmed trainer process (``train/warm_worker.py``) when one is free.
+Such a process is spawned before any job exists, so it cannot inherit the
+job's card: it keeps CUDA uninitialised until its request line has applied
+the job's env (``CUDA_VISIBLE_DEVICES`` included), and the pool is keyed by
+the runtime env without the card — one pool serves every card.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import hashlib
 import json
 import logging
 import os
@@ -51,6 +55,11 @@ from .base import BackendError, TrainingBackend
 from .scheduler import GangScheduler
 
 logger = logging.getLogger(__name__)
+
+#: per-job env a warm worker receives with its request line, never from the
+#: pool's spawn env: the trace identity and the granted card
+_REQUEST_ENV_KEYS = ("FTC_TRACE_ID", "FTC_ATTEMPT", "CUDA_VISIBLE_DEVICES")
+
 
 class _JobHandle:
     """Mutable per-job state (the backend's 'pod')."""
@@ -165,12 +174,10 @@ class LocalProcessBackend(TrainingBackend):
         #: QUEUED forever
         self._lost: dict[str, BackendJobReport] = {}
         self._closing = False
-        if warm_workers > 0:
-            raise NotImplementedError(
-                f"warm_workers={warm_workers}: the warm trainer pool "
-                "(train/warm_worker.py) is not ported yet (ROADMAP Queue A "
-                "item 8); set it to 0"
-            )
+        #: pre-warmed trainer processes (``train/warm_worker.py``) kept per
+        #: runtime env key; 0 = every attempt cold-spawns
+        self.warm_workers = max(0, int(warm_workers))
+        self._warm: dict[tuple, list[asyncio.subprocess.Process]] = {}
         #: cards in use, per flavor: card index -> job id (cuda flavors)
         self._cards: dict[str, dict[int, str]] = {}
 
@@ -355,6 +362,92 @@ class LocalProcessBackend(TrainingBackend):
         if used.get(handle.card) == handle.job_id:
             del used[handle.card]
         handle.card = None
+
+    # ------------------------------------------------------- warm worker pool
+
+    def _env_key(self, env: dict[str, str]) -> tuple:
+        """Workers are interchangeable within one runtime env: the
+        ``PYTHONPATH`` and a digest of the controller's ``extra_env``
+        overlay (a worker prewarmed before ``extra_env`` changed inherited
+        the old values and cannot be re-pointed).  The card is NOT in the
+        key: the request line sets it before the worker touches CUDA."""
+        extra = hashlib.sha256(
+            "\x00".join(f"{k}={v}" for k, v in sorted(self.extra_env.items())).encode()
+        ).hexdigest()
+        return (env.get("PYTHONPATH", ""), extra)
+
+    async def _spawn_warm(self, env: dict[str, str]) -> None:
+        if self._closing or self.warm_workers <= 0:
+            return
+        key = self._env_key(env)
+        pool = self._warm.setdefault(key, [])
+        pool[:] = [p for p in pool if p.returncode is None]
+        if len(pool) >= self.warm_workers:
+            return
+        # pre-claim output goes to a pool log, not any job's log; after the
+        # claim the worker re-points itself at the job's
+        pool_log = await asyncio.to_thread(open, self.root / "warm_workers.log", "ab")
+        # the pool is replenished with a finished job's env: its card and
+        # trace identity must not ride into the next job (each claim brings
+        # its own in the request line)
+        env = {k: v for k, v in env.items() if k not in _REQUEST_ENV_KEYS}
+        ready_path = self.root / f".warm_ready_{time.time_ns()}"
+        env["FTC_WARM_READY_FILE"] = str(ready_path)
+        try:
+            proc = await asyncio.create_subprocess_exec(
+                self.python, "-m", "finetune_controller_tpu_torch.train.warm_worker",
+                stdin=asyncio.subprocess.PIPE,
+                stdout=pool_log, stderr=asyncio.subprocess.STDOUT,
+                env=env, cwd=str(self.root),
+            )
+        finally:
+            pool_log.close()
+        proc.ftc_ready_path = ready_path  # type: ignore[attr-defined]
+        pool.append(proc)
+
+    def _claim_warm(self, env: dict[str, str]) -> asyncio.subprocess.Process | None:
+        pool = self._warm.get(self._env_key(env), [])
+        alive = [p for p in pool if p.returncode is None]
+        pool[:] = alive
+        # prefer a worker that has finished its imports (ready file)
+        alive.sort(key=lambda p: Path(getattr(p, "ftc_ready_path", "/nonexistent")).exists())
+        if not alive:
+            return None
+        proc = alive[-1]
+        pool.remove(proc)
+        ready = getattr(proc, "ftc_ready_path", None)
+        if ready is not None:
+            Path(ready).unlink(missing_ok=True)
+        return proc
+
+    async def prewarm(self, wait_s: float = 0.0) -> None:
+        """Spawn the warm pool (the runtime calls this at startup, so the
+        first submission already warm-starts).  ``wait_s > 0`` blocks until
+        the workers report ready or the deadline passes."""
+        if self.warm_workers <= 0:
+            return
+        flavor = self.catalog.get(self.catalog.default_flavor)
+        if flavor is None:
+            logger.warning("warm_workers=%d but the device catalog has no default "
+                           "flavor; skipping prewarm", self.warm_workers)
+            return
+        env = self._runtime_env(flavor, 1)
+        for _ in range(self.warm_workers):
+            await self._spawn_warm(env)
+        deadline = time.time() + wait_s
+        pool = self._warm.get(self._env_key(env), [])
+        while time.time() < deadline:
+            alive = [p for p in pool if p.returncode is None]
+            if not alive:
+                # every spawned worker died (broken env, import failure): an
+                # empty pool must not report ready
+                logger.warning("warm-worker pool is empty: all spawned workers exited "
+                               "(see %s)", self.root / "warm_workers.log")
+                return
+            if all(Path(getattr(p, "ftc_ready_path", "/nonexistent")).exists()
+                   for p in alive):
+                return
+            await asyncio.sleep(0.2)
 
     @staticmethod
     def _obs_env(handle: _JobHandle) -> dict[str, str]:
@@ -582,27 +675,57 @@ class LocalProcessBackend(TrainingBackend):
             self.scheduler.release(handle.job_id)
             # ftc: ignore[blocking-io-in-async-transitive] -- same rare small-spec re-render write as the submit path; shared with the sync scheduler_tick hook
             self._admit_pending()
+            # replenish the warm pool AFTER the job: a replacement importing
+            # at claim time would contend with the job's first step
+            with contextlib.suppress(Exception):
+                await self._spawn_warm(handle.env)
 
     async def _run_once(self, handle: _JobHandle, attempt: int) -> int:
-        cmd = [
-            self.python, "-m", "finetune_controller_tpu_torch.train.cli",
-            "--spec", str(handle.spec_path),
-        ]
+        device_args = []
         if handle.flavor_obj is not None and handle.flavor_obj.runtime == "cpu":
-            cmd += ["--device", "cpu"]
-        handle.event("Started", f"attempt {attempt}: {shlex.join(cmd)}")
-        log_f = await asyncio.to_thread(open, handle.logs_path, "ab")
-        try:
-            # the child inherits the fd; the parent's copy closes either way
-            proc = await asyncio.create_subprocess_exec(
-                *cmd,
-                stdout=log_f,
-                stderr=asyncio.subprocess.STDOUT,
-                env=handle.env,
-                cwd=str(handle.sandbox),
-            )
-        finally:
-            log_f.close()
+            device_args = ["--device", "cpu"]
+        proc = self._claim_warm(handle.env)
+        if proc is not None:
+            # warm start: the worker already paid the interpreter, torch and
+            # the training stack; hand it the spec with the job's card and
+            # trace identity, and let it re-point its output at the job log
+            request = json.dumps({
+                "spec": str(handle.spec_path),
+                "log": str(handle.logs_path),
+                "cwd": str(handle.sandbox),
+                "env": {k: handle.env[k] for k in _REQUEST_ENV_KEYS if k in handle.env},
+                "argv": device_args,
+            })
+            try:
+                proc.stdin.write(request.encode() + b"\n")
+                await proc.stdin.drain()
+                proc.stdin.close()
+                handle.event("Started", f"attempt {attempt}: warm worker pid={proc.pid}")
+            except (BrokenPipeError, ConnectionResetError, OSError) as exc:
+                # the pool member died between the liveness check and the
+                # handoff: a lost pool member must not fail the job
+                logger.warning("warm worker pid=%s unusable (%s); cold-spawning instead",
+                               proc.pid, exc)
+                handle.event("WarmWorkerLost", str(exc))
+                proc = None
+        if proc is None:
+            cmd = [
+                self.python, "-m", "finetune_controller_tpu_torch.train.cli",
+                "--spec", str(handle.spec_path), *device_args,
+            ]
+            handle.event("Started", f"attempt {attempt}: {shlex.join(cmd)}")
+            log_f = await asyncio.to_thread(open, handle.logs_path, "ab")
+            try:
+                # the child inherits the fd; the parent's copy closes either way
+                proc = await asyncio.create_subprocess_exec(
+                    *cmd,
+                    stdout=log_f,
+                    stderr=asyncio.subprocess.STDOUT,
+                    env=handle.env,
+                    cwd=str(handle.sandbox),
+                )
+            finally:
+                log_f.close()
         handle.proc = proc
         if handle.preempted:
             # preemption landed between admission and spawn: the victim's
@@ -896,3 +1019,19 @@ class LocalProcessBackend(TrainingBackend):
         self._lost.clear()
         for job_id in list(self._handles):
             await self.delete_job(job_id, forget_reservations=True)
+        for pool in self._warm.values():
+            for proc in pool:
+                if proc.returncode is None:
+                    # closing stdin without a request is the graceful exit
+                    with contextlib.suppress(Exception):
+                        proc.stdin.close()
+                    try:
+                        await asyncio.wait_for(proc.wait(), timeout=self.term_grace_s)
+                    except asyncio.TimeoutError:
+                        with contextlib.suppress(ProcessLookupError):
+                            proc.kill()
+                        await proc.wait()
+                ready = getattr(proc, "ftc_ready_path", None)
+                if ready is not None:
+                    Path(ready).unlink(missing_ok=True)
+        self._warm.clear()

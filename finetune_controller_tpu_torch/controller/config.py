@@ -95,10 +95,12 @@ class Settings(BaseModel):
     #: control-plane processes); 0 = no listener (in-process monitors are
     #: already covered by the API server's /metrics)
     monitor_metrics_port: int = 0
-    #: pre-warmed trainer processes per platform env on the local backend —
-    #: they pay the framework import + device init before a job arrives,
-    #: collapsing the submit -> first-training-step latency (0 = off; the
-    #: port refuses > 0 until ROADMAP Queue A item 8 ports the warm worker)
+    #: pre-warmed trainer processes per runtime env on the local backend —
+    #: they pay the interpreter start, ``import torch``, the training stack's
+    #: imports and loading the built kernel libraries before a job arrives,
+    #: shortening submit -> first training step (0 = off).  CUDA itself is
+    #: initialised only once a job's request line has set its card
+    #: (``train/warm_worker.py``)
     warm_workers: int = 0
 
     # --- Log streaming (reference: LOG_STREAM_SEARCH_STRING, app/core/config.py:26) ---
@@ -260,15 +262,17 @@ class Settings(BaseModel):
 
     # --- Serve transport (docs/serving.md §Cross-process transport) ---
     #: where replicas run: "inproc" (engines share the API process's
-    #: runtime — tests/dev footprint) or "process" (one worker PROCESS per
-    #: replica with its own runtime behind the RPC socket — replicas stop
-    #: sharing cores, which is what makes 2 replicas actually ~2x)
+    #: interpreter and CUDA context — tests/dev footprint) or "process" (one
+    #: worker PROCESS per replica with its own CUDA context behind the RPC
+    #: socket, ``transport/`` — replicas stop sharing the interpreter, which
+    #: is what should make 2 replicas about 2x)
     serve_transport: str = "inproc"
     #: first worker port; 0 = ephemeral ports (collision-free; the bound
     #: port is read back from the worker sandbox's transport.json)
     serve_worker_port_base: int = 0
-    #: spawn handshake budget per worker (payload build + engine warm-start
-    #: compiles happen inside it; raise for big presets on cold caches)
+    #: spawn handshake budget per worker (the process start, the model
+    #: build from the staged dir and the engine warm-up happen inside it;
+    #: raise it for big presets)
     serve_worker_spawn_timeout_s: float = 300.0
     #: worker heartbeat cadence; the fleet's liveness lease is 3x this
     #: (floored) — a SIGKILLed or wedged worker is declared dead past it

@@ -167,8 +167,9 @@ def build_runtime(
         backend=backend,
         monitor=monitor,
         presigner=presigner,
-        # serve autoscaling (the fair-share scheduler's serve tenants) and
-        # the process transport are refused on load (ROADMAP items 3a-rest, 8)
-        serve=ServeManager(state, store, settings, obs=obs),
+        # serve autoscaling (the fair-share scheduler's serve tenants) is
+        # refused on load (ROADMAP item 3a-rest); serve_transport=process
+        # puts worker sandboxes on the backend's substrate
+        serve=ServeManager(state, store, settings, obs=obs, backend=backend),
         obs=obs,
     )

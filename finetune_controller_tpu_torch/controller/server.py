@@ -6,7 +6,7 @@ the part of ``aiohttp.web`` they use, so this file diffs cleanly against
 the reference's.  Not ported yet, each answering or reporting so: the
 WebSocket log follow (``GET {prefix}/logs/{job_id}`` answers 501, ROADMAP
 Queue A item 3b; ``GET {prefix}/jobs/{job_id}/logs`` serves the log), and
-the shard-audit and transport counters of ``/metrics`` (items 9 and 8).
+the shard-audit counters of ``/metrics`` (item 9).
 
 The reference's description:
 
@@ -1200,11 +1200,19 @@ async def prometheus_metrics(request: web.Request) -> web.Response:
                     f'{metric}{{job_id="{prom_escape(job_id)}",'
                     f'adapter="{prom_escape(tenant or "base")}"}} {value}'
                 )
-        # the cross-process transport's counters (reference transport/)
-        lines.append(
-            "# ftc_serve_transport_*: the cross-process transport is not "
-            "ported yet (ROADMAP Queue A item 8)"
-        )
+        # cross-process transport: process-wide RPC, byte and respawn
+        # counters shared by every process-mode fleet of this control plane
+        from ..transport import metrics_snapshot as transport_snapshot
+
+        tsnap = transport_snapshot()
+        for metric, key in (
+            ("ftc_serve_transport_rpcs_total", "rpcs_total"),
+            ("ftc_serve_transport_rpc_errors_total", "rpc_errors_total"),
+            ("ftc_serve_transport_worker_respawns_total", "worker_respawns_total"),
+            ("ftc_serve_transport_bytes_total", "bytes_total"),
+        ):
+            lines.append(f"# TYPE {metric} counter")
+            lines.append(f"{metric} {tsnap.get(key, 0)}")
     # preference-optimization gauges (docs/preference.md): surfaced from the
     # newest synced metrics row of every ACTIVE dpo/rlhf job — reward margin
     # is the number a healthy DPO run drives up, and the rollout triple

@@ -264,11 +264,15 @@ class ServeFaultInjector:
                 f.write(f"serve fault fired ({self.fault.mode})\n")
         return True
 
-    def arm(self, replica_id: str, engine) -> bool:
+    def arm(self, replica_id: str, engine, *, hard_kill: bool = False) -> bool:
         """Wrap ``engine.step`` when ``replica_id`` matches; returns whether
-        the replica was armed.  (The reference's ``hard_kill`` variant
-        SIGKILLs a worker process; the port's fleet runs in-process
-        replicas only.)"""
+        the replica was armed.
+
+        ``hard_kill=True`` is the cross-process variant (the transport worker
+        arms it): ``mode="kill"`` sends a REAL ``SIGKILL`` to the worker
+        process instead of raising — the socket drops, the heartbeat stops,
+        and the fleet runs its genuine crashed-worker detection.
+        ``mode="stall"`` behaves the same in both variants."""
         if replica_id != self.fault.replica_id:
             return False
         real_step = engine.step
@@ -288,6 +292,8 @@ class ServeFaultInjector:
                 )
             if self.fired:
                 if fault.mode == "kill":
+                    if hard_kill:
+                        os.kill(os.getpid(), signal.SIGKILL)
                     raise ReplicaKilled(
                         f"serve fault injection: replica {replica_id} killed "
                         f"at decode step {engine.steps_total}"

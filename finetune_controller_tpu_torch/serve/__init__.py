@@ -9,15 +9,16 @@
 * :mod:`adapters` — the multi-tenant adapter registry;
 * :mod:`batcher` — asyncio admission queue with backpressure, deadlines and
   per-tenant fairness;
-* :mod:`fleet` — N health-checked in-process replicas sharing one model:
-  failure and respawn, drain, rollover;
+* :mod:`fleet` — N health-checked replicas, in process sharing one model
+  or each a worker process (``transport/``): failure and respawn, drain,
+  rollover;
 * :mod:`router` — spreads requests over the fleet with failover,
   idempotent request ids and Retry-After load shedding;
 * :mod:`loader` — a trained job's directory into a serving model, merged
-  or as the base plus its adapter.
-
-The reference's HTTP routes (``service.py``), its store-facing loader half
-and its process transport are not ported yet (ROADMAP Queue A).
+  or as the base plus its adapter, and the store half that stages a
+  promoted prefix;
+* :mod:`service` — the HTTP routes that load, serve and unload promoted
+  jobs (in process or from worker processes).
 """
 
 from .adapters import AdapterRegistry, UnknownAdapter

@@ -19,9 +19,10 @@ dict a LoRA checkpoint's ``trainable`` holds (``models/convert.py``
 
 One registry serves a whole replica fleet; each replica engine holds its
 own stacks and is synced by the fleet on register/unregister, spawn and
-rollover (``serve/fleet.py``).  The wire functions of the reference
-(``entry_to_wire``/``entry_from_wire``) belong to the process transport and
-are not ported yet (ROADMAP Queue A item 8).
+rollover (``serve/fleet.py``); a worker process's engine is synced over the
+transport's registry-sync RPCs with :func:`entry_to_wire` /
+:func:`entry_from_wire`, whose adapter blob is the bytes the reference's
+``entry_to_wire`` writes for the same adapter.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import dataclasses
 import logging
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..models.lora import TenantStacks
@@ -199,3 +201,81 @@ class AdapterRegistry:
                 for e in self.entries()
             },
         }
+
+
+# ---------------------------------------------------------------------------
+# Wire serialization (transport/: the registry-sync RPC)
+# ---------------------------------------------------------------------------
+
+
+def adapter_to_flax(adapter: dict[str, Any]) -> dict[str, Any]:
+    """The port's flat adapter dict as the reference's ``lora`` tree in its
+    default scanned layout: ``blocks/block/{attn|mlp}/{proj}/lora_a|b`` with
+    a leading layer axis (the inverse of ``models/convert.py``'s
+    ``adapter_from_flax``)."""
+    layers: dict[int, dict[str, Any]] = {}
+    for key, value in adapter.items():
+        _, i, module, proj, leaf = key.split(".")
+        layers.setdefault(int(i), {})[f"{module}/{proj}/{leaf}"] = value
+    if sorted(layers) != list(range(len(layers))):
+        raise AdapterError(f"adapter layers {sorted(layers)} are not 0..{len(layers) - 1}")
+    block: dict[str, Any] = {}
+    for path in layers[0]:
+        module, proj, leaf = path.split("/")
+        stacked = torch.stack([torch.as_tensor(layers[i][path]).detach().cpu()
+                               for i in range(len(layers))])
+        block.setdefault(module, {}).setdefault(proj, {})[leaf] = stacked
+    return {"blocks": {"block": block}}
+
+
+def adapter_from_flax_tree(lora: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """A reference ``lora`` tree (scanned ``blocks/block`` or ``layer_{i}``)
+    as the port's flat adapter dict of CPU tensors."""
+    def leaves(tree, prefix=""):
+        for key, value in tree.items():
+            path = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(value, dict):
+                yield from leaves(value, path)
+            else:
+                yield path, value
+
+    def tensor(x) -> torch.Tensor:
+        return x.clone() if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+
+    out: dict[str, torch.Tensor] = {}
+    if "blocks" in lora:
+        for path, value in leaves(lora["blocks"]["block"]):
+            for i in range(value.shape[0]):
+                out[f"layers.{i}.{path.replace('/', '.')}"] = tensor(value[i])
+        return out
+    for path, value in leaves(lora):
+        layer, _, rest = path.partition("/")
+        out[f"layers.{layer.removeprefix('layer_')}.{rest.replace('/', '.')}"] = tensor(value)
+    return out
+
+
+def entry_to_wire(entry: AdapterEntry) -> dict[str, Any]:
+    """Serialize one registry entry for the worker registry-sync RPC: the
+    adapter rides as a flax-msgpack blob of the reference's ``lora`` tree
+    layout — megabytes of deltas, never model weights."""
+    from ..transport.wire import tree_to_blob
+
+    return {
+        "adapter_id": entry.adapter_id,
+        "alpha": float(entry.alpha),
+        "rank": int(entry.rank),
+        "meta": dict(entry.meta),
+        "tree": tree_to_blob(adapter_to_flax(entry.tree)),
+    }
+
+
+def entry_from_wire(doc: dict[str, Any]) -> tuple[str, Any, float, int, dict]:
+    """Inverse of :func:`entry_to_wire` → ``(adapter_id, adapter, alpha,
+    rank, meta)``, the :meth:`AdapterRegistry.register` argument shape."""
+    from ..transport.wire import tree_from_blob
+
+    adapter = adapter_from_flax_tree(tree_from_blob(doc["tree"]))
+    return (
+        str(doc["adapter_id"]), adapter, float(doc["alpha"]), int(doc["rank"]),
+        dict(doc.get("meta") or {}),
+    )

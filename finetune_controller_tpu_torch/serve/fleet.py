@@ -1,16 +1,23 @@
 """Replica fleet: N health-checked engine replicas behind one served job.
 
-Counterpart of the reference's ``serve/fleet.py``, in-process mode only.
-Promoted checkpoints are immutable artifacts, so replicas are cattle; this
-module owns the herd for one job:
+Counterpart of the reference's ``serve/fleet.py``.  Promoted checkpoints
+are immutable artifacts, so replicas are cattle; this module owns the herd
+for one job:
 
-* each :class:`Replica` is a full serving stack (its own
-  :class:`~.engine.BatchEngine` + :class:`~.batcher.Batcher`).  Replicas
-  share ONE model's weights: every engine holds the same ``model`` and owns
-  only its KV cache, page pool, prefix cache and tenant stacks, so two
-  replicas of an 8B model do not hold two copies of its 16 GB.  An engine
-  never writes the model, so a replica that fails leaves nothing of it
-  half-changed, and a respawn builds a new engine around the same module;
+* each :class:`Replica` is a full serving stack, in one of two modes:
+  - in process (``transport=None``): its own :class:`~.engine.BatchEngine`
+    + :class:`~.batcher.Batcher`.  Replicas share ONE model's weights:
+    every engine holds the same ``model`` and owns only its KV cache, page
+    pool, prefix cache and tenant stacks, so two replicas of an 8B model do
+    not hold two copies of its 16 GB.  An engine never writes the model, so
+    a replica that fails leaves nothing of it half-changed, and a respawn
+    builds a new engine around the same module;
+  - a worker process each (``transport=`` a
+    :class:`~..transport.process.ProcessTransport`): the replica's
+    ``batcher`` is a :class:`~..transport.client.RemoteReplica` with the
+    same surface; each worker rebuilds the model from the transport's
+    payload (a staged deploy dir) in its own process, and the control
+    plane holds no weights;
 * **health**: a replica with work in flight whose engine stops completing
   decode steps for ``stall_timeout_s`` — or whose drive loop survives a
   decode-step fault — is marked unhealthy, torn down (its requests fail
@@ -26,10 +33,6 @@ module owns the herd for one job:
   generation — no stop-the-world swap;
 * the seeded chaos hand (``resilience/faults.py::ServeFaultInjector``) can
   kill or wedge a chosen replica at a chosen decode step.
-
-The reference's process transport (every replica a worker process behind an
-RPC socket) is not ported: ``transport=`` raises ``NotImplementedError``
-(ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -63,11 +66,15 @@ class ReplicaState(str, enum.Enum):
 
 @dataclasses.dataclass
 class Replica:
-    """One in-process serving stack inside the fleet."""
+    """One serving stack inside the fleet — in process (``batcher`` is a
+    :class:`Batcher`) or a worker process (``batcher`` is a
+    :class:`~..transport.client.RemoteReplica`, which has the same
+    surface)."""
 
     replica_id: str
     generation: int
-    batcher: Batcher
+    batcher: Any
+    remote: bool = False
     state: ReplicaState = ReplicaState.HEALTHY
     started_at: float = 0.0
     #: clock reading when the engine last made observable progress (a decode
@@ -106,8 +113,10 @@ class _PendingRestart:
 class ReplicaFleet:
     """The replica set for one served job.
 
-    ``model`` is the loaded serving model, shared by every replica; engine
-    construction (cache allocation, warm-up) runs in a worker thread.
+    ``model`` is the loaded serving model, shared by every in-process
+    replica; engine construction (cache allocation, warm-up) runs in a
+    worker thread.  With ``transport`` the replicas are worker processes and
+    ``model`` is None: the control plane never holds serving weights.
     ``event_cb`` (async, best-effort) lands fleet lifecycle events on the
     job's timeline (the serve manager passes one).
     """
@@ -154,14 +163,14 @@ class ReplicaFleet:
         transport: "Any | None" = None,
     ):
         self.job_id = job_id
-        if transport is not None:
-            raise NotImplementedError(
-                "process-mode replicas (transport=) are not ported yet "
-                "(ROADMAP Queue A item 8, transport and workers); the port's "
-                "fleet runs in-process replicas"
+        #: cross-process mode: a ``transport/process.py::ProcessTransport``
+        #: (or anything with its ``spawn``/``mode`` surface)
+        self.transport = transport
+        if transport is None and model is None:
+            raise ValueError(
+                "an in-process fleet needs a model; pass a transport for "
+                "process-mode replicas"
             )
-        if model is None:
-            raise ValueError("an in-process fleet needs a model")
         #: the serving model every replica's engine shares
         self._model = model
         self._engine_config = engine_config
@@ -224,7 +233,15 @@ class ReplicaFleet:
     # ---- lifecycle ---------------------------------------------------------
 
     async def start(self) -> None:
-        """Spawn the initial replica set, one engine after another."""
+        """Spawn the initial replica set.  Worker processes spawn
+        CONCURRENTLY (each builds in its own process: the wall clock is one
+        spawn, not the fleet size times one); in-process engines build one
+        after another."""
+        if self.transport is not None:
+            await asyncio.gather(
+                *(self.spawn_replica() for _ in range(self.target_replicas))
+            )
+            return
         for _ in range(self.target_replicas):
             await self.spawn_replica()
 
@@ -238,25 +255,55 @@ class ReplicaFleet:
 
     async def spawn_replica(self) -> Replica:
         """Put one replica in service: build an engine in a worker thread
-        (it syncs the adapter registry while it is built)."""
+        (it syncs the adapter registry while it is built), or spawn and
+        handshake a worker process (transport) and sync the adapter
+        registry onto it."""
         rid = f"r{next(self._seq)}"
-        engine = await asyncio.to_thread(self._build_engine)
-        if self._fault is not None and self._fault.arm(rid, engine):
-            logger.warning("replica %s armed with a serve fault", rid)
-        batcher = Batcher(engine, **self._batcher_kwargs)
+        if self.transport is not None:
+            batcher = await self.transport.spawn(
+                rid, self.generation,
+                engine_config=self._engine_config,
+                batcher_kwargs=self._batcher_kwargs,
+                adapters=self.adapters,
+                warm_start=self.warm_start,
+            )
+            if self.adapters is not None and len(self.adapters):
+                try:
+                    from .adapters import entry_to_wire
+
+                    wires = await asyncio.to_thread(
+                        lambda: [entry_to_wire(e) for e in self.adapters.entries()]
+                    )
+                    await batcher.stack_sync(wires)
+                except BaseException:
+                    # the worker is alive but not in _replicas yet: nothing
+                    # else would ever kill it
+                    await batcher.close()
+                    raise
+            remote = True
+        else:
+            engine = await asyncio.to_thread(self._build_engine)
+            if self._fault is not None and self._fault.arm(rid, engine):
+                logger.warning("replica %s armed with a serve fault", rid)
+            batcher = Batcher(engine, **self._batcher_kwargs)
+            remote = False
         now = time.monotonic()
         replica = Replica(
             replica_id=rid, generation=self.generation, batcher=batcher,
-            started_at=now, last_progress=now,
+            remote=remote, started_at=now, last_progress=now,
         )
         self._replicas[rid] = replica
         await self._event(
             "serve-replica-started", replica=rid, generation=self.generation,
-            transport="inproc",
+            transport=self.transport_mode,
         )
-        logger.info("serve replica %s started (job=%s gen=%d)", rid, self.job_id,
-                    self.generation)
+        logger.info("serve replica %s started (job=%s gen=%d transport=%s)", rid,
+                    self.job_id, self.generation, self.transport_mode)
         return replica
+
+    @property
+    def transport_mode(self) -> str:
+        return getattr(self.transport, "mode", None) or "inproc"
 
     # ---- multi-tenant adapters ---------------------------------------------
 
@@ -274,7 +321,17 @@ class ReplicaFleet:
         refresh = self.adapters.get(adapter_id) is not None
         entry = self.adapters.register(adapter_id, lora_tree, alpha, rank,
                                        meta=meta)
+        entry_wire = None
+        if any(r.remote for r in self._replicas.values()):
+            from .adapters import entry_to_wire
+
+            entry_wire = await asyncio.to_thread(entry_to_wire, entry)
         for replica in list(self._replicas.values()):
+            if replica.remote:
+                # registry-sync RPC: the worker registers, installs and (on
+                # refresh) drops the namespace itself, in this order
+                await replica.batcher.adapter_register(entry_wire, refresh=refresh)
+                continue
             await asyncio.to_thread(replica.engine.install_adapter, adapter_id)
             if refresh:
                 # tenant rollover: the deltas changed, so KV cached under
@@ -312,6 +369,9 @@ class ReplicaFleet:
             )
         entry = self.adapters.unregister(adapter_id)
         for replica in list(self._replicas.values()):
+            if replica.remote:
+                await replica.batcher.adapter_unregister(adapter_id)
+                continue
             await asyncio.to_thread(
                 replica.engine.remove_adapter, adapter_id, entry.slot
             )
@@ -501,6 +561,10 @@ class ReplicaFleet:
                 )
                 continue
             self.replica_restarts_total += 1
+            if replica.remote:
+                from ..transport import incr as transport_incr
+
+                transport_incr("worker_respawns_total")
             actions["restarted"].append(replica.replica_id)
             await self._event(
                 "serve-replica-restarted", replica=replica.replica_id,
@@ -531,17 +595,27 @@ class ReplicaFleet:
         """Zero-downtime model swap: spin up the new generation FIRST
         around ``model``, shift traffic (the router prefers the newest
         generation), then drain the old generation — in-flight lanes finish
-        on the weights they started on."""
+        on the weights they started on.
+
+        Process mode: the caller repoints the transport's payload (a freshly
+        staged deploy dir) BEFORE calling this with ``model=None``; the new
+        generation's workers rebuild from it."""
         old = [r for r in self._replicas.values() if r.healthy]
-        self._model = model
+        if self.transport is None:
+            self._model = model
         self.generation += 1
         self.rollovers_total += 1
         await self._event(
             "serve-rollover-started", generation=self.generation,
             reason=reason, old_replicas=len(old),
         )
-        for _ in range(max(1, len(old))):
-            await self.spawn_replica()
+        if self.transport is not None:
+            await asyncio.gather(
+                *(self.spawn_replica() for _ in range(max(1, len(old))))
+            )
+        else:
+            for _ in range(max(1, len(old))):
+                await self.spawn_replica()
         await asyncio.gather(*(
             self.drain_replica(r.replica_id, reason=reason) for r in old
         ))
@@ -619,6 +693,10 @@ class ReplicaFleet:
             ),
             "generation": self.generation,
             "target_replicas": self.target_replicas,
+            "transport": self.transport_mode,
+            "worker_pids": sorted(
+                r.batcher.pid for r in self._replicas.values() if r.remote
+            ),
             "replica_restarts_total": self.replica_restarts_total,
             "replicas_failed_total": self.replicas_failed_total,
             "drains_total": self.drains_total,

@@ -1,7 +1,7 @@
 """Request router over a replica fleet: spread, fail over, shed.
 
-A copy of the reference's ``serve/router.py`` for the port's in-process
-fleet.  One router per served job.  Every request flows
+A copy of the reference's ``serve/router.py`` for the port's fleet (in
+process or worker processes).  One router per served job.  Every request flows
 
     submit → pick replica (healthy, newest generation, least loaded)
            → replica batcher → result
@@ -201,8 +201,9 @@ class ReplicaRouter:
                 )
                 result.replica_id = replica.replica_id
                 return result
-            except ReplicaUnavailable as exc:
-                # the replica died or drained before delivering a result, so
+            except (ReplicaUnavailable, ConnectionError) as exc:
+                # the replica died or drained before delivering a result (in
+                # process, or as a worker process whose socket broke), so
                 # failover is safe
                 tried.add(replica.replica_id)
                 attempts += 1

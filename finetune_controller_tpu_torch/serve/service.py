@@ -22,11 +22,15 @@ The manager refuses jobs whose promotion is not COMPLETED
 deploy prefix would decode garbage with a 200 status.
 
 The port loads promoted models on the control plane's ``device`` setting
-(``FTC_DEVICE``, default ``cuda``) and runs in-process replicas.  The
-reference's process transport (``serve_transport=process``) and serve
-autoscaling (``serve_autoscale``) answer 501 on load, naming ROADMAP Queue A
-items 8 and 3a-rest; the shard-audit block of ``GET {prefix}/admin/serve``
-reports the audit as not ported (item 9).
+(``FTC_DEVICE``, default ``cuda``).  ``serve_transport=inproc`` runs the
+replicas in this process around one loaded model; ``process`` stages the
+promoted prefix once per generation and gives every replica a worker
+process of its own, which rebuilds the model from the staged dir on the
+same device (``transport/``); the control plane then holds no weights.  A
+reward job in process mode (the reference's ``reward_score`` workers)
+answers 501 naming ROADMAP Queue A item 4, and serve autoscaling
+(``serve_autoscale``) answers 501 naming item 3a-rest; the shard-audit block
+of ``GET {prefix}/admin/serve`` reports the audit as not ported (item 9).
 """
 
 from __future__ import annotations
@@ -70,18 +74,25 @@ class _Session:
     #: adapters) — metas only; the weights live in the fleet's registry
     adapters: dict[str, dict[str, Any]] = dataclasses.field(
         default_factory=dict)
+    #: process transport: the staged deploy prefix this generation's worker
+    #: processes rebuild their weights from (removed on unload/rollover)
+    worker_stage_dir: str | None = None
 
 
 class ServeManager:
     """Loaded serving sessions, one replica fleet + router per promoted job."""
 
-    def __init__(self, state, store, settings, *, obs=None):
+    def __init__(self, state, store, settings, *, obs=None, backend=None):
         self.state = state
         self.store = store
         self.settings = settings
         #: observability hub (obs/prom.py): serve TTFT histogram + timeline
         #: events on load/unload (docs/observability.md)
         self.obs = obs
+        #: the training backend: with ``serve_transport=process`` worker
+        #: sandboxes live under its substrate (``backend.serve_worker_root``);
+        #: None falls back to the state dir
+        self.backend = backend
         self.sessions: dict[str, _Session] = {}
         #: per-job single-flight loads: the dict insert is the CAS — exactly
         #: one racing ``load`` wins and does the work, the rest await its
@@ -132,25 +143,50 @@ class ServeManager:
     def _multi_tenant(self) -> bool:
         return self.settings.serve_max_adapters > 0
 
-    def _check_supported(self) -> None:
-        """Refuse the serving modes the port does not run yet."""
+    @property
+    def _transport_mode(self) -> str:
         mode = (self.settings.serve_transport or "inproc").strip().lower()
         if mode not in ("inproc", "process"):
             raise ServeLoadError(
                 f"unknown serve_transport {mode!r} (expected 'inproc' or "
                 "'process')", status=500,
             )
-        if mode == "process":
-            raise ServeLoadError(
-                "serve_transport='process' (worker-process replicas) is not "
-                "ported yet (ROADMAP Queue A item 8); use 'inproc'", status=501,
-            )
+        return mode
+
+    def _make_transport(self, job_id: str, payload_kwargs: dict[str, Any]):
+        """Process-mode replica substrate: sandboxes under the backend's
+        work dir when it offers one (the local backend does), else the state
+        dir — one dir per worker with spec, log, heartbeat and socket file."""
+        from ..transport.process import ProcessTransport
+
+        s = self.settings
+        root = None
+        if self.backend is not None:
+            root = self.backend.serve_worker_root(job_id)
+        if root is None:
+            root = Path(s.state_path) / "serve_workers" / job_id
+            root.mkdir(parents=True, exist_ok=True)
+        return ProcessTransport(
+            job_id=job_id,
+            root=root,
+            payload={"builder": "deploy_dir", "kwargs": payload_kwargs},
+            port_base=s.serve_worker_port_base,
+            spawn_timeout_s=s.serve_worker_spawn_timeout_s,
+            heartbeat_interval_s=s.serve_worker_heartbeat_s,
+            probe_timeout_s=max(10.0, s.serve_health_interval_s * 5),
+        )
+
+    def _check_supported(self) -> str:
+        """Refuse the serving modes the port does not run yet; returns the
+        transport mode."""
+        mode = self._transport_mode
         if self.settings.serve_autoscale:
             raise ServeLoadError(
                 "serve_autoscale (serve replicas as scheduler tenants, "
                 "sched/serve_tenant.py) is not ported yet (ROADMAP Queue A "
                 "item 3a-rest)", status=501,
             )
+        return mode
 
     def _adapter_registry(self) -> AdapterRegistry | None:
         if not self._multi_tenant:
@@ -160,13 +196,14 @@ class ServeManager:
             self.settings.serve_adapter_rank,
         )
 
-    async def _build_session(self, job_id, model, meta) -> _Session:
+    async def _build_session(self, job_id, model, meta, *, transport=None) -> _Session:
         s = self.settings
         fleet = ReplicaFleet(
             job_id, model, self._engine_config(),
             replicas=s.serve_replicas,
             batcher_kwargs=self._batcher_kwargs(),
             adapters=self._adapter_registry(),
+            transport=transport,
             stall_timeout_s=s.serve_replica_stall_s,
             drain_timeout_s=s.serve_drain_timeout_s,
             restart_policy=RetryPolicy(
@@ -178,7 +215,13 @@ class ServeManager:
                 lambda event, **attrs: self._event(job_id, event, **attrs)
             ),
         )
-        await fleet.start()
+        try:
+            await fleet.start()
+        except BaseException:
+            # a worker that came up before another failed its spawn must
+            # not outlive the failed load
+            await fleet.close()
+            raise
         router = ReplicaRouter(
             fleet,
             default_timeout_s=s.serve_request_timeout_s,
@@ -231,8 +274,106 @@ class ServeManager:
                     steps.append(int(raw))
         return max(steps) if steps else None
 
+    async def _load_or_rollover_process(self, job_id: str) -> dict[str, Any]:
+        """The ``serve_transport=process`` load path: the control plane
+        STAGES the promoted prefix once and reads its meta, but never loads
+        the weights — each worker process rebuilds them from the staged dir
+        (``transport/builders.py::deploy_dir``).  A rollover stages the new
+        checkpoint, repoints the transport's payload, and lets the fleet
+        spin the next worker generation on it before draining the old."""
+        import shutil
+
+        from .loader import _load_adapter_tree, stage_for_workers
+
+        existing = self.sessions.get(job_id)
+        if existing is not None:
+            job = await resolve_promoted(self.state, job_id)
+            if job.promotion_uri == existing.meta.get("promotion_uri"):
+                peek = await self._peek_latest_step(job.promotion_uri)
+                if peek is not None \
+                        and peek == existing.meta.get("checkpoint_step"):
+                    return existing.meta
+        merge = self.settings.serve_merge_lora and not self._multi_tenant
+        stage_dir, meta = await stage_for_workers(
+            self.state, self.store, job_id, self.work_dir, merge_lora=merge,
+        )
+        if meta.get("task") == "reward":
+            await asyncio.to_thread(shutil.rmtree, stage_dir, ignore_errors=True)
+            raise ServeLoadError(
+                f"job {job_id!r} is a reward model: serving it from worker "
+                "processes means the reference's reward_score workers, which "
+                "come with the disaggregated rollout plane (ROADMAP Queue A "
+                "item 4); serve it with serve_transport='inproc'", status=501,
+            )
+        base_adapter = None
+        if self._multi_tenant:
+            meta["lora_merged"] = False
+            meta["multi_tenant"] = True
+            meta["self_adapter"] = meta.get("lora_rank", 0) > 0
+            if meta["self_adapter"]:
+                # the job's own fine-tune serves as tenant #1; only the
+                # DELTAS load here — the base stays in the workers
+                lora_tree, ameta = await asyncio.to_thread(_load_adapter_tree, stage_dir)
+                base_adapter = (lora_tree, ameta["lora_alpha"], ameta["lora_rank"])
+        payload_kwargs = {
+            "dir": str(stage_dir), "merge_lora": merge,
+            "multi_tenant": self._multi_tenant, "device": str(self.settings.device),
+        }
+        if existing is not None:
+            same = (
+                existing.meta.get("checkpoint_step") == meta.get("checkpoint_step")
+                and existing.meta.get("promotion_uri") == meta.get("promotion_uri")
+            )
+            if same:
+                await asyncio.to_thread(shutil.rmtree, stage_dir, ignore_errors=True)
+                return existing.meta
+            await self._event(
+                job_id, "serve-rollover-requested",
+                from_step=existing.meta.get("checkpoint_step"),
+                to_step=meta.get("checkpoint_step"),
+            )
+            existing.fleet.transport.set_payload("deploy_dir", payload_kwargs)
+            old_stage = existing.worker_stage_dir
+            await existing.fleet.rollover(None)
+            if base_adapter is not None:
+                await existing.fleet.register_adapter(
+                    job_id, *base_adapter,
+                    meta={"checkpoint_step": meta.get("checkpoint_step")},
+                )
+            existing.meta = meta
+            existing.worker_stage_dir = str(stage_dir)
+            if old_stage:
+                # the old generation drained inside rollover(): nothing
+                # reads the superseded stage anymore
+                await asyncio.to_thread(shutil.rmtree, old_stage, ignore_errors=True)
+            logger.info("serve rollover completed for %s (process): %s", job_id, meta)
+            return meta
+        transport = self._make_transport(job_id, payload_kwargs)
+        try:
+            session = await self._build_session(job_id, None, meta, transport=transport)
+        except BaseException:
+            await asyncio.to_thread(shutil.rmtree, stage_dir, ignore_errors=True)
+            raise
+        session.worker_stage_dir = str(stage_dir)
+        self.sessions[job_id] = session
+        if base_adapter is not None:
+            await session.fleet.register_adapter(
+                job_id, *base_adapter,
+                meta={"checkpoint_step": meta.get("checkpoint_step")},
+            )
+        await self._event(
+            job_id, "serve-loaded",
+            checkpoint_step=meta.get("checkpoint_step"),
+            lora_merged=meta.get("lora_merged"),
+            replicas=session.fleet.target_replicas,
+            transport="process",
+        )
+        logger.info("serve session loaded for %s (process workers): %s", job_id, meta)
+        return meta
+
     async def _load_or_rollover(self, job_id: str) -> dict[str, Any]:
-        self._check_supported()
+        if self._check_supported() == "process":
+            return await self._load_or_rollover_process(job_id)
         existing = self.sessions.get(job_id)
         if existing is not None:
             # cheap idempotence check BEFORE staging gigabytes: same deploy
@@ -374,6 +515,12 @@ class ServeManager:
             if base_id == job_id:
                 self._adapter_routes.pop(tenant_id, None)
         await session.fleet.close()
+        if session.worker_stage_dir:
+            import shutil
+
+            await asyncio.to_thread(
+                shutil.rmtree, session.worker_stage_dir, ignore_errors=True
+            )
         await self._event(job_id, "serve-unloaded")
         logger.info("serve session unloaded for %s", job_id)
         return True

@@ -9,8 +9,10 @@ checkpoints' ``state.msgpack`` that way; the port has neither ``flax`` nor
 
 * :func:`serialize` gives the bytes ``msgpack_serialize`` gives for a tree of
   dicts (keys sorted, as flax's tree copy sorts them), lists and tuples,
-  ``str``, ``bool``, ``int``, ``float``, ``None``, numpy arrays and torch
-  tensors (as arrays);
+  ``str``, ``bytes``, ``bool``, ``int``, ``float``, ``None``, numpy arrays
+  and torch tensors (as arrays); subclasses of these (a ``str`` enum, a
+  ``defaultdict``) are written as their base type, which also makes it the
+  serve transport's MessagePack codec (``transport/wire.py``);
 * :func:`restore` reads such bytes back (maps, arrays, strings, binary,
   numbers, extension type 1 and the numpy-scalar type 3) into dicts, lists
   and numpy arrays; a ``bfloat16`` array, which numpy cannot hold, comes
@@ -123,30 +125,31 @@ def _pack(x: Any, out: bytearray) -> None:
         out.append(0xC3)
     elif x is False:
         out.append(0xC2)
-    elif type(x) is int:
-        _pack_int(x, out)
-    elif type(x) is float:
-        out += struct.pack(">Bd", 0xCB, x)
-    elif type(x) is str:
-        data = x.encode("utf-8")
+    elif isinstance(x, np.generic):
+        # before the Python number types: np.float64 subclasses float
+        arr = np.asarray(x)
+        _pack_ext(EXT_NPSCALAR, _array_bytes(arr, arr.dtype.name), out)
+    elif isinstance(x, int):
+        _pack_int(int(x), out)
+    elif isinstance(x, float):
+        out += struct.pack(">Bd", 0xCB, float(x))
+    elif isinstance(x, str):
+        data = str.encode(x, "utf-8")
         _pack_len(len(data), out, (0xA0, 32), (0xD9, 0xDA, 0xDB))
         out += data
-    elif type(x) in (bytes, bytearray, memoryview):
+    elif isinstance(x, (bytes, bytearray, memoryview)):
         data = bytes(x)
         _pack_len(len(data), out, None, (0xC4, 0xC5, 0xC6))
         out += data
-    elif type(x) in (list, tuple):
+    elif isinstance(x, (list, tuple)):
         _pack_len(len(x), out, (0x90, 16), (None, 0xDC, 0xDD))
         for item in x:
             _pack(item, out)
-    elif type(x) is dict:
+    elif isinstance(x, dict):
         _pack_len(len(x), out, (0x80, 16), (None, 0xDE, 0xDF))
         for key in sorted(x):
             _pack(key, out)
             _pack(x[key], out)
-    elif isinstance(x, np.generic):
-        arr = np.asarray(x)
-        _pack_ext(EXT_NPSCALAR, _array_bytes(arr, arr.dtype.name), out)
     else:
         array = _as_array(x)
         if array is None:

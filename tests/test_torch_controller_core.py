@@ -315,9 +315,20 @@ def test_unported_substrates_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 3c"):
         build_runtime(port_config.Settings(backend="k8s", **base))
     store = port_objectstore.LocalObjectStore(tmp_path / "o")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LocalProcessBackend(tmp_path / "sb", store, port_devices.default_catalog(),
-                            warm_workers=1)
+    # the warm trainer pool is ported: a backend with warm_workers=1
+    # prewarms one trainer process, which exits 0 when the pool closes
+    backend = LocalProcessBackend(tmp_path / "sb", store, port_devices.default_catalog(),
+                                  warm_workers=1)
+
+    async def pool():
+        await asyncio.wait_for(backend.prewarm(wait_s=90), 120)
+        (procs,) = backend._warm.values()
+        assert len(procs) == 1 and procs[0].returncode is None
+        assert getattr(procs[0], "ftc_ready_path").exists()
+        await asyncio.wait_for(backend.close(), 60)
+        return procs[0].returncode
+
+    assert asyncio.run(pool()) == 0
 
 
 @pytest.mark.parametrize("exit_code", [1, 2])

@@ -141,9 +141,15 @@ def test_serve_fault_env_roundtrip_and_once_file(tmp_path):
     assert not ServeFaultInjector(fault)._spend_once()  # spent by the first
 
 
-def test_replicas_share_one_model(tiny):
+def test_replicas_share_one_model(tiny, tmp_path):
     """Two replicas hold one model's weights (the same tensors), each with
-    its own KV pool; a transport is refused with its queue item."""
+    its own KV pool.  With a transport the replicas are worker processes
+    instead: a process-mode fleet of the seeded tiny model answers with an
+    in-process engine's tokens, and a fleet with neither a model nor a
+    transport is refused."""
+    from finetune_controller_tpu_torch.transport.builders import tiny_test
+    from finetune_controller_tpu_torch.transport.process import ProcessTransport
+
     _, model = tiny
 
     async def main():
@@ -152,11 +158,31 @@ def test_replicas_share_one_model(tiny):
         r0, r1 = (fleet.replicas[r].engine for r in ("r0", "r1"))
         assert r0.model is r1.model is model
         assert r0.kv.k.data_ptr() != r1.kv.k.data_ptr()
+        assert fleet.stats()["transport"] == "inproc"
         await fleet.close()
 
     asyncio.run(main())
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        ReplicaFleet("j", model, EngineConfig(**ENGINE_CFG), transport=object())
+    payload = {"device": "cpu", "dtype": "float32", "seed": 3}
+    transport = ProcessTransport(job_id="j", root=tmp_path / "workers",
+                                 payload={"builder": "tiny_test", "kwargs": payload},
+                                 spawn_timeout_s=120.0, heartbeat_interval_s=0.5)
+
+    async def remote():
+        fleet = ReplicaFleet("j", None, EngineConfig(**ENGINE_CFG), replicas=1,
+                             transport=transport)
+        try:
+            await asyncio.wait_for(fleet.start(), 120)
+            assert fleet.stats()["transport"] == "process"
+            router = ReplicaRouter(fleet, default_timeout_s=60)
+            return await asyncio.wait_for(router.submit(GenRequest("p", [5, 9, 2, 7], 8)), 60)
+        finally:
+            await asyncio.wait_for(fleet.close(), 60)
+
+    got = asyncio.run(remote())
+    engine = BatchEngine(tiny_test(**payload), EngineConfig(**ENGINE_CFG))
+    assert got.generated == engine.run([GenRequest("p", [5, 9, 2, 7], 8)])["p"].generated
+    with pytest.raises(ValueError, match="needs a model"):
+        ReplicaFleet("j", None, EngineConfig(**ENGINE_CFG))
 
 
 def test_replica_kill_every_request_exactly_once(tiny, baseline):

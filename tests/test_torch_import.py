@@ -339,3 +339,60 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+TRANSPORT_SLICE = sorted(
+    [PORT / "transport" / f for f in ("__init__.py", "wire.py", "builders.py", "worker.py",
+                                      "client.py", "process.py")]
+    + [PORT / "train" / "warm_worker.py", PORT / "serve" / "adapters.py",
+       PORT / "serve" / "fleet.py", PORT / "serve" / "service.py",
+       PORT / "controller" / "backends" / "local.py"])
+#: the transport speaks msgpack through the port's own coder
+TRANSPORT_FORBIDDEN = ("msgpack", "aiohttp")
+
+
+@pytest.mark.parametrize("path", TRANSPORT_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_transport_slice_imports_resolve_inside_the_port(path):
+    """The worker-process transport, the warm trainer and the modules that
+    drive them, relative imports resolved, stay out of JAX, flax, the JAX
+    package (even its JAX-free ``transport/``), ``msgpack`` and
+    ``aiohttp``."""
+    assert path in SOURCES
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in TRANSPORT_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_transport_slice_loads_without_jax_flax_or_msgpack():
+    """Importing the transport and warm-worker modules in a fresh
+    interpreter loads none of JAX, flax, the JAX package, ``msgpack`` or
+    ``aiohttp``; the worker's ``--help`` runs as a module."""
+    code = (
+        "import importlib, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % ([".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+          for p in TRANSPORT_SLICE], TRANSPORT_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = subprocess.run([sys.executable, "-m",
+                           "finetune_controller_tpu_torch.transport.worker", "--help"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "--spec" in proc.stdout, proc.stderr
+
+
+def test_worker_builders_default_to_cuda():
+    """A worker's model builders run on the card unless the spec names the
+    CPU: without a card the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from finetune_controller_tpu_torch.transport.builders import tiny_test
+
+    assert tiny_test(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tiny_test()

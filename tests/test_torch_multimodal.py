@@ -399,6 +399,51 @@ def test_adapter_and_projector_exports_equal_jax(tmp_path):
             == json.loads((tmp_path / "jax" / "adapter_config.json").read_text()))
 
 
+def test_exported_llava_adapter_loads_into_peft(hf_llava, tmp_path):
+    """The trainer's LLaVA adapter (keys under the pre-4.52 layout
+    ``base_model.model.language_model.model.layers``) loads with ``peft``
+    into a ``LlavaForConditionalGeneration`` of ``transformers`` 4.57: every
+    exported key lands on its module (``transformers`` maps the old layout),
+    and the loaded model's text logits equal the port's within the HF
+    parity tolerance of ``tests/test_torch_hf_io.py`` (llama: atol 2e-4,
+    rtol 1e-3), while the adapter moves them well past it."""
+    from peft import PeftModel
+    from safetensors.torch import load_file
+    from transformers import LlavaForConditionalGeneration
+
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    _, cfg = _configs("tiny-mm-clip-test", rank=4)
+    trainer = Trainer(cfg, TrainConfig(total_steps=1), device="cpu")
+    trainer.load_pretrained(str(hf_llava))
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, p in trainer.model.named_parameters():
+            if name.endswith(("lora_a", "lora_b")):
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    trainer.export_artifacts(str(tmp_path))
+    exported = load_file(tmp_path / "adapter" / "adapter_model.safetensors")
+    assert len(exported) == 2 * 7 * cfg.text.n_layers
+    hf = LlavaForConditionalGeneration.from_pretrained(str(hf_llava)).eval()
+    peft_model = PeftModel.from_pretrained(hf, str(tmp_path / "adapter")).eval()
+    loaded = {n: t for n, t in peft_model.state_dict().items()
+              if "language_model" in n and "lora_" in n}
+    matched = 0
+    for key, value in exported.items():
+        rest = key.split("language_model.model.", 1)[1].replace(".weight", ".default.weight")
+        hits = [n for n in loaded if n.endswith("language_model." + rest)]
+        matched += len(hits) == 1 and torch.equal(loaded[hits[0]], value)
+    assert matched == len(exported) == len(loaded)
+    tokens = torch.tensor(np.random.default_rng(0).integers(0, 200, (2, 12)))
+    with torch.no_grad():
+        got = trainer.model.eval()(tokens).float().numpy()
+        want = peft_model(input_ids=tokens).logits.float().numpy()
+        with peft_model.disable_adapter():
+            base = peft_model(input_ids=tokens).logits.float().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+    assert np.abs(base - want).max() > 100 * 2e-4
+
+
 # ---------------------------------------------------------------------------
 # generation
 # ---------------------------------------------------------------------------
