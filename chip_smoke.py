@@ -64,10 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
    spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
    the losses printed beside those of the same run from a random-init
    base at 32 layers.
-   H1, T2, H2 and S2 run ``HF_LAYERS`` = 16 of the 32 layers: the run may
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 12 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
    merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M, V,
-   P and R need about 20 GB beside them; after each phase the script prints what
+   P, R, W and P4 need about 26 GB beside them; after each phase the script prints what
    it has written (``DiskTally``) and fails past 45 GiB;
    (H2) the exported adapter against the step-8 LoRA tensors (bit for
    bit), and the merged checkpoint reloaded into a bf16 model through
@@ -190,7 +190,24 @@ Phases (any failure exits non-zero and prints no result line):
     reloads, the learner's base digest unchanged, paged launches by the
     actor and flash launches by the learner (each zeroed before and read
     after); buffer depth, staleness, bootstrap pairs and actor tokens/s
-    printed;
+    printed; (P4) the disaggregated rollout plane: P2's reward job served
+    by one reward worker process (``ReplicaFleet`` in process mode with
+    ``reward_spec``), then ``task: rlhf`` through ``train.cli.main`` with
+    P3's spec, ``P4_WORKERS`` rollout worker processes scoring each round
+    with that worker's ``reward_score`` RPC, ``P4_TOTAL_STEPS`` steps and a
+    checkpoint every ``P4_CHECKPOINT_EVERY``; ``rollout-1`` SIGKILLed once
+    its first round is in and before the first commit.  Checked: finite
+    rows; the respawn streams again, no (worker, pair id) ingested twice,
+    duplicates dropped and every replay token-equal to its original;
+    ``rollout-0``'s pid unchanged and its policy at the last pushed version
+    (two pushes at least); a ``rollout.round`` span overlapping a learner
+    step; the pairs' rewards the RPC's (a round re-scored), no oracle pair;
+    paged launches in each rollout worker, flash forward launches in the
+    reward worker, all three flash kernels in the learner; at most
+    ``P4_DISK_BYTES`` written.  Printed: spawn seconds, kill -> respawned
+    and streaming, actor tokens/s per worker and in all beside P3's,
+    learner ms/step beside P3's, ``reward_score`` ms a round, the rollout
+    base's and a policy blob's bytes, each process's peak card memory;
     (R) resilience after P1, on a server of its own whose retry supervisor
     may resubmit once (the backend restarts nothing): ``llama3-8b-lora`` at
     full width and depth with C's arguments, dataset and seed, a checkpoint
@@ -1003,8 +1020,9 @@ def serve_phase(args):
 #: export.  At 18 layers the whole run, R included, wrote 44.13 GiB on an
 #: H100 machine, and one job phase alone (Q) wrote 1.00 GB more than in the
 #: run before (what the artifact sync catches of a save varies), so 18
-#: layers can pass the cap; 16 layers leave about 3.5 GiB
-HF_LAYERS = 16
+#: layers can pass the cap; 16 layers left 3.3 GiB (41.68 GiB written), and
+#: P4's rollout base (5.59 GB at 8 layers) needs more, so 12
+HF_LAYERS = 12
 #: the llama3-8b preset's depth, which S1 serves
 PRESETS_DEPTH = 32
 #: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
@@ -3503,6 +3521,8 @@ def rlhf_phase(work, seed: int) -> dict:
         "bootstrap_pairs": actor.bootstrap_pairs, "pairs_generated": actor.pairs_generated,
         "actor_tokens": actor.tokens_generated, "actor_generate_s": actor.generate_seconds,
         "actor_tokens_per_s": actor.tokens_per_sec, "paged_launches": paged,
+        "learner_compute_ms_median": float(np.median(
+            [float(r["phase_compute_ms"]) for r in rows_out[1:]])),
         "flash_launches": flash, "artifacts_bytes": tree_bytes(Path(spec["artifacts_dir"])),
     }
     del trainer, actor, buffer, built
@@ -3518,6 +3538,361 @@ def rlhf_phase(work, seed: int) -> dict:
         f"s = {record['actor_tokens_per_s']:.1f} tokens/s; losses "
         f"{[round(x, 4) for x in record['losses']]}; paged launches (actor) {paged}, flash "
         f"launches (learner) {flash}")
+    return record
+
+
+# ---------------------------------------------------------------------------
+# P4: the disaggregated rollout plane
+# ---------------------------------------------------------------------------
+
+#: P4: rollout worker processes beside the learner
+P4_WORKERS = 2
+#: P4's learner: the first commit (and so the first policy push) must come
+#: after the SIGKILLed worker's respawn streams again (a respawn regenerates
+#: version-0 rounds only before any push): on an NVIDIA H100 80GB HBM3 at
+#: 700 W the respawn streamed 33.8-41.5 s after the kill and a learner step
+#: took 615 ms, so the first commit comes ~49 s after the kill.  The second
+#: push follows a commit later; the steps after it let the stream, which
+#: the prefetch thread runs ahead, pull once more and push it
+P4_CHECKPOINT_EVERY = 80
+P4_TOTAL_STEPS = 2 * P4_CHECKPOINT_EVERY + 4
+#: the reward worker's serving engine (it answers generate too; P4 drives
+#: its reward_score RPC)
+P4_REWARD_ENGINE = {"slots": 2, "prompt_buckets": (32,), "max_new_tokens": 8}
+#: what P4 may write (its ``DiskTally``): the 8-layer rollout base (5.59 GB
+#: in bf16), the learner's checkpoints, the workers' sandboxes
+P4_DISK_BYTES = 7 * 2**30
+#: how long P4 waits for the respawned worker and for rollout-0 to report
+#: the last pushed policy before the learner's plane closes
+P4_SETTLE_S = 120.0
+#: re-scored pairs against the rewards they carry (the RPC's, not an oracle's)
+P4_REWARD_REL_TOL = 0.02
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sandbox_spawn_s(box: Path) -> float:
+    """Spec written -> socket bound, from a worker sandbox's file times."""
+    return (box / "transport.json").stat().st_mtime - (box / "worker_spec.json").stat().st_mtime
+
+
+def rollout_plane_phase(work, seed: int, rlhf: dict) -> dict:
+    """P4: P2's reward job served by one reward worker (``ReplicaFleet`` in
+    process mode with ``reward_spec``, the service's path) on a port chosen
+    up front, and beside its spawn ``task: rlhf`` through ``train.cli.main``
+    with P3's spec, ``rollout_workers`` ``P4_WORKERS`` and
+    ``rollout.reward_port`` at that worker (a rollout worker's reward client
+    waits for it).  ``rollout-1``
+    is SIGKILLed once its first round is ingested and before the learner's
+    first commit, so its respawn regenerates version-0 rounds.  Checked: the
+    rows; the respawn, no (worker, pair id) ingested twice, replays counted
+    and token-equal to their originals; ``rollout-0``'s pid unchanged and its
+    policy at the last pushed version; a ``rollout.round`` span overlapping a
+    learner step; the RPC's scores in the pairs, no oracle pair; every
+    kernel's launches in its process.  The phase's writes stay within
+    ``P4_DISK_BYTES``."""
+    import signal
+    import threading
+
+    import torch
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.prefs import rollout_plane as rp
+    from finetune_controller_tpu_torch.prefs.dpo_trainer import DPOTrainer
+    from finetune_controller_tpu_torch.serve.engine import EngineConfig
+    from finetune_controller_tpu_torch.serve.fleet import ReplicaFleet
+    from finetune_controller_tpu_torch.transport.process import ProcessTransport
+
+    t_phase = time.perf_counter()
+    disk0 = DISK.read()
+    reward_art = Path(work) / "reward" / "artifacts"
+    reward_root = Path(work) / "p4_reward"
+    shutil.rmtree(reward_root, ignore_errors=True)
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, name="p4-reward", daemon=True)
+    loop_thread.start()
+
+    def on_loop(coro, timeout=None):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    reward_port = _free_port()
+    fleet = ReplicaFleet(
+        "p4-reward", None, EngineConfig(**P4_REWARD_ENGINE), replicas=1,
+        transport=ProcessTransport(
+            job_id="p4-reward", root=reward_root, spawn_timeout_s=600.0, port_base=reward_port,
+            payload={"builder": "deploy_dir",
+                     "kwargs": {"dir": str(reward_art), "merge_lora": True, "device": DEVICE}}),
+        reward_spec={"artifacts_dir": str(reward_art)})
+    record: dict = {"layers": PREF_LAYERS, "workers": P4_WORKERS,
+                    "total_steps": P4_TOTAL_STEPS, "checkpoint_every": P4_CHECKPOINT_EVERY}
+    built: dict = {}
+    seen: dict = {}
+    replays: list = []
+    ingested: list = []
+    step_starts: list = []
+    kill: dict = {}
+    stop = threading.Event()
+    real_build, real_ingest, real_from_doc = (rp.build_remote_rlhf_loop,
+                                              rp.RolloutPlane._ingest, rp._pair_from_doc)
+    real_step = DPOTrainer.step
+
+    first_ingest: dict = {}
+
+    def spy_ingest(plane, ws, doc):
+        first_ingest.setdefault((ws.worker_id, ws.generation), time.time())
+        for pd in doc.get("pairs") or []:
+            first = seen.setdefault((ws.worker_id, pd["id"]), pd)
+            if first is not pd:
+                replays.append({"worker": ws.worker_id, "id": pd["id"], "gen": ws.generation,
+                                "tokens_equal": all(first[k] == pd[k] for k in (
+                                    "prompt", "chosen", "rejected", "version")),
+                                "rewards_equal": all(first[k] == pd[k] for k in (
+                                    "reward_chosen", "reward_rejected"))})
+        if ws.worker_id == "rollout-0" and doc.get("pairs") and "first_round" not in built:
+            built["first_round"] = doc
+        return real_ingest(plane, ws, doc)
+
+    def spy_from_doc(doc):
+        # called for fresh pairs only, on the pulling worker's thread
+        ingested.append((threading.current_thread().name.removeprefix("ftc-pull-"), doc["id"]))
+        return real_from_doc(doc)
+
+    def spy_step(trainer, batch):
+        step_starts.append(time.time_ns())
+        return real_step(trainer, batch)
+
+    def killer(plane, art):
+        """SIGKILL rollout-1 once its first round is in, then time its
+        respawn until the new incarnation's first round is in."""
+        ws = plane._workers[1]
+        while not stop.is_set():
+            if ws.generation == 1 and ws.cursor >= 1 and "ts" not in kill:
+                kill.update(pid=ws.handle.pid, ts=time.time(),
+                            commits=sorted(p.name for p in (art / "checkpoints").glob("step_*")
+                                           if p.is_dir() and p.name[5:].isdigit()),
+                            pushed=plane._policy is not None, learner_steps=len(step_starts))
+                os.kill(kill["pid"], signal.SIGKILL)
+            if "ts" in kill and ("rollout-1", 2) in first_ingest:
+                kill["respawned_streaming_s"] = first_ingest[("rollout-1", 2)] - kill["ts"]
+                kill["pushed_at_respawn"] = plane._policy is not None
+                return
+            time.sleep(0.005)
+
+    def capture(trainer, artifacts_dir, **kw):
+        t0 = time.perf_counter()
+        stream, plane, buffer = real_build(trainer, artifacts_dir, **kw)
+        built.update(plane=plane, build_s=time.perf_counter() - t0,
+                     pid0=plane._workers[0].handle.pid)
+        art = Path(artifacts_dir)
+        threading.Thread(target=killer, args=(plane, art), daemon=True).start()
+        real_close = plane.close
+
+        def close():
+            # before the workers go: wait (bounded) for the respawn to stream
+            # and for rollout-0 to report the last pushed policy, then read
+            # every worker's probe
+            deadline = time.monotonic() + P4_SETTLE_S
+            ws0, ws1 = plane._workers[0], plane._workers[1]
+            while time.monotonic() < deadline and not (
+                    "respawned_streaming_s" in kill and plane._policy is not None
+                    and int(ws0.last_stats.get("actor_version", -1)) >= plane._policy[0]):
+                time.sleep(0.05)
+            built["card_used_gb"] = card_used_mb() / 1e3 if DEVICE == "cuda" else 0.0
+            built["probes"] = {}
+            for ws in plane._workers:
+                try:
+                    built["probes"][ws.worker_id] = plane._run(ws.handle.health_probe(), 60)
+                # a dead worker's probe is a failed check below, not a crash
+                except Exception as exc:  # noqa: BLE001
+                    built["probes"][ws.worker_id] = {"error": repr(exc), "stats": {
+                        "paged_launches": 0, "cuda_peak_bytes": 0}}
+            built["pid0_end"], built["pid1_end"] = ws0.handle.pid, ws1.handle.pid
+            built["last_stats"] = {ws.worker_id: dict(ws.last_stats) for ws in plane._workers}
+            built["generations"] = {ws.worker_id: ws.generation for ws in plane._workers}
+            built["policy_version"] = plane._policy[0] if plane._policy else None
+            built["policy_blob_bytes"] = len(plane._policy[1]) if plane._policy else 0
+            built["plane_stats"] = plane.stats()
+            stop.set()
+            real_close()
+
+        plane.close = close
+        return stream, plane, buffer
+
+    try:
+        reward_up = asyncio.run_coroutine_threadsafe(fleet.start(), loop)
+        spec = _pref_spec(work, "rlhf", seed, total_steps=P4_TOTAL_STEPS,
+                          checkpoint_every=P4_CHECKPOINT_EVERY, rollout_workers=P4_WORKERS)
+        spec["job_id"] = "chip-smoke-rlhf-remote"
+        spec["artifacts_dir"] = str(Path(work) / "p4_rlhf" / "artifacts")
+        spec["rollout"] = {**RLHF_ROLLOUT, "reward_port": reward_port}
+        for name in FLASH_KERNELS:
+            getattr(fa, name).launches = 0
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        rp.build_remote_rlhf_loop, rp.RolloutPlane._ingest = capture, spy_ingest
+        rp._pair_from_doc, DPOTrainer.step = spy_from_doc, spy_step
+        try:
+            seconds, rows = _run_cli(spec)
+        finally:
+            rp.build_remote_rlhf_loop, rp.RolloutPlane._ingest = real_build, real_ingest
+            rp._pair_from_doc, DPOTrainer.step = real_from_doc, real_step
+            stop.set()
+        reward_up.result(900)
+        reward_replica = fleet.replicas["r0"].batcher
+        record["reward_worker_spawn_s"] = _sandbox_spawn_s(Path(reward_replica.sandbox))
+        learner_flash = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+        learner_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+        reward_probe = on_loop(reward_replica.health_probe(), 120)
+        # the first ingested round of rollout-0, re-scored: its pairs carry
+        # the RPC's scores
+        first = built["first_round"]["pairs"]
+        items = [{"prompt": pd["prompt"], "completion": pd[side]}
+                 for pd in first for side in ("chosen", "rejected")]
+        t0 = time.perf_counter()
+        rescored = on_loop(reward_replica.reward_score(items), 300)
+        record["rescore_s"] = time.perf_counter() - t0
+        carried = [pd[f"reward_{side}"] for pd in first for side in ("chosen", "rejected")]
+        rescore_rel = max(abs(a - b) for a, b in zip(rescored, carried)) / max(
+            abs(x) for x in carried)
+    finally:
+        rp.build_remote_rlhf_loop, rp.RolloutPlane._ingest = real_build, real_ingest
+        rp._pair_from_doc, DPOTrainer.step = real_from_doc, real_step
+        on_loop(fleet.close(), 120)
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(30)
+        loop.close()
+    art = Path(spec["artifacts_dir"])
+    probes, stats = built["probes"], built["last_stats"]
+    paged = {w: int(p["stats"]["paged_launches"]) for w, p in probes.items()}
+    reward_flash = reward_probe["stats"]["flash_launches"]
+    spans = [json.loads(line) for line in (art / "trace" / "trainer.jsonl").read_text().splitlines()]
+    rounds = [sp for sp in spans if sp["name"] == "rollout.round"
+              and sp.get("attributes", {}).get("service") == "rollout"]
+    intervals = list(zip(step_starts, step_starts[1:]))
+    overlapping = sum(1 for sp in rounds if any(
+        sp["start_ns"] < t1 and sp["end_ns"] > t0 for t0, t1 in intervals))
+    plane_stats = built["plane_stats"]
+    boxes = {p.name: _sandbox_spawn_s(p) for p in sorted((art / "rollout_workers").iterdir())
+             if (p / "transport.json").exists()}
+    tokens = {w: int(st.get("actor_tokens_generated", 0)) for w, st in stats.items()}
+    gen_s = {w: float(st.get("actor_generate_seconds", 0.0)) for w, st in stats.items()}
+    rpc_calls = sum(int(st.get("reward_score_calls", 0)) for st in stats.values())
+    rpc_s = sum(float(st.get("reward_score_seconds", 0.0)) for st in stats.values())
+    record.update({
+        "seconds": seconds, "build_loop_s": built["build_s"], "rows": len(rows),
+        "losses": [float(r["loss"]) for r in rows],
+        "reward_margin": [float(r["reward_margin"]) for r in rows],
+        "actor_version_rows": [int(float(r["actor_version"])) for r in rows],
+        "worker_spawn_s": boxes, "kill": kill, "replays": len(replays),
+        "replays_tokens_equal": sum(r["tokens_equal"] for r in replays),
+        "replays_rewards_equal": sum(r["rewards_equal"] for r in replays),
+        "ingested": len(ingested), "ingested_unique": len(set(ingested)),
+        "plane": plane_stats, "pid0": built["pid0"], "pid0_end": built["pid0_end"],
+        "generations": built["generations"], "last_pushed_version": built["policy_version"],
+        "actor_version_by_worker": {w: int(st.get("actor_version", 0)) for w, st in stats.items()},
+        "bootstrap_pairs_by_worker": {w: int(st.get("actor_bootstrap_pairs", -1))
+                                      for w, st in stats.items()},
+        "rollout_spans": len(rounds), "rollout_spans_overlapping_steps": overlapping,
+        "actor_tokens_per_s_by_worker": {w: tokens[w] / max(gen_s[w], 1e-9) for w in tokens},
+        "actor_tokens_per_s_sum": sum(tokens[w] / max(gen_s[w], 1e-9) for w in tokens),
+        "p3_actor_tokens_per_s": rlhf["actor_tokens_per_s"],
+        "learner_ms_per_step_median": float(np.median(np.diff(step_starts[1:]))) / 1e6,
+        "learner_compute_ms_median": float(np.median(
+            [float(r["phase_compute_ms"]) for r in rows[1:]])),
+        "p3_learner_compute_ms_median": rlhf["learner_compute_ms_median"],
+        "reward_score_calls": rpc_calls, "reward_score_ms_per_round": rpc_s / max(rpc_calls, 1) * 1e3,
+        "reward_scored_total": int(reward_probe["stats"]["reward_scored_total"]),
+        "rescore_rel": rescore_rel,
+        "rollout_base_bytes": (art / "rollout_base" / "params.msgpack").stat().st_size,
+        "policy_blob_bytes": built["policy_blob_bytes"],
+        "peak_gb": {"learner": learner_peak / 1e9,
+                    "reward": reward_probe["stats"]["cuda_peak_bytes"] / 1e9,
+                    **{w: p["stats"]["cuda_peak_bytes"] / 1e9 for w, p in probes.items()}},
+        "card_used_gb_before_close": built["card_used_gb"],
+        "probe_errors": {w: p["error"] for w, p in probes.items() if "error" in p},
+        "paged_launches": paged, "reward_flash_launches": reward_flash,
+        "flash_launches": learner_flash,
+    })
+    written = DISK.written(disk0)
+    record["bytes_written"] = written
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"P4: remote RLHF (llama3-8b, {PREF_LAYERS} layers, bf16 base) through train.cli.main, "
+        f"{P4_WORKERS} rollout workers scoring with P2's reward model served by a reward worker: "
+        f"{len(rows)} steps in {seconds:.1f} s (plane up in {built['build_s']:.1f} s: rollout "
+        f"base {record['rollout_base_bytes'] / 1e9:.2f} GB written, workers spawned together); "
+        f"spawn s by worker sandbox { {k: round(v, 1) for k, v in boxes.items()} }, reward "
+        f"worker {record['reward_worker_spawn_s']:.1f} s; rollout-1 SIGKILLed after its first "
+        f"round at learner step {kill.get('learner_steps')} (commits before: "
+        f"{kill.get('commits')}, policy pushed before: {kill.get('pushed')}), respawned and "
+        f"streaming {kill.get('respawned_streaming_s', float('nan')):.1f} s later (a policy "
+        f"pushed by then: {kill.get('pushed_at_respawn')}); {record['ingested']} pairs "
+        f"ingested ({record['ingested_unique']} distinct (worker, id)), "
+        f"{plane_stats['rollout_dup_pairs_total']} duplicates dropped, {len(replays)} replays "
+        f"seen, {record['replays_tokens_equal']} token-equal to their originals "
+        f"({record['replays_rewards_equal']} with equal rewards); rollout-0 pid "
+        f"{built['pid0']} -> {built['pid0_end']}, actor versions by worker "
+        f"{record['actor_version_by_worker']} (last pushed {built['policy_version']}, "
+        f"{plane_stats['rollout_policy_pushes_total']} pushes); {overlapping} of {len(rounds)} "
+        f"rollout.round spans overlap a learner step")
+    log(f"P4 rates: actor tokens/s by worker "
+        f"{ {k: round(v, 1) for k, v in record['actor_tokens_per_s_by_worker'].items()} }, "
+        f"{record['actor_tokens_per_s_sum']:.1f} in all (P3 in process: "
+        f"{rlhf['actor_tokens_per_s']:.1f}); learner {record['learner_ms_per_step_median']:.1f} "
+        f"ms/step between step starts, compute {record['learner_compute_ms_median']:.1f} ms "
+        f"(P3: {rlhf['learner_compute_ms_median']:.1f} ms); reward_score "
+        f"{record['reward_score_ms_per_round']:.1f} ms a round over {rpc_calls} calls, "
+        f"{record['reward_scored_total']} items scored, a round re-scored within rel "
+        f"{rescore_rel:.3g}; policy blob {record['policy_blob_bytes'] / 1e6:.1f} MB; peak card "
+        f"GB by process { {k: round(v, 2) for k, v in record['peak_gb'].items()} } (card "
+        f"used before the close {record['card_used_gb_before_close']:.1f} GB); paged "
+        f"launches by worker {paged}, flash by the reward worker {reward_flash}, by the learner "
+        f"{learner_flash}; P4 wrote {written / 1e9:.2f} GB in {record['phase_s']:.1f} s")
+    problems = []
+    finite = all(map(math.isfinite, record["losses"] + record["reward_margin"]))
+    if len(rows) != P4_TOTAL_STEPS or not finite:
+        problems.append(f"{len(rows)} rows, finite loss and margin {finite}")
+    if plane_stats["rollout_respawns_total"] < 1 or "respawned_streaming_s" not in kill:
+        problems.append(f"respawns {plane_stats['rollout_respawns_total']}, kill {kill}")
+    if kill.get("commits") or kill.get("pushed"):
+        problems.append(f"the kill came after a commit or a push: {kill}")
+    if len(ingested) != len(set(ingested)):
+        problems.append("a (worker, pair id) was ingested twice")
+    if plane_stats["rollout_dup_pairs_total"] <= 0 or not replays or not all(
+            r["tokens_equal"] for r in replays):
+        problems.append(f"duplicates {plane_stats['rollout_dup_pairs_total']}, replays "
+                        f"{len(replays)}, token-equal {record['replays_tokens_equal']}")
+    if built["pid0"] != built["pid0_end"] or built["policy_version"] is None or \
+            plane_stats["rollout_policy_pushes_total"] < 2 or \
+            record["actor_version_by_worker"]["rollout-0"] != built["policy_version"]:
+        problems.append(f"rollover: pid {built['pid0']} -> {built['pid0_end']}, pushes "
+                        f"{plane_stats['rollout_policy_pushes_total']}, rollout-0 at "
+                        f"{record['actor_version_by_worker']['rollout-0']} of "
+                        f"{built['policy_version']}")
+    if overlapping < 1:
+        problems.append(f"no rollout.round span ({len(rounds)}) overlaps a learner step")
+    if record["reward_scored_total"] <= 0 or rpc_calls <= 0 or any(
+            v != 0 for v in record["bootstrap_pairs_by_worker"].values()) or \
+            rescore_rel > P4_REWARD_REL_TOL:
+        problems.append(f"reward: scored {record['reward_scored_total']}, calls {rpc_calls}, "
+                        f"bootstrap {record['bootstrap_pairs_by_worker']}, re-scored rel "
+                        f"{rescore_rel:.3g}")
+    if record["probe_errors"]:
+        problems.append(f"worker probes failed: {record['probe_errors']}")
+    if DEVICE == "cuda" and (min(paged.values()) <= 0 or reward_flash["flash_forward"] <= 0
+                             or min(learner_flash.values()) <= 0):
+        problems.append(f"kernels: paged {paged}, reward worker flash {reward_flash}, "
+                        f"learner flash {learner_flash}")
+    if written > P4_DISK_BYTES:
+        problems.append(f"{written / 2**30:.2f} GiB written (budget "
+                        f"{P4_DISK_BYTES / 2**30:.1f} GiB)")
+    if problems:
+        raise SmokeFailure("P4: " + "; ".join(problems))
+    shutil.rmtree(reward_root, ignore_errors=True)
     return record
 
 
@@ -4730,6 +5105,15 @@ def main(argv=None) -> int:
         DISK.mark("P3")
         gc.collect()
         torch.cuda.empty_cache()
+        # P4: each rollout worker counts its paged launches, the reward
+        # worker its flash forwards (their probes); the learner runs here
+        remote = rollout_plane_phase(work, args.seed, rlhf)
+        p4_paged = sum(remote["paged_launches"].values())
+        paged_entry["launches"] += p4_paged
+        paged_entry["launches_by_path"]["p4_rollout_workers"] = p4_paged
+        DISK.mark("P4")
+        gc.collect()
+        torch.cuda.empty_cache()
         moe = moe_phase(work, args.seed)
         DISK.mark("M")
         gc.collect()
@@ -4806,6 +5190,7 @@ def main(argv=None) -> int:
         "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
         "launches": (train["launches"][name] + moe["launches"][name]
                      + reward["flash_launches"][name] + rlhf["flash_launches"][name]
+                     + remote["flash_launches"][name] + remote["reward_flash_launches"][name]
                      + resilience["flash_launches"][name] + r2_launches[name]
                      + workers["w2"]["flash_launches"][name] + t5_launches[name]),
         "launches_by_path": {
@@ -4816,6 +5201,8 @@ def main(argv=None) -> int:
             "p_dpo_job_profile_steps": dpo["flash_launches_in_profile"][name],
             "p_reward_in_process": reward["flash_launches"][name],
             "p_rlhf_learner": rlhf["flash_launches"][name],
+            "p4_remote_learner": remote["flash_launches"][name],
+            "p4_reward_worker": remote["reward_flash_launches"][name],
             "r_job_both_attempts": resilience["flash_launches"][name],
             "r2_snapshot_in_process": r2_launches[name],
             "w2_warm_job": workers["w2"]["flash_launches"][name],
@@ -4834,7 +5221,8 @@ def main(argv=None) -> int:
     print(json.dumps({"llava": {"flash_v0": flash_llava, "hf": llava_hf, "job": llava,
                                 "generate": llava_generate}}), flush=True)
     print(json.dumps({"prefs": {"p0_objective": dpo_check, "p0_flash": flash_dpo,
-                                "p1_dpo_job": dpo, "p2_reward": reward, "p3_rlhf": rlhf}}),
+                                "p1_dpo_job": dpo, "p2_reward": reward, "p3_rlhf": rlhf,
+                                "p4_remote_rlhf": remote}}),
           flush=True)
     print(json.dumps({"hf_io": {"base": hf_base, "merged": merged}}), flush=True)
     print(json.dumps({"fidelity": fidelity}), flush=True)

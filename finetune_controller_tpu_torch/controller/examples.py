@@ -14,9 +14,8 @@ In the port's copy every spec whose default device was a TPU slice
 defaults to the ``h100`` card; the ``tiny-*`` specs run on ``cpu-test``.
 The preference specs (DPO, RLHF and the reward model) train through the
 port's ``prefs/`` trainers and promote and serve as LoRA jobs; an RLHF job
-with ``rollout_workers > 0`` fails in its trainer with a
-``NotImplementedError`` naming the ROADMAP item that ports the
-disaggregated rollout plane.  A spec whose mesh policy one card
+with ``rollout_workers > 0`` runs its actors in rollout worker processes on
+the job's card (``prefs/rollout_plane.py``).  A spec whose mesh policy one card
 cannot satisfy (the MoE specs' ``ep``, the long-context spec's ``sp``) is
 refused with the reference's ``ValueError``.  ``mistral-7b-qlora`` (an
 int4 base) runs, and so do ``llava-1.5-lora`` and ``tiny-mm-test-lora``

@@ -86,6 +86,8 @@ def _walk(tree: Mapping, path: str):
 
 
 def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a bf16 leaf of utils/flax_msgpack.py
+        return x.clone()
     # np.array copies: the state dict must not alias the caller's buffers
     x = np.array(x)
     if x.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
@@ -102,7 +104,7 @@ def _layer_trees(collection: Mapping | None, n_layers: int) -> list[Mapping | No
         def index(tree, i):
             if isinstance(tree, Mapping):
                 return {k: index(v, i) for k, v in tree.items()}
-            return np.asarray(tree)[i]
+            return tree[i] if isinstance(tree, torch.Tensor) else np.asarray(tree)[i]
 
         return [index(stacked, i) for i in range(n_layers)]
     return [collection.get(f"layer_{i}") for i in range(n_layers)]
@@ -216,17 +218,20 @@ def adapter_from_flax(lora: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
     return adapter
 
 
-def to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
+def to_flax(state: Mapping[str, torch.Tensor], cfg, *,
+            leaf: Callable[[torch.Tensor], Any] | None = None) -> dict[str, Any]:
     """The reference's variables tree (``params`` and, with adapters,
-    ``lora``) for the port's ``state`` dict, as f32-or-native numpy leaves,
-    stacked under ``blocks/block`` when ``cfg.scan_layers`` else under
-    ``layer_{i}``.  Entries the state lacks are left out."""
+    ``lora``) for the port's ``state`` dict, as f32-or-native numpy leaves
+    (or ``leaf(tensor)``, e.g. CPU tensors, which keep bf16 without jax's
+    numpy type), stacked under ``blocks/block`` when ``cfg.scan_layers``
+    else under ``layer_{i}``.  Entries the state lacks are left out."""
+    leaf = leaf or _numpy
     if getattr(cfg, "vision", None) is None:
-        return _text_to_flax(state, cfg)
-    variables = _text_to_flax(state, cfg.text)
+        return _text_to_flax(state, cfg, leaf)
+    variables = _text_to_flax(state, cfg.text, leaf)
     for path, key, _, to_flax_leaf in _vision_leaves(cfg.vision):
         if key in state:
-            _put(variables["params"], path, _numpy(to_flax_leaf(state[key].detach())))
+            _put(variables["params"], path, leaf(to_flax_leaf(state[key].detach())))
     return variables
 
 
@@ -247,14 +252,15 @@ def _put(tree, path, value):
     tree[last] = value
 
 
-def _text_to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
+def _text_to_flax(state: Mapping[str, torch.Tensor], cfg,
+                  leaf: Callable[[torch.Tensor], Any]) -> dict[str, Any]:
     params: dict[str, Any] = {}
     lora: dict[str, Any] = {}
     for key, path in (("embed_tokens.embedding", "embed_tokens/embedding"),
                       ("final_norm.scale", "final_norm/scale"),
                       ("lm_head.kernel", "lm_head/kernel")):
         if key in state:
-            _put(params, path, _numpy(state[key]))
+            _put(params, path, leaf(state[key]))
     per_layer: list[tuple[dict, dict]] = []
     for i in range(cfg.n_layers):
         p_layer: dict[str, Any] = {}
@@ -264,13 +270,13 @@ def _text_to_flax(state: Mapping[str, torch.Tensor], cfg) -> dict[str, Any]:
             for name_leaf, tree in [(lf, p_layer) for lf in leaves] + [
                     ("lora_a", l_layer), ("lora_b", l_layer)]:
                 if f"{name}.{name_leaf}" in state:
-                    _put(tree, f"{module}/{name_leaf}", _numpy(state[f"{name}.{name_leaf}"]))
+                    _put(tree, f"{module}/{name_leaf}", leaf(state[f"{name}.{name_leaf}"]))
         per_layer.append((p_layer, l_layer))
 
     def stack(trees):
         if isinstance(trees[0], Mapping):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
+        return torch.stack(trees) if isinstance(trees[0], torch.Tensor) else np.stack(trees)
 
     for which, out in ((0, params), (1, lora)):
         trees = [layer[which] for layer in per_layer]

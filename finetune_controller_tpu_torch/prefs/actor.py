@@ -15,6 +15,8 @@ round it:
    attention kernel on the card), score them with the reward function and
    emit the better/worse completions as a
    :class:`~.rollout_buffer.PreferencePair` tagged with the checkpoint step.
+   With ``batch_reward_fn`` (a served reward model's ``reward_score`` RPC)
+   one call scores the round's ``2n`` candidates.
 
 Weights: the engine's model is built over the learner's own base tensors
 (no copy; the adapterless start IS the step-0 policy, LoRA's B matrices
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.convert import merged_config
+from ..models.lora import LoRAConfig
 from ..serve.engine import BatchEngine, EngineConfig, GenRequest
 from ..serve.loader import _assemble, merge_lora_variables
 from ..train.checkpoint import CheckpointManager
@@ -77,7 +80,9 @@ class RolloutActor:
 
     ``model`` is the learner's policy model (LoRA config); its non-adapter
     tensors are the base the engine decodes with.  ``ckpt_dir`` None is push
-    mode: the policy arrives through :meth:`install_policy`."""
+    mode: the policy arrives through :meth:`install_policy`; ``lora`` then
+    names the adapter config of the pushed policies when ``model`` is the
+    base alone (a remote rollout worker's)."""
 
     def __init__(
         self,
@@ -86,6 +91,8 @@ class RolloutActor:
         *,
         reward_fn: Callable[[list[int], list[int]], float],
         prompts: Iterator[list[int]],
+        batch_reward_fn: Callable[[list[tuple[list[int], list[int]]]], list[float]] | None = None,
+        lora: LoRAConfig | None = None,
         oracle_fn: Callable[[list[int], int], list[int]] | None = None,
         prompt_bucket: int = 0,
         max_new_tokens: int = 16,
@@ -94,13 +101,16 @@ class RolloutActor:
         slots: int = 4,
         seed: int = 0,
     ):
-        self._model_cfg = model.cfg
+        self._model_cfg = model.cfg if lora is None else model.cfg.replace(lora=lora)
         #: the learner's base tensors, shared (never written here)
         self._base = {k: v for k, v in model.state_dict().items()
                       if not k.endswith(_LORA_LEAVES)}
         self._ckpt = (CheckpointManager(ckpt_dir, keep=10**9, sweep=False)
                       if ckpt_dir else None)
         self._reward_fn = reward_fn
+        #: one call per round scores all 2n candidates (the remote reward
+        #: model's batched RPC); ``reward_fn`` per candidate otherwise
+        self._batch_reward_fn = batch_reward_fn
         self._prompts = prompts
         #: cold-start escape hatch: when a WHOLE round ties, ``oracle_fn(prompt,
         #: n)`` (the reward-optimal continuation) stands in as the chosen
@@ -211,8 +221,14 @@ class RolloutActor:
             outs = [results[f"r{self.rounds}p{i}c{c}"].generated for c in (0, 1)]
             self.tokens_generated += sum(len(o) for o in outs)
             all_outs.append(outs)
-        all_rewards = [[self._reward_fn(p, o) for o in outs]
-                       for p, outs in zip(prompts, all_outs)]
+        if self._batch_reward_fn is not None:
+            flat = self._batch_reward_fn([(p, o) for p, outs in zip(prompts, all_outs)
+                                          for o in outs])
+            all_rewards = [[float(flat[2 * i]), float(flat[2 * i + 1])]
+                           for i in range(len(prompts))]
+        else:
+            all_rewards = [[self._reward_fn(p, o) for o in outs]
+                           for p, outs in zip(prompts, all_outs)]
         pairs: list[PreferencePair] = []
         for prompt, outs, rewards in zip(prompts, all_outs, all_rewards):
             if rewards[0] == rewards[1]:

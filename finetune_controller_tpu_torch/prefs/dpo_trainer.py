@@ -69,16 +69,21 @@ class DPOTrainer(Trainer):
         #: host-side metrics of the rlhf learner (rollout buffer depth and
         #: staleness, actor tokens/s), merged into every logged row
         self.rollout_stats_fn = None
-        if train_cfg.task == "rlhf":
-            # the in-process loop's actor sees only COMMITTED checkpoints;
-            # synchronous commits bound its policy lag to one round, where
-            # an async save could land arbitrarily many rounds late
+        if train_cfg.task == "rlhf" and not train_cfg.rollout_workers:
+            # the IN-PROCESS loop only.  Its actor sees only COMMITTED
+            # checkpoints; synchronous commits bound its policy lag to one
+            # round, where an async save could land arbitrarily many rounds
+            # late
             self._blocking_checkpoints = True
             if train_cfg.prefetch:
                 # the rollout stream runs the actor inside next(): a prefetch
                 # thread would decode on the card beside the learner's step
                 logger.info("rlhf task: forcing prefetch=0 (actor runs inline)")
                 train_cfg.prefetch = 0
+        # remote rollout workers (rollout_workers > 0) keep both: the actors
+        # decode in their own processes, and the plane pushes a policy only
+        # after latest_step() reports its commit durable
+        # (prefs/rollout_plane.py)
 
     # ---- objective -------------------------------------------------------
 
@@ -120,6 +125,9 @@ class DPOTrainer(Trainer):
         if self.rollout_stats_fn is not None:
             fields += ("rollout_buffer_depth", "rollout_staleness",
                        "actor_tokens_per_sec", "actor_version")
+            if self.cfg.rollout_workers:
+                fields += ("rollout_workers_alive", "rollout_respawns_total",
+                           "rollout_dup_pairs_total")
         return fields
 
     def _row_extras(self) -> dict:

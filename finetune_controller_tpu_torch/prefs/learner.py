@@ -15,10 +15,11 @@ batch —
    ``min_fill``;
 4. yield a seed-deterministic DPO batch sampled from the buffer.
 
-``Trainer.fit`` pulls batches synchronously (the rlhf task forces
-``prefetch=0``), so actor and learner run round-robin on one card: generate,
-then train, then generate.  The remote rollout workers of the reference's
-``prefs/rollout_plane.py`` (``rollout_workers > 0``) are not ported.
+``Trainer.fit`` pulls batches synchronously (the in-process rlhf task
+forces ``prefetch=0``), so actor and learner run round-robin on one card:
+generate, then train, then generate.  With ``rollout_workers > 0`` the
+actors run in worker processes instead and stream pairs to the learner
+(``prefs/rollout_plane.py::build_remote_rlhf_loop``).
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ class RolloutConfig:
     #: consecutive pair-less rollout rounds tolerated before the learner
     #: proceeds on a partially-filled buffer (or fails on an empty one)
     max_empty_rounds: int = 25
-    #: the learned reward model's endpoint, read by remote rollout workers
-    #: only (the reference's ``reward_score`` RPC; not ported)
+    #: the learned reward model's endpoint (its ``reward_score`` RPC), read
+    #: by remote rollout workers only
     reward_host: str = ""
     reward_port: int = 0
 

@@ -161,8 +161,15 @@ class ReplicaFleet:
         adapters: "Any | None" = None,
         event_cb: Callable[..., Awaitable[Any]] | None = None,
         transport: "Any | None" = None,
+        reward_spec: "dict[str, Any] | None" = None,
     ):
         self.job_id = job_id
+        #: the spec section every spawn gets when the served job is a
+        #: ``task: reward`` model: its workers load the head and answer the
+        #: batched ``reward_score`` RPC (``prefs/rollout_plane.py::
+        #: RewardScorer``).  Process mode only: in-process replicas have no
+        #: RPC surface to answer it on
+        self.reward_spec = dict(reward_spec) if reward_spec else None
         #: cross-process mode: a ``transport/process.py::ProcessTransport``
         #: (or anything with its ``spawn``/``mode`` surface)
         self.transport = transport
@@ -266,6 +273,7 @@ class ReplicaFleet:
                 batcher_kwargs=self._batcher_kwargs,
                 adapters=self.adapters,
                 warm_start=self.warm_start,
+                reward=self.reward_spec,
             )
             if self.adapters is not None and len(self.adapters):
                 try:

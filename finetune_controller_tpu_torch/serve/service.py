@@ -27,8 +27,9 @@ replicas in this process around one loaded model; ``process`` stages the
 promoted prefix once per generation and gives every replica a worker
 process of its own, which rebuilds the model from the staged dir on the
 same device (``transport/``); the control plane then holds no weights.  A
-reward job in process mode (the reference's ``reward_score`` workers)
-answers 501 naming ROADMAP Queue A item 4, and serve autoscaling
+reward job in process mode gets reward workers, which also answer the
+batched ``reward_score`` RPC with the job's head over the staged prefix
+(``prefs/rollout_plane.py::RewardScorer``).  Serve autoscaling
 (``serve_autoscale``) answers 501 naming item 3a-rest; the shard-audit block
 of ``GET {prefix}/admin/serve`` reports the audit as not ported (item 9).
 """
@@ -196,6 +197,15 @@ class ServeManager:
             self.settings.serve_adapter_rank,
         )
 
+    @staticmethod
+    def _reward_spec(transport, meta) -> dict[str, Any] | None:
+        """A reward job's workers restore its head from the staged prefix
+        the ``deploy_dir`` builder reads."""
+        if transport is None or meta.get("task") != "reward":
+            return None
+        staged = (transport.payload.get("kwargs") or {}).get("dir")
+        return {"artifacts_dir": str(staged)} if staged else None
+
     async def _build_session(self, job_id, model, meta, *, transport=None) -> _Session:
         s = self.settings
         fleet = ReplicaFleet(
@@ -204,6 +214,7 @@ class ServeManager:
             batcher_kwargs=self._batcher_kwargs(),
             adapters=self._adapter_registry(),
             transport=transport,
+            reward_spec=self._reward_spec(transport, meta),
             stall_timeout_s=s.serve_replica_stall_s,
             drain_timeout_s=s.serve_drain_timeout_s,
             restart_policy=RetryPolicy(
@@ -297,14 +308,6 @@ class ServeManager:
         stage_dir, meta = await stage_for_workers(
             self.state, self.store, job_id, self.work_dir, merge_lora=merge,
         )
-        if meta.get("task") == "reward":
-            await asyncio.to_thread(shutil.rmtree, stage_dir, ignore_errors=True)
-            raise ServeLoadError(
-                f"job {job_id!r} is a reward model: serving it from worker "
-                "processes means the reference's reward_score workers, which "
-                "come with the disaggregated rollout plane (ROADMAP Queue A "
-                "item 4); serve it with serve_transport='inproc'", status=501,
-            )
         base_adapter = None
         if self._multi_tenant:
             meta["lora_merged"] = False
@@ -333,6 +336,9 @@ class ServeManager:
                 to_step=meta.get("checkpoint_step"),
             )
             existing.fleet.transport.set_payload("deploy_dir", payload_kwargs)
+            # the next generation's reward head comes from the new stage
+            # (the reference keeps the old stage's, which it then deletes)
+            existing.fleet.reward_spec = self._reward_spec(existing.fleet.transport, meta)
             old_stage = existing.worker_stage_dir
             await existing.fleet.rollover(None)
             if base_adapter is not None:

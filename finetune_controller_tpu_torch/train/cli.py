@@ -28,10 +28,13 @@ the ``brightness`` task.  ``training.task`` picks the trainer
 (:func:`trainer_class`): ``dpo`` and ``rlhf`` the DPO trainer, ``reward``
 the reward model, each on preference-pair batches (``data/preference.py``);
 ``rlhf`` draws them from the in-process actor/learner loop configured by the
-spec's ``rollout`` section (``prefs/learner.py``).  The run is on the CUDA
-card unless ``--device`` names another.  One device only: a mesh axis above
-1 raises ``NotImplementedError`` naming the ROADMAP item that ports it, and
-so does ``rlhf`` with ``rollout_workers > 0``.
+spec's ``rollout`` section (``prefs/learner.py``), or with
+``training.rollout_workers > 0`` from that many rollout worker processes
+(``prefs/rollout_plane.py``), which score with a served reward model when
+``rollout.reward_port`` names one and are reaped when the job ends.  The run
+is on the CUDA card unless ``--device`` names another (the rollout workers
+run on the same device).  One device only: a mesh axis above 1 raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -215,17 +218,36 @@ def run_job(spec: dict, device=None) -> None:
                 "set dataset.eval_path (or use a synthetic dataset, which "
                 "holds out a disjoint stream automatically)"
             )
+    weights_dir = spec.get("model", {}).get("weights_dir")
+    plane = None
     if train_cfg.task == "rlhf":
         from ..prefs.learner import RolloutConfig, build_rlhf_loop
 
-        batches, _actor, _buffer = build_rlhf_loop(
-            trainer, artifacts_dir, rollout=RolloutConfig(**spec.get("rollout", {})))
+        rollout = RolloutConfig(**spec.get("rollout", {}))
+        if train_cfg.rollout_workers > 0:
+            # the disaggregated data plane: rollout worker processes stream
+            # pairs in over the rollout RPCs; the base they decode with is
+            # the learner's, pretrained weights loaded here once
+            from ..prefs.rollout_plane import build_remote_rlhf_loop
+
+            batches, plane, _buffer = build_remote_rlhf_loop(
+                trainer, artifacts_dir, rollout=rollout, pretrained_dir=weights_dir,
+                model_spec=spec.get("model", {}))
+            weights_dir = None
+        else:
+            batches, _actor, _buffer = build_rlhf_loop(trainer, artifacts_dir, rollout=rollout)
     else:
         batches = build_batches(spec, model_cfg, train_cfg)
-    weights_dir = spec.get("model", {}).get("weights_dir")
-    trainer.fit(batches, artifacts_dir, pretrained_dir=weights_dir, eval_batches=eval_batches)
-    # deployable artifacts: the PEFT adapter (+ the merged checkpoint)
-    trainer.export_artifacts(artifacts_dir)
+    try:
+        trainer.fit(batches, artifacts_dir, pretrained_dir=weights_dir,
+                    eval_batches=eval_batches)
+        # deployable artifacts: the PEFT adapter (+ the merged checkpoint)
+        trainer.export_artifacts(artifacts_dir)
+    finally:
+        if plane is not None:
+            # the rollout workers are child processes: reap them even when
+            # fit raises
+            plane.close()
     with open(os.path.join(artifacts_dir, "done.txt"), "w") as f:
         f.write("done\n")
     logger.info("job %s finished", spec.get("job_id", "?"))

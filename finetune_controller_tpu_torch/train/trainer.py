@@ -40,10 +40,9 @@ into every metrics row), and ``_extra_trainable`` (leaves trained beside the
 model's); the preference trainers (``prefs/``) override them.  A batch is
 split into microbatches by the rows of its first leaf, so a pair batch
 splits pair-wise.  Configurations it cannot train raise
-``NotImplementedError`` naming the ROADMAP item that ports them: the
-disaggregated rollout plane (``task="rlhf"`` with ``rollout_workers > 0``)
-and the guard fields ``transfer_guard``, ``shard_audit`` and a
-``recompile_budget`` above 0.
+``NotImplementedError`` naming the ROADMAP item that ports them: the guard
+fields ``transfer_guard``, ``shard_audit`` and a ``recompile_budget`` above
+0.
 """
 
 from __future__ import annotations
@@ -124,9 +123,6 @@ class TrainConfig:
 def refuse_untrainable(model_cfg: LlamaConfig, cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice cannot train."""
     refusals = [
-        (cfg.task == "rlhf" and cfg.rollout_workers > 0,
-         f"task 'rlhf' with rollout_workers {cfg.rollout_workers}: the disaggregated "
-         "rollout plane (ROADMAP Queue A item 8 / item 6 part 2)"),
         (bool(cfg.transfer_guard),
          f"transfer_guard {cfg.transfer_guard!r}: the transfer guard (ROADMAP Queue A item 9)"),
         (bool(cfg.shard_audit),

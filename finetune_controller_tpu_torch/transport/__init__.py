@@ -25,8 +25,9 @@ Module map:
 * ``builders`` — how a worker process rebuilds its serving model (a staged
   deploy dir, the seeded tiny preset, or an RLHF learner's frozen base).
 
-The rollout and reward workers of the disaggregated RLHF plane (ROADMAP
-Queue A item 4) are the next consumers of this transport.
+The rollout and reward workers of the disaggregated RLHF plane
+(``prefs/rollout_plane.py``) ride the same worker, client and process
+layers.
 """
 
 from __future__ import annotations

@@ -68,7 +68,9 @@ def rollout_base(dir: str, device: str | None = None) -> Any:
     once by the learner): adapter deltas then arrive over the wire, so base
     weights never do."""
     import json
+    import logging
     import os
+    import time
 
     import torch
 
@@ -84,13 +86,18 @@ def rollout_base(dir: str, device: str | None = None) -> Any:
     cfg = build_model_config({"model": model_spec})
     if getattr(cfg, "vision", None) is not None:
         raise ValueError("rollout_base only supports text-only policies")
+    t0 = time.perf_counter()
     with open(os.path.join(base, "params.msgpack"), "rb") as f:
         params = flax_msgpack.restore(f.read())
+    t1 = time.perf_counter()
     cfg = merged_config(cfg)  # the base alone: adapters arrive as tenants
     dev = resolve_device(device)
     state = {k: v.to(dev, cfg.dtype if v.is_floating_point() else v.dtype)
              for k, v in from_flax({"params": params}, cfg).items()}
     del params
+    logging.getLogger(__name__).info(
+        "rollout base: %.2f GB read in %.1f s, on %s in %.1f s more",
+        sum(v.nbytes for v in state.values()) / 1e9, t1 - t0, dev, time.perf_counter() - t1)
     with torch.no_grad():
         return _assemble(cfg, state, dev)
 

@@ -6,8 +6,10 @@ Implements the surface :class:`~..serve.fleet.ReplicaFleet` and
 per-tenant counts, stats — over one multiplexed async-socket connection
 (``transport/wire.py``), so the fleet and router cannot tell a worker
 process from an in-process replica (counterpart of the reference's
-``transport/client.py``; its rollout and reward calls come with ROADMAP
-Queue A item 4).
+``transport/client.py``), plus the rollout plane's calls
+(``rollout_start`` / ``rollout_pull`` / ``rollout_ack`` /
+``rollout_policy_version``, ``reward_score``) and :class:`RewardClient`, the
+synchronous ``reward_score`` caller of a rollout worker's actor.
 
 The three liveness layers, cheapest first:
 
@@ -451,6 +453,37 @@ class RemoteReplica:
         )
         return int(out.get("busy", 0))
 
+    # ---- the rollout plane's calls (prefs/rollout_plane.py) ----------------
+
+    async def rollout_start(self, pairs_per_round: int) -> dict[str, Any]:
+        """Start (idempotently) the worker's pair producer."""
+        return await self._conn.call("rollout_start",
+                                     {"pairs_per_round": int(pairs_per_round)}, timeout_s=120.0)
+
+    async def rollout_pull(self, after_seq: int, max_rounds: int = 8) -> dict[str, Any]:
+        """Rounds with ``seq > after_seq``: an idempotent cursor read."""
+        return await self._conn.call(
+            "rollout_pull", {"after_seq": int(after_seq), "max_rounds": int(max_rounds)},
+            timeout_s=self.probe_timeout_s + 60.0)
+
+    async def rollout_ack(self, up_to_seq: int) -> dict[str, Any]:
+        """Trim the worker's outbox through ``up_to_seq``."""
+        return await self._conn.call("rollout_ack", {"up_to_seq": int(up_to_seq)},
+                                     timeout_s=60.0)
+
+    async def rollout_policy_version(self, version: int,
+                                     tree_blob: bytes | None) -> dict[str, Any]:
+        """Ship an adapter (flax-msgpack blob) as the new policy; idempotent
+        and monotonic on the worker."""
+        return await self._conn.call("rollout_policy_version",
+                                     {"version": int(version), "tree": tree_blob},
+                                     timeout_s=300.0)
+
+    async def reward_score(self, items: list[dict[str, Any]]) -> list[float]:
+        """Batched scalar scoring of ``{"prompt", "completion"}`` items."""
+        out = await self._conn.call("reward_score", {"items": items}, timeout_s=300.0)
+        return [float(s) for s in out.get("scores") or []]
+
     # ---- batcher-shaped sync surface (last-probe snapshots) ----------------
 
     @property
@@ -495,3 +528,84 @@ class RemoteReplica:
         out["pid"] = self.pid
         return out
 
+
+
+class RewardClient:
+    """A synchronous ``reward_score`` caller for a plain thread (a rollout
+    worker's producer scores each round from its generate path): a private
+    event loop on a daemon thread and one :class:`_Connection`; each
+    :meth:`score` is a round trip onto that loop.  The connection is retried
+    for up to ``connect_timeout_s`` while the reward worker is still
+    starting (it may be spawned beside its callers)."""
+
+    def __init__(self, host: str, port: int, *, timeout_s: float = 300.0,
+                 connect_timeout_s: float = 120.0):
+        import threading
+
+        self._timeout_s = timeout_s
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self._loop.run_forever,
+                                        name="ftc-reward-client", daemon=True)
+        self._thread.start()
+
+        async def connect() -> _Connection:
+            deadline = time.monotonic() + connect_timeout_s
+            while True:
+                try:
+                    return await _Connection.open(host, int(port))
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise
+                    await asyncio.sleep(0.2)
+
+        try:
+            self._conn: _Connection = self._run(connect())
+        except BaseException:
+            self._stop_loop()
+            raise
+        #: calls, items scored and seconds spent in the RPC (the rollout
+        #: worker's stats)
+        self.calls_total = 0
+        self.items_total = 0
+        self.seconds_total = 0.0
+
+    def _run(self, coro):
+        return asyncio.run_coroutine_threadsafe(coro, self._loop).result(
+            self._timeout_s + 30.0)
+
+    def score(self, items: list[dict[str, Any]]) -> list[float]:
+        """Scores of ``{"prompt": [...], "completion": [...]}`` items."""
+
+        async def call() -> list[float]:
+            out = await self._conn.call("reward_score", {"items": items},
+                                        timeout_s=self._timeout_s)
+            return [float(s) for s in out.get("scores") or []]
+
+        t0 = time.perf_counter()
+        scores = self._run(call())
+        self.seconds_total += time.perf_counter() - t0
+        self.calls_total += 1
+        self.items_total += len(items)
+        return scores
+
+    def batch_reward_fn(self):
+        """:class:`~..prefs.actor.RolloutActor`'s ``batch_reward_fn``: a list
+        of (prompt, completion) pairs in, their scores out."""
+
+        def fn(pairs: list[tuple[list[int], list[int]]]) -> list[float]:
+            return self.score([{"prompt": [int(t) for t in p],
+                                "completion": [int(t) for t in c]} for p, c in pairs])
+
+        return fn
+
+    def _stop_loop(self) -> None:
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(timeout=5.0)
+
+    def close(self) -> None:
+        try:
+            self._run(self._conn.close())
+        # best-effort teardown of a socket that may be dead already
+        except Exception:
+            logger.debug("reward client close raced its peer", exc_info=True)
+        self._stop_loop()

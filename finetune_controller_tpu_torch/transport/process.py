@@ -109,8 +109,12 @@ class ProcessTransport:
         batcher_kwargs: dict[str, Any],
         adapters=None,
         warm_start: bool = True,
+        rollout: dict[str, Any] | None = None,
+        reward: dict[str, Any] | None = None,
     ) -> RemoteReplica:
-        """Spawn one worker sandbox and hand back its connected client."""
+        """Spawn one worker sandbox and hand back its connected client; a
+        ``rollout`` or ``reward`` section makes it a rollout or reward
+        worker (``prefs/rollout_plane.py``)."""
         sandbox = self.root / f"{replica_id}-g{generation}"
         spec = {
             "job_id": self.job_id,
@@ -134,6 +138,8 @@ class ProcessTransport:
             "port": next(self._ports) if self._ports is not None else 0,
             "heartbeat_interval_s": self.heartbeat_interval_s,
             "warm_start": warm_start,
+            "rollout": rollout,
+            "reward": reward,
         }
         spec_path = sandbox / "worker_spec.json"
         log_path = sandbox / "worker.log"

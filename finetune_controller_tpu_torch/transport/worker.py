@@ -29,15 +29,19 @@ contract:
 RPCs (one length-prefixed frame per message, concurrent requests
 multiplexed by id over one connection): ``hello``, ``probe`` (health,
 decode progress, the batcher's stats, the paged kernel's launch count since
-warm-up and the process's peak card memory), ``generate``
+warm-up, the flash kernels' launches in the process and its peak card
+memory), ``generate``
 (remaining-deadline budget, idempotent request id: a duplicate attaches to
 the attempt in flight, or replays from a bounded LRU after), ``drain`` (bounce the queue, finish lanes in flight,
 then exit 0), ``tenant_busy``, ``adapter_register`` / ``adapter_unregister``
 / ``stack_sync`` (the registry-sync RPCs: flax-msgpack adapter deltas,
 never base weights; a re-register with ``refresh`` drops the tenant's prefix
-namespace).  The reference's rollout and reward ops come with the rollout
-plane (ROADMAP Queue A item 4): a spec with a ``rollout`` or ``reward``
-section is refused.
+namespace), and the rollout plane's ops (``prefs/rollout_plane.py``):
+``rollout_start`` / ``rollout_pull`` / ``rollout_ack`` /
+``rollout_policy_version`` on a worker whose spec has a ``rollout`` section
+(the actor's engine in place of the request batcher), ``reward_score`` on
+one whose spec has a ``reward`` section (a reward job's head over the
+served trunk).
 
 Engine work (prefill, decode steps, adapter installs) runs in worker
 threads, so a probe is answered during a prefill.
@@ -77,9 +81,10 @@ class WorkerSpec:
     engine: dict[str, Any]
     batcher: dict[str, Any]
     adapters: dict[str, Any] | None = None
-    #: the reference's rollout-tenant and reward-tenant sections: refused
-    #: here until the rollout plane is ported (ROADMAP Queue A item 4)
+    #: a rollout worker's actor settings (``prefs/rollout_plane.py``)
     rollout: dict[str, Any] | None = None
+    #: a reward worker's ``{"artifacts_dir": ...}``: the head to score with
+    #: (``RewardScorer.from_artifacts``)
     reward: dict[str, Any] | None = None
     host: str = "127.0.0.1"
     port: int = 0
@@ -120,6 +125,28 @@ def _paged_launches() -> int:
     return int(paged_attention.paged_attention.launches)
 
 
+_FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+
+
+def _flash_launches() -> dict[str, int]:
+    """The flash kernels' launches since warm-up (a reward worker's scoring
+    forward runs the forward kernel)."""
+    from ..ops.kernels import flash_attention as fa
+
+    return {name: int(getattr(fa, name).launches) for name in _FLASH_KERNELS}
+
+
+def zero_launches() -> None:
+    """Start the probe's kernel counts after the warm-up: they then count
+    the work the worker does for its callers."""
+    from ..ops.kernels import flash_attention as fa
+    from ..ops.kernels import paged_attention
+
+    paged_attention.paged_attention.launches = 0
+    for name in _FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+
+
 def _cuda_peak_bytes() -> int:
     """This process's peak of allocated card memory (0 off the card)."""
     import torch
@@ -157,6 +184,9 @@ class WorkerServer:
         self._hb_task: asyncio.Task | None = None
         self._hb_writer = None
         self.rpcs_total = 0
+        #: the rollout worker's service, the reward worker's scorer
+        self.rollout = None
+        self.reward_scorer = None
 
     # ---- lifecycle ---------------------------------------------------------
 
@@ -270,6 +300,9 @@ class WorkerServer:
     def _stats(self) -> dict[str, Any]:
         stats = self.batcher.stats()
         stats["paged_launches"] = _paged_launches()
+        stats["flash_launches"] = _flash_launches()
+        if self.reward_scorer is not None:
+            stats["reward_scored_total"] = self.reward_scorer.scored_total
         stats["cuda_peak_bytes"] = _cuda_peak_bytes()
         return stats
 
@@ -406,6 +439,51 @@ class WorkerServer:
             installed.append({"adapter_id": doc["adapter_id"], **out})
         return {"installed": installed}
 
+    # ---- rollout worker ----------------------------------------------------
+
+    def _require_rollout(self):
+        if self.rollout is None:
+            raise ValueError("worker is not a rollout tenant (spec has no rollout section)")
+        return self.rollout
+
+    async def _op_rollout_start(self, payload: dict) -> dict:
+        """Start (or idempotently re-confirm) the producer loop."""
+        svc = self._require_rollout()
+        return await asyncio.to_thread(svc.start, int(payload["pairs_per_round"]))
+
+    async def _op_rollout_pull(self, payload: dict) -> dict:
+        """Rounds with ``seq > after_seq``: an idempotent cursor read, so a
+        re-delivered pull replays the same rounds under the same ids."""
+        svc = self._require_rollout()
+        return await asyncio.to_thread(svc.pull, int(payload["after_seq"]),
+                                       int(payload.get("max_rounds", 8)))
+
+    async def _op_rollout_ack(self, payload: dict) -> dict:
+        """Trim the outbox through ``up_to_seq`` (monotonic; stale acks are
+        no-ops)."""
+        svc = self._require_rollout()
+        return await asyncio.to_thread(svc.ack, int(payload["up_to_seq"]))
+
+    async def _op_rollout_policy_version(self, payload: dict) -> dict:
+        """Install a learner-shipped adapter (idempotent, monotonic): the
+        rollover push, megabytes of LoRA, never a model load."""
+        svc = self._require_rollout()
+        return await asyncio.to_thread(svc.push_policy, int(payload["version"]),
+                                       payload.get("tree"))
+
+    # ---- reward worker -----------------------------------------------------
+
+    def _require_reward(self):
+        if self.reward_scorer is None:
+            raise ValueError("worker is not a reward tenant (spec has no reward section)")
+        return self.reward_scorer
+
+    async def _op_reward_score(self, payload: dict) -> dict:
+        """Batched scalar scoring: one forward for a whole rollout round."""
+        scorer = self._require_reward()
+        scores = await asyncio.to_thread(scorer.score, payload["items"] or [])
+        return {"scores": [float(s) for s in scores]}
+
 
 def _write_transport_file(spec: WorkerSpec, port: int) -> str:
     path = os.path.join(spec.sandbox, TRANSPORT_FILENAME)
@@ -419,19 +497,17 @@ def _write_transport_file(spec: WorkerSpec, port: int) -> str:
 def build_worker(spec: WorkerSpec, *, exit_on_drain: bool = True) -> WorkerServer:
     """Construct the (warm) engine + batcher + registry from a spec — the
     heavy half of worker startup, shared with in-process protocol tests."""
-    from ..ops.kernels import paged_attention
     from ..resilience.faults import ServeFaultInjector
     from ..serve.adapters import AdapterRegistry
     from ..serve.batcher import Batcher
     from ..serve.engine import BatchEngine, EngineConfig, warm_engine
     from .builders import resolve_builder
 
-    if spec.rollout or spec.reward:
-        raise NotImplementedError(
-            "rollout and reward workers (the reference's rollout_* and "
-            "reward_score ops) come with the disaggregated rollout plane, "
-            "not ported yet (ROADMAP Queue A item 4)"
-        )
+    if spec.rollout:
+        # a rollout worker: the actor's engine replaces the request batcher
+        from ..prefs.rollout_plane import build_rollout_worker
+
+        return build_rollout_worker(spec, exit_on_drain=exit_on_drain)
     model = resolve_builder(spec.builder)(**(spec.builder_kwargs or {}))
     registry = None
     if spec.adapters:
@@ -443,14 +519,22 @@ def build_worker(spec: WorkerSpec, *, exit_on_drain: bool = True) -> WorkerServe
     engine = BatchEngine(model, engine_cfg, adapters=registry)
     if spec.warm_start:
         warm_engine(engine)
-    # the probe's count covers the requests this worker serves, not its
+    # the probe's counts cover the requests this worker serves, not its
     # warm-up
-    paged_attention.paged_attention.launches = 0
+    zero_launches()
     fault = ServeFaultInjector.from_env()
     if fault is not None and fault.arm(spec.replica_id, engine, hard_kill=True):
         logger.warning("worker %s armed with a serve fault (hard kill)", spec.replica_id)
     batcher = Batcher(engine, **(spec.batcher or {}))
-    return WorkerServer(spec, engine, batcher, registry, exit_on_drain=exit_on_drain)
+    server = WorkerServer(spec, engine, batcher, registry, exit_on_drain=exit_on_drain)
+    if spec.reward:
+        # a reward worker: the scorer shares the engine's (merged) weights;
+        # the head comes from the reward job's artifacts
+        from ..prefs.rollout_plane import RewardScorer
+
+        server.reward_scorer = RewardScorer.from_artifacts(
+            str(spec.reward["artifacts_dir"]), model)
+    return server
 
 
 async def _amain(spec: WorkerSpec) -> int:

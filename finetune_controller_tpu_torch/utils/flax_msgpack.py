@@ -16,9 +16,16 @@ checkpoints' ``state.msgpack`` that way; the port has neither ``flax`` nor
 * :func:`restore` reads such bytes back (maps, arrays, strings, binary,
   numbers, extension type 1 and the numpy-scalar type 3) into dicts, lists
   and numpy arrays; a ``bfloat16`` array, which numpy cannot hold, comes
-  back as a torch tensor.
+  back as a torch tensor;
+* :func:`dump` writes :func:`serialize`'s bytes to a file as it goes, each
+  array's memory straight from the array (a model's base is gigabytes).
 
-flax splits arrays above 1 GiB into chunks; this coder refuses them.
+An array above 1 GiB that is a map's value (or the whole tree) is written
+as flax writes it, as a map of flat chunks of at most 1 GiB
+(``{"__msgpack_chunked_array__": true, "shape": {...}, "chunks": {...}}``,
+in that order), and :func:`restore` joins such a map back into one array;
+an array above 1 GiB inside a list is refused, as flax cannot write it
+either.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ import numpy as np
 #: flax's extension type codes
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
-#: flax chunks array leaves above this many bytes; this coder does not
+#: flax chunks array leaves above this many bytes (``MAX_CHUNK_SIZE``)
 MAX_ARRAY_BYTES = 2**30
+#: the key that marks a chunked array's map
+CHUNKED = "__msgpack_chunked_array__"
 
 
 def _pack_int(n: int, out: bytearray) -> None:
@@ -74,9 +83,8 @@ def _pack_len(n: int, out: bytearray, fix: tuple[int, int] | None, codes: tuple[
         out += struct.pack(">BI", codes[2], n)
 
 
-def _pack_ext(code: int, data: bytes, out: bytearray) -> None:
+def _pack_ext_header(code: int, n: int, out) -> None:
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    n = len(data)
     if n in fixed:
         out.append(fixed[n])
     elif n <= 0xFF:
@@ -86,18 +94,45 @@ def _pack_ext(code: int, data: bytes, out: bytearray) -> None:
     else:
         out += struct.pack(">BI", 0xC9, n)
     out += struct.pack("b", code)
-    out += data
 
 
-def _array_bytes(arr: np.ndarray, dtype_name: str) -> bytes:
-    """flax's ``_ndarray_to_bytes``: the MessagePack of (shape, dtype name,
-    C-order bytes)."""
+def _pack_array(code: int, arr: np.ndarray, dtype_name: str, out) -> None:
+    """flax's ``_ndarray_to_bytes`` as an extension of type ``code``: the
+    MessagePack of (shape, dtype name, C-order bytes), the bytes appended
+    from the array's own memory."""
     if arr.nbytes > MAX_ARRAY_BYTES:
-        raise ValueError(f"array of {arr.nbytes} bytes: flax would chunk it; "
-                         "this coder does not")
-    inner = bytearray()
-    _pack((tuple(int(d) for d in arr.shape), dtype_name, arr.tobytes("C")), inner)
-    return bytes(inner)
+        raise ValueError(f"array of {arr.nbytes} bytes inside a list: flax cannot "
+                         "chunk it there, and neither does this coder")
+    if not arr.flags["C_CONTIGUOUS"]:
+        arr = arr.copy(order="C")
+    prefix = bytearray([0x93])  # the (shape, dtype, bytes) triple
+    _pack(tuple(int(d) for d in arr.shape), prefix)
+    _pack(dtype_name, prefix)
+    _pack_len(arr.nbytes, prefix, None, (0xC4, 0xC5, 0xC6))
+    _pack_ext_header(code, len(prefix) + arr.nbytes, out)
+    out += prefix
+    out += memoryview(arr.reshape(-1).view(np.uint8))
+
+
+def _pack_chunked(arr: np.ndarray, dtype_name: str, out) -> None:
+    """flax's ``_chunk``: the marker, the shape and the flat chunks, in
+    flax's insertion order (not sorted)."""
+    size = max(1, MAX_ARRAY_BYTES // arr.dtype.itemsize)
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+    out.append(0x83)
+    _pack(CHUNKED, out)
+    _pack(True, out)
+    _pack("shape", out)
+    _pack_len(arr.ndim, out, (0x80, 16), (None, 0xDE, 0xDF))
+    for i, d in enumerate(arr.shape):
+        _pack(str(i), out)
+        _pack(int(d), out)
+    _pack("chunks", out)
+    _pack_len(len(chunks), out, (0x80, 16), (None, 0xDE, 0xDF))
+    for i, chunk in enumerate(chunks):
+        _pack(str(i), out)
+        _pack_array(EXT_NDARRAY, chunk, dtype_name, out)
 
 
 def _as_array(x: Any) -> tuple[np.ndarray, str] | None:
@@ -118,7 +153,19 @@ def _as_array(x: Any) -> tuple[np.ndarray, str] | None:
     return None
 
 
-def _pack(x: Any, out: bytearray) -> None:
+def _pack_value(x: Any, out) -> None:
+    """A map's value (or the whole tree): an array above
+    ``MAX_ARRAY_BYTES`` goes in chunks, as flax writes it."""
+    array = _as_array(x)
+    if array is None:
+        _pack(x, out)
+    elif array[0].nbytes > MAX_ARRAY_BYTES:
+        _pack_chunked(*array, out)
+    else:
+        _pack_array(EXT_NDARRAY, *array, out)
+
+
+def _pack(x: Any, out) -> None:
     if x is None:
         out.append(0xC0)
     elif x is True:
@@ -128,7 +175,7 @@ def _pack(x: Any, out: bytearray) -> None:
     elif isinstance(x, np.generic):
         # before the Python number types: np.float64 subclasses float
         arr = np.asarray(x)
-        _pack_ext(EXT_NPSCALAR, _array_bytes(arr, arr.dtype.name), out)
+        _pack_array(EXT_NPSCALAR, arr, arr.dtype.name, out)
     elif isinstance(x, int):
         _pack_int(int(x), out)
     elif isinstance(x, float):
@@ -149,19 +196,54 @@ def _pack(x: Any, out: bytearray) -> None:
         _pack_len(len(x), out, (0x80, 16), (None, 0xDE, 0xDF))
         for key in sorted(x):
             _pack(key, out)
-            _pack(x[key], out)
+            _pack_value(x[key], out)
     else:
         array = _as_array(x)
         if array is None:
             raise TypeError(f"cannot serialize {type(x).__name__}")
-        _pack_ext(EXT_NDARRAY, _array_bytes(*array), out)
+        _pack_array(EXT_NDARRAY, *array, out)
 
 
 def serialize(tree: Any) -> bytes:
     """``flax.serialization.msgpack_serialize(tree)``'s bytes."""
     out = bytearray()
-    _pack(tree, out)
+    _pack_value(tree, out)
     return bytes(out)
+
+
+class _FileSink:
+    """``bytearray``'s ``+=`` and ``append`` onto a binary file, with small
+    pieces gathered before each write."""
+
+    def __init__(self, f, flush_at: int = 1 << 20):
+        self.f, self.buf, self.flush_at = f, bytearray(), flush_at
+
+    def append(self, byte: int) -> None:
+        self.buf.append(byte)
+
+    def __iadd__(self, data) -> "_FileSink":
+        if len(data) >= self.flush_at:
+            self.flush()
+            self.f.write(data)
+        else:
+            self.buf += data
+            if len(self.buf) >= self.flush_at:
+                self.flush()
+        return self
+
+    def flush(self) -> None:
+        if self.buf:
+            self.f.write(self.buf)
+            self.buf = bytearray()
+
+
+def dump(tree: Any, f) -> None:
+    """Write :func:`serialize`'s bytes of ``tree`` to the binary file ``f``
+    without holding them in memory: each array's bytes go to the file from
+    the array itself."""
+    sink = _FileSink(f)
+    _pack_value(tree, sink)
+    sink.flush()
 
 
 class _Reader:
@@ -169,12 +251,16 @@ class _Reader:
         self.data = memoryview(data)
         self.pos = 0
 
-    def take(self, n: int) -> bytes:
+    def view(self, n: int) -> memoryview:
+        """The next ``n`` bytes, not copied."""
         if self.pos + n > len(self.data):
             raise ValueError("truncated MessagePack data")
-        chunk = self.data[self.pos:self.pos + n].tobytes()
+        chunk = self.data[self.pos:self.pos + n]
         self.pos += n
         return chunk
+
+    def take(self, n: int) -> bytes:
+        return self.view(n).tobytes()
 
     def unpack(self, fmt: str):
         return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
@@ -230,18 +316,26 @@ class _Reader:
 
     def _ext(self, n: int) -> Any:
         code = self.unpack("b")
-        data = self.take(n)
+        inner = _Reader(self.view(n))
         if code not in (EXT_NDARRAY, EXT_NPSCALAR):
             raise ValueError(f"unsupported MessagePack extension type {code}")
-        inner = _Reader(data)
-        shape, dtype_name, buffer = inner.value(raw=True)
-        array = _array_from(tuple(shape), dtype_name.decode(), buffer)
+        # the (shape, dtype name, bytes) triple; the bytes are not copied
+        if inner.unpack("B") != 0x93:
+            raise ValueError("malformed array extension")
+        shape, dtype_name = inner.value(), inner.value()
+        sized = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}.get(inner.unpack("B"))
+        if sized is None:
+            raise ValueError("malformed array extension")
+        buffer = inner.view(inner.unpack(sized))
+        array = _array_from(tuple(shape), dtype_name, buffer)
         if code == EXT_NPSCALAR and isinstance(array, np.ndarray):
             return array[()]
         return array
 
 
-def _array_from(shape: tuple[int, ...], dtype_name: str, buffer: bytes):
+def _array_from(shape: tuple[int, ...], dtype_name: str, buffer):
+    """A read-only numpy view of ``buffer`` (a slice of the bytes being
+    read), or a torch tensor of its own for ``bfloat16``."""
     if dtype_name == "bfloat16":
         import torch
 
@@ -250,11 +344,34 @@ def _array_from(shape: tuple[int, ...], dtype_name: str, buffer: bytes):
     return np.frombuffer(buffer, dtype=np.dtype(dtype_name)).reshape(shape)
 
 
+def _unchunk(doc: dict) -> Any:
+    """flax's ``_unchunk``: the chunks joined and shaped."""
+    shape = tuple(int(doc["shape"][str(i)]) for i in range(len(doc["shape"])))
+    chunks = [doc["chunks"][str(i)] for i in range(len(doc["chunks"]))]
+    if chunks and not isinstance(chunks[0], np.ndarray):  # bf16 torch tensors
+        import torch
+
+        return torch.cat(chunks).reshape(shape)
+    return np.concatenate(chunks).reshape(shape)
+
+
+def _unchunk_leaves(tree: Any) -> Any:
+    """flax's ``_unchunk_array_leaves_in_place``: chunked maps that are the
+    tree or a map's value become arrays."""
+    if not isinstance(tree, dict):
+        return tree
+    if CHUNKED in tree:
+        return _unchunk(tree)
+    for key, value in tree.items():
+        tree[key] = _unchunk_leaves(value)
+    return tree
+
+
 def restore(data: bytes) -> Any:
     """The tree of ``data`` (``flax.serialization.msgpack_restore``'s
-    result for unchunked arrays)."""
+    result: chunked arrays joined)."""
     reader = _Reader(data)
     tree = reader.value()
     if reader.pos != len(reader.data):
         raise ValueError(f"{len(reader.data) - reader.pos} trailing bytes after the tree")
-    return tree
+    return _unchunk_leaves(tree)

@@ -25,10 +25,10 @@ between the two packages, so no losses are compared here (the trainer's
 numbers are held against the JAX trainer in ``tests/test_torch_train.py``).
 A ``tiny-dpo-test`` job (the DPO trainer of ``prefs/``) runs beside it:
 SUCCEEDED, the ``ftc_dpo_*`` gauges on ``/metrics`` while it runs, promoted
-and answering ``/generate``.  A job whose trainer path the port refuses
-(``tiny-rlhf-test`` with ``rollout_workers: 1``, the disaggregated rollout
-plane) ends FAILED with the trainer's ``NotImplementedError`` in its logs and
-is not retried.
+and answering ``/generate``.  A ``tiny-rlhf-test`` job with
+``rollout_workers: 1`` (the disaggregated rollout plane, refused before it
+was ported) trains with a rollout worker process beside its trainer and
+SUCCEEDS at its first attempt, the worker reaped.
 """
 
 from __future__ import annotations
@@ -460,15 +460,19 @@ def test_generate_unpaged_and_paged_give_the_same_tokens(lifecycle):
 
 
 def test_refused_spec_fails_in_its_trainer_and_is_not_retried(lifecycle):
+    """The spec this test held as refused (``rollout_workers: 1``) now runs:
+    the trainer spawns its rollout worker, succeeds at its first attempt,
+    and reaps the worker."""
     job = lifecycle["refused"]
-    assert job["status"] == "failed", job
-    assert job["metadata"]["failure_class"] == "user"
-    assert job["metadata"]["exit_code"] == 1
+    assert job["status"] == "succeeded", job
     lines = "\n".join(lifecycle["refused_logs"][1]["lines"])
-    assert "NotImplementedError" in lines and "disaggregated rollout plane" in lines
-    assert "ROADMAP Queue A item 8" in lines
+    assert "NotImplementedError" not in lines
+    spawned = re.search(r"serve worker rollout-0 spawned \(.*pid=(\d+)", lines)
+    assert spawned, lines[-2000:]
+    with pytest.raises(ProcessLookupError):
+        os.kill(int(spawned.group(1)), 0)
     events = [e["event"] for e in lifecycle["refused_timeline"][1]["events"]]
-    assert "retrying" not in events and "failed" in events
+    assert "retrying" not in events and "failed" not in events
 
 
 def test_dpo_job_succeeds_promotes_and_serves(lifecycle):

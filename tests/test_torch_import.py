@@ -396,3 +396,49 @@ def test_worker_builders_default_to_cuda():
     assert tiny_test(device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tiny_test()
+
+
+#: the disaggregated rollout plane and the modules its lazy imports reach
+ROLLOUT_SLICE = [PORT / "prefs" / "rollout_plane.py"]
+
+
+def test_scan_covers_the_rollout_plane():
+    for path in ROLLOUT_SLICE:
+        assert path in SOURCES, path
+
+
+@pytest.mark.parametrize("path", ROLLOUT_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_rollout_plane_imports_resolve_inside_the_port(path):
+    """The rollout plane, relative and lazy imports resolved, stays out of
+    JAX, flax, the JAX package (even its JAX-free ``prefs/rollout_plane.py``
+    and ``resilience/policy.py``), ``msgpack`` and ``aiohttp``."""
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in TRANSPORT_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_rollout_plane_loads_without_jax_flax_or_msgpack():
+    """Importing the rollout plane and every module its functions import
+    (the worker, the client, the process transport, the builders, the
+    checkpoint reader, the span recorder) in a fresh interpreter loads none
+    of JAX, flax, the JAX package, ``msgpack`` or ``aiohttp``."""
+    names = ["finetune_controller_tpu_torch.prefs.rollout_plane",
+             "finetune_controller_tpu_torch.transport.worker",
+             "finetune_controller_tpu_torch.transport.client",
+             "finetune_controller_tpu_torch.transport.process",
+             "finetune_controller_tpu_torch.transport.builders",
+             "finetune_controller_tpu_torch.train.checkpoint",
+             "finetune_controller_tpu_torch.train.cli",
+             "finetune_controller_tpu_torch.obs.trace"]
+    code = (
+        "import importlib, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % (names, TRANSPORT_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

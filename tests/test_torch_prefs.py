@@ -23,8 +23,8 @@
   against the JAX
   ``RewardModelTrainer``; ``reward_head.msgpack`` byte for byte the JAX
   trainer's file;
-* the construction refusals, word for word, and the ``rollout_workers > 0``
-  refusal;
+* the construction refusals, word for word, and ``rollout_workers > 0``
+  (the disaggregated rollout plane) constructing in remote mode;
 * the msgpack coder: byte equality with ``flax.serialization`` on the head
   and on a nested tree, and a round trip of flax's bytes.
 
@@ -467,10 +467,15 @@ def test_construction_refusals_match_reference(trainer, case):
 
 
 def test_disaggregated_rollout_plane_is_refused():
-    with pytest.raises(NotImplementedError,
-                       match=r"rollout_workers 2: the disaggregated rollout plane "
-                             r"\(ROADMAP Queue A item 8 / item 6 part 2\)"):
-        DPOTrainer(_cfg(), TrainConfig(task="rlhf", rollout_workers=2), device="cpu")
+    """The rollout plane is ported (``tests/test_torch_rollout_plane.py``):
+    an rlhf learner with remote workers constructs, in remote mode (prefetch
+    and asynchronous commits kept), as the JAX learner does."""
+    cfg = TrainConfig(task="rlhf", rollout_workers=2, prefetch=2)
+    trainer = DPOTrainer(_cfg(), cfg, device="cpu")
+    assert (cfg.prefetch, trainer._blocking_checkpoints) == (2, False)
+    jcfg = JaxTrainConfig(task="rlhf", rollout_workers=2, prefetch=2)
+    jtrainer = JaxDPOTrainer(JAX_PRESETS["tiny-test"].replace(lora=JaxLoRAConfig(rank=4)), jcfg)
+    assert (jcfg.prefetch, jtrainer._blocking_checkpoints) == (2, False)
 
 
 # ---------------------------------------------------------------------------

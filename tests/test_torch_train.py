@@ -242,11 +242,11 @@ def test_cli_rejects_unconsumed_arguments_and_unknown_task(tmp_path):
 
 
 @pytest.mark.parametrize("spec,match", [
-    # the preference trainers run (tests/test_torch_prefs.py); the
-    # disaggregated rollout plane of an rlhf job is refused
-    pytest.param({"training": {"task": "rlhf", "rollout_workers": 1}},
-                 r"disaggregated rollout plane \(ROADMAP Queue A item 8 / item 6 part 2\)",
-                 id="spec0-preference plane"),
+    # the preference trainers and the disaggregated rollout plane run
+    # (tests/test_torch_prefs.py, tests/test_torch_rollout_plane.py); an rlhf
+    # job with remote workers on a mesh one card cannot form is refused
+    pytest.param({"training": {"task": "rlhf", "rollout_workers": 1}, "mesh": {"dp": 2}},
+                 r"mesh axes \{'dp': 2\}.*multi-GPU", id="spec0-preference plane"),
     ({"mesh": {"dp": 2}}, "multi-GPU"),
     ({"training": {"transfer_guard": "disallow"}}, "transfer guard"),
     # multimodal trains on one card (tests/test_torch_multimodal.py); a

@@ -583,8 +583,8 @@ def test_process_worker_spawn_generate_heartbeat_drain(tmp_path, baseline):
 
 def test_spawn_failure_carries_the_log_tail(tmp_path):
     """A worker that cannot build its payload fails its spawn with the
-    tail of its log; no replica is left behind.  A rollout or reward spec
-    is refused by name (ROADMAP Queue A item 4)."""
+    tail of its log; no replica is left behind.  A reward spec whose
+    artifacts hold no head fails the build with the reference's words."""
 
     async def main():
         bad = _transport(tmp_path, payload={"builder": "tiny_test",
@@ -600,7 +600,7 @@ def test_spawn_failure_carries_the_log_tail(tmp_path):
                       reward={"artifacts_dir": str(tmp_path)})
     from finetune_controller_tpu_torch.transport.worker import build_worker
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
+    with pytest.raises(FileNotFoundError, match="is this a task: reward job's"):
         build_worker(spec)
 
 
