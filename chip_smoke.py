@@ -64,10 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
    spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
    the losses printed beside those of the same run from a random-init
    base at 32 layers.
-   H1, T2, H2 and S2 run ``HF_LAYERS`` = 12 of the 32 layers: the run may
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 10 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
    merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M, V,
-   P, R, W and P4 need about 26 GB beside them; after each phase the script prints what
+   P, R, W, D and P4 need about 29 GB beside them; after each phase the script prints what
    it has written (``DiskTally``) and fails past 45 GiB;
    (H2) the exported adapter against the step-8 LoRA tensors (bit for
    bit), and the merged checkpoint reloaded into a bf16 model through
@@ -111,7 +111,9 @@ Phases (any failure exits non-zero and prints no result line):
     ``BatchEngine`` (the service's ``EngineConfig``) on the model the
     loader builds from the same promoted prefix, and the paged kernel's
     count (zeroed just before the requests) must rise.  (Q) On the same
-    server and dataset, ``mistral-7b-qlora`` (the ``jax_qlora`` framework:
+    server and dataset, ``mistral-7b-qlora`` at ``QLORA_LAYERS`` = 16 of 32
+    layers (``QLORA_PLUGIN``, for the run's time limit; the
+    ``jax_qlora`` framework:
     an int4 base quantized at init from the job's seed, LoRA rank 16 on all
     seven projections, C's batch shape, 6 steps, no profiler window) runs
     to SUCCEEDED, is promoted and loads unmerged (``lora_merged: false``);
@@ -121,7 +123,8 @@ Phases (any failure exits non-zero and prints no result line):
     promote and load s, TTFT, generated tokens/s and the int4 base's bytes;
     (M) ``mixtral-8x7b`` with int4 experts (``MOE_SPEC``: no mesh, bf16
     frozen tensors, LoRA rank 16 on the attention projections, batch 4 x
-    2048 in 2 microbatches, full width and 32 layers, the preset's ``full``
+    2048 in 2 microbatches, full width and ``MOE_LAYERS`` = 16 of 32 layers
+    (the run's time limit), the preset's ``full``
     remat) through ``train.cli.main`` in this process, 4 steps then 2
     resumed; checked: finite ``loss`` and a finite positive ``moe_aux``,
     the LoRA ``B`` leaves moved, the flash kernels launched, ``done.txt``,
@@ -247,6 +250,25 @@ Phases (any failure exits non-zero and prints no result line):
     card it applied before touching CUDA), launches 128 / 64 / 64 flash
     forward / dQ / dK-dV a step, and its submit -> first row is printed
     beside C's cold start; W writes at most ``W_DISK_BYTES``;
+    (D) after W, the control plane's storage and streaming
+    (:func:`storage_phase`): the port's ``statestore_main`` as a
+    subprocess, an S3 endpoint in this script that verifies every SigV4
+    signature, and the port's server on both (``state_backend=remote``,
+    ``object_store_backend=s3``, auth on); T2's documents uploaded to S3;
+    C's job (full width, 32 layers, C's arguments) followed over a
+    WebSocket opened right after the submit with the gate ``D_SEARCH``,
+    and synced by ``storage_cli sync --until-done-file`` beside it as a
+    pod's sidecar would: SUCCEEDED, the stream's ``waiting:`` lines and
+    then the gated lines equal to the REST log from the gate on (a line
+    for each step, closed after the job ended), a ``last_lines=20``
+    stream, the sidecar's exit 0, both S3 prefixes equal to the sandbox
+    byte for byte, ``storage_cli get`` of the dataset byte for byte, the
+    three flash kernels in the job's profile; promoted from S3 and 4
+    ``/generate`` requests equal to an in-process engine (the paged count
+    zeroed just before must rise); the state service restarted on its
+    file with the record and rows unchanged; ``monitor_main`` against the
+    same service and S3 (``process="monitor"`` on its ``/metrics``, two
+    ticks, exit 0 on SIGTERM); D writes at most ``D_DISK_BYTES``;
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
@@ -279,7 +301,7 @@ Phases (any failure exits non-zero and prints no result line):
     full-width phases;
 14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
     ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``, ``fidelity``,
-    ``resilience``, ``workers``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
+    ``resilience``, ``workers``, ``storage``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -1021,8 +1043,9 @@ def serve_phase(args):
 #: H100 machine, and one job phase alone (Q) wrote 1.00 GB more than in the
 #: run before (what the artifact sync catches of a save varies), so 18
 #: layers can pass the cap; 16 layers left 3.3 GiB (41.68 GiB written), and
-#: P4's rollout base (5.59 GB at 8 layers) needs more, so 12
-HF_LAYERS = 12
+#: P4's rollout base (5.59 GB at 8 layers) needed more, so 12 (42.20 GiB
+#: written); phase D's job on S3 writes about 2.5 GiB more, so 10
+HF_LAYERS = 10
 #: the llama3-8b preset's depth, which S1 serves
 PRESETS_DEPTH = 32
 #: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
@@ -1825,6 +1848,20 @@ CONTROL_JOB_TIMEOUT_S = 900
 #: steps with no profiler window
 QLORA_MODEL = "mistral-7b-qlora"
 QLORA_ARGS = {k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"}
+#: Q's depth, set by an operator plugin (``QLORA_PLUGIN``): the run must end
+#: inside 1200 s on the slower card machines
+QLORA_LAYERS = 16
+QLORA_PLUGIN = '''"""``mistral-7b-qlora`` at {layers} of its 32 layers."""
+
+from finetune_controller_tpu_torch.controller.examples import Mistral7B_QLoRA
+
+
+class Mistral7B_QLoRA_Cut(Mistral7B_QLoRA):
+    def build_trainer_spec(self, job_id, artifacts_dir, **kw):
+        spec = super().build_trainer_spec(job_id, artifacts_dir, **kw)
+        spec["model"].setdefault("overrides", {{}})["n_layers"] = {layers}
+        return spec
+'''
 
 
 class _Api:
@@ -2078,6 +2115,7 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
     (ctrl / "plugins").mkdir()
     (ctrl / "plugins" / "dpo_held_out.py").write_text(
         DPO_PLUGIN.format(eval_path=str(prefs_eval)))
+    (ctrl / "plugins" / "qlora_depth.py").write_text(QLORA_PLUGIN.format(layers=QLORA_LAYERS))
     with control_plane(ctrl, CONTROL_ENV, plugin_dir=ctrl / "plugins") as ctx:
         api = ctx[0]
         dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
@@ -2446,10 +2484,13 @@ def int4_check(seed: int) -> dict:
 #: M: Mixtral-8x7B with int4 experts at full width and depth (the preset's
 #: ``full`` remat), LoRA rank 16 on the attention projections (the experts
 #: carry none), bf16 for the other frozen tensors; T2's batch shape
+#: M's depth: the run must end inside 1200 s on the slower card machines
+#: (with M at 32 layers a whole run took 1141 s on one H100 machine)
+MOE_LAYERS = 16
 MOE_SPEC = {
     "job_id": "chip-smoke-moe",
     "model": {"preset": "mixtral-8x7b", "lora": {"rank": 16, "alpha": 32.0},
-              "overrides": {"quantize_base": True}},
+              "overrides": {"quantize_base": True, "n_layers": MOE_LAYERS}},
     "training": {"mode": "lora", "frozen_dtype": "bfloat16", "batch_size": 4, "seq_len": 2048,
                  "grad_accum_steps": 2, "total_steps": 4, "warmup_steps": 2,
                  "learning_rate": 2e-4, "log_every": 1, "checkpoint_every": 4,
@@ -4747,6 +4788,691 @@ def worker_phase(work, seed: int, control: dict, dpo: dict) -> dict:
     return record
 
 
+#: phase D: C's job with its state in the shared state service
+#: (``statestore_main``), its objects on S3 (an endpoint in this script) and
+#: its log followed over a WebSocket; the trainer's first step line opens
+#: the stream's gate
+D_SEARCH = "step 1 loss"
+D_REGION = "us-chip-1"
+D_CREDENTIALS = {"AWS_ACCESS_KEY_ID": "AKIDCHIPSMOKE", "AWS_SECRET_ACCESS_KEY": "chip-smoke-secret"}
+D_STATE_TOKEN = "chip-smoke-state-token"
+#: the most D may write: the job's sandbox, the artifact sync's and the
+#: sidecar's copies on S3, two stagings of the promoted checkpoint
+D_DISK_BYTES = 3 * 2**30
+#: seconds the monitor daemon and the state service get to exit on SIGTERM
+D_STOP_S = 10
+
+
+class S3Endpoint:
+    """An S3-compatible endpoint on the port's ``controller/web.py``, on
+    ``127.0.0.1`` and its own event-loop thread, its objects files under
+    ``root/<bucket>/<key>``.  Every request's SigV4 signature is derived
+    again with the known secret (``controller/s3.py``'s signer) and a
+    mismatch is a 403, as is a body whose SHA-256 is not the signed one.
+    Served: PUT (single, and the parts of a multipart upload), GET
+    (streamed), HEAD, DELETE, ListObjectsV2 with continuation tokens,
+    DeleteObjects, the multipart create/complete/abort, and server-side
+    copy (``x-amz-copy-source``) as a hard link, since an object is never
+    written in place.  A multipart upload's parts are appended to the
+    object's staging file in order, so completing it is a rename.  Each
+    request's body bytes and seconds (head parsed to last byte) are kept,
+    by method."""
+
+    def __init__(self, root: Path):
+        import threading
+
+        from finetune_controller_tpu_torch.controller import web
+
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.transfers: list[tuple[str, int, float]] = []
+        self.refused: list[str] = []
+        self.verified = 0
+        #: upload id -> [the object's staging file, parts appended]
+        self._uploads: dict[str, list] = {}
+        app = web.Application(client_max_size=1 << 30)
+        app.router.add_route("GET", "/{bucket}", self._handle)
+        for method in ("GET", "PUT", "POST", "HEAD", "DELETE"):
+            app.router.add_route(method, "/{bucket}/{key:.*}", self._handle)
+        app.router.add_route("POST", "/{bucket}", self._handle)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="s3-endpoint",
+                                       daemon=True)
+        self.thread.start()
+        self.runner = web.AppRunner(app)
+        self._call(self.runner.setup())
+        site = web.TCPSite(self.runner, "127.0.0.1", 0)
+        self._call(site.start())
+        self.endpoint = f"http://127.0.0.1:{site.port}"
+
+    def _call(self, coro, timeout=60):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self._call(self.runner.cleanup())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+    def path(self, bucket: str, key: str) -> Path:
+        p = (self.root / bucket / key).resolve()
+        if not p.is_relative_to(self.root.resolve()):
+            raise ValueError(f"bad key {bucket}/{key}")
+        return p
+
+    def objects(self, bucket: str, prefix: str) -> dict[str, Path]:
+        base = self.root / bucket
+        found = {p.relative_to(base).as_posix(): p for p in base.rglob("*")
+                 if p.is_file() and not p.name.endswith(".part-tmp")} if base.is_dir() else {}
+        return {k: p for k, p in sorted(found.items()) if k.startswith(prefix)}
+
+    def rate_gb_s(self, method: str) -> tuple[float | None, int]:
+        rows = [(n, s) for m, n, s in self.transfers if m == method and n]
+        total, secs = sum(n for n, _ in rows), sum(s for _, s in rows)
+        return (total / secs / 1e9 if secs else None), total
+
+    def _verify(self, request) -> str | None:
+        from finetune_controller_tpu_torch.controller.s3 import sigv4_headers
+
+        auth = request.headers.get("Authorization", "")
+        if not auth.startswith("AWS4-HMAC-SHA256 "):
+            return "missing sigv4 authorization"
+        fields = dict(part.strip().split("=", 1)
+                      for part in auth[len("AWS4-HMAC-SHA256 "):].split(","))
+        signed = fields["SignedHeaders"].split(";")
+        expect = sigv4_headers(
+            request.method, request.headers["Host"], request.path,
+            sorted(request.query.items()),
+            payload_hash=request.headers.get("x-amz-content-sha256", ""),
+            access_key=D_CREDENTIALS["AWS_ACCESS_KEY_ID"],
+            secret_key=D_CREDENTIALS["AWS_SECRET_ACCESS_KEY"], region=D_REGION,
+            amz_date=request.headers["x-amz-date"],
+            extra_headers={k: request.headers[k] for k in signed
+                           if k not in ("host", "x-amz-date", "x-amz-content-sha256")})
+        if expect["authorization"] != auth:
+            return "signature mismatch"
+        return None
+
+    async def _handle(self, request):
+        import hashlib
+        import urllib.parse
+        import xml.etree.ElementTree as ET
+
+        from finetune_controller_tpu_torch.controller import web
+
+        t0 = time.perf_counter()
+        err = self._verify(request)
+        if err:
+            self.refused.append(f"{request.method} {request.path}: {err}")
+            return web.Response(status=403, text=err)
+        self.verified += 1
+        bucket = request.match_info["bucket"]
+        key = request.match_info.get("key", "")
+        q = request.query
+        body, digest = b"", ""
+        if request.method in ("PUT", "POST"):
+            body = await request.read()
+            digest = await asyncio.to_thread(lambda: hashlib.sha256(body).hexdigest())
+            if digest != request.headers.get("x-amz-content-sha256"):
+                self.refused.append(f"{request.method} {request.path}: payload hash")
+                return web.Response(status=403, text="payload hash mismatch")
+
+        def done(resp, n: int = 0):
+            self.transfers.append((request.method, n, time.perf_counter() - t0))
+            return resp
+
+        if request.method == "POST" and "uploads" in q:
+            upload_id = os.urandom(8).hex()
+            self._uploads[upload_id] = [self.path(bucket, key).with_name(
+                f"{Path(key).name}.{upload_id}.part-tmp"), 0]
+            return done(web.Response(text=f"<InitiateMultipartUploadResult><UploadId>"
+                                          f"{upload_id}</UploadId>"
+                                          "</InitiateMultipartUploadResult>"))
+        if request.method == "PUT" and "partNumber" in q:
+            # parts are appended to the object's staging file as they come,
+            # so they must come in order (the port's store sends them so)
+            upload = self._uploads.get(q["uploadId"])
+            n = int(q["partNumber"])
+            if upload is None or n != upload[1] + 1:
+                return done(web.Response(status=400, text=f"part {n} out of order"))
+            await asyncio.to_thread(_append_file, upload[0], body)
+            upload[1] = n
+            return done(web.Response(headers={"ETag": f'"{digest[:32]}"'}), len(body))
+        if request.method == "POST" and "uploadId" in q:
+            upload = self._uploads.pop(q["uploadId"], None)
+            if upload is None or not upload[0].exists():
+                return done(web.Response(status=404, text="no such upload"))
+            os.replace(upload[0], self.path(bucket, key))
+            return done(web.Response(text="<CompleteMultipartUploadResult/>"))
+        if request.method == "DELETE" and "uploadId" in q:
+            upload = self._uploads.pop(q["uploadId"], None)
+            if upload is not None:
+                upload[0].unlink(missing_ok=True)
+            return done(web.Response(status=204))
+        if request.method == "POST" and "delete" in q:
+            keys = [el.text or "" for el in ET.fromstring(body).iter()
+                    if el.tag.split("}")[-1] == "Key"]
+            for k in keys:
+                self.path(bucket, k).unlink(missing_ok=True)
+            return done(web.Response(text="<DeleteResult>" + "".join(
+                f"<Deleted><Key>{k}</Key></Deleted>" for k in keys) + "</DeleteResult>"))
+        if request.method == "PUT" and "x-amz-copy-source" in request.headers:
+            src_bucket, _, src_key = urllib.parse.unquote(
+                request.headers["x-amz-copy-source"]).lstrip("/").partition("/")
+            src, dst = self.path(src_bucket, src_key), self.path(bucket, key)
+            if not src.is_file():
+                return done(web.Response(status=404))
+            await asyncio.to_thread(_link_object, src, dst)
+            return done(web.Response(text="<CopyObjectResult/>"))
+        if request.method == "PUT":
+            await asyncio.to_thread(_write_file, self.path(bucket, key), body)
+            return done(web.Response(), len(body))
+        if request.method == "GET" and not key:
+            prefix = q.get("prefix", "")
+            keys = list(self.objects(bucket, prefix).items())
+            start = int(q.get("continuation-token") or 0)
+            page = keys[start:start + 1000]
+            more = start + 1000 < len(keys)
+            contents = "".join(
+                f"<Contents><Key>{k}</Key><Size>{p.stat().st_size}</Size><LastModified>"
+                f"{time.strftime('%Y-%m-%dT%H:%M:%SZ', time.gmtime(p.stat().st_mtime))}"
+                "</LastModified></Contents>" for k, p in page)
+            tail = (f"<IsTruncated>true</IsTruncated><NextContinuationToken>{start + 1000}"
+                    "</NextContinuationToken>" if more else "<IsTruncated>false</IsTruncated>")
+            return done(web.Response(text=f"<ListBucketResult>{contents}{tail}</ListBucketResult>"))
+        path = self.path(bucket, key) if key else None
+        if path is None or not path.is_file():
+            return done(web.Response(status=404))
+        size = path.stat().st_size
+        if request.method == "HEAD":
+            return done(web.Response(headers={"Content-Length": str(size)}))
+        if request.method == "DELETE":
+            path.unlink()
+            return done(web.Response(status=204))
+        resp = web.StreamResponse(headers={"Content-Length": str(size),
+                                           "Content-Type": "application/octet-stream"})
+        await resp.prepare(request)
+        with path.open("rb") as f:
+            while chunk := await asyncio.to_thread(f.read, 1 << 22):
+                await resp.write(chunk)
+        await resp.write_eof()
+        return done(resp, size)
+
+
+def _write_file(path: Path, data: bytes) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + f".{os.getpid()}.part-tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
+def _append_file(path: Path, data: bytes) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with path.open("ab") as f:
+        f.write(data)
+
+
+def _link_object(src: Path, dst: Path) -> None:
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    tmp = dst.with_name(dst.name + ".part-tmp")
+    tmp.unlink(missing_ok=True)
+    os.link(src, tmp)
+    os.replace(tmp, dst)
+
+
+def _sha_tree(root: Path) -> dict[str, str]:
+    import hashlib
+
+    out = {}
+    for p in sorted(Path(root).rglob("*")):
+        if p.is_file():
+            h = hashlib.sha256()
+            with p.open("rb") as f:
+                while chunk := f.read(1 << 22):
+                    h.update(chunk)
+            out[p.relative_to(root).as_posix()] = h.hexdigest()
+    return out
+
+
+def _http_ok(url: str, token: str = "", timeout: float = 5) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, headers={"Authorization": f"Bearer {token}"} if token
+                                 else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _start_state_service(state_dir: Path, port: int, log_path: Path) -> tuple:
+    """``statestore_main`` on ``state_dir`` as a subprocess; returns (the
+    process, seconds until ``/healthz`` answered)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "finetune_controller_tpu_torch.controller.statestore_main",
+         "--state-dir", str(state_dir), "--host", "127.0.0.1", "--port", str(port)],
+        env={**os.environ, "FTC_STATE_TOKEN": D_STATE_TOKEN,
+             "PYTHONPATH": str(Path(__file__).resolve().parent)},
+        stdout=log_path.open("ab"), stderr=subprocess.STDOUT)
+    while True:
+        try:
+            if _http_ok(f"http://127.0.0.1:{port}/healthz")[0] == 200:
+                return proc, time.perf_counter() - t0
+        except OSError:
+            pass
+        if proc.poll() is not None or time.perf_counter() - t0 > 120:
+            proc.kill()
+            raise SmokeFailure(f"D: the state service did not come up "
+                               f"(exit {proc.poll()}); see {log_path}")
+        time.sleep(0.05)
+
+
+def _stop(proc, tag: str) -> int:
+    proc.terminate()
+    try:
+        rc = proc.wait(timeout=D_STOP_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure(f"D: {tag} did not exit within {D_STOP_S} s of SIGTERM")
+    if rc != 0:
+        raise SmokeFailure(f"D: {tag} exited {rc} on SIGTERM")
+    return rc
+
+
+class _WsFollow:
+    """A WebSocket log follow on the port's client, on a thread: each
+    message with its arrival time, until the server closes."""
+
+    def __init__(self, url: str, token: str):
+        import threading
+
+        self.url, self.token = url, token
+        self.messages: list[tuple[float, str]] = []
+        self.close: tuple | None = None
+        self.error: BaseException | None = None
+        self.thread = threading.Thread(target=self._run, name="ws-follow", daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        from finetune_controller_tpu_torch.controller import httpclient
+
+        async def follow():
+            session = httpclient.ClientSession()
+            try:
+                ws = await session.ws_connect(
+                    self.url, headers={"Authorization": f"Bearer {self.token}"})
+                while True:
+                    msg = await ws.receive(timeout=CONTROL_JOB_TIMEOUT_S)
+                    if msg.type.name in ("CLOSE", "CLOSED", "ERROR"):
+                        self.close = (msg.type.name, msg.data, time.time())
+                        break
+                    self.messages.append((time.time(), msg.data))
+                await ws.close()
+            finally:
+                await session.close()
+
+        try:
+            asyncio.run(follow())
+        except BaseException as e:  # read by the phase, which fails on it
+            self.error = e
+
+    def join(self, timeout: float) -> None:
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            raise SmokeFailure(f"D: the WebSocket to {self.url} did not close")
+        if self.error is not None:
+            raise SmokeFailure(f"D: the WebSocket follow failed: {self.error!r}")
+
+
+def _percentile(values: list[float], q: float) -> float:
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def storage_phase(work, seed: int) -> dict:
+    """D: the control plane's storage and streaming on the card.  The port's
+    ``statestore_main`` runs as a subprocess on its own sqlite file, an S3
+    endpoint (:class:`S3Endpoint`) runs in this process, and the port's
+    server (in this process, as in C) keeps its state in the first
+    (``state_backend=remote``) and its objects on the second
+    (``object_store_backend=s3``), auth on.  T2's documents are uploaded;
+    C's job (``CONTROL_MODEL``, ``CONTROL_ARGS``: full width and depth) is
+    submitted, and its log followed over ``GET {prefix}/logs/{id}`` with the
+    gate ``D_SEARCH`` opened right after the submit; ``storage_cli sync``
+    runs beside it as the pod's sidecar would.  Checked: SUCCEEDED; the
+    stream's ``waiting:`` lines, then gated lines equal to the REST log from
+    the gate on, a line for each step, closed after the job ended; a
+    ``last_lines=20`` stream; the sidecar's exit 0; both S3 prefixes equal
+    to the sandbox's files; ``storage_cli get`` of the dataset; the three
+    flash kernels in the job's profile.  Then promotion from S3 and 4
+    ``/generate`` requests against an in-process engine (the paged count
+    must rise), a restart of the state service on its file with the job's
+    record and rows unchanged, and the monitor daemon (``monitor_main``)
+    against the same service and S3: ``/metrics`` labelled
+    ``process="monitor"``, two ticks, the record unchanged, exit 0 on
+    SIGTERM.  The local backend keeps its job handles in the API process,
+    so the daemon cannot reconcile this job (a split deployment needs the
+    k8s backend, ROADMAP Queue A item 3c): it starts once the job ended
+    (its process start overlapping the promotion and ``/generate``)."""
+    t_phase = time.perf_counter()
+    disk0 = DISK.written()
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_d"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    docs = Path(work) / "train.jsonl"
+    if not docs.exists():
+        write_documents(docs, seed)
+    state_port = _free_port()
+    service, service_up_s = _start_state_service(d / "statestore", state_port,
+                                                 d / "statestore.log")
+    s3 = S3Endpoint(d / "s3")
+    procs: list = [service]
+    try:
+        store_env = {"FTC_OBJECT_STORE_BACKEND": "s3", "FTC_S3_ENDPOINT": s3.endpoint,
+                     "FTC_S3_REGION": D_REGION, **D_CREDENTIALS}
+        state_env = {"FTC_STATE_BACKEND": "remote",
+                     "FTC_STATE_SERVICE_URL": f"http://127.0.0.1:{state_port}",
+                     "FTC_STATE_SERVICE_TOKEN": D_STATE_TOKEN}
+        with control_plane(d / "api", {**CONTROL_ENV, **state_env, **store_env}) as ctx:
+            api, scrape, rt, settings, on_loop, ctrl = ctx
+            rpc_ms: list[float] = []
+            call = rt.state._call
+
+            async def timed(method, retry_reads=False, **payload):
+                t0 = time.perf_counter()
+                try:
+                    return await call(method, retry_reads, **payload)
+                finally:
+                    rpc_ms.append((time.perf_counter() - t0) * 1e3)
+
+            rt.state._call = timed
+            record = _storage_job(ctx, d, s3, docs, seed, procs, store_env, state_env)
+            daemon = record.pop("daemon")
+            # the state service restarts on its file; the job's record and
+            # rows read the same through the server's client afterwards
+            before = (api.ok("GET", f"/jobs/{record['job_id']}"),
+                      api.ok("GET", f"/jobs/{record['job_id']}/metrics")["records"])
+            t0 = time.perf_counter()
+            _stop(service, "the state service")
+            service, up_s = _start_state_service(d / "statestore", state_port,
+                                                 d / "statestore.log")
+            procs[0] = service
+            record["state_restart_s"] = time.perf_counter() - t0
+            after = (api.ok("GET", f"/jobs/{record['job_id']}"),
+                     api.ok("GET", f"/jobs/{record['job_id']}/metrics")["records"])
+            if after != before:
+                raise SmokeFailure("D: the job's record or rows changed across the state "
+                                   "service's restart")
+            record["monitor"] = _check_monitor_daemon(daemon, d, api, record["job_id"], after[0])
+            record["rpc_ms_p50"] = _percentile(rpc_ms, 0.5)
+            record["rpc_ms_p99"] = _percentile(rpc_ms, 0.99)
+            record["rpcs"] = len(rpc_ms)
+        _stop(service, "the state service")
+        record["s3_put_gb_s"], record["s3_put_bytes"] = s3.rate_gb_s("PUT")
+        record["s3_get_gb_s"], record["s3_get_bytes"] = s3.rate_gb_s("GET")
+        record["s3_requests_verified"] = s3.verified
+        if s3.refused:
+            raise SmokeFailure(f"D: the S3 endpoint refused {s3.refused[:5]}")
+    finally:
+        s3.close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    written = DISK.written() - disk0
+    record.update(bytes_written=written, phase_s=time.perf_counter() - t_phase,
+                  state_service_up_s=service_up_s)
+    log(f"D: {CONTROL_MODEL} on {CONTROL_FLAVOR} with its state in statestore_main "
+        f"(remote) and its objects on S3 (SigV4 verified on all {record['s3_requests_verified']} "
+        f"requests): {' -> '.join(record['statuses'])}; submit -> RUNNING "
+        f"{record['submit_to_running_s']:.1f} s, -> first WebSocket payload line "
+        f"{record['submit_to_first_ws_line_s']:.1f} s; {record['waiting_lines']} waiting: "
+        f"lines, then {record['ws_payload_lines']} gated lines equal to the REST log from "
+        f"the gate on, steps {record['ws_steps']}, closed {record['ws_close_after_end_s']:.2f} "
+        f"s after the job ended; a last_lines=20 stream opened while it ran gave the log's "
+        f"last {record['tail_lines']} lines (of {record['tail_lines_before']} then); "
+        f"{record['ms_per_step_median']:.0f} ms/step median of steps "
+        f"{record['median_over_steps']}; S3 PUT {record['s3_put_gb_s']:.3f} GB/s over "
+        f"{record['s3_put_bytes'] / 1e9:.2f} GB, GET {record['s3_get_gb_s']:.3f} GB/s over "
+        f"{record['s3_get_bytes'] / 1e9:.2f} GB (the endpoint's request times); sidecar "
+        f"exit 0, its final sync {record['sidecar_final_sync_s']:.2f} s after done.txt "
+        f"({record['sidecar_s']:.1f} s in all); S3 prefixes equal the sandbox "
+        f"({record['sandbox_files']} files); storage_cli get byte-equal; promote "
+        f"{record['promote_s']:.2f} s, load {record['model_load_s']:.1f} s; {record['requests']}"
+        f"/{record['requests']} /generate equal to the in-process engine, paged launches "
+        f"{record['paged_launches']}; flash launches in the profile "
+        f"{record['flash_launches_in_profile']}; state RPCs p50 {record['rpc_ms_p50']:.2f} ms, "
+        f"p99 {record['rpc_ms_p99']:.2f} ms over {record['rpcs']}; state service restart "
+        f"{record['state_restart_s']:.2f} s, record and rows unchanged; monitor daemon "
+        f"{record['monitor']['ticks']:.0f} ticks, exit 0 "
+        f"{record['monitor']['stop_s']:.2f} s after SIGTERM; D wrote {written / 1e9:.2f} GB "
+        f"in {record['phase_s']:.1f} s")
+    if written > D_DISK_BYTES:
+        raise SmokeFailure(f"D: {written / 2**30:.2f} GiB written (budget "
+                           f"{D_DISK_BYTES / 2**30:.0f} GiB)")
+    return record
+
+
+def _storage_job(ctx, d: Path, s3: S3Endpoint, docs: Path, seed: int, procs: list,
+                 store_env: dict, state_env: dict) -> dict:
+    """D's job: upload, submit, follow over a WebSocket, the sidecar, the
+    checks on S3, the monitor daemon's start, promotion and ``/generate``."""
+    from finetune_controller_tpu_torch.controller.objectstore import parse_uri
+    from finetune_controller_tpu_torch.controller.syncer import matched_files
+
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    env = {**os.environ, **store_env, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
+                     want=(201,))
+    bucket, key = parse_uri(dataset["uri"])
+    landed = s3.objects(bucket, key).get(key)
+    if landed is None or landed.read_bytes() != docs.read_bytes():
+        raise SmokeFailure(f"D: the uploaded dataset is not in the S3 bucket at {dataset['uri']}")
+    # the pod's init container: storage_cli get of the dataset, beside the job
+    fetched = d / "fetched" / "train.jsonl"
+    get = subprocess.Popen(
+        [sys.executable, "-m", "finetune_controller_tpu_torch.controller.storage_cli", "get",
+         dataset["uri"], str(fetched)], env=env, stdout=(d / "get.log").open("wb"),
+        stderr=subprocess.STDOUT)
+    procs.append(get)
+    t_submit = time.time()
+    job_id = api.ok("POST", "/jobs", fields={
+        "model_name": CONTROL_MODEL, "device": CONTROL_FLAVOR, "dataset_id": dataset["dataset_id"],
+        "arguments": json.dumps(CONTROL_ARGS)})["job_id"]
+    ws_base = api.base.replace("http://", "ws://")
+    follow = _WsFollow(f"{ws_base}/logs/{job_id}?follow=true&search_string="
+                       f"{D_SEARCH.replace(' ', '%20')}", api.token)
+    artifacts = settings.state_path / "sandboxes" / job_id / "artifacts"
+    sidecar_uri = f"obj://artifacts/sidecar/{job_id}"
+    t_sidecar = time.time()
+    sidecar = subprocess.Popen(
+        [sys.executable, "-m", "finetune_controller_tpu_torch.controller.storage_cli", "sync",
+         str(artifacts), sidecar_uri, "--interval", "2", "--until-done-file",
+         str(artifacts / "done.txt")], env=env, stdout=(d / "sidecar.log").open("wb"),
+        stderr=subprocess.STDOUT)
+    procs.append(sidecar)
+    # a second stream, follow=false&last_lines=20, opened while the job runs
+    # (once it ends, the local backend drops its handle and a stream
+    # answers "logs unavailable", as the reference's does), once the log
+    # holds 20 lines or the last step's line
+    tail: dict = {}
+    last_step = f"step {CONTROL_ARGS['total_steps']} loss "
+
+    def open_tail(job: dict) -> None:
+        if tail or job["status"] != "running":
+            return
+        lines = api.ok("GET", f"/jobs/{job_id}/logs")["lines"]
+        if len(lines) >= 20 or any(last_step in line for line in lines):
+            tail.update(lines_before=len(lines), follow=_WsFollow(
+                f"{ws_base}/logs/{job_id}?follow=false&last_lines=20", api.token))
+
+    job, seen, logs = _follow_job(api, job_id, t_submit, "D", on_poll=open_tail)
+    t_end = job["end_time"]  # the trainer process's exit
+    follow.join(120)
+    try:
+        sidecar_rc = sidecar.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure("D: the sidecar did not exit after done.txt") from None
+    t_sidecar_exit = time.time()
+    if sidecar_rc != 0:
+        raise SmokeFailure(f"D: the sidecar exited {sidecar_rc}; see {d / 'sidecar.log'}")
+    order = [st for st in ("queued", "running", "succeeded") if st in seen]
+    records = _job_rows(api, job_id, CONTROL_ARGS["total_steps"], "D")
+
+    # the stream: waiting lines, then the gated lines, equal to the REST log
+    prefix = f"[{job['metadata']['trace_id'][:8]}#a1] "
+    texts = [t for _, t in follow.messages]
+    waiting = [t for t in texts if t.startswith("waiting:")]
+    payload = [line for t in texts if not t.startswith("waiting:") for line in t.split("\n")]
+    if not waiting or texts[:len(waiting)] != waiting:
+        raise SmokeFailure(f"D: the stream did not start with waiting: lines: {texts[:3]}")
+    if not payload or not all(line.startswith(prefix) for line in payload):
+        raise SmokeFailure(f"D: stream payload lines without the prefix {prefix!r}: "
+                           f"{payload[:3]}")
+    gate = next((i for i, line in enumerate(logs) if D_SEARCH in line), None)
+    if gate is None or [line[len(prefix):] for line in payload] != logs[gate:]:
+        raise SmokeFailure(f"D: the stream's {len(payload)} payload lines differ from the "
+                           f"REST log's {len(logs) - (gate or 0)} from the gate on")
+    steps = sorted({int(m.group(1)) for line in payload
+                    if (m := re.search(r"\bstep (\d+) loss ", line))})
+    if steps != list(range(1, CONTROL_ARGS["total_steps"] + 1)):
+        raise SmokeFailure(f"D: the stream's step lines are for steps {steps}")
+    if follow.close is None or follow.close[2] < t_end:
+        raise SmokeFailure(f"D: the stream closed {follow.close} before the job ended")
+    first_payload_ts = next(ts for ts, t in follow.messages if not t.startswith("waiting:"))
+    if not tail:
+        raise SmokeFailure("D: the job's log never held 20 lines or its last step's line "
+                           "while it ran")
+    tail["follow"].join(60)
+    tail_lines = [line[len(prefix):] for _, t in tail["follow"].messages
+                  for line in t.split("\n")]
+    # the log's last 20 lines (all of them, when it held fewer) when the
+    # stream read them: a window of the final log that ends at or after
+    # the length seen just before
+    if not any(logs[max(0, k - 20):k] == tail_lines
+               for k in range(tail["lines_before"], len(logs) + 1)):
+        raise SmokeFailure(f"D: last_lines=20 over the WebSocket gave {len(tail_lines)} lines "
+                           f"that are not the log's last 20: {tail_lines[:2]}")
+
+    # S3: the artifact sync's prefix and the sidecar's hold the sandbox's
+    # committed files byte for byte, and no checkpoint staging
+    sandbox = _sha_tree(artifacts)
+    committed = {p.relative_to(artifacts).as_posix() for p in matched_files(artifacts, None)}
+    if set(sandbox) != committed:
+        raise SmokeFailure(f"D: the sandbox holds staging {sorted(set(sandbox) - committed)}")
+    for tag, uri in (("artifact sync", job["artifacts_uri"]), ("sidecar", sidecar_uri)):
+        b, k = parse_uri(uri)
+        on_s3 = {rel[len(k) + 1:]: h for rel, h in _sha_tree(d / "s3" / b).items()
+                 if rel.startswith(k + "/")}
+        # the controller adds the archived log and the assembled trace
+        extra = {"logs.txt", "trace/trace.json"} if tag == "artifact sync" else set()
+        mismatched = [rel for rel in sandbox if on_s3.get(rel) != sandbox[rel]]
+        if mismatched or set(on_s3) - set(sandbox) - extra:
+            raise SmokeFailure(f"D: the {tag}'s S3 prefix differs from the sandbox: "
+                               f"{mismatched[:5]} {sorted(set(on_s3) - set(sandbox))[:5]}")
+    done_ts = (artifacts / "done.txt").stat().st_mtime
+    get_rc = get.wait(timeout=300)
+    if get_rc != 0 or fetched.read_bytes() != docs.read_bytes():
+        raise SmokeFailure(f"D: storage_cli get exited {get_rc}; see {d / 'get.log'}")
+
+    # the profile on S3 lists the three flash kernels
+    listing = api.ok("GET", f"/jobs/{job_id}/artifacts?list=1")["artifacts"]
+    profiles = [a["path"] for a in listing if a["path"].startswith("profile/")
+                and a["path"].endswith(".json")]
+    if not profiles:
+        raise SmokeFailure("D: the job's artifacts hold no profile/ trace")
+    events = json.loads(on_loop(rt.store.get_bytes(f"{job['artifacts_uri']}/{profiles[0]}"),
+                                300)).get("traceEvents", [])
+    kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    seen_launches = {name: sum(sym in k for k in kernel_names)
+                     for name, sym in FLASH_KERNEL_SYMBOLS.items()}
+    missing = [n for n in FLASH_KERNELS if seen_launches.get(n, 0) <= 0]
+    if missing:
+        raise SmokeFailure(f"D: the job's profile lists no launch of {missing}")
+    m = re.fullmatch(r"profile/steps_(\d+)-(\d+)\.pt\.trace\.json", profiles[0])
+    profiled = list(range(int(m.group(1)) + 1, int(m.group(2)) + 1)) if m else []
+    tokens = CONTROL_ARGS["batch_size"] * CONTROL_ARGS["seq_len"]
+    step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
+    steady = sorted(ms for r, ms in zip(records, step_ms)
+                    if r["step"] > 1 and r["step"] not in profiled)
+
+    daemon = _start_monitor_daemon(d, state_env, store_env)
+    procs.append(daemon[0])
+    promote_s, load_s, meta = _promote_and_load(api, job_id, "D")
+    served = _generate_against_engine(ctx, job_id, meta["vocab_size"], CONTROL_PROMPTS,
+                                      CONTROL_NEW_TOKENS, seed, "d")
+    return {"daemon": daemon,
+        "job_id": job_id, "statuses": order, "losses": [r["loss"] for r in records],
+        "submit_to_running_s": seen["running"] - t_submit,
+        "submit_to_first_ws_line_s": first_payload_ts - t_submit,
+        "waiting_lines": len(waiting), "ws_payload_lines": len(payload), "ws_steps": steps,
+        "ws_close_after_end_s": follow.close[2] - t_end,
+        "tail_lines_before": tail["lines_before"], "tail_lines": len(tail_lines),
+        "ms_per_step": step_ms, "profiled_steps": profiled,
+        "ms_per_step_median": steady[len(steady) // 2],
+        "median_over_steps": [r["step"] for r in records
+                              if r["step"] > 1 and r["step"] not in profiled],
+        "sidecar_s": t_sidecar_exit - t_sidecar,
+        "sidecar_final_sync_s": t_sidecar_exit - done_ts,
+        "sandbox_files": len(sandbox), "sandbox_bytes": tree_bytes(artifacts),
+        "promote_s": promote_s, "model_load_s": load_s,
+        "flash_launches_in_profile": seen_launches,
+        **{k: served[k] for k in ("ttft_s", "decode_tokens_per_s", "requests_ok", "requests",
+                                  "generated_tokens", "paged_launches")},
+    }
+
+
+def _start_monitor_daemon(d: Path, state_env: dict, store_env: dict) -> tuple:
+    """``monitor_main`` against D's state service and S3, started once D's
+    job has ended (its process start overlaps the promotion and
+    ``/generate``): (the process, its metrics port, the start time)."""
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "finetune_controller_tpu_torch.controller.monitor_main"],
+        env={**os.environ, **state_env, **store_env, "FTC_MONITOR_METRICS_PORT": str(port),
+             "FTC_STATE_DIR": str(d / "monitor_state"), "FTC_JOB_MONITOR_INTERVAL_S": "0.5",
+             "PYTHONPATH": str(Path(__file__).resolve().parent)},
+        stdout=(d / "monitor.log").open("wb"), stderr=subprocess.STDOUT)
+    return proc, port, time.perf_counter()
+
+
+def _check_monitor_daemon(daemon: tuple, d: Path, api, job_id: str, before: dict) -> dict:
+    """The daemon's ``/metrics`` carries ``process="monitor"``; after two
+    more ticks the job's record is ``before``; SIGTERM stops the daemon with
+    exit code 0 within ``D_STOP_S``."""
+    proc, port, t0 = daemon
+    try:
+        ticks, first, text = 0.0, None, ""
+        while first is None or ticks < first + 2:
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                raise SmokeFailure(f"D: the monitor daemon exited {proc.poll()} or did not "
+                                   f"tick twice; see {d / 'monitor.log'}")
+            try:
+                status, text = _http_ok(f"http://127.0.0.1:{port}/metrics")
+                if status == 200:
+                    ticks = _prom_value(text, "ftc_monitor_ticks_total")
+                    first = ticks if first is None else first
+            except OSError:
+                pass
+            time.sleep(0.2)
+        if not re.search(r'^ftc_build_info\{process="monitor"', text, re.M):
+            raise SmokeFailure("D: the monitor daemon's /metrics has no "
+                               "ftc_build_info{process=\"monitor\"}")
+        if api.ok("GET", f"/jobs/{job_id}") != before:
+            raise SmokeFailure("D: the job's record changed under the monitor daemon")
+        t_stop = time.perf_counter()
+        _stop(proc, "the monitor daemon")
+        return {"ticks": ticks, "stop_s": time.perf_counter() - t_stop}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 REMAT_PHASE_POLICIES = ("none", "full", "mlp", "attn", "mlp_qkv", "flash", "mlp_flash", "wide",
                         "matmuls")
 #: T5: flash forward launches per layer and microbatch of a training step:
@@ -5068,6 +5794,14 @@ def main(argv=None) -> int:
         DISK.mark("W")
         gc.collect()
         torch.cuda.empty_cache()
+        # D: C's job with its state in statestore_main and its objects on
+        # S3, its log followed over a WebSocket; /generate in this process
+        storage = storage_phase(work, args.seed)
+        paged_entry["launches"] += storage["paged_launches"]
+        paged_entry["launches_by_path"]["d_generate"] = storage["paged_launches"]
+        DISK.mark("D")
+        gc.collect()
+        torch.cuda.empty_cache()
         prefs, prefs_eval = preference_rows(work, args.seed)
         dpo_check = dpo_objective_check(prefs, args.seed)
         log(f"P0 DPO objective (2 full-width layers, 8 pairs x 512, {dpo_check['padded_rows']} "
@@ -5196,6 +5930,7 @@ def main(argv=None) -> int:
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
             "c_job_profile_steps": control["flash_launches_in_profile"][name],
+            "d_job_profile_steps": storage["flash_launches_in_profile"][name],
             "m_in_process": moe["launches"][name],
             "v_job_profile_steps": llava["flash_launches_in_profile"][name],
             "p_dpo_job_profile_steps": dpo["flash_launches_in_profile"][name],
@@ -5228,6 +5963,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"resilience": resilience}), flush=True)
     print(json.dumps({"workers": workers}), flush=True)
+    print(json.dumps({"storage": storage}), flush=True)
     print(json.dumps({"remat": remat}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",

@@ -57,8 +57,7 @@ class Settings(BaseModel):
     state_dir: str = "~/.finetune_controller_tpu_torch/state"
     #: "sqlite" (WAL database — safe for the deployed API+monitor two-process
     #: layout on one node) | "jsonl" (single-process append-only log) |
-    #: "remote" (the shared state service, not ported yet: ROADMAP Queue
-    #: A item 3e — API×N
+    #: "remote" (the shared state service, ``statestore_main`` — API×N
     #: replicas + monitor across nodes, the role MongoDB plays for the
     #: reference, ``app/database/db.py:51``)
     state_backend: str = "sqlite"
@@ -67,8 +66,7 @@ class Settings(BaseModel):
     state_service_token: str = ""
 
     # --- Object store (reference: S3 buckets, app/core/config.py:53-58) ---
-    #: "local" (filesystem root, hermetic CI) | "gcs" | "s3" (cloud
-    #: buckets, not ported yet: ROADMAP Queue A item 3d)
+    #: "local" (filesystem root, hermetic CI) | "gcs" | "s3" (cloud buckets)
     object_store_backend: str = "local"
     object_store_root: str = "~/.finetune_controller_tpu_torch/objects"
     #: GCS: endpoint override (fake server in tests) + real-bucket prefix so

@@ -9,9 +9,10 @@ reference's pandas path gives), artifact zip streaming (``:294-373``), recursive
 copy for promotion (``:375-439``) and prefix cleanup (``:216-235``).
 
 The default backend is a local-filesystem store (``obj://bucket/key`` URIs) so
-the whole control plane runs hermetically in CI.  The reference's GCS and S3
-backends are not ported yet (ROADMAP Queue A item 3d): ``gcs`` and ``s3``
-raise ``NotImplementedError`` in :func:`build_object_store`.
+the whole control plane runs hermetically in CI; the GCS and S3 backends
+(``controller/gcs.py``, ``controller/s3.py``) slot in behind the same
+:class:`ObjectStore` interface, on :class:`HttpObjectStore` and the port's
+stdlib HTTP client (``controller/httpclient.py``).
 """
 
 from __future__ import annotations
@@ -212,6 +213,137 @@ class ObjectStore:
         return len(objs)
 
 
+class HttpObjectStore(ObjectStore):
+    """Shared HTTP plumbing for the cloud backends (GCS and S3 both
+    inherit this), on the port's stdlib client (``controller/httpclient.py``
+    in the place of the reference's ``aiohttp``): lazy session with one
+    timeout policy, retry/backoff on
+    transient failures, chunked download-to-file with atomic rename, ISO-8601
+    mtime parsing, bounded-concurrency fan-out.  One copy so a fix lands in
+    every cloud engine (the reference gets all of this from aioboto3 —
+    ``S3Handler.py:12,25``)."""
+
+    chunk_size: int = 1 << 20
+    #: transient-failure policy: one transfer survives `retry_attempts - 1`
+    #: 5xx/429/connection hiccups (the in-repo kube client's pattern —
+    #: ``backends/k8s.py``); tests zero `retry_base_delay` for speed
+    retry_attempts: int = 4
+    retry_base_delay: float = 0.25
+    retry_statuses: frozenset = frozenset({429, 500, 502, 503, 504})
+    #: concurrent requests for prefix-wide operations (delete/copy fan-out —
+    #: the reference batches with asyncio.gather, ``S3Handler.py:330,422``)
+    prefix_concurrency: int = 16
+
+    def __init__(self):
+        self._session = None
+
+    async def session(self):
+        from . import httpclient
+
+        if self._session is None or self._session.closed:
+            self._session = httpclient.ClientSession(
+                timeout=httpclient.ClientTimeout(total=None, connect=30)
+            )
+        return self._session
+
+    async def close(self) -> None:
+        if self._session is not None and not self._session.closed:
+            await self._session.close()
+
+    def _retry_delay(self, done_attempts: int) -> float:
+        return self.retry_base_delay * (2 ** done_attempts)
+
+    async def request_bytes(self, build) -> tuple[int, bytes, dict[str, str]]:
+        """Send one logical request with retries; returns
+        ``(status, body, headers)`` for the first conclusive outcome.
+
+        ``build()`` must return a FRESH response context manager per
+        call — it is re-invoked on every attempt so signed engines re-stamp
+        dates/signatures.  Retries connection errors/timeouts and
+        ``retry_statuses`` with exponential backoff; the final attempt's
+        outcome (status or exception) is returned/raised as-is so call sites
+        keep their own error mapping.
+        """
+        from .httpclient import ClientError
+
+        last = self.retry_attempts - 1
+        for attempt in range(self.retry_attempts):
+            if attempt:
+                await asyncio.sleep(self._retry_delay(attempt - 1))
+            try:
+                async with await build() as resp:
+                    body = await resp.read()
+                    if resp.status in self.retry_statuses and attempt < last:
+                        continue
+                    return resp.status, body, dict(resp.headers)
+            except (ClientError, asyncio.TimeoutError):
+                if attempt >= last:
+                    raise
+        raise AssertionError("unreachable")
+
+    async def get_file(self, uri: str, dest: Path | str) -> int:
+        """Stream to a local file with atomic rename; transient mid-transfer
+        failures restart the WHOLE transfer (objects are immutable here, and
+        a restart is simpler and safer than byte-range resumption)."""
+        from .httpclient import ClientError
+
+        dest_p = Path(dest)
+        dest_p.parent.mkdir(parents=True, exist_ok=True)
+        tmp = dest_p.with_name(dest_p.name + ".tmp")
+        last = self.retry_attempts - 1
+        try:
+            for attempt in range(self.retry_attempts):
+                if attempt:
+                    await asyncio.sleep(self._retry_delay(attempt - 1))
+                total = 0
+                try:
+                    with tmp.open("wb") as f:
+                        async for chunk in self.get_chunks(uri, self.chunk_size):
+                            total += len(chunk)
+                            await asyncio.to_thread(f.write, chunk)
+                    tmp.replace(dest_p)
+                    return total
+                except FileNotFoundError:
+                    raise  # a 404 is conclusive, not transient
+                except (IOError, ClientError, asyncio.TimeoutError):
+                    if attempt >= last:
+                        raise
+        except BaseException:
+            tmp.unlink(missing_ok=True)
+            raise
+        raise AssertionError("unreachable")
+
+    async def map_concurrently(self, fn, items: list) -> list:
+        """Run ``fn(item)`` over items with bounded concurrency. Waits for
+        EVERY task before returning or raising (no orphaned requests keep
+        mutating the bucket after the caller has observed a failure), then
+        re-raises the first failure."""
+        if not items:
+            return []
+        sem = asyncio.Semaphore(self.prefix_concurrency)
+
+        async def guarded(item):
+            async with sem:
+                return await fn(item)
+
+        results = await asyncio.gather(
+            *(guarded(i) for i in items), return_exceptions=True
+        )
+        for r in results:
+            if isinstance(r, BaseException):
+                raise r
+        return list(results)
+
+    @staticmethod
+    def parse_iso_mtime(text: str) -> float:
+        try:
+            return __import__("datetime").datetime.fromisoformat(
+                text.replace("Z", "+00:00")
+            ).timestamp()
+        except ValueError:
+            return 0.0
+
+
 class LocalObjectStore(ObjectStore):
     """Filesystem-backed store rooted at ``root/<bucket>/<key>``."""
 
@@ -347,17 +479,30 @@ class LocalObjectStore(ObjectStore):
 
 
 def build_object_store(settings) -> ObjectStore:
-    """Object-store factory from settings: ``local`` (hermetic CI).  The
-    reference's ``gcs`` and ``s3`` engines are not ported yet."""
+    """Object-store factory from settings: ``local`` (hermetic CI), ``gcs``
+    (``controller.gcs``), or ``s3`` (``controller.s3`` — SigV4 over the stdlib client,
+    the layout-compatible migration path off the reference). The seam the
+    reference hardwires to aioboto3 (``S3Handler.py:12,25``)."""
     backend = getattr(settings, "object_store_backend", "local")
     if backend == "local":
         return LocalObjectStore(settings.object_store_path)
-    if backend in ("gcs", "s3"):
-        raise NotImplementedError(
-            f"object_store_backend {backend!r} is not ported yet (ROADMAP "
-            "Queue A item 3d, the GCS and S3 object stores); use 'local'"
+    if backend == "gcs":
+        from .gcs import GCSObjectStore
+
+        return GCSObjectStore(
+            endpoint=settings.gcs_endpoint,
+            bucket_prefix=settings.gcs_bucket_prefix,
+        )
+    if backend == "s3":
+        from .s3 import S3ObjectStore
+
+        return S3ObjectStore(
+            endpoint=settings.s3_endpoint,
+            region=settings.s3_region,
+            bucket_prefix=settings.s3_bucket_prefix,
         )
     raise ValueError(f"unknown object_store_backend {backend!r}")
+
 
 
 class Presigner:

@@ -6,10 +6,10 @@ testability wart. Here, assembly is an explicit factory: nothing touches the
 filesystem or spawns tasks until :func:`build_runtime` is called, and every
 component can be swapped in tests.
 
-The port assembles the sqlite (or jsonl/memory) state store, the local
-object store and the local backend; the remote state service
-(``state_backend="remote"``) and the k8s backend raise
-``NotImplementedError`` naming their ROADMAP items.
+The port assembles the sqlite (or jsonl/memory) state store or the remote
+state service's client (``state_backend="remote"``), the local, S3 or GCS
+object store and the local backend; the k8s backend raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -83,9 +83,12 @@ def build_runtime(
     settings = settings or get_settings()
     load_model_modules(plugin_dir)
     if settings.state_backend == "remote":
-        raise NotImplementedError(
-            "state_backend='remote' (the HA state service) is not ported yet "
-            "(ROADMAP Queue A item 3e); use 'sqlite'"
+        # the shared state service: N API replicas + the monitor see one
+        # consistent store (and rate limits become cluster-scope)
+        from .statestore_service import RemoteStateStore
+
+        state: StateStore = RemoteStateStore(  # type: ignore[assignment]
+            settings.state_service_url, token=settings.state_service_token
         )
     else:
         state = StateStore(settings.state_path, backend=settings.state_backend)

@@ -1,12 +1,11 @@
 """The control-plane HTTP API, on the port's stdlib server
 (``controller/web.py``).
 
-The port's copy keeps the reference's handlers and routes; ``web`` offers
-the part of ``aiohttp.web`` they use, so this file diffs cleanly against
-the reference's.  Not ported yet, each answering or reporting so: the
-WebSocket log follow (``GET {prefix}/logs/{job_id}`` answers 501, ROADMAP
-Queue A item 3b; ``GET {prefix}/jobs/{job_id}/logs`` serves the log), and
-the shard-audit counters of ``/metrics`` (item 9).
+The port's copy keeps the reference's handlers and routes, the WebSocket
+log follow (``GET {prefix}/logs/{job_id}``, ``controller/stream_logger.py``)
+included; ``web`` offers the part of ``aiohttp.web`` they use, so this file
+diffs cleanly against the reference's.  Not ported yet, and reported so:
+the shard-audit counters of ``/metrics`` (ROADMAP Queue A item 9).
 
 The reference's description:
 
@@ -59,6 +58,7 @@ from .security import (
 )
 from . import web
 from .statestore import generate_short_uuid
+from .stream_logger import LogStreamManager
 from .task_builder import DatasetInput, TaskBuildError, task_builder
 
 logger = logging.getLogger(__name__)
@@ -821,14 +821,32 @@ async def delete_dataset(request: web.Request) -> web.Response:
 # ---------------------------------------------------------------------------
 
 
-async def stream_logs_ws(request: web.Request) -> web.Response:
-    # ownership check first, as in the reference: a stranger's job is a 404
-    await _owned_job(request, request.match_info["job_id"])
-    return _json_error(
-        501,
-        "the WebSocket log follow is not ported yet (ROADMAP Queue A item "
-        "3b); read GET /jobs/{job_id}/logs",
+async def stream_logs_ws(request: web.Request) -> web.WebSocketResponse:
+    rt = request.app[RUNTIME_KEY]
+    job_id = request.match_info["job_id"]
+    # ownership check before accepting (the reference checks inside the
+    # manager via DB reads; checking here fails fast)
+    await _owned_job(request, job_id)
+    q = request.query
+    # validate query params BEFORE hijacking the connection — a 400 must go
+    # out as HTTP, not onto a prepared WebSocket
+    follow = q.get("follow", "true").lower() != "false"
+    last_lines = _int_param(q, "last_lines", 0) or None
+    search_string = q.get("search_string", rt.settings.log_stream_search_string)
+    ws = web.WebSocketResponse(heartbeat=30)
+    await ws.prepare(request)
+    manager = LogStreamManager(
+        ws, job_id, rt.state, rt.backend,
+        follow=follow,
+        last_lines=last_lines,
+        search_string=search_string,
+        start_timeout_s=rt.settings.log_stream_start_timeout_s,
     )
+    try:
+        await manager.run()
+    finally:
+        await ws.close()
+    return ws
 
 
 async def get_job_logs(request: web.Request) -> web.Response:

@@ -6,7 +6,10 @@ reference delegated to its sidecar container
 detection so unchanged bytes are never re-uploaded.  A checkpoint's
 uncommitted staging is never shipped: the trainer renames it into place
 once it is whole, and a copy taken mid-write would stay in the store as a
-partial checkpoint.
+partial checkpoint.  Nor is any other write still in flight: the trainer
+writes ``metrics.csv``, ``heartbeat.json``, the profiler's trace and its
+exports to ``<name>.tmp`` and renames them, and a ``.tmp`` caught by a
+sync would stay in the store beside the file it became.
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ from .objectstore import ObjectStore
 #: a checkpoint save's staging, by the names ``train/checkpoint.py``'s
 #: sweep removes: ``step_N.tmp``, ``step_N.manifest.tmp``, orbax's
 #: ``step_N.orbax-checkpoint-tmp-<ts>`` and the port's earlier
-#: ``.step_N.tmp-<pid>``
+#: ``.step_N.tmp-<pid>``; and any ``<name>.tmp``, an atomic write not yet
+#: renamed into place
 STAGING_RE = re.compile(
-    r"^(step_\d+(\.tmp|\.manifest\.tmp|\.orbax-checkpoint-tmp-.*)|\.step_\d+\.tmp-\d+)$"
+    r"^(step_\d+\.orbax-checkpoint-tmp-.*|\.step_\d+\.tmp-\d+|.+\.tmp)$"
 )
 
 

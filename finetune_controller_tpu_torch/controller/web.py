@@ -18,11 +18,19 @@ run on ``aiohttp.web`` unchanged and this module goes.  The names follow
 * :class:`Response`, :func:`json_response`, :class:`StreamResponse` (a
   chunked or sized streamed body) and the ``HTTP*`` exceptions, which are
   responses that a handler raises;
+* :class:`WebSocketResponse` — a server-side WebSocket (RFC 6455) in the
+  shape of ``aiohttp.web.WebSocketResponse``: ``prepare``, ``send_str``,
+  ``send_bytes``, ``receive``, ``ping``, ``close``, ``closed``, a
+  ``heartbeat`` that closes a peer which stops answering pings (pings are
+  answered, pongs taken, never queued);
 * :class:`AppRunner` + :class:`TCPSite` and :func:`run_app` to serve an
-  application on ``asyncio.start_server``.
+  application on ``asyncio.start_server``.  Stopping a site sends every
+  open WebSocket a 1001 close frame and closes every connection's writer
+  before it waits for the listener to close.
 
-Only what the handlers need is here: no WebSocket upgrade, no HTTP/2, no
-compression.  A body stays on the socket until the handler reads it:
+Only what the handlers need is here: no HTTP/2, no compression, no
+WebSocket extensions or subprotocols.  A body stays on the socket until
+the handler reads it:
 ``read()``/``json()`` take it whole, up to ``client_max_size``, while
 ``multipart()`` streams it field by field with no size limit, so a dataset
 upload is never held in memory whole.
@@ -31,15 +39,19 @@ upload is never held in memory whole.
 from __future__ import annotations
 
 import asyncio
+import base64
 import contextlib
+import enum
+import hashlib
 import json
 import logging
+import os
 import re
 import signal
 from collections.abc import MutableMapping
 from http import HTTPStatus
 from http.cookies import SimpleCookie
-from typing import Any, Awaitable, Callable, Iterator
+from typing import Any, Awaitable, Callable, Iterator, NamedTuple
 from urllib.parse import parse_qsl, unquote, urlsplit
 
 logger = logging.getLogger(__name__)
@@ -56,6 +68,10 @@ _KEEPALIVE_S = 75.0
 #: seconds spent discarding a body the handler left unread before the
 #: connection is closed instead (aiohttp's ``lingering_time``)
 _LINGER_S = 10.0
+#: seconds a WebSocket's close waits for the peer's close frame (aiohttp's
+#: ``timeout``), and a stopping site for each open WebSocket's
+_WS_CLOSE_S = 10.0
+_WS_SHUTDOWN_S = 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -185,9 +201,14 @@ class Response(StreamResponse):
         self.body = body if body is not None else b""
 
     async def _send(self, request: "Request") -> None:
-        self.headers["Content-Length"] = str(len(self.body))
-        request._writer.write(_head(self.status, self.reason, self.headers,
-                                    request._keep_alive) + self.body)
+        if request.method == "HEAD":  # the headers a GET would send, no body
+            self.headers.setdefault("Content-Length", str(len(self.body)))
+            request._writer.write(_head(self.status, self.reason, self.headers,
+                                        request._keep_alive))
+        else:
+            self.headers["Content-Length"] = str(len(self.body))
+            request._writer.write(_head(self.status, self.reason, self.headers,
+                                        request._keep_alive) + self.body)
         await request._writer.drain()
 
 
@@ -454,6 +475,8 @@ class Request(MutableMapping):
         self._read_bytes: bytes | None = None
         self._writer = writer
         self._keep_alive = keep_alive
+        #: the connection was handed to a WebSocket (:class:`WebSocketResponse`)
+        self._upgraded = False
         self._state: dict[str, Any] = {}
 
     # item storage: middlewares hand values to handlers (request["user"])
@@ -495,14 +518,15 @@ class Request(MutableMapping):
     async def read(self) -> bytes:
         if self._read_bytes is None:
             limit = self.app.client_max_size
-            body = bytearray()
+            chunks, size = [], 0
             while chunk := await self._payload.readany():
-                body += chunk
-                if len(body) > limit:
+                chunks.append(chunk)
+                size += len(chunk)
+                if size > limit:
                     raise HTTPRequestEntityTooLarge(
                         text=f"Maximum request body size {limit} exceeded, "
-                             f"actual body size {len(body)}")
-            self._read_bytes = bytes(body)
+                             f"actual body size {size}")
+            self._read_bytes = b"".join(chunks)  # one copy of a large body
         return self._read_bytes
 
     async def text(self) -> str:
@@ -532,12 +556,19 @@ class AppKey:
 
 
 class Resource:
-    """A route's path: ``/a/{name}/b`` matches one segment per ``{name}``."""
+    """A route's path: ``/a/{name}/b`` matches one segment per ``{name}``;
+    ``{name:regex}`` matches the regex (``{tail:.*}`` the rest of the
+    path), as aiohttp's routes do."""
 
     def __init__(self, path: str):
         self.path = path
         self.dynamic = "{" in path
-        pattern = re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[^/]+)", re.escape(path))
+        pattern, pos = "", 0
+        for m in re.finditer(r"\{(\w+)(?::([^{}]+))?\}", path):
+            pattern += re.escape(path[pos:m.start()])
+            pattern += f"(?P<{m.group(1)}>{m.group(2) or '[^/]+'})"
+            pos = m.end()
+        pattern += re.escape(path[pos:])
         self._re = re.compile(f"^{pattern}$")
 
     def match(self, path: str) -> dict[str, str] | None:
@@ -612,6 +643,8 @@ class Application(MutableMapping):
         self.on_startup: list[Callable[["Application"], Awaitable[None]]] = []
         self.on_cleanup: list[Callable[["Application"], Awaitable[None]]] = []
         self._state: dict[Any, Any] = {}
+        #: open server-side WebSockets, closed with 1001 when a site stops
+        self._websockets: set[WebSocketResponse] = set()
 
     def __getitem__(self, key: Any) -> Any:
         return self._state[key]
@@ -651,6 +684,420 @@ def _bind(mw, inner: Handler) -> Handler:
         return await mw(request, inner)
 
     return call
+
+
+# ---------------------------------------------------------------------------
+# WebSocket (RFC 6455)
+# ---------------------------------------------------------------------------
+
+#: the GUID RFC 6455 §1.3 appends to the client's ``Sec-WebSocket-Key``
+WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+#: largest message accepted, reassembled fragments included (aiohttp's
+#: default ``max_msg_size``)
+WS_MAX_MSG_SIZE = 4 * 1024 * 1024
+
+
+class WSMsgType(enum.IntEnum):
+    CONTINUATION = 0x0
+    TEXT = 0x1
+    BINARY = 0x2
+    CLOSE = 0x8
+    PING = 0x9
+    PONG = 0xA
+    CLOSED = 0x101
+    ERROR = 0x102
+
+
+class WSCloseCode(enum.IntEnum):
+    OK = 1000
+    GOING_AWAY = 1001
+    PROTOCOL_ERROR = 1002
+    NO_STATUS = 1005
+    ABNORMAL_CLOSURE = 1006
+    INVALID_TEXT = 1007
+    MESSAGE_TOO_BIG = 1009
+
+
+class WSMessage(NamedTuple):
+    """One message: ``data`` is the text, the bytes, the close code or the
+    exception; ``extra`` the close reason."""
+
+    type: WSMsgType
+    data: Any
+    extra: Any
+
+
+_WS_CLOSED_MESSAGE = WSMessage(WSMsgType.CLOSED, None, None)
+
+
+class _WSProtocolError(Exception):
+    def __init__(self, code: WSCloseCode, message: str):
+        super().__init__(message)
+        self.code = code
+
+
+def ws_accept_key(key: str) -> str:
+    """``Sec-WebSocket-Accept`` for a client key: base64 of the SHA-1 of the
+    key followed by :data:`WS_GUID`."""
+    return base64.b64encode(hashlib.sha1((key + WS_GUID).encode()).digest()).decode()
+
+
+def _ws_mask(data: bytes, key: bytes) -> bytes:
+    """XOR ``data`` with the 4-byte ``key`` repeated (masking is its own
+    inverse), as one big-integer XOR."""
+    n = len(data)
+    if not n:
+        return b""
+    pad = (key * (n // 4 + 1))[:n]
+    return (int.from_bytes(data, "little") ^ int.from_bytes(pad, "little")).to_bytes(n, "little")
+
+
+def ws_frame(opcode: int, payload: bytes, *, mask: bool) -> bytes:
+    """One final frame: 7-bit, 16-bit or 64-bit length; a client masks its
+    frames with a fresh key, a server never does."""
+    n = len(payload)
+    head = bytearray([0x80 | opcode])
+    bit = 0x80 if mask else 0
+    if n < 126:
+        head.append(bit | n)
+    elif n < 1 << 16:
+        head.append(bit | 126)
+        head += n.to_bytes(2, "big")
+    else:
+        head.append(bit | 127)
+        head += n.to_bytes(8, "big")
+    if mask:
+        key = os.urandom(4)
+        head += key
+        payload = _ws_mask(payload, key)
+    return bytes(head) + payload
+
+
+class WebSocketConnection:
+    """The frame loop a WebSocket's two ends share, once the handshake is
+    done: a reader task that answers pings, reassembles fragmented
+    messages and queues whole messages for :meth:`receive`; the close
+    handshake; and a heartbeat that pings a peer silent for ``heartbeat``
+    seconds and, when nothing comes back within half of that, closes the
+    connection (close code 1006), as aiohttp's does."""
+
+    #: the client masks what it sends and the server expects masked frames
+    _masks = False
+
+    def __init__(self, *, heartbeat: float | None = None):
+        self._heartbeat = heartbeat
+        self._reader: asyncio.StreamReader | None = None
+        self._writer: asyncio.StreamWriter | None = None
+        self._queue: asyncio.Queue | None = None
+        self._tasks: list[asyncio.Task] = []
+        self._closed = False
+        self._close_sent = False
+        self._close_code: int | None = None
+        self._last_heard = 0.0
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    @property
+    def close_code(self) -> int | None:
+        return self._close_code
+
+    def _attach(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        loop = asyncio.get_running_loop()
+        self._reader, self._writer = reader, writer
+        self._queue = asyncio.Queue()
+        self._last_heard = loop.time()
+        self._tasks.append(loop.create_task(self._read_loop()))
+        if self._heartbeat:
+            self._tasks.append(loop.create_task(self._heartbeat_loop()))
+
+    # -- sending -------------------------------------------------------------
+
+    async def _send_frame(self, opcode: int, payload: bytes) -> None:
+        if self._writer is None:
+            raise RuntimeError("the WebSocket is not prepared")
+        if self._close_sent or self._writer.is_closing():
+            raise ConnectionResetError("Cannot write to closing transport")
+        self._writer.write(ws_frame(opcode, payload, mask=self._masks))
+        await self._writer.drain()
+
+    async def send_str(self, data: str) -> None:
+        if not isinstance(data, str):
+            raise TypeError(f"data argument must be str ({type(data)!r})")
+        await self._send_frame(WSMsgType.TEXT, data.encode("utf-8"))
+
+    async def send_bytes(self, data: bytes) -> None:
+        if not isinstance(data, (bytes, bytearray, memoryview)):
+            raise TypeError(f"data argument must be byte-ish ({type(data)!r})")
+        await self._send_frame(WSMsgType.BINARY, bytes(data))
+
+    async def ping(self, message: bytes = b"") -> None:
+        await self._send_frame(WSMsgType.PING, bytes(message))
+
+    async def pong(self, message: bytes = b"") -> None:
+        await self._send_frame(WSMsgType.PONG, bytes(message))
+
+    # -- receiving -----------------------------------------------------------
+
+    async def _read_frame(self) -> tuple[bool, int, bytes]:
+        read = self._reader.readexactly
+        b0, b1 = await read(2)
+        fin, opcode, masked, n = bool(b0 & 0x80), b0 & 0x0F, bool(b1 & 0x80), b1 & 0x7F
+        if b0 & 0x70:
+            raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR, "reserved bits set")
+        if masked == self._masks:
+            raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR,
+                                   "masked server frame" if masked else "unmasked client frame")
+        if n == 126:
+            n = int.from_bytes(await read(2), "big")
+        elif n == 127:
+            n = int.from_bytes(await read(8), "big")
+        if opcode >= 0x8 and (not fin or n > 125):
+            raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR, "bad control frame")
+        if n > WS_MAX_MSG_SIZE:
+            raise _WSProtocolError(WSCloseCode.MESSAGE_TOO_BIG,
+                                   f"message of {n} bytes exceeds {WS_MAX_MSG_SIZE}")
+        key = await read(4) if masked else b""
+        payload = await read(n)
+        return fin, opcode, _ws_mask(payload, key) if masked else payload
+
+    def _message(self, opcode: int, payload: bytes) -> WSMessage:
+        if opcode == WSMsgType.BINARY:
+            return WSMessage(WSMsgType.BINARY, payload, "")
+        try:
+            return WSMessage(WSMsgType.TEXT, payload.decode("utf-8"), "")
+        except UnicodeDecodeError:
+            raise _WSProtocolError(WSCloseCode.INVALID_TEXT, "invalid UTF-8 text") from None
+
+    async def _read_loop(self) -> None:
+        parts: list[bytes] = []
+        kind = 0  # the opcode of the message being reassembled
+        try:
+            while True:
+                fin, opcode, payload = await self._read_frame()
+                self._last_heard = asyncio.get_running_loop().time()
+                if opcode == WSMsgType.CLOSE:
+                    code = (int.from_bytes(payload[:2], "big") if len(payload) >= 2
+                            else WSCloseCode.NO_STATUS)
+                    reason = payload[2:].decode("utf-8", "replace")
+                    await self._peer_closed(code)
+                    self._queue.put_nowait(WSMessage(WSMsgType.CLOSE, code, reason))
+                    return
+                if opcode == WSMsgType.PING:
+                    with contextlib.suppress(ConnectionError, RuntimeError):
+                        await self.pong(payload)
+                elif opcode == WSMsgType.PONG:
+                    pass  # heard: the heartbeat reads ``_last_heard``
+                elif opcode in (WSMsgType.TEXT, WSMsgType.BINARY):
+                    if kind:
+                        raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR,
+                                               "a new message inside a fragmented one")
+                    if fin:
+                        self._queue.put_nowait(self._message(opcode, payload))
+                    else:
+                        kind, parts = opcode, [payload]
+                elif opcode == WSMsgType.CONTINUATION:
+                    if not kind:
+                        raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR,
+                                               "a continuation frame with no message")
+                    parts.append(payload)
+                    if sum(map(len, parts)) > WS_MAX_MSG_SIZE:
+                        raise _WSProtocolError(WSCloseCode.MESSAGE_TOO_BIG,
+                                               f"message exceeds {WS_MAX_MSG_SIZE} bytes")
+                    if fin:
+                        self._queue.put_nowait(self._message(kind, b"".join(parts)))
+                        kind, parts = 0, []
+                else:
+                    raise _WSProtocolError(WSCloseCode.PROTOCOL_ERROR, f"opcode {opcode:#x}")
+        except _WSProtocolError as exc:
+            self._queue.put_nowait(WSMessage(WSMsgType.ERROR, exc, None))
+            await self._fail(exc.code)
+        except (asyncio.IncompleteReadError, ConnectionError, OSError) as exc:
+            # the peer went away without a close frame
+            if not self._closed:
+                self._queue.put_nowait(WSMessage(WSMsgType.ERROR, exc, None))
+            self._abort(WSCloseCode.ABNORMAL_CLOSURE)
+
+    async def _peer_closed(self, code: int) -> None:
+        """The peer's close frame: answer it (unless ours went first), then
+        close the transport."""
+        if not self._close_sent:
+            with contextlib.suppress(ConnectionError, RuntimeError):
+                self._writer.write(ws_frame(WSMsgType.CLOSE, int(
+                    code if code != WSCloseCode.NO_STATUS else WSCloseCode.OK).to_bytes(2, "big"),
+                    mask=self._masks))
+                await self._writer.drain()
+            self._close_sent = True
+        if self._close_code is None:
+            self._close_code = code
+        self._closed = True
+        self._stop_heartbeat()
+        if not self._masks:  # the server closes the TCP connection first
+            self._writer.close()
+
+    async def _fail(self, code: WSCloseCode) -> None:
+        """Close with ``code`` after a protocol fault."""
+        if not self._close_sent:
+            with contextlib.suppress(ConnectionError, RuntimeError):
+                self._writer.write(ws_frame(WSMsgType.CLOSE, int(code).to_bytes(2, "big"),
+                                            mask=self._masks))
+                await self._writer.drain()
+            self._close_sent = True
+        self._abort(code)
+
+    def _abort(self, code: int) -> None:
+        self._closed = True
+        if self._close_code is None:
+            self._close_code = code
+        self._stop_heartbeat()
+        if self._writer is not None:
+            self._writer.close()
+
+    def _stop_heartbeat(self) -> None:
+        for task in self._tasks[1:]:
+            if task is not asyncio.current_task():
+                task.cancel()
+
+    async def _heartbeat_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while not self._closed:
+            idle = loop.time() - self._last_heard
+            if idle < self._heartbeat:
+                await asyncio.sleep(self._heartbeat - idle)
+                continue
+            pinged = loop.time()
+            try:
+                await self.ping()
+            except (ConnectionError, RuntimeError):
+                return
+            await asyncio.sleep(self._heartbeat / 2)
+            if self._last_heard < pinged and not self._closed:
+                exc = TimeoutError(f"No PONG received after {self._heartbeat / 2} seconds")
+                self._queue.put_nowait(WSMessage(WSMsgType.ERROR, exc, None))
+                self._abort(WSCloseCode.ABNORMAL_CLOSURE)
+                return
+
+    async def receive(self, timeout: float | None = None) -> WSMessage:
+        """The next message; once the connection is closed and every queued
+        message was taken, a ``CLOSED`` message."""
+        if self._queue is None:
+            raise RuntimeError("the WebSocket is not prepared")
+        if self._queue.empty() and (self._closed or self._tasks[0].done()):
+            return _WS_CLOSED_MESSAGE
+        get = asyncio.ensure_future(self._queue.get())
+        try:
+            done, _ = await asyncio.wait({get, self._tasks[0]}, timeout=timeout,
+                                        return_when=asyncio.FIRST_COMPLETED)
+        finally:
+            if not get.done():
+                get.cancel()
+        if get in done:
+            return get.result()
+        if not done:
+            raise TimeoutError(f"no WebSocket message within {timeout} s")
+        return self._queue.get_nowait() if not self._queue.empty() else _WS_CLOSED_MESSAGE
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSED):
+            raise StopAsyncIteration
+        return msg
+
+    async def close(self, *, code: int = WSCloseCode.OK, message: bytes = b"",
+                    timeout: float | None = None) -> bool:
+        """Send a close frame, wait (at most ``timeout`` s, 10 by default) for
+        the peer's, close the transport.  False when already closed."""
+        if self._writer is None or self._closed:
+            if self._writer is not None:
+                self._writer.close()
+            return False
+        self._closed = True
+        self._close_code = code
+        self._stop_heartbeat()
+        if not self._close_sent:
+            self._close_sent = True
+            try:
+                self._writer.write(ws_frame(WSMsgType.CLOSE, int(code).to_bytes(2, "big")
+                                            + bytes(message), mask=self._masks))
+                await self._writer.drain()
+            except (ConnectionError, RuntimeError):
+                self._writer.close()
+                return True
+        reader = self._tasks[0]
+        if not reader.done():
+            try:
+                await asyncio.wait_for(asyncio.shield(reader), timeout or _WS_CLOSE_S)
+            except TimeoutError:
+                reader.cancel()
+                self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+        self._writer.close()
+        return True
+
+
+class WebSocketResponse(WebSocketConnection):
+    """The server's end (``aiohttp.web.WebSocketResponse``): :meth:`prepare`
+    validates the upgrade request, raising 400 before anything is written,
+    and answers 101 with ``Sec-WebSocket-Accept``; the connection then
+    belongs to this object until it closes.  The application tracks it so
+    that a stopping site can close it with 1001."""
+
+    def __init__(self, *, heartbeat: float | None = None):
+        super().__init__(heartbeat=heartbeat)
+        self.status = 101
+        self._app: "Application | None" = None
+        self._task: asyncio.Task | None = None  # the connection's handler
+
+    @property
+    def prepared(self) -> bool:
+        return self._writer is not None
+
+    async def prepare(self, request: "Request") -> "WebSocketResponse":
+        if self._writer is not None:
+            return self
+        headers = request.headers
+        if headers.get("Upgrade", "").lower().strip() != "websocket":
+            raise HTTPBadRequest(text=f"No WebSocket UPGRADE hdr: {headers.get('Upgrade')}\n "
+                                      'Can "Upgrade" only to "WebSocket".')
+        if "upgrade" not in headers.get("Connection", "").lower():
+            raise HTTPBadRequest(text=f"No CONNECTION upgrade hdr: {headers.get('Connection')}")
+        if headers.get("Sec-WebSocket-Version", "") not in ("13", "8", "7"):
+            raise HTTPBadRequest(
+                text=f"Unsupported version: {headers.get('Sec-WebSocket-Version')}")
+        key = headers.get("Sec-WebSocket-Key", "")
+        try:
+            valid = len(base64.b64decode(key, validate=True)) == 16
+        except ValueError:
+            valid = False
+        if not valid:
+            raise HTTPBadRequest(text=f"Handshake error: {key!r}")
+        request._keep_alive = False
+        request._upgraded = True
+        writer = request._writer
+        writer.write(_head(101, _reason(101), CIDict({
+            "Upgrade": "websocket", "Connection": "upgrade",
+            "Sec-WebSocket-Accept": ws_accept_key(key)}), False))
+        await writer.drain()
+        self._app = request.app
+        self._task = asyncio.current_task()
+        request.app._websockets.add(self)
+        self._attach(request._payload._reader, writer)
+        return self
+
+    async def close(self, *, code: int = WSCloseCode.OK, message: bytes = b"",
+                    timeout: float | None = None) -> bool:
+        try:
+            return await super().close(code=code, message=message, timeout=timeout)
+        finally:
+            if self._app is not None:
+                self._app._websockets.discard(self)
+
+    async def write_eof(self) -> None:
+        """The handler returned: close the WebSocket if it is still open."""
+        await self.close()
 
 
 # ---------------------------------------------------------------------------
@@ -716,6 +1163,8 @@ async def _serve_connection(app: Application, reader: asyncio.StreamReader,
             # ftc: ignore[silent-except] -- logged: one handler's crash must not take the listener down
             except Exception:
                 logger.exception("unhandled error on %s %s", method, request.path)
+                if request._upgraded:  # the socket speaks WebSocket now
+                    return
                 response = Response(status=500, text="500 Internal Server Error\n\n"
                                     "Server got itself in trouble")
             if isinstance(response, Response) and not response.prepared:
@@ -726,7 +1175,7 @@ async def _serve_connection(app: Application, reader: asyncio.StreamReader,
             else:
                 await response.write_eof()
             # the next request starts after this one's body, read or not
-            if not keep_alive or not await payload.drain(_LINGER_S):
+            if not request._keep_alive or not await payload.drain(_LINGER_S):
                 return
     except (ConnectionError, asyncio.IncompleteReadError):
         return
@@ -787,9 +1236,20 @@ class TCPSite:
         self.runner.sites.append(self)
 
     async def stop(self) -> None:
+        """Stop listening; close each open WebSocket with 1001 (going away)
+        and each connection's writer, then wait for the listener: on Python
+        3.12 ``wait_closed`` waits for every connection, so a writer left
+        open would hang it."""
         if self._server is None:
             return
         self._server.close()
+        sockets = list(self.runner.app._websockets)
+        await asyncio.gather(*(ws.close(code=WSCloseCode.GOING_AWAY, timeout=_WS_SHUTDOWN_S)
+                               for ws in sockets), return_exceptions=True)
+        # their handlers see the close and return before the rest is cancelled
+        handlers = [ws._task for ws in sockets if ws._task is not None]
+        if handlers:
+            await asyncio.wait(handlers, timeout=_WS_SHUTDOWN_S)
         for task in list(self._conns):
             task.cancel()
         for task in list(self._conns):

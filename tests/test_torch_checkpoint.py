@@ -102,9 +102,12 @@ def test_artifact_sync_ships_no_checkpoint_staging(tmp_path):
     shipped = sorted(p.relative_to(tmp_path / "store" / "bucket" / "job").as_posix()
                      for p in (tmp_path / "store").rglob("*") if p.is_file())
     assert n == 2 and shipped == ["checkpoints/step_2/state.pt", "metrics.csv"]
-    # the syncer's staging names are the checkpoint sweep's
-    for name in names + ("step_4.manifest.tmp", "step_12", "step_x.tmp", "notes.txt"):
-        assert bool(STAGING_RE.match(name)) == bool(ckpt_mod._TMP_RE.match(name)), name
+    # the syncer skips the staging names the checkpoint sweep removes, and
+    # any other write still in flight (``<name>.tmp``, renamed when whole)
+    for name in names + ("step_4.manifest.tmp", "step_12", "step_x.tmp", "notes.txt",
+                         "metrics.csv.tmp"):
+        assert bool(STAGING_RE.match(name)) == bool(
+            ckpt_mod._TMP_RE.match(name) or name.endswith(".tmp")), name
 
 
 def _state(trainer: Trainer) -> dict:

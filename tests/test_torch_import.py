@@ -442,3 +442,65 @@ def test_rollout_plane_loads_without_jax_flax_or_msgpack():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: the control plane's storage and streaming: the WebSocket, the stdlib HTTP
+#: client, the stream logger, the S3 and GCS stores, the shared state
+#: service and its daemon, the pod-side storage CLI and the monitor daemon
+STORAGE_SLICE = [PORT / "controller" / f for f in (
+    "web.py", "httpclient.py", "stream_logger.py", "objectstore.py", "s3.py", "gcs.py",
+    "statestore_service.py", "statestore_main.py", "storage_cli.py", "monitor_main.py",
+    "runtime.py", "server.py")]
+
+
+def test_scan_covers_the_storage_and_streaming_modules():
+    for path in STORAGE_SLICE:
+        assert path in SOURCES and path in CONTROL_SLICE, path
+
+
+@pytest.mark.parametrize("path", STORAGE_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_storage_slice_imports_resolve_inside_the_port(path):
+    """The storage and streaming modules, relative and lazy imports
+    resolved, stay out of JAX, flax, the JAX package (even its JAX-free
+    ``controller/s3.py``, ``gcs.py`` and ``statestore_service.py``),
+    ``aiohttp`` and ``msgpack``."""
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in CONTROL_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_storage_slice_loads_without_jax_flax_aiohttp_or_msgpack():
+    """Importing the storage and streaming modules in a fresh interpreter,
+    and building an S3 store, a GCS store and a remote state store's client
+    from settings, loads none of JAX, flax, the JAX package, ``aiohttp`` or
+    ``msgpack``."""
+    names = [".".join(p.relative_to(ROOT).with_suffix("").parts) for p in STORAGE_SLICE]
+    code = (
+        "import importlib, sys\n"
+        "for name in %r:\n"
+        "    importlib.import_module(name)\n"
+        "from finetune_controller_tpu_torch.controller.config import Settings\n"
+        "from finetune_controller_tpu_torch.controller.objectstore import build_object_store\n"
+        "from finetune_controller_tpu_torch.controller.statestore_service import RemoteStateStore\n"
+        "for b in ('s3', 'gcs'):\n"
+        "    build_object_store(Settings(object_store_backend=b))\n"
+        "RemoteStateStore('http://127.0.0.1:1')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % (names, CONTROL_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_storage_entry_points_start_without_the_reference():
+    """``statestore_main`` and ``storage_cli`` answer ``--help`` as modules
+    of the port alone (``monitor_main`` is started in
+    ``tests/test_torch_monitor_main.py``)."""
+    for mod in ("statestore_main", "storage_cli"):
+        proc = subprocess.run([sys.executable, "-m",
+                               f"finetune_controller_tpu_torch.controller.{mod}", "--help"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0 and "usage" in proc.stdout, proc.stdout + proc.stderr
