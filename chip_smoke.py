@@ -255,7 +255,8 @@ Phases (any failure exits non-zero and prints no result line):
     subprocess, an S3 endpoint in this script that verifies every SigV4
     signature, and the port's server on both (``state_backend=remote``,
     ``object_store_backend=s3``, auth on); T2's documents uploaded to S3;
-    C's job (full width, 32 layers, C's arguments) followed over a
+    C's job (full width, ``D_LAYERS`` = 16 of 32 layers by an operator
+    plugin, for the run's time limit; C's arguments) followed over a
     WebSocket opened right after the submit with the gate ``D_SEARCH``,
     and synced by ``storage_cli sync --until-done-file`` beside it as a
     pod's sidecar would: SUCCEEDED, the stream's ``waiting:`` lines and
@@ -269,6 +270,27 @@ Phases (any failure exits non-zero and prints no result line):
     file with the record and rows unchanged; ``monitor_main`` against the
     same service and S3 (``process="monitor"`` on its ``/metrics``, two
     ticks, exit 0 on SIGTERM); D writes at most ``D_DISK_BYTES``;
+    (K) after D, on D's S3 endpoint and state service, the k8s backend
+    (:func:`k8s_phase`): :class:`KubeEndpoint` serves the kube API in this
+    script (the objects in the port's ``InMemoryKubeClient``, admitted by
+    its ``kueue_tick`` under a quota of one ``nvidia.com/gpu``) and runs a
+    one-node kubelet (each pod's containers as host processes, native
+    sidecar semantics); the port's server with ``FTC_BACKEND=k8s`` and no
+    monitor of its own, ``monitor_main`` as a process of its own from before
+    the submit; ``llama3-8b-lora`` at full width and ``K_LAYERS`` = 8 of 32
+    layers, 5 steps (``K_ARGS``), on T2's documents: the JobSet requests
+    ``nvidia.com/gpu: 1``; a second job submitted meanwhile stays suspended
+    and QUEUED, is the queue snapshot, and is cancelled while queued, its
+    JobSet and ConfigMap gone; the daemon alone moves the live job RUNNING
+    -> SUCCEEDED with its ``training_duration`` and deletes its JobSet; the
+    WebSocket follow gives the trainer's log through the pod log and closes
+    after the trainer exits; the S3 prefix equals the pod's artifacts byte
+    for byte, ``done.txt`` included; the trainer's ``kernel_launches``
+    events count each flash kernel; after promotion from S3, 2
+    ``/generate`` answers equal an in-process engine, the paged count
+    rising; printed: submit -> admitted and -> first WebSocket line, the
+    median step, the sidecar's SIGTERM -> exit, Completed -> SUCCEEDED, K's
+    writes (at most ``K_DISK_BYTES``) and the card;
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
@@ -301,7 +323,8 @@ Phases (any failure exits non-zero and prints no result line):
     full-width phases;
 14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
     ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``, ``fidelity``,
-    ``resilience``, ``workers``, ``storage``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
+    ``resilience``, ``workers``, ``storage``, ``k8s``, ``remat`` and ``train``
+    lines, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -4801,6 +4824,9 @@ D_STATE_TOKEN = "chip-smoke-state-token"
 D_DISK_BYTES = 3 * 2**30
 #: seconds the monitor daemon and the state service get to exit on SIGTERM
 D_STOP_S = 10
+#: D's depth (``LLAMA_CUT_PLUGIN``): K runs after D in a run that must end
+#: inside 1200 s
+D_LAYERS = 16
 
 
 class S3Endpoint:
@@ -5077,9 +5103,9 @@ def _stop(proc, tag: str) -> int:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        raise SmokeFailure(f"D: {tag} did not exit within {D_STOP_S} s of SIGTERM")
+        raise SmokeFailure(f"{tag} did not exit within {D_STOP_S} s of SIGTERM")
     if rc != 0:
-        raise SmokeFailure(f"D: {tag} exited {rc} on SIGTERM")
+        raise SmokeFailure(f"{tag} exited {rc} on SIGTERM")
     return rc
 
 
@@ -5087,10 +5113,10 @@ class _WsFollow:
     """A WebSocket log follow on the port's client, on a thread: each
     message with its arrival time, until the server closes."""
 
-    def __init__(self, url: str, token: str):
+    def __init__(self, url: str, token: str, tag: str = "D"):
         import threading
 
-        self.url, self.token = url, token
+        self.url, self.token, self.tag = url, token, tag
         self.messages: list[tuple[float, str]] = []
         self.close: tuple | None = None
         self.error: BaseException | None = None
@@ -5123,9 +5149,9 @@ class _WsFollow:
     def join(self, timeout: float) -> None:
         self.thread.join(timeout)
         if self.thread.is_alive():
-            raise SmokeFailure(f"D: the WebSocket to {self.url} did not close")
+            raise SmokeFailure(f"{self.tag}: the WebSocket to {self.url} did not close")
         if self.error is not None:
-            raise SmokeFailure(f"D: the WebSocket follow failed: {self.error!r}")
+            raise SmokeFailure(f"{self.tag}: the WebSocket follow failed: {self.error!r}")
 
 
 def _percentile(values: list[float], q: float) -> float:
@@ -5133,14 +5159,18 @@ def _percentile(values: list[float], q: float) -> float:
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
 
 
-def storage_phase(work, seed: int) -> dict:
-    """D: the control plane's storage and streaming on the card.  The port's
+def storage_phase(work, seed: int, card: str = "not read") -> tuple[dict, dict]:
+    """D, then K on D's S3 endpoint and state service (:func:`k8s_phase`);
+    returns D's and K's records.
+
+    D: the control plane's storage and streaming on the card.  The port's
     ``statestore_main`` runs as a subprocess on its own sqlite file, an S3
     endpoint (:class:`S3Endpoint`) runs in this process, and the port's
     server (in this process, as in C) keeps its state in the first
     (``state_backend=remote``) and its objects on the second
     (``object_store_backend=s3``), auth on.  T2's documents are uploaded;
-    C's job (``CONTROL_MODEL``, ``CONTROL_ARGS``: full width and depth) is
+    C's job (``CONTROL_MODEL``, ``CONTROL_ARGS``: full width, ``D_LAYERS``
+    of its 32 layers by ``LLAMA_CUT_PLUGIN``) is
     submitted, and its log followed over ``GET {prefix}/logs/{id}`` with the
     gate ``D_SEARCH`` opened right after the submit; ``storage_cli sync``
     runs beside it as the pod's sidecar would.  Checked: SUCCEEDED; the
@@ -5155,9 +5185,9 @@ def storage_phase(work, seed: int) -> dict:
     against the same service and S3: ``/metrics`` labelled
     ``process="monitor"``, two ticks, the record unchanged, exit 0 on
     SIGTERM.  The local backend keeps its job handles in the API process,
-    so the daemon cannot reconcile this job (a split deployment needs the
-    k8s backend, ROADMAP Queue A item 3c): it starts once the job ended
-    (its process start overlapping the promotion and ``/generate``)."""
+    so the daemon cannot reconcile this job (K's, on the k8s backend, it
+    does): it starts once the job ended (its process start overlapping the
+    promotion and ``/generate``)."""
     t_phase = time.perf_counter()
     disk0 = DISK.written()
     d = Path(__file__).resolve().parent / "build" / "chip_smoke_d"
@@ -5166,6 +5196,8 @@ def storage_phase(work, seed: int) -> dict:
     docs = Path(work) / "train.jsonl"
     if not docs.exists():
         write_documents(docs, seed)
+    (d / "plugins").mkdir()
+    (d / "plugins" / "llama_depth.py").write_text(LLAMA_CUT_PLUGIN.format(layers=D_LAYERS))
     state_port = _free_port()
     service, service_up_s = _start_state_service(d / "statestore", state_port,
                                                  d / "statestore.log")
@@ -5177,7 +5209,8 @@ def storage_phase(work, seed: int) -> dict:
         state_env = {"FTC_STATE_BACKEND": "remote",
                      "FTC_STATE_SERVICE_URL": f"http://127.0.0.1:{state_port}",
                      "FTC_STATE_SERVICE_TOKEN": D_STATE_TOKEN}
-        with control_plane(d / "api", {**CONTROL_ENV, **state_env, **store_env}) as ctx:
+        with control_plane(d / "api", {**CONTROL_ENV, **state_env, **store_env},
+                           plugin_dir=d / "plugins") as ctx:
             api, scrape, rt, settings, on_loop, ctrl = ctx
             rpc_ms: list[float] = []
             call = rt.state._call
@@ -5197,7 +5230,7 @@ def storage_phase(work, seed: int) -> dict:
             before = (api.ok("GET", f"/jobs/{record['job_id']}"),
                       api.ok("GET", f"/jobs/{record['job_id']}/metrics")["records"])
             t0 = time.perf_counter()
-            _stop(service, "the state service")
+            _stop(service, "D: the state service")
             service, up_s = _start_state_service(d / "statestore", state_port,
                                                  d / "statestore.log")
             procs[0] = service
@@ -5211,22 +5244,34 @@ def storage_phase(work, seed: int) -> dict:
             record["rpc_ms_p50"] = _percentile(rpc_ms, 0.5)
             record["rpc_ms_p99"] = _percentile(rpc_ms, 0.99)
             record["rpcs"] = len(rpc_ms)
-        _stop(service, "the state service")
         record["s3_put_gb_s"], record["s3_put_bytes"] = s3.rate_gb_s("PUT")
         record["s3_get_gb_s"], record["s3_get_bytes"] = s3.rate_gb_s("GET")
         record["s3_requests_verified"] = s3.verified
         if s3.refused:
             raise SmokeFailure(f"D: the S3 endpoint refused {s3.refused[:5]}")
+        written = DISK.written() - disk0
+        record.update(bytes_written=written, phase_s=time.perf_counter() - t_phase,
+                      state_service_up_s=service_up_s)
+        _report_storage(record)
+        DISK.mark("D")
+        k8s = k8s_phase(work, seed, d, s3, state_env, store_env, card)
+        if s3.refused:
+            raise SmokeFailure(f"K: the S3 endpoint refused {s3.refused[:5]}")
+        _stop(service, "D: the state service")
     finally:
         s3.close()
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    written = DISK.written() - disk0
-    record.update(bytes_written=written, phase_s=time.perf_counter() - t_phase,
-                  state_service_up_s=service_up_s)
-    log(f"D: {CONTROL_MODEL} on {CONTROL_FLAVOR} with its state in statestore_main "
+    return record, k8s
+
+
+def _report_storage(record: dict) -> None:
+    """D's line; fails past ``D_DISK_BYTES``."""
+    written = record["bytes_written"]
+    log(f"D: {CONTROL_MODEL} ({D_LAYERS} of 32 layers) on {CONTROL_FLAVOR} with its state "
+        f"in statestore_main "
         f"(remote) and its objects on S3 (SigV4 verified on all {record['s3_requests_verified']} "
         f"requests): {' -> '.join(record['statuses'])}; submit -> RUNNING "
         f"{record['submit_to_running_s']:.1f} s, -> first WebSocket payload line "
@@ -5254,7 +5299,6 @@ def storage_phase(work, seed: int) -> dict:
     if written > D_DISK_BYTES:
         raise SmokeFailure(f"D: {written / 2**30:.2f} GiB written (budget "
                            f"{D_DISK_BYTES / 2**30:.0f} GiB)")
-    return record
 
 
 def _storage_job(ctx, d: Path, s3: S3Endpoint, docs: Path, seed: int, procs: list,
@@ -5400,7 +5444,7 @@ def _storage_job(ctx, d: Path, s3: S3Endpoint, docs: Path, seed: int, procs: lis
     steady = sorted(ms for r, ms in zip(records, step_ms)
                     if r["step"] > 1 and r["step"] not in profiled)
 
-    daemon = _start_monitor_daemon(d, state_env, store_env)
+    daemon = _start_monitor_daemon(d, {**state_env, **store_env})
     procs.append(daemon[0])
     promote_s, load_s, meta = _promote_and_load(api, job_id, "D")
     served = _generate_against_engine(ctx, job_id, meta["vocab_size"], CONTROL_PROMPTS,
@@ -5426,15 +5470,17 @@ def _storage_job(ctx, d: Path, s3: S3Endpoint, docs: Path, seed: int, procs: lis
     }
 
 
-def _start_monitor_daemon(d: Path, state_env: dict, store_env: dict) -> tuple:
-    """``monitor_main`` against D's state service and S3, started once D's
-    job has ended (its process start overlaps the promotion and
-    ``/generate``): (the process, its metrics port, the start time)."""
+def _start_monitor_daemon(d: Path, env: dict) -> tuple:
+    """``monitor_main`` with ``env`` (``FTC_*``) over this process's: D's
+    state service and S3, started once D's job has ended (its process start
+    overlaps the promotion and ``/generate``), or K's, before its submit.
+    Returns (the process, its metrics port, the start time)."""
     port = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "finetune_controller_tpu_torch.controller.monitor_main"],
-        env={**os.environ, **state_env, **store_env, "FTC_MONITOR_METRICS_PORT": str(port),
-             "FTC_STATE_DIR": str(d / "monitor_state"), "FTC_JOB_MONITOR_INTERVAL_S": "0.5",
+        env={**os.environ, "FTC_STATE_DIR": str(d / "monitor_state"),
+             "FTC_JOB_MONITOR_INTERVAL_S": "0.5", **env,
+             "FTC_MONITOR_METRICS_PORT": str(port),
              "PYTHONPATH": str(Path(__file__).resolve().parent)},
         stdout=(d / "monitor.log").open("wb"), stderr=subprocess.STDOUT)
     return proc, port, time.perf_counter()
@@ -5465,12 +5511,730 @@ def _check_monitor_daemon(daemon: tuple, d: Path, api, job_id: str, before: dict
         if api.ok("GET", f"/jobs/{job_id}") != before:
             raise SmokeFailure("D: the job's record changed under the monitor daemon")
         t_stop = time.perf_counter()
-        _stop(proc, "the monitor daemon")
+        _stop(proc, "D: the monitor daemon")
         return {"ticks": ticks, "stop_s": time.perf_counter() - t_stop}
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+#: phase K: the k8s backend against :class:`KubeEndpoint` (the kube API and
+#: a one-node kubelet in this script), beside D's S3 endpoint and state
+#: service; the monitor daemon alone reconciles the live job
+K_NAMESPACE = "ftc"
+#: K's depth, set by an operator plugin (``LLAMA_CUT_PLUGIN``): K adds a
+#: trainer pod, a sidecar and a daemon to a run that must end inside 1200 s
+K_LAYERS = 8
+K_ARGS = {**{k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"},
+          "total_steps": 5, "checkpoint_every": 5}
+#: the greedy ``/generate`` requests after promotion from S3 (prompt tokens)
+K_PROMPTS = (20, 377)
+#: the most K may write: the pod's data volume (the dataset and the job's
+#: artifacts), their copy on S3, two stagings of the promoted checkpoint
+K_DISK_BYTES = int(2.5 * 2**30)
+#: ``terminationGracePeriodSeconds``' default: SIGTERM, then SIGKILL after it
+K_GRACE_S = 30.0
+LLAMA_CUT_PLUGIN = '''"""``llama3-8b-lora`` at {layers} of its 32 layers."""
+
+from finetune_controller_tpu_torch.controller.examples import Llama3_8B_LoRA
+
+
+class Llama3_8B_LoRA_Cut(Llama3_8B_LoRA):
+    def build_trainer_spec(self, job_id, artifacts_dir, **kw):
+        spec = super().build_trainer_spec(job_id, artifacts_dir, **kw)
+        spec["model"].setdefault("overrides", {{}})["n_layers"] = {layers}
+        return spec
+'''
+
+
+def _rfc3339(ts: float) -> str:
+    return time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(ts)) + f".{int(ts % 1 * 1e6):06d}Z"
+
+
+class KubeEndpoint:
+    """The part of the Kubernetes API that the port's ``HttpKubeClient``
+    uses, and a one-node kubelet, on the port's ``controller/web.py`` on
+    ``127.0.0.1`` and a thread of its own.
+
+    The API: create (``POST`` of a collection; 409 with a ``Status`` when
+    the name exists, 422 when the JobSet fails the operators' schema
+    checks), get (404 with a ``Status``), list by ``labelSelector``
+    (``{"items": [...]}``), delete, and a pod's log (``container``,
+    ``follow``, ``tailLines``; a 400 while the container waits to start, as
+    the API server answers).  The objects are kept in the port's
+    ``InMemoryKubeClient``, so its JobSet schema checks apply, and its
+    ``kueue_tick`` admits suspended JobSets FIFO under a quota of ``gpus``
+    ``nvidia.com/gpu`` and materialises their pods.
+
+    The kubelet runs each new pod's containers as processes of this host:
+    the ConfigMap volume's data is written into a directory of the pod, and
+    each ``emptyDir`` is a directory of the pod.  Its one liberty: in
+    commands, env values and ConfigMap data, a volume's ``mountPath``
+    (``/data``, ``/etc/ftc``) is rewritten to that directory, since the
+    processes share this host's file system.  ``fieldRef`` env values
+    resolve from the pod's annotations and labels; ``python`` is this
+    interpreter, through a shim on ``PATH``; the env is what the manifest
+    gives (no ``FTC_*`` or ``AWS_*`` of this process) on top of the image's
+    (``PYTHONUNBUFFERED=1``, the checkout on ``PYTHONPATH``); a container
+    that requests ``nvidia.com/gpu`` gets its granted cards in
+    ``CUDA_VISIBLE_DEVICES``, any other none.  Native sidecar semantics:
+    the init containers run in order, a regular one to completion and a
+    sidecar (``restartPolicy: Always``) started and left running; then the
+    main containers; when they have exited, each sidecar gets SIGTERM, and
+    SIGKILL after ``K_GRACE_S``; the pod completes once the sidecars have
+    exited, and only then does its JobSet get ``Completed`` (or ``Failed``)
+    with an RFC 3339 ``lastTransitionTime`` (its ``startTime`` is the
+    admission's).  A DELETE of a JobSet deletes its pods and SIGTERMs their
+    processes (SIGKILL after ``K_GRACE_S``).  ``timeline[jobset]`` keeps
+    the times of each step, ``pods[name]`` each pod's directories and exit
+    codes."""
+
+    def __init__(self, root: Path, *, gpus: int = 1):
+        import threading
+
+        from finetune_controller_tpu_torch.controller import web
+        from finetune_controller_tpu_torch.controller.backends.k8s import InMemoryKubeClient
+
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.kube = InMemoryKubeClient(quota_chips=gpus)
+        self.lock = threading.RLock()
+        self.free_cards = list(range(gpus))
+        self.pods: dict[str, _KubeletPod] = {}
+        self.timeline: dict[str, dict] = {}
+        self.requests: dict[str, int] = {}
+        shim = self.root / "bin" / "python"
+        shim.parent.mkdir(exist_ok=True)
+        shim.write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        shim.chmod(0o755)
+        self.base_env = {k: v for k, v in os.environ.items()
+                         if not k.startswith(("FTC_", "AWS_", "CUDA_VISIBLE_DEVICES"))}
+        repo = str(Path(__file__).resolve().parent)
+        self.base_env.update(
+            PATH=f"{shim.parent}:{os.environ.get('PATH', '')}", PYTHONUNBUFFERED="1",
+            PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH"))
+                                       if p))
+        app = web.Application(client_max_size=16 << 20)
+        for method in ("GET", "POST", "DELETE"):
+            app.router.add_route(method, "/{path:.*}", self._handle)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="kube-endpoint",
+                                       daemon=True)
+        self.thread.start()
+        self.runner = web.AppRunner(app)
+        self._call(self.runner.setup())
+        site = web.TCPSite(self.runner, "127.0.0.1", 0)
+        self._call(site.start())
+        self.endpoint = f"http://127.0.0.1:{site.port}"
+        self._stop = threading.Event()
+        self.kubelet = threading.Thread(target=self._kubelet, name="kubelet", daemon=True)
+        self.kubelet.start()
+
+    def _call(self, coro, timeout=60):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self._stop.set()
+        self.kubelet.join(30)
+        for pod in list(self.pods.values()):
+            pod.kill(grace_s=0)
+        for pod in list(self.pods.values()):
+            if pod.thread is not None:
+                pod.thread.join(30)
+        self._call(self.runner.cleanup())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+    def jobset(self, name: str) -> dict | None:
+        with self.lock:
+            return next((o for o in self.kube._jobsets() if o["metadata"]["name"] == name),
+                        None)
+
+    def has(self, kind: str, name: str) -> bool:
+        with self.lock:
+            return any(path.endswith(f"/{kind}") and n == name for path, n in self.kube.objects)
+
+    # -- the API ---------------------------------------------------------------
+
+    @staticmethod
+    def _status(code: int, reason: str, message: str):
+        from finetune_controller_tpu_torch.controller import web
+
+        return web.json_response({"kind": "Status", "apiVersion": "v1", "status": "Failure",
+                                  "reason": reason, "message": message, "code": code},
+                                 status=code)
+
+    async def _handle(self, request):
+        from finetune_controller_tpu_torch.controller import web
+        from finetune_controller_tpu_torch.controller.backends.base import BackendError
+
+        key = f"{request.method} {request.path.rsplit('/', 1)[0]}"
+        self.requests[key] = self.requests.get(key, 0) + 1
+        m = re.fullmatch(r"/api/v1/namespaces/[^/]+/pods/([^/]+)/log", request.path)
+        if m and request.method == "GET":
+            return await self._log(request, m.group(1))
+        m = re.fullmatch(r"(/api/v1/namespaces/[^/]+/[^/]+|/apis/[^/]+/[^/]+/namespaces/[^/]+"
+                         r"/[^/]+)(?:/([^/]+))?", request.path)
+        if m is None:
+            return self._status(404, "NotFound", f"no route {request.path}")
+        coll, name = m.groups()
+        if request.method == "POST" and name is None:
+            body = await request.json()
+            with self.lock:
+                try:
+                    obj = await self.kube.create(coll, body)
+                except BackendError as e:
+                    if "already exists" in str(e):
+                        return self._status(409, "AlreadyExists", str(e))
+                    return self._status(422, "Invalid", str(e))
+                if obj.get("kind") == "JobSet":
+                    self.timeline[obj["metadata"]["name"]] = {"created": time.time()}
+                text = json.dumps(obj)
+            return web.json_response(text=text, status=201)
+        if request.method == "GET" and name is None:
+            with self.lock:
+                items = await self.kube.list(coll, request.query.get("labelSelector", ""))
+                text = json.dumps({"kind": "List", "apiVersion": "v1", "items": items})
+            return web.json_response(text=text)
+        if request.method == "GET":
+            with self.lock:
+                obj = await self.kube.get(coll, name)
+                text = None if obj is None else json.dumps(obj)
+            if text is None:
+                return self._status(404, "NotFound", f"{coll}/{name} not found")
+            return web.json_response(text=text)
+        if request.method == "DELETE" and name is not None:
+            with self.lock:
+                obj = self.kube.objects.pop((coll, name), None)
+                if obj is not None and coll.endswith("/jobsets"):
+                    self._delete_jobset(name)
+            if obj is None:
+                return self._status(404, "NotFound", f"{coll}/{name} not found")
+            return web.json_response({"kind": "Status", "apiVersion": "v1",
+                                      "status": "Success"})
+        return self._status(405, "MethodNotAllowed", f"{request.method} {request.path}")
+
+    def _delete_jobset(self, name: str) -> None:
+        """The JobSet's pods go with it (the garbage collector's cascade),
+        their processes SIGTERMed, SIGKILLed after ``K_GRACE_S``."""
+        self.timeline.setdefault(name, {})["deleted"] = time.time()
+        for key in [k for k, o in self.kube.objects.items() if k[0].endswith("/pods")
+                    and o["metadata"]["labels"].get("jobset.sigs.k8s.io/jobset-name") == name]:
+            del self.kube.objects[key]
+        for pod in self.pods.values():
+            if pod.jobset == name:
+                pod.kill(grace_s=K_GRACE_S)
+
+    async def _log(self, request, name: str):
+        from finetune_controller_tpu_torch.controller import web
+
+        with self.lock:
+            pod = self.pods.get(name)
+            listed = any(k[0].endswith("/pods") and k[1] == name for k in self.kube.objects)
+        if pod is None or not listed:
+            return self._status(404, "NotFound", f'pods "{name}" not found')
+        container = request.query.get("container") or pod.main[0]
+        path = pod.log_path(container)
+        if container not in pod.started:
+            return self._status(400, "BadRequest", f'container "{container}" in pod "{name}" '
+                                "is waiting to start: PodInitializing")
+        follow = request.query.get("follow") == "true"
+        tail = request.query.get("tailLines")
+        resp = web.StreamResponse(headers={"Content-Type": "text/plain"})
+        await resp.prepare(request)
+        with path.open("rb") as f:
+            data = await asyncio.to_thread(f.read)
+            if tail is not None:
+                lines = data.splitlines(keepends=True)
+                data = b"".join(lines[len(lines) - int(tail):] if int(tail) else [])
+            await resp.write(data)
+            while follow:
+                exited = container in pod.exit_codes
+                chunk = await asyncio.to_thread(f.read)
+                if chunk:
+                    await resp.write(chunk)
+                elif exited:
+                    break
+                else:
+                    await asyncio.sleep(0.05)
+        await resp.write_eof()
+        return resp
+
+    # -- the kubelet -----------------------------------------------------------
+
+    def _kubelet(self) -> None:
+        import threading
+
+        while not self._stop.wait(0.1):
+            with self.lock:
+                self.kube.kueue_tick()
+                now = time.time()
+                for js in self.kube._jobsets():
+                    times = self.timeline.setdefault(js["metadata"]["name"], {})
+                    if not js["spec"].get("suspend") and "admitted" not in times:
+                        times["admitted"] = now
+                        js.setdefault("status", {})["startTime"] = _rfc3339(now)
+                starts = []
+                for (path, name), obj in list(self.kube.objects.items()):
+                    if not path.endswith("/pods") or "uid" in obj["metadata"]:
+                        continue
+                    meta = obj["metadata"]
+                    meta["uid"] = os.urandom(8).hex()
+                    # JobSet puts the indexes on the pod as annotations too
+                    meta["annotations"] = {k: v for k, v in meta["labels"].items()
+                                           if k != "jobset.sigs.k8s.io/jobset-name"}
+                    js = self.jobset(meta["labels"]["jobset.sigs.k8s.io/jobset-name"])
+                    spec = json.loads(json.dumps(
+                        js["spec"]["replicatedJobs"][0]["template"]["spec"]["template"]["spec"]))
+                    cms = {n: json.loads(json.dumps(o)) for (p, n), o in self.kube.objects.items()
+                           if p == f"/api/v1/namespaces/{meta['namespace']}/configmaps"}
+                    gpus = sum(int(c.get("resources", {}).get("limits", {})
+                                   .get("nvidia.com/gpu", 0)) for c in spec["containers"])
+                    cards, self.free_cards = self.free_cards[:gpus], self.free_cards[gpus:]
+                    pod = _KubeletPod(self, meta, spec, cms, cards)
+                    self.pods[name] = pod
+                    self.timeline[pod.jobset].setdefault("pod_started", now)
+                    starts.append(pod)
+            for pod in starts:
+                pod.thread = threading.Thread(target=self._run, args=(pod,), name=pod.name,
+                                              daemon=True)
+                pod.thread.start()
+
+    def _run(self, pod: "_KubeletPod") -> None:
+        try:
+            phase, message = pod.run()
+        except Exception as e:  # a kubelet fault fails the pod, not the thread
+            phase, message = "Failed", f"kubelet: {type(e).__name__}: {e}"
+            pod.kill(grace_s=0)
+            for proc in pod.procs.values():
+                proc.wait()
+        now = time.time()
+        with self.lock:
+            self.free_cards += pod.cards
+            pod.phase = phase
+            obj = self.kube.objects.get((f"/api/v1/namespaces/{pod.namespace}/pods", pod.name))
+            if obj is not None:
+                obj["status"]["phase"] = phase
+            times = self.timeline[pod.jobset]
+            times.update({k: v for k, v in pod.times.items() if k not in times})
+            js = self.jobset(pod.jobset)
+            siblings = [p for p in self.pods.values() if p.jobset == pod.jobset]
+            if js is None or self.kube._is_terminal(js) or any(p.phase is None
+                                                              for p in siblings):
+                return
+            failed = [p.name for p in siblings if p.phase != "Succeeded"]
+            self.kube.finish_jobset(pod.jobset, failed=bool(failed),
+                                    message=f"pods failed: {failed}: {message}" if failed
+                                    else "jobset completed successfully")
+            cond = js["status"]["conditions"][-1]
+            cond.update(reason="FailedJobs" if failed else "AllJobsCompleted",
+                        lastTransitionTime=_rfc3339(now))
+            times["completed"] = now
+
+
+class _KubeletPod:
+    """One pod of :class:`KubeEndpoint`'s kubelet: its volumes, env and
+    containers."""
+
+    def __init__(self, endpoint: "KubeEndpoint", meta: dict, spec: dict, configmaps: dict,
+                 cards: list[int]):
+        self.name, self.namespace = meta["name"], meta["namespace"]
+        self.jobset = meta["labels"]["jobset.sigs.k8s.io/jobset-name"]
+        self.meta, self.spec, self.cards = meta, spec, cards
+        self.base_env = endpoint.base_env
+        self.dir = endpoint.root / "pods" / f"{self.name}-{meta['uid']}"
+        (self.dir / "logs").mkdir(parents=True)
+        self.main = [c["name"] for c in spec["containers"]]
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.started: set[str] = set()
+        self.exit_codes: dict[str, int] = {}
+        self.times: dict[str, float] = {}
+        self.phase: str | None = None
+        self.thread = None
+        self._killed_at: float | None = None
+        self._grace_s = K_GRACE_S
+        self.volumes: dict[str, Path] = {}
+        for vol in spec.get("volumes", []):
+            self.volumes[vol["name"]] = self.dir / "volumes" / vol["name"]
+            self.volumes[vol["name"]].mkdir(parents=True)
+        self.mounts: dict[str, Path] = {}
+        for c in spec.get("initContainers", []) + spec["containers"]:
+            for vm in c.get("volumeMounts", []):
+                self.mounts[vm["mountPath"]] = self.volumes[vm["name"]]
+        self._mount_re = re.compile(
+            r"(?<![\w.\-/])(" + "|".join(re.escape(m) for m in sorted(self.mounts, key=len,
+                                                                      reverse=True))
+            + r")(?=/|$|[^\w.\-])") if self.mounts else None
+        self.configmaps = configmaps
+
+    def rewrite(self, text: str) -> str:
+        """A volume's ``mountPath`` in ``text`` -> the pod's directory for it."""
+        if self._mount_re is None:
+            return text
+        return self._mount_re.sub(lambda m: str(self.mounts[m.group(1)]), text)
+
+    def log_path(self, container: str) -> Path:
+        return self.dir / "logs" / f"{container}.log"
+
+    def _field(self, path: str) -> str:
+        m = re.fullmatch(r"metadata\.(annotations|labels)\['([^']+)'\]", path)
+        if m:
+            return self.meta.get(m.group(1), {}).get(m.group(2), "")
+        if path in ("metadata.name", "metadata.namespace", "metadata.uid"):
+            return self.meta[path.split(".")[1]]
+        raise RuntimeError(f"unsupported fieldRef {path!r}")
+
+    def _start(self, c: dict) -> subprocess.Popen:
+        env = dict(self.base_env)
+        for e in c.get("env", []):
+            if "value" in e:
+                env[e["name"]] = self.rewrite(str(e["value"]))
+            else:
+                env[e["name"]] = self._field(e["valueFrom"]["fieldRef"]["fieldPath"])
+        wants_gpu = int(c.get("resources", {}).get("limits", {}).get("nvidia.com/gpu", 0))
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, self.cards)) if wants_gpu else ""
+        argv = [self.rewrite(a) for a in c["command"] + c.get("args", [])]
+        with self.log_path(c["name"]).open("ab") as log_f:
+            proc = subprocess.Popen(argv, env=env, cwd=self.dir, stdout=log_f,
+                                    stderr=subprocess.STDOUT, start_new_session=True)
+        self.procs[c["name"]] = proc
+        self.started.add(c["name"])
+        self.times.setdefault(f"{c['name']}_start", time.time())
+        return proc
+
+    def _wait(self, names: list[str]) -> None:
+        """Until every named container has exited; a kill's grace ends in
+        SIGKILL."""
+        while True:
+            for n in names:
+                if n not in self.exit_codes and self.procs[n].poll() is not None:
+                    self.exit_codes[n] = self.procs[n].returncode
+                    self.times[f"{n}_exit"] = time.time()
+            if all(n in self.exit_codes for n in names):
+                return
+            if self._killed_at is not None and time.time() > self._killed_at + self._grace_s:
+                for n in names:
+                    if n not in self.exit_codes:
+                        with contextlib.suppress(ProcessLookupError):
+                            os.killpg(self.procs[n].pid, 9)
+            time.sleep(0.05)
+
+    def kill(self, grace_s: float) -> None:
+        """SIGTERM every running container's process group; SIGKILL once
+        ``grace_s`` has passed."""
+        if self._killed_at is None:
+            self._killed_at = time.time()
+        self._grace_s = min(self._grace_s, grace_s)
+        for n, proc in list(self.procs.items()):
+            if proc.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, 15 if grace_s else 9)
+
+    def run(self) -> tuple[str, str]:
+        for vol in self.spec.get("volumes", []):
+            if "configMap" in vol:
+                cm = self.configmaps.get(vol["configMap"]["name"])
+                if cm is None:
+                    return "Failed", f"configmap {vol['configMap']['name']!r} not found"
+                for key, value in cm.get("data", {}).items():
+                    (self.volumes[vol["name"]] / key).write_text(self.rewrite(value))
+        sidecars: list[str] = []
+        for c in self.spec.get("initContainers", []):
+            if self._killed_at is not None:
+                break
+            self._start(c)
+            if c.get("restartPolicy") == "Always":
+                sidecars.append(c["name"])
+                continue
+            self._wait([c["name"]])
+            if self.exit_codes[c["name"]] != 0:
+                self._stop_sidecars(sidecars)
+                return "Failed", f"init container {c['name']} exited {self.exit_codes[c['name']]}"
+        if self._killed_at is None:
+            for c in self.spec["containers"]:
+                self._start(c)
+            self._wait(self.main)
+        self._stop_sidecars(sidecars)
+        bad = {n: rc for n, rc in self.exit_codes.items() if n in self.main and rc != 0}
+        if self._killed_at is not None or bad or len(self.exit_codes) < len(self.procs):
+            return "Failed", f"containers exited {bad}" if bad else "deleted"
+        return "Succeeded", ""
+
+    def _stop_sidecars(self, names: list[str]) -> None:
+        """SIGTERM each running sidecar (the main containers have exited),
+        SIGKILL after the grace."""
+        for n in reversed(names):
+            if self.procs[n].poll() is None:
+                self.times[f"{n}_sigterm"] = time.time()
+                with contextlib.suppress(ProcessLookupError):
+                    self.procs[n].send_signal(15)
+        deadline = time.time() + self._grace_s
+        while any(n not in self.exit_codes and self.procs[n].poll() is None for n in names):
+            if time.time() > deadline:
+                for n in names:
+                    with contextlib.suppress(ProcessLookupError):
+                        os.killpg(self.procs[n].pid, 9)
+            time.sleep(0.05)
+        for n in names:
+            if n not in self.exit_codes:
+                self.exit_codes[n] = self.procs[n].wait()
+                self.times[f"{n}_exit"] = time.time()
+
+
+def _wait_until(predicate, timeout_s: float, what: str):
+    """Poll ``predicate`` every 0.1 s until it returns a true value."""
+    t0 = time.time()
+    while True:
+        value = predicate()
+        if value:
+            return value
+        if time.time() - t0 > timeout_s:
+            raise SmokeFailure(f"K: {what} within {timeout_s:.0f} s")
+        time.sleep(0.1)
+
+
+def k8s_phase(work, seed: int, d: Path, s3: S3Endpoint, state_env: dict,
+              store_env: dict, card: str) -> dict:
+    """K: the k8s backend on the card.  :class:`KubeEndpoint` serves the
+    kube API and runs the pods; D's S3 endpoint and state service hold the
+    objects and the state.  The port's server runs in this process with
+    ``FTC_BACKEND=k8s``, ``FTC_KUBE_API_URL`` the endpoint and no monitor of
+    its own (``FTC_MONITOR_IN_PROCESS=false``); ``monitor_main`` runs as a
+    process of its own from before the submit.  T2's documents are
+    uploaded, and ``llama3-8b-lora`` (full width, ``K_LAYERS`` of 32 layers
+    by an operator plugin, ``K_ARGS``: 5 steps, no profiler window) is
+    submitted on ``h100``: a ConfigMap and a suspended JobSet, admitted
+    under the endpoint's quota of one ``nvidia.com/gpu``; its pod fetches
+    the dataset from S3, runs the trainer on the card beside the
+    artifact-sync sidecar, which gets SIGTERM when the trainer exits.
+    Checked (:func:`_k8s_job`): the JobSet requests ``nvidia.com/gpu: 1``; a
+    second job submitted meanwhile stays suspended and QUEUED, is the queue
+    snapshot, and is cancelled while queued, its JobSet and ConfigMap
+    deleted and no pod started; the daemon alone moves the job RUNNING ->
+    SUCCEEDED with its ``training_duration``, then deletes its JobSet and
+    ConfigMap; the WebSocket follow (``GET {prefix}/logs/{id}``, through the
+    pod log) gives the trainer's log line for line and closes after the
+    trainer exited; the sidecar exits 0 and the S3 prefix equals the pod's
+    artifacts byte for byte, ``done.txt`` included; the trainer's
+    ``kernel_launches`` events count each flash kernel; after promotion
+    from S3, 2 ``/generate`` answers equal an in-process engine, the paged
+    count rising.  K writes at most ``K_DISK_BYTES``; its line names
+    ``card`` (``nvidia-smi``'s name and power limit)."""
+    t_phase = time.perf_counter()
+    disk0 = DISK.written()
+    k = Path(d) / "k8s"
+    shutil.rmtree(k, ignore_errors=True)
+    (k / "plugins").mkdir(parents=True)
+    (k / "plugins" / "llama_depth.py").write_text(LLAMA_CUT_PLUGIN.format(layers=K_LAYERS))
+    docs = Path(work) / "train.jsonl"
+    if not docs.exists():
+        write_documents(docs, seed)
+    kube = KubeEndpoint(k / "kube", gpus=1)
+    backend_env = {"FTC_BACKEND": "k8s", "FTC_KUBE_API_URL": kube.endpoint,
+                   "FTC_NAMESPACE": K_NAMESPACE, "FTC_MONITOR_IN_PROCESS": "false"}
+    daemon = None
+    try:
+        daemon = _start_monitor_daemon(k, {
+            **state_env, **store_env, **backend_env, "FTC_RETRY_MAX_ATTEMPTS": "0",
+            "FTC_ARTIFACT_SYNC_INTERVAL_S": CONTROL_ENV["FTC_ARTIFACT_SYNC_INTERVAL_S"]})
+        with control_plane(k / "api", {**CONTROL_ENV, **state_env, **store_env, **backend_env},
+                           plugin_dir=k / "plugins") as ctx:
+            record = _k8s_job(ctx, kube, s3, daemon, docs, seed)
+        t_stop = time.perf_counter()
+        _stop(daemon[0], "K: the monitor daemon")
+        record["daemon_stop_s"] = time.perf_counter() - t_stop
+    finally:
+        kube.close()
+        if daemon is not None and daemon[0].poll() is None:
+            daemon[0].kill()
+            daemon[0].wait()
+    written = DISK.written() - disk0
+    record.update(bytes_written=written, phase_s=time.perf_counter() - t_phase,
+                  kube_requests=kube.requests, card=card)
+    sigterm_s = record["sidecar_sigterm_to_exit_s"]
+    log(f"K: {CONTROL_MODEL} ({K_LAYERS} of 32 layers) on {CONTROL_FLAVOR} through the k8s "
+        f"backend: a JobSet requesting {record['gpu_resource']}: 1, admitted "
+        f"{record['submit_to_admitted_s']:.2f} s after the submit; "
+        f"{' -> '.join(record['statuses'])} by the monitor daemon alone (the server's monitor "
+        f"ticked {record['server_monitor_ticks']} times, the daemon's "
+        f"{record['daemon_ticks']:.0f}), training_duration {record['training_duration']:.1f} s, "
+        f"Completed -> SUCCEEDED {record['completed_to_succeeded_s']:.2f} s, JobSet and "
+        f"ConfigMap deleted {record['completed_to_deleted_s']:.2f} s after Completed; the "
+        f"second job QUEUED at position 1, the queue snapshot {record['queue_snapshot']}, "
+        f"cancelled while queued (no pod); submit -> first WebSocket line "
+        f"{record['submit_to_first_ws_line_s']:.1f} s, {record['waiting_lines']} waiting: lines "
+        f"then the trainer's {record['ws_payload_lines']} lines, closed "
+        f"{record['ws_close_after_trainer_exit_s']:.2f} s after the trainer exited; "
+        f"{record['ms_per_step_median']:.0f} ms/step median of steps "
+        f"{record['median_over_steps']}; the sidecar {record['sidecar_end']}, exit 0, "
+        f"SIGTERM -> exit {'not measured (no SIGTERM)' if sigterm_s is None else f'{sigterm_s:.3f} s'}; S3 equal to the pod's "
+        f"{record['pod_artifact_files']} artifact files ({record['pod_artifact_bytes'] / 1e9:.3f}"
+        f" GB) with done.txt; flash launches in the pod {record['flash_launches']}; promote "
+        f"{record['promote_s']:.2f} s, load {record['model_load_s']:.1f} s; "
+        f"{record['requests_ok']}/{record['requests']} /generate equal to the in-process "
+        f"engine, paged launches {record['paged_launches']}; K wrote {written / 1e9:.2f} GB in "
+        f"{record['phase_s']:.1f} s ({card})")
+    if written > K_DISK_BYTES:
+        raise SmokeFailure(f"K: {written / 2**30:.2f} GiB written (budget "
+                           f"{K_DISK_BYTES / 2**30:.1f} GiB)")
+    return record
+
+
+def _k8s_job(ctx, kube: KubeEndpoint, s3: S3Endpoint, daemon: tuple, docs: Path,
+             seed: int) -> dict:
+    """K's jobs: the live one, the queued one, the checks, promotion and
+    ``/generate``."""
+    from finetune_controller_tpu_torch.controller.objectstore import parse_uri
+    from finetune_controller_tpu_torch.controller.syncer import matched_files
+
+    api, scrape, rt, settings, on_loop, ctrl = ctx
+    fields = {"model_name": CONTROL_MODEL, "device": CONTROL_FLAVOR,
+              "arguments": json.dumps(K_ARGS)}
+    dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
+                     want=(201,))
+    fields["dataset_id"] = dataset["dataset_id"]
+    t_submit = time.time()
+    job_id = api.ok("POST", "/jobs", fields=fields)["job_id"]
+    follow = _WsFollow(f"{api.base.replace('http://', 'ws://')}/logs/{job_id}?follow=true",
+                       api.token, tag="K")
+    admitted = _wait_until(lambda: kube.timeline.get(job_id, {}).get("admitted"), 120,
+                           "the JobSet was not admitted")
+    manifest = json.loads(json.dumps(kube.jobset(job_id)))
+    pod_spec = manifest["spec"]["replicatedJobs"][0]["template"]["spec"]["template"]["spec"]
+    trainer = next(c for c in pod_spec["containers"] if c["name"] == "trainer")
+    resource = "nvidia.com/gpu" if DEVICE == "cuda" else "cpu"
+    gpu = (trainer["resources"]["requests"].get(resource),
+           trainer["resources"]["limits"].get(resource))
+    if gpu != ("1", "1"):
+        raise SmokeFailure(f"K: the trainer requests/limits {resource} {gpu}")
+    sync_cmd = next(c for c in pod_spec["initContainers"]
+                    if c["name"] == "artifact-sync")["command"]
+    patterns = [sync_cmd[i + 1] for i, a in enumerate(sync_cmd) if a == "--pattern"]
+
+    # a second job while the first runs: suspended, QUEUED at position 1,
+    # the queue snapshot; cancelled while queued, it leaves nothing behind
+    second = api.ok("POST", "/jobs", fields=fields)["job_id"]
+    _wait_until(lambda: api.ok("GET", f"/jobs/{second}").get("queue_position") == 1, 60,
+                "the second job was not QUEUED at position 1 by the daemon")
+    queued = api.ok("GET", f"/jobs/{second}")
+    snapshot = on_loop(rt.backend.queue_snapshot(), 60)
+    if queued["status"] != "queued" or snapshot != [second] or not kube.jobset(second)[
+            "spec"]["suspend"]:
+        raise SmokeFailure(f"K: the second job is {queued['status']}, the queue snapshot "
+                           f"{snapshot}")
+    api.ok("POST", f"/jobs/{second}/cancel")
+    if kube.has("jobsets", second) or kube.has("configmaps", f"{second}-spec") or (
+            "admitted" in kube.timeline.get(second, {})):
+        raise SmokeFailure("K: the cancelled job's JobSet or ConfigMap is left, or it was "
+                           "admitted")
+
+    seen: dict[str, float] = {}
+    while time.time() - t_submit < CONTROL_JOB_TIMEOUT_S:
+        job = api.ok("GET", f"/jobs/{job_id}")
+        seen.setdefault(job["status"], time.time())
+        if job["status"] in ("succeeded", "failed", "cancelled"):
+            break
+        time.sleep(0.25)
+    pod = kube.pods.get(f"{job_id}-slice-0-0")
+    if job["status"] != "succeeded" or "running" not in seen or pod is None:
+        tail = pod.log_path("trainer").read_text()[-3000:] if pod else ""
+        raise SmokeFailure(f"K: job {job_id} ended {job['status']} (seen {sorted(seen)}, "
+                           f"{job.get('metadata')}); trainer log tail:\n{tail}")
+    times = kube.timeline[job_id]
+    if rt.monitor.ticks != 0 or settings.monitor_in_process:
+        raise SmokeFailure(f"K: the server's own monitor ticked {rt.monitor.ticks} times")
+    status, text = _http_ok(f"http://127.0.0.1:{daemon[1]}/metrics")
+    daemon_ticks = _prom_value(text, "ftc_monitor_ticks_total") if status == 200 else 0.0
+    if daemon_ticks <= 0 or daemon[0].poll() is not None:
+        raise SmokeFailure(f"K: the monitor daemon ticked {daemon_ticks} times")
+    expect = times["completed"] - admitted
+    if abs((job.get("training_duration") or 0) - expect) > 0.01:
+        raise SmokeFailure(f"K: training_duration {job.get('training_duration')} is not "
+                           f"Completed - admitted ({expect:.3f} s)")
+    _, at = _timeline(api, job_id, ("submitted", "running", "succeeded"), "K")
+    deleted = _wait_until(lambda: not kube.has("jobsets", job_id) and not kube.has(
+        "configmaps", f"{job_id}-spec") and time.time(), 30,
+        "the daemon did not delete the JobSet and ConfigMap")
+
+    # the log over the WebSocket: waiting lines, then the trainer's log
+    follow.join(120)
+    prefix = f"[{job['metadata']['trace_id'][:8]}#a1] "
+    texts = [t for _, t in follow.messages]
+    waiting = [t for t in texts if t.startswith("waiting:")]
+    payload = [line for t in texts if not t.startswith("waiting:") for line in t.split("\n")]
+    trainer_log = pod.log_path("trainer").read_text().splitlines()
+    if texts[:len(waiting)] != waiting or [line[len(prefix):] for line in payload] != \
+            trainer_log or not all(line.startswith(prefix) for line in payload):
+        raise SmokeFailure(f"K: the stream's {len(payload)} lines differ from the trainer's "
+                           f"{len(trainer_log)}: {payload[:2]} {trainer_log[:2]}")
+    steps = sorted({int(m.group(1)) for line in trainer_log
+                    if (m := re.search(r"\bstep (\d+) loss ", line))})
+    if steps != list(range(1, K_ARGS["total_steps"] + 1)):
+        raise SmokeFailure(f"K: the trainer's log has step lines for {steps}")
+    if follow.close is None or follow.close[2] < times["trainer_exit"]:
+        raise SmokeFailure(f"K: the stream closed {follow.close} before the trainer exited")
+    first_payload_ts = next(ts for ts, t in follow.messages if not t.startswith("waiting:"))
+
+    # the sidecar, and the S3 prefix against the pod's artifacts
+    if pod.exit_codes != {"dataset-fetch": 0, "artifact-sync": 0, "trainer": 0}:
+        raise SmokeFailure(f"K: the pod's containers exited {pod.exit_codes}")
+    artifacts = pod.volumes["data"] / "artifacts"
+    matched = {p.relative_to(artifacts).as_posix() for p in matched_files(artifacts, patterns)}
+    local = {rel: h for rel, h in _sha_tree(artifacts).items() if rel in matched}
+    b, key = parse_uri(job["artifacts_uri"])
+    on_s3 = {rel[len(key) + 1:]: h for rel, h in _sha_tree(s3.root / b).items()
+             if rel.startswith(key + "/")}
+    mismatched = [rel for rel in local if on_s3.get(rel) != local[rel]]
+    if mismatched or set(on_s3) - set(local) - {"trace/trace.json"} or "done.txt" not in local:
+        raise SmokeFailure(f"K: the S3 prefix differs from the pod's artifacts: {mismatched[:5]}"
+                           f" {sorted(set(on_s3) - set(local))[:5]}")
+    if (pod.volumes["data"] / "dataset" / "train.jsonl").read_bytes() != docs.read_bytes():
+        raise SmokeFailure("K: the dataset-fetch init container's copy differs")
+    events = [json.loads(line) for line in
+              (s3.root / b / key / "events.jsonl").read_text().splitlines() if line.strip()]
+    launches = next((e["attrs"]["kernel_launches"] for e in reversed(events)
+                     if (e.get("attrs") or {}).get("kernel_launches")), {})
+    if DEVICE == "cuda" and min(launches.get(n, 0) for n in FLASH_KERNELS) <= 0:
+        raise SmokeFailure(f"K: the trainer's kernel_launches events show {launches}")
+    records = _job_rows(api, job_id, K_ARGS["total_steps"], "K")
+    tokens = K_ARGS["batch_size"] * K_ARGS["seq_len"]
+    step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
+    steady = sorted(ms for r, ms in zip(records, step_ms) if r["step"] > 1)
+    sigterm = times.get("artifact-sync_sigterm")
+
+    promote_s, load_s, meta = _promote_and_load(api, job_id, "K")
+    served = _generate_against_engine(ctx, job_id, meta["vocab_size"], K_PROMPTS,
+                                      CONTROL_NEW_TOKENS, seed, "k")
+    return {
+        "job_id": job_id, "second_job_id": second, "layers": K_LAYERS,
+        "statuses": [st for st in ("queued", "running", "succeeded") if st in seen],
+        "losses": [r["loss"] for r in records], "gpu_resource": resource,
+        "submit_to_admitted_s": admitted - t_submit,
+        "submit_to_running_s": seen["running"] - t_submit,
+        "submit_to_first_ws_line_s": first_payload_ts - t_submit,
+        "training_duration": job["training_duration"],
+        "completed_to_succeeded_s": at["succeeded"] - times["completed"],
+        "completed_to_deleted_s": deleted - times["completed"],
+        "server_monitor_ticks": rt.monitor.ticks, "daemon_ticks": daemon_ticks,
+        "queue_snapshot": snapshot, "waiting_lines": len(waiting),
+        "ws_payload_lines": len(payload),
+        "ws_close_after_trainer_exit_s": follow.close[2] - times["trainer_exit"],
+        "ms_per_step": step_ms, "ms_per_step_median": steady[len(steady) // 2],
+        "median_over_steps": [r["step"] for r in records if r["step"] > 1],
+        "trainer_exit_to_completed_s": times["completed"] - times["trainer_exit"],
+        "sidecar_end": "SIGTERMed after the trainer exited" if sigterm
+        else "exited on done.txt before the trainer's exit was seen",
+        "sidecar_sigterm_to_exit_s": (times["artifact-sync_exit"] - sigterm) if sigterm
+        else None,
+        "pod_artifact_files": len(local), "pod_artifact_bytes": tree_bytes(artifacts),
+        "pod_files_not_synced": sorted(set(_sha_tree(artifacts)) - matched),
+        "flash_launches": {n: launches.get(n, 0) for n in FLASH_KERNELS},
+        "promote_s": promote_s, "model_load_s": load_s,
+        **{k: served[k] for k in ("ttft_s", "decode_tokens_per_s", "requests_ok", "requests",
+                                  "generated_tokens", "paged_launches")},
+    }
 
 
 REMAT_PHASE_POLICIES = ("none", "full", "mlp", "attn", "mlp_qkv", "flash", "mlp_flash", "wide",
@@ -5796,10 +6560,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         # D: C's job with its state in statestore_main and its objects on
         # S3, its log followed over a WebSocket; /generate in this process
-        storage = storage_phase(work, args.seed)
-        paged_entry["launches"] += storage["paged_launches"]
-        paged_entry["launches_by_path"]["d_generate"] = storage["paged_launches"]
-        DISK.mark("D")
+        # K: the k8s backend on D's S3 and state service; its pod's trainer
+        # counts its flash launches in its events, /generate runs here
+        storage, k8s = storage_phase(work, args.seed, card)
+        for path, record in (("d_generate", storage), ("k_generate", k8s)):
+            paged_entry["launches"] += record["paged_launches"]
+            paged_entry["launches_by_path"][path] = record["paged_launches"]
+        DISK.mark("K")
         gc.collect()
         torch.cuda.empty_cache()
         prefs, prefs_eval = preference_rows(work, args.seed)
@@ -5926,7 +6693,8 @@ def main(argv=None) -> int:
                      + reward["flash_launches"][name] + rlhf["flash_launches"][name]
                      + remote["flash_launches"][name] + remote["reward_flash_launches"][name]
                      + resilience["flash_launches"][name] + r2_launches[name]
-                     + workers["w2"]["flash_launches"][name] + t5_launches[name]),
+                     + workers["w2"]["flash_launches"][name] + k8s["flash_launches"][name]
+                     + t5_launches[name]),
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
             "c_job_profile_steps": control["flash_launches_in_profile"][name],
@@ -5941,6 +6709,7 @@ def main(argv=None) -> int:
             "r_job_both_attempts": resilience["flash_launches"][name],
             "r2_snapshot_in_process": r2_launches[name],
             "w2_warm_job": workers["w2"]["flash_launches"][name],
+            "k_pod_trainer": k8s["flash_launches"][name],
             "t5_remat_in_process_all_policies": t5_launches[name]},
         "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
@@ -5964,6 +6733,7 @@ def main(argv=None) -> int:
     print(json.dumps({"resilience": resilience}), flush=True)
     print(json.dumps({"workers": workers}), flush=True)
     print(json.dumps({"storage": storage}), flush=True)
+    print(json.dumps({"k8s": k8s}), flush=True)
     print(json.dumps({"remat": remat}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",

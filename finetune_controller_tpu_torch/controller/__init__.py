@@ -13,11 +13,12 @@ is the reference; nothing of it is imported), with these differences:
   or on the host (flavor ``cpu-test``);
 - promoted jobs are served by the port's fleet and engine on the
   ``device`` setting (``FTC_DEVICE``);
-- the substrate is the local backend; the state lives in sqlite or in
-  the shared state service (``statestore_service.py``,
-  ``statestore_main.py``), the objects in the local store, S3 or GCS
-  (``s3.py``, ``gcs.py``); ``storage_cli.py`` is the pod-side storage
-  CLI and ``monitor_main.py`` the standalone monitor daemon.  The k8s
-  backend and multi-card meshes raise, naming their ROADMAP Queue A
-  items.
+- the substrate is the local backend or the k8s backend (JobSets on
+  ``nvidia.com/gpu`` nodes, admitted by Kueue, through a stdlib client of
+  the kube API); the state lives in sqlite or in the shared state service
+  (``statestore_service.py``, ``statestore_main.py``), the objects in the
+  local store, S3 or GCS (``s3.py``, ``gcs.py``); ``storage_cli.py`` is
+  the pod-side storage CLI and ``monitor_main.py`` the standalone monitor
+  daemon.  Multi-card meshes and multi-host jobs raise, naming ROADMAP
+  Queue A item 7.
 """

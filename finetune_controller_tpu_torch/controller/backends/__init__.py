@@ -3,13 +3,13 @@
 The reference delegates execution to a Kubernetes cluster (Kubeflow
 ``PyTorchJob`` + Kueue — SURVEY.md §2 components 6/10/11/24). Here the seam is
 an explicit interface (:class:`~finetune_controller_tpu_torch.controller.backends.base.TrainingBackend`).
-The port has one implementation:
+The port has two implementations:
 
 - :mod:`.local` — in-process fake cluster running the port's trainer as
   subprocesses, with gang-scheduled admission. Carries the CI/integration
   story the reference never had (SURVEY.md §4).
-
-The reference's k8s backend is not ported yet (ROADMAP Queue A item 3c).
+- :mod:`.k8s` — JobSet manifests admitted by Kueue on ``nvidia.com/gpu``
+  nodes, through a stdlib client of the kube API.
 """
 
 from .base import BackendError, TrainingBackend

@@ -1,9 +1,11 @@
 """Settings for the control plane.
 
-The port's copy adds one setting, ``device`` (``FTC_DEVICE``, default
-``cuda``): the torch device the serve manager loads promoted models onto
-(``serve/loader.py``).  With ``cuda`` and no card the first load raises;
-nothing drops to the host.  The tests set ``cpu``.
+The port's copy adds two settings: ``device`` (``FTC_DEVICE``, default
+``cuda``), the torch device the serve manager loads promoted models onto
+(``serve/loader.py``) — with ``cuda`` and no card the first load raises;
+nothing drops to the host; the tests set ``cpu`` — and ``kube_api_url``
+(``FTC_KUBE_API_URL``), the k8s backend's API server when it is not the
+in-cluster one.
 
 Capability parity with the reference's pydantic-settings singleton
 (``app/core/config.py:16-93``) with its two warts fixed:
@@ -128,6 +130,11 @@ class Settings(BaseModel):
     # --- Backend selection ---
     backend: str = "local"  # local | k8s
     monitor_in_process: bool = True  # reference: DEV_LOCAL_JOB_MONITOR (config.py:51)
+    #: the k8s backend's API server: empty = in-cluster
+    #: (``https://$KUBERNETES_SERVICE_HOST:$KUBERNETES_SERVICE_PORT`` with the
+    #: pod's service-account token and CA); else the base URL to use, e.g. a
+    #: ``kubectl proxy`` (``http://127.0.0.1:8001``)
+    kube_api_url: str = ""
 
     # --- Rate limits per minute (reference: app/main.py:377,525,714) ---
     rate_limit_submit_per_min: int = 10

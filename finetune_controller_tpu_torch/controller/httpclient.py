@@ -12,8 +12,9 @@ callers (``objectstore.HttpObjectStore``, ``s3.py``, ``gcs.py``,
   session.request(...) as resp`` (or awaited), default headers, ``close``;
   ``ws_connect`` for a client WebSocket;
 * :class:`ClientResponse` — ``status``, ``headers``, ``read()``,
-  ``text()``, ``json()``, ``content.iter_chunked(n)`` (the body read as a
-  stream), ``raise_for_status()``;
+  ``text()``, ``json()``, ``content.iter_chunked(n)`` and ``async for line
+  in content`` (the body read as a stream of chunks or of lines),
+  ``raise_for_status()``;
 * :class:`ClientTimeout` — ``total`` (the whole request, body included),
   ``connect`` and ``sock_read`` (each read of the socket);
 * :class:`ClientError` and its subclasses, all ``OSError``\\ s.
@@ -129,7 +130,10 @@ class _Conn:
 
 class StreamReader:
     """A response body as the server sends it: ``read(n)`` gives up to ``n``
-    bytes (``b""`` at the end), ``iter_chunked(n)`` iterates them."""
+    bytes (``b""`` at the end), ``iter_chunked(n)`` iterates them,
+    ``readline()`` gives one line with its ``\\n`` (the last one may lack
+    it) and ``async for line in reader`` iterates the lines, as aiohttp's
+    ``StreamReader`` does."""
 
     def __init__(self, resp: "ClientResponse", length: int | None, chunked: bool):
         self._resp = resp
@@ -137,6 +141,8 @@ class StreamReader:
         self._chunked = chunked
         self._chunk_left = 0
         self.at_eof = length == 0
+        #: bytes read past the last line ``readline`` returned
+        self._pending = b""
 
     async def read(self, n: int = -1) -> bytes:
         if n < 0:
@@ -144,6 +150,9 @@ class StreamReader:
             while chunk := await self.read(_READ_BYTES):
                 out += chunk
             return bytes(out)
+        if self._pending:
+            out, self._pending = self._pending[:n], self._pending[n:]
+            return out
         if self.at_eof:
             return b""
         conn, dl = self._resp._conn, self._resp._deadline
@@ -193,6 +202,26 @@ class StreamReader:
     async def iter_chunked(self, n: int) -> AsyncIterator[bytes]:
         while chunk := await self.read(n):
             yield chunk
+
+    async def readline(self) -> bytes:
+        buf = bytearray()
+        while True:
+            chunk = await self.read(_READ_BYTES)
+            if not chunk:
+                return bytes(buf)
+            end = chunk.find(b"\n")
+            if end >= 0:
+                buf += chunk[:end + 1]
+                self._pending = chunk[end + 1:] + self._pending
+                return bytes(buf)
+            buf += chunk
+
+    async def _lines(self) -> AsyncIterator[bytes]:
+        while line := await self.readline():
+            yield line
+
+    def __aiter__(self) -> AsyncIterator[bytes]:
+        return self._lines()
 
 
 class ClientResponse:
@@ -305,9 +334,12 @@ class ClientSession:
     """Requests over pooled keep-alive connections (``aiohttp.ClientSession``)."""
 
     def __init__(self, *, timeout: ClientTimeout = DEFAULT_TIMEOUT,
-                 headers: dict[str, str] | None = None):
+                 headers: dict[str, str] | None = None,
+                 ssl_context: ssl.SSLContext | None = None):
         self.timeout = timeout
         self._headers = dict(headers or {})
+        #: TLS for ``https`` URLs (default: the system's trust store)
+        self._ssl = ssl_context
         self._idle: dict[tuple, list[_Conn]] = {}
         self._closed = False
 
@@ -334,7 +366,7 @@ class ClientSession:
         secure, host, port = key
         try:
             reader, writer = await deadline.io(asyncio.open_connection(
-                host, port, ssl=ssl.create_default_context() if secure else None,
+                host, port, ssl=(self._ssl or ssl.create_default_context()) if secure else None,
                 limit=_BUFFER_BYTES), deadline.timeout.connect)
         except TimeoutError:
             raise

@@ -17,8 +17,8 @@ so a split deployment scrapes both halves of the control plane.
 The port's copy serves ``/metrics`` on ``controller/web.py``.  The local
 backend keeps its job handles in the process that started the job, so a
 daemon beside an API process on the local backend reconciles none of that
-process's live jobs: the split layout needs a cluster-shared backend
-(k8s, ROADMAP Queue A item 3c).
+process's live jobs: the split layout runs on the k8s backend
+(``FTC_BACKEND=k8s``), whose jobs live in the cluster.
 """
 
 from __future__ import annotations

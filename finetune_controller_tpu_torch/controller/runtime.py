@@ -8,8 +8,9 @@ component can be swapped in tests.
 
 The port assembles the sqlite (or jsonl/memory) state store or the remote
 state service's client (``state_backend="remote"``), the local, S3 or GCS
-object store and the local backend; the k8s backend raises
-``NotImplementedError`` naming its ROADMAP item.
+object store and the local or k8s backend; the k8s backend's pods get the
+server's object-store settings and credentials
+(:func:`~.backends.k8s.object_store_env`).
 """
 
 from __future__ import annotations
@@ -119,9 +120,12 @@ def build_runtime(
             sched_grow_delay_s=settings.sched_grow_delay_s,
         )
     elif settings.backend == "k8s":
-        raise NotImplementedError(
-            "backend='k8s' is not ported yet (ROADMAP Queue A item 3c); use "
-            "'local'"
+        from .backends.k8s import K8sJobSetBackend, object_store_env
+
+        # the pods' storage CLI reads and writes the store this server
+        # reads (the reference's runtime passes no store env: ROADMAP Queue C)
+        backend = K8sJobSetBackend(
+            catalog, settings, object_store_env=object_store_env(settings)
         )
     else:
         raise ValueError(f"unknown backend {settings.backend!r}")

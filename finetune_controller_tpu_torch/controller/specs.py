@@ -290,11 +290,13 @@ class BaseFineTuneJob(BaseModel):
             spec["extra_arguments"] = args
         return spec
 
-    def run_cmd(self, spec_path: str = "/data/job.json") -> str:
+    def run_cmd(self, spec_path: str = "/data/job.json", *, device: str | None = None) -> str:
         """Container command for K8s-style backends (reference:
         ``finetuning.py:98-104``; done.txt convention
-        ``PyTorchJobDeployer.py:30-32``)."""
+        ``PyTorchJobDeployer.py:30-32``).  ``device`` is the trainer CLI's
+        ``--device`` (``cpu`` for a cpu flavor; none: the card)."""
+        device_arg = f" --device {shlex.quote(device)}" if device else ""
         return (
             f"python -m finetune_controller_tpu_torch.train.cli --spec {shlex.quote(spec_path)}"
-            f" && touch {shlex.quote(self.checkpoint_mount)}/done.txt"
+            f"{device_arg} && touch {shlex.quote(self.checkpoint_mount)}/done.txt"
         )

@@ -9,6 +9,9 @@ reference injects into every training pod
     python -m finetune_controller_tpu_torch.controller.storage_cli sync /data/artifacts \
         obj://artifacts/... --interval 60 --until-done-file /data/artifacts/done.txt
 
+(``sync`` with ``--until-done-file`` also makes its final pass on SIGTERM and
+exits 0: see :func:`cmd_sync`.)
+
 The store comes from the settings: ``FTC_OBJECT_STORE_BACKEND=local`` with
 ``FTC_OBJECT_STORE_ROOT`` (a shared volume / NFS mount in-cluster), ``s3``
 (``FTC_S3_ENDPOINT``, ``FTC_S3_REGION``, ``FTC_S3_BUCKET_PREFIX`` and the
@@ -22,7 +25,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import logging
+import signal
 from pathlib import Path
 
 from .config import get_settings
@@ -53,10 +58,22 @@ async def cmd_sync(
     src: str, dest_uri: str, *, interval: float, until_done_file: str | None,
     patterns: list[str] | None,
 ) -> int:
+    """One pass (no ``until_done_file``), or the sidecar's loop: a pass
+    every ``interval`` until the done file exists, then a final pass.
+
+    In the loop SIGTERM ends the wait at once and runs the final pass, then
+    exits 0.  The kubelet SIGTERMs a native sidecar when the trainer
+    container exits, most likely while the sidecar sleeps between passes:
+    the reference's sidecar dies on the signal there, and the trainer's
+    last files and ``done.txt`` never reach the store (ROADMAP Queue C)."""
     store = _store()
     src_path = Path(src)
     synced: dict[str, tuple[float, int]] = {}
     done = Path(until_done_file) if until_done_file else None
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    if done is not None:
+        loop.add_signal_handler(signal.SIGTERM, stop.set)
     try:
         while True:
             try:
@@ -73,16 +90,20 @@ async def cmd_sync(
                     logger.exception("one-shot sync failed")
                     return 1
                 logger.exception("sync pass failed; retrying")
-            if done is not None and done.exists():
+            if done is not None and (done.exists() or stop.is_set()):
                 await sync_dir_to_store(  # final pass
                     store, src_path, dest_uri, patterns=patterns, synced=synced
                 )
-                logger.info("done-file present; exiting after final sync")
+                logger.info("%s; exiting after final sync",
+                            "SIGTERM" if stop.is_set() else "done-file present")
                 return 0
             if done is None:
                 return 0  # one-shot mode
-            await asyncio.sleep(interval)
+            with contextlib.suppress(TimeoutError):
+                await asyncio.wait_for(stop.wait(), interval)
     finally:
+        if done is not None:
+            loop.remove_signal_handler(signal.SIGTERM)
         await store.close()
 
 

@@ -16,9 +16,9 @@ results equal:
   it with the ``csv`` module, the reference with pandas).
 
 Every comparison is exact (tolerance 0): these are host-side copies and
-must agree bit for bit.  The port's own refusals (one-device meshes, the
-k8s substrate not ported yet) and the S3, GCS and remote-state factories
-are pinned at the end.
+must agree bit for bit.  The port's own refusals (one-device meshes, a
+multi-host job on the k8s backend) and the S3, GCS, remote-state and k8s
+factories are pinned at the end.
 """
 
 from __future__ import annotations
@@ -310,8 +310,8 @@ def test_unported_substrates_raise(tmp_path):
     from finetune_controller_tpu_torch.controller.s3 import S3ObjectStore
     from finetune_controller_tpu_torch.controller.statestore_service import RemoteStateStore
 
-    # GCS, S3 and the shared state service are ported (ROADMAP items 3d,
-    # 3e): the factories build them; the k8s backend (item 3c) still raises
+    # GCS, S3, the shared state service and the k8s backend are ported
+    # (ROADMAP items 3c, 3d, 3e): the factories build them
     for backend, kind in (("gcs", GCSObjectStore), ("s3", S3ObjectStore)):
         settings = port_config.Settings(object_store_backend=backend)
         assert isinstance(port_objectstore.build_object_store(settings), kind)
@@ -321,8 +321,19 @@ def test_unported_substrates_raise(tmp_path):
     remote = build_runtime(port_config.Settings(
         state_backend="remote", state_service_url="http://127.0.0.1:1", **base))
     assert isinstance(remote.state, RemoteStateStore)
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        build_runtime(port_config.Settings(backend="k8s", **base))
+    from finetune_controller_tpu_torch.controller.backends.k8s import K8sJobSetBackend
+
+    k8s = build_runtime(port_config.Settings(backend="k8s", **base)).backend
+    assert isinstance(k8s, K8sJobSetBackend)
+    # one card in one pod: a multi-host job is refused (item 7), before
+    # anything reaches the API server
+    spec = port_examples.TinyTestLoRA(training_arguments=port_examples.LoRASFTArguments(
+        total_steps=2, batch_size=2, seq_len=16, lora_rank=2))
+    wide = port_schemas.JobInput(job_id="wide-1", user_id="u", model_name="tiny-test-lora",
+                                 device="cpu-test", num_slices=2, arguments={})
+    with pytest.raises(NotImplementedError, match="item 7"):
+        asyncio.run(k8s.submit(wide, spec, port_devices.default_catalog().get("cpu-test"),
+                               dataset_uri=None, artifacts_uri="obj://artifacts/wide-1"))
     store = port_objectstore.LocalObjectStore(tmp_path / "o")
     # the warm trainer pool is ported: a backend with warm_workers=1
     # prewarms one trainer process, which exits 0 when the pool closes

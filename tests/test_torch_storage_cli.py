@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import asyncio
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -223,3 +224,49 @@ def test_sidecar_leaves_in_flight_atomic_writes_out(tmp_path):
             f"j/{rel}": data for rel, data in _tree(src).items()}
     finally:
         fake.close()
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_sigterm_mid_interval_runs_the_final_sync(tmp_path, pkg):
+    """The kubelet SIGTERMs a native sidecar when the trainer container
+    exits; the sidecar is then most likely asleep between two passes.  The
+    port's ``sync --until-done-file`` makes its final pass on SIGTERM and
+    exits 0, so the trainer's last files and ``done.txt`` reach the store;
+    the reference's dies on the signal and loses them (the divergence
+    ROADMAP Queue C records).  Tolerance: exact, on keys and bytes."""
+    src = tmp_path / "artifacts"
+    src.mkdir()
+    (src / "metrics.csv").write_bytes(b"step,loss\n1,2.0\n")
+    objects = tmp_path / "objects"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PACKAGES[pkg][0]}.controller.storage_cli", "sync",
+         str(src), "obj://artifacts/j", "--interval", "60", "--until-done-file",
+         str(src / "done.txt")],
+        env={**os.environ, **_env("local", str(objects)), "PYTHONPATH": str(ROOT),
+             "JAX_PLATFORMS": "cpu"},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        first = objects / "artifacts" / "j" / "metrics.csv"
+        deadline = time.time() + 60
+        while not first.exists():  # the first pass is done; the sidecar sleeps
+            assert proc.poll() is None and time.time() < deadline, proc.stderr.read()
+            time.sleep(0.05)
+        time.sleep(0.3)
+        last = {"metrics.csv": b"step,loss\n1,2.0\n2,1.0\n",
+                "adapter/adapter_model.safetensors": os.urandom(5000), "done.txt": b""}
+        for rel, data in last.items():
+            (src / rel).parent.mkdir(parents=True, exist_ok=True)
+            (src / rel).write_bytes(data)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stored = {k.split("j/", 1)[1]: v for k, v in _tree(objects).items()}
+    if pkg == "port":
+        assert rc == 0
+        assert stored == last
+    else:
+        assert rc == -signal.SIGTERM
+        assert stored == {"metrics.csv": b"step,loss\n1,2.0\n"}
