@@ -14,7 +14,7 @@ Phases (any failure exits non-zero and prints no result line):
    boundaries, lanes shorter than one split beside full ones, S·G on both
    sides of the decode/prefill threshold, 1 to 7 splits), each launched
    twice for identical bits; the three flash kernels (T1) in f32 and bf16,
-   D 64 and 128, GQA groups 1 and 4, S 40/100/257, causal with segment ids
+   D 64, 128 and 256, GQA groups 1 and 4, S 40/100/257, causal with segment ids
    and full attention with fully masked rows, with a non-zero lse
    cotangent, and at S=300 on the segment layouts of tile skipping (packed,
    16-token documents, boundaries on tile edges, non-monotonic ids,
@@ -291,6 +291,21 @@ Phases (any failure exits non-zero and prints no result line):
     rising; printed: submit -> admitted and -> first WebSocket line, the
     median step, the sidecar's SIGTERM -> exit, Completed -> SUCCEEDED, K's
     writes (at most ``K_DISK_BYTES``) and the card;
+    (G) after K, Gemma's head dim 256 (:func:`gemma_phase`): the three flash
+    kernels against their plain versions at Gemma-7B's (H = Hkv = 16) and
+    Gemma-2B's (H = 8, Hkv = 1) heads, B=2, S=2048, bf16 and f32, with and
+    without segment ids; their times at Gemma-7B's heads beside the plain
+    version, SDPA and the bound; the shipped ``gemma-7b-lora`` submitted by
+    its ``model_name`` (full width, ``G_LAYERS`` = 8 of 28 layers, the
+    example's 8 x 512 batch, 5 steps): SUCCEEDED with finite losses, its
+    trainer's ``kernel_launches`` holding ``G_FLASH_PER_STEP`` a step of
+    each flash kernel, then promoted and one ``/generate`` equal to an
+    in-process engine through the paged kernel at D = 256;
+    (O) the JAX package's orbax checkpoint of ``tests/fixtures/
+    jax_orbax_tiny`` restored through ``train/ocdbt.py`` with the native
+    zstd decoder and its ``tiny-test`` job resumed on the card to the JAX
+    package's recorded losses (``O_LOSS_RTOL``); the decoder timed over the
+    fixture's largest frame (MB/s);
 11. (T3) one loss and the LoRA gradients of a 2-layer, full-width model on
     a packed microbatch of the run, ``FTC_FLASH_ATTN=kernel`` against
     ``plain``, with a ``torch.profiler`` breakdown of the kernel step;
@@ -321,10 +336,11 @@ Phases (any failure exits non-zero and prints no result line):
     the job).  ``tiny-test`` runs the plain attention by its config (head
     dim 16, ``attention_impl="xla"``); the kernels are held on the
     full-width phases;
-14. print the ``kernels``, ``serve``, ``serve_tenants``, ``control``,
-    ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``, ``fidelity``,
-    ``resilience``, ``workers``, ``storage``, ``k8s``, ``remat`` and ``train``
-    lines, the card line, and last ``{"ok": true, "device": {...}}``.
+14. print the ``kernels`` (the four TPU kernels' ports, and the three
+    flash kernels at D = 256 as ``*_d256``), ``serve``, ``serve_tenants``,
+    ``control``, ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``,
+    ``fidelity``, ``resilience``, ``workers``, ``storage``, ``k8s``,
+    ``gemma``, ``orbax``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -547,7 +563,7 @@ def flash_compare(q, k, v, dout, dlse, seg, kvseg, causal):
 
 def flash_check_small() -> dict:
     """First launches: each flash kernel against its plain version at small
-    shapes — f32 and bf16, D 64 and 128, groups 1 and 4, S 40/100/257,
+    shapes — f32 and bf16, D 64, 128 and 256, groups 1 and 4, S 40/100/257,
     causal with segment ids and full attention with distinct key segments
     (so some rows are fully masked), with a lse cotangent; then causal at
     S=300 on each layout of ``flash_check.segment_layouts`` (packed,
@@ -559,7 +575,7 @@ def flash_check_small() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 128):
+        for d in (64, 128, 256):
             for group in (1, 4):
                 for s in (40, 100, 257):
                     for causal in (True, False):
@@ -709,7 +725,7 @@ def flash_bench(seg, reps: int, seed: int) -> dict:
     }
     out_rows = {}
     for name, (kern, plain, lib) in variants.items():
-        tq, tk = fa.TILES[name]
+        tq, tk = fa.TILES[d][name]
         executed, live_share = executed_pairs(seg, tq, tk, True)
         all_causal, _ = executed_pairs(seg, tq, tk, False)
         ms_all = cuda_time_ms(no_segments[name], reps)
@@ -6414,6 +6430,240 @@ def model_check(seg, seed: int) -> dict:
 
 #: the port's ``record_function`` ranges: on the device timeline they span
 #: kernels that are counted on their own
+#: G: the flash kernels at Gemma's head dim 256, (B, S, H, Hkv, D): Gemma-7B's
+#: heads (multi-head) and Gemma-2B's (one KV head); the first is timed
+G_FLASH_SHAPES = {"gemma-7b": (2, 2048, 16, 16, 256), "gemma-2b": (2, 2048, 8, 1, 256)}
+#: G's job: the shipped Gemma-7B example by its ``model_name`` at the
+#: example's batch and sequence length (8 x 512), 5 steps
+G_MODEL = "gemma-7b-lora"
+G_FLAVOR = "h100"
+G_ARGS = {"total_steps": 5, "checkpoint_every": 5, "log_every": 1}
+#: G's depth, set by an operator plugin (``GEMMA_CUT_PLUGIN``): the whole run
+#: must end inside 1200 s
+G_LAYERS = 8
+#: flash launches a step of G's job: ``mlp`` remat runs the forward twice
+#: (``REMAT_FLASH_FORWARDS``), one microbatch a step
+G_FLASH_PER_STEP = {"flash_forward": 2 * G_LAYERS, "flash_backward_dq": G_LAYERS,
+                    "flash_backward_dkv": G_LAYERS}
+#: the greedy ``/generate`` request after promotion (prompt tokens, new tokens)
+G_PROMPTS = (64,)
+G_NEW_TOKENS = 8
+GEMMA_CUT_PLUGIN = '''"""``gemma-7b-lora`` at {layers} of its 28 layers."""
+
+from finetune_controller_tpu_torch.controller.examples import Gemma7B_LoRA
+
+
+class Gemma7B_LoRA_Cut(Gemma7B_LoRA):
+    def build_trainer_spec(self, job_id, artifacts_dir, **kw):
+        spec = super().build_trainer_spec(job_id, artifacts_dir, **kw)
+        spec["model"].setdefault("overrides", {{}})["n_layers"] = {layers}
+        return spec
+'''
+
+
+def gemma_flash_check(seed: int) -> dict:
+    """G1: the three flash kernels against their plain versions at D = 256,
+    Gemma-7B's and Gemma-2B's heads, bf16 and f32, causal with and without
+    segment ids (``flash_compare``, ``TOLERANCE``).  Returns the worst error
+    of each kernel by dtype and every case's errors."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 256)
+    worst = {dt: dict.fromkeys(FLASH_KERNELS, 0.0) for dt in ("bfloat16", "float32")}
+    cases = []
+    for model, (b, s, h, hkv, d) in G_FLASH_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for segments in (True, False):
+                q, k, v, dout, dlse, seg = flash_inputs(gen, b, s, h, hkv, d, dtype, segments)
+                errs = flash_compare(q, k, v, dout, dlse, seg, None, True)
+                name = str(dtype).split(".")[1]
+                for kernel, e in errs.items():
+                    worst[name][kernel] = max(worst[name][kernel], e)
+                cases.append({"model": model, "dtype": name, "segments": segments,
+                              "max_abs_err": errs})
+                del q, k, v, dout, dlse, seg
+                torch.cuda.empty_cache()
+    return {"worst": worst, "cases": cases}
+
+
+def gemma_phase(work, seed: int, reps: int) -> dict:
+    """G: Gemma's head dim 256 on the card.  G1 (:func:`gemma_flash_check`);
+    G2 the kernels timed at Gemma-7B's heads beside the plain version, SDPA
+    and the bound (:func:`flash_shape_bench`, bf16, causal, no segment ids,
+    two launches bit-equal); G3 the shipped ``G_MODEL`` submitted by its
+    ``model_name`` to the port's server (``G_FLAVOR``, full width, random
+    base weights from the job's seed, ``G_LAYERS`` of 28 layers by an
+    operator plugin, ``G_ARGS``, T2's documents): SUCCEEDED with finite
+    losses, the trainer's ``kernel_launches`` events holding
+    ``G_FLASH_PER_STEP`` launches a step of each flash kernel (the model's
+    only head dim is 256), then promoted, loaded and one greedy
+    ``/generate`` equal to an in-process engine through the paged kernel
+    (its count zeroed just before and read just after).  Writes no HF base
+    directory."""
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+
+    t_phase = time.perf_counter()
+    head_dim = PRESETS[G_MODEL.removesuffix("-lora")].head_dim
+    checks = gemma_flash_check(seed) if DEVICE == "cuda" else {}
+    t_checks = time.perf_counter() - t_phase
+    bench = (flash_shape_bench(G_FLASH_SHAPES["gemma-7b"], reps, seed, "G2")
+             if DEVICE == "cuda" else {})
+    t_bench = time.perf_counter() - t_phase - t_checks
+    ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_gemma"
+    shutil.rmtree(ctrl, ignore_errors=True)
+    (ctrl / "plugins").mkdir(parents=True)
+    (ctrl / "plugins" / "gemma_depth.py").write_text(GEMMA_CUT_PLUGIN.format(layers=G_LAYERS))
+    docs = Path(work) / "train.jsonl"
+    if not docs.exists():
+        write_documents(docs, seed)
+    t_job = time.perf_counter()
+    with control_plane(ctrl, CONTROL_ENV, plugin_dir=ctrl / "plugins") as ctx:
+        api, scrape, rt, settings, on_loop, _ = ctx
+        dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
+                         want=(201,))
+        t_submit = time.time()
+        job_id = api.ok("POST", "/jobs", fields={
+            "model_name": G_MODEL, "device": G_FLAVOR, "dataset_id": dataset["dataset_id"],
+            "arguments": json.dumps(G_ARGS)})["job_id"]
+        job, seen, logs = _follow_job(api, job_id, t_submit, "G")
+        steps = G_ARGS["total_steps"]
+        records = _job_rows(api, job_id, steps, "G")
+        _, at = _timeline(api, job_id, ("submitted", "train-started", "succeeded"), "G")
+        sandbox = settings.state_path / "sandboxes" / job_id / "artifacts"
+        events = [json.loads(ln) for ln in (sandbox / "events.jsonl").read_text().splitlines()]
+        launches = attempt_launches(events)
+        want = {name: n * steps for name, n in G_FLASH_PER_STEP.items()}
+        if DEVICE == "cuda" and (len(launches) != 1 or {
+                name: launches[0].get(name, 0) for name in FLASH_KERNELS} != want):
+            raise SmokeFailure(f"G: flash launches {launches} over {steps} steps, want {want}")
+        promote_s, load_s, meta = _promote_and_load(api, job_id, "G")
+        served = _generate_against_engine(ctx, job_id, meta["vocab_size"], G_PROMPTS,
+                                          G_NEW_TOKENS, seed, "g")
+        job_bytes = tree_bytes(settings.state_path / "sandboxes" / job_id)
+    from finetune_controller_tpu_torch.controller.examples import LoRASFTArguments
+
+    defaults = LoRASFTArguments()
+    tokens = defaults.batch_size * defaults.seq_len
+    step_ms = [tokens / r["tokens_per_sec"] * 1e3 for r in records]
+    steady = sorted(step_ms[1:])
+    record = {
+        "job_id": job_id, "model": G_MODEL, "layers": G_LAYERS, "head_dim": head_dim,
+        "batch_size": defaults.batch_size, "seq_len": defaults.seq_len,
+        "statuses": [st for st in ("queued", "running", "succeeded") if st in seen],
+        "losses": [r["loss"] for r in records], "ms_per_step": step_ms,
+        "ms_per_step_median": steady[len(steady) // 2],
+        "tokens_per_s_median": tokens / (steady[len(steady) // 2] / 1e3),
+        "submit_to_first_step_s": records[0]["timestamp"] - at["submitted"],
+        "flash_launches": launches[0] if launches else {},
+        "promote_s": promote_s, "model_load_s": load_s,
+        **{k: served[k] for k in ("ttft_s", "decode_tokens_per_s", "requests_ok", "requests",
+                                  "generated_tokens", "paged_launches", "prompts", "answers")},
+        "job_sandbox_bytes": job_bytes, "flash_check": checks, "flash_bench": bench,
+        "checks_s": t_checks, "bench_s": t_bench, "job_s": time.perf_counter() - t_job,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    shutil.rmtree(ctrl, ignore_errors=True)
+    return record
+
+
+def _report_gemma(g: dict) -> None:
+    for dt, worst in g["flash_check"].get("worst", {}).items():
+        log(f"G1 flash at D=256 (Gemma-7B H=Hkv=16, Gemma-2B H=8 Hkv=1; B=2, S=2048; causal "
+            f"with and without segment ids) {dt} worst max abs err vs plain: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()))
+    for name, r in g["flash_bench"].items():
+        log(f"G2 {name} at B=2, S=2048, H=Hkv=16, D=256, causal, no segment ids: kernel "
+            f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, share of bound "
+            f"{r['bound_share']:.3f}), plain {r['plain_ms']:.3f} ms, library (SDPA) "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"max abs err {r['max_abs_err']:.4g}")
+    log(f"G3 {g['model']} ({g['layers']} of 28 layers, head dim {g['head_dim']}): "
+        f"{' -> '.join(g['statuses'])}, {g['batch_size']} x {g['seq_len']} tokens, losses "
+        f"{[round(x, 4) for x in g['losses']]}, steps {[round(x) for x in g['ms_per_step']]} ms, "
+        f"{g['ms_per_step_median']:.0f} ms/step median of steps 2-5, "
+        f"{g['tokens_per_s_median']:.0f} tokens/s; submit -> first step "
+        f"{g['submit_to_first_step_s']:.1f} s; flash launches {g['flash_launches']}; promote "
+        f"{g['promote_s']:.2f} s, load {g['model_load_s']:.1f} s; /generate "
+        f"{g['requests_ok']}/{g['requests']} equal to the in-process engine, TTFT "
+        f"{g['ttft_s'] * 1e3:.1f} ms, paged launches {g['paged_launches']}; checks "
+        f"{g['checks_s']:.1f} s, bench {g['bench_s']:.1f} s, job {g['job_s']:.1f} s, phase "
+        f"{g['phase_s']:.1f} s")
+
+
+#: O: the JAX package's orbax checkpoint of a ``tiny-test`` job, committed
+#: with its inputs and the JAX package's losses after resuming it
+#: (``tests/fixtures/make_jax_orbax_tiny.py``)
+O_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_orbax_tiny"
+#: the resumed losses against the JAX package's: the CPU test's tolerance
+#: (``test_the_committed_fixture_restores_to_the_jax_restore_and_resumes``)
+O_LOSS_RTOL = 2e-5
+#: decodes of the fixture's largest zstd frame timed for the decoder's rate
+O_RATE_REPS = 20
+
+
+def orbax_phase(work, seed: int) -> dict:
+    """O: the fixture restored through the port (``train/ocdbt.py``, its
+    zstd frames by the native decoder ``csrc/zstd_decode.cc``, built here
+    with the host compiler) and its ``tiny-test`` job resumed on the card
+    from step 2 through ``Trainer.fit``: the resumed losses within
+    ``O_LOSS_RTOL`` of the JAX package's; then the native decoder timed over
+    the fixture's largest frame (the 1 MB bf16 array's chunk), repeated,
+    in MB/s of output."""
+    import torch
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.train import ocdbt
+    from finetune_controller_tpu_torch.train.checkpoint import CheckpointManager
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    expected = json.loads((O_FIXTURE / "expected.json").read_text())
+    out = Path(work) / "orbax_resume"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(O_FIXTURE / "checkpoints", out / "checkpoints")
+    t0 = time.perf_counter()
+    ckpt = CheckpointManager(out / "checkpoints", sweep=False)
+    if ckpt.layout(expected["save_step"]) != "orbax":
+        raise SmokeFailure(f"O: step {expected['save_step']} is not in orbax's layout")
+    restored = ckpt.restore(expected["save_step"])
+    restore_s = time.perf_counter() - t0
+    cfg = PRESETS[expected["preset"]].replace(dtype=torch.float32,
+                                              lora=LoRAConfig(rank=expected["lora_rank"]))
+    trainer = Trainer(cfg, TrainConfig(**expected["train"]), device=DEVICE)
+    base = np.load(O_FIXTURE / "base.npz")
+    trainer.model.load_state_dict({k: torch.from_numpy(base[k]) for k in base.files})
+    packed = np.load(O_FIXTURE / "batches.npz")
+    batches = [{k.split("/", 1)[1]: packed[k] for k in packed.files if k.startswith(f"{i}/")}
+               for i in range(expected["train"]["total_steps"])]
+    t0 = time.perf_counter()
+    trainer.fit(batches, str(out))
+    resume_s = time.perf_counter() - t0
+    rows = _rows(out / "metrics.csv")
+    losses = [float(r["loss"]) for r in rows]
+    if [int(r["step"]) for r in rows] != expected["resumed_steps"] or not np.allclose(
+            losses, expected["losses"], rtol=O_LOSS_RTOL, atol=0):
+        raise SmokeFailure(f"O: resumed rows {[(r['step'], r['loss']) for r in rows]}, the "
+                           f"JAX package's {expected['losses']} (rtol {O_LOSS_RTOL})")
+    store = ocdbt.open_step(O_FIXTURE / "large" / "step_0")
+    frames = [(len(v), k, v) for k in store.keys() if not k.endswith(".zarray")
+              for v in [store.get(k)]]
+    size_c, key, frame = max(frames)
+    raw_bytes = int(np.prod(expected["large_shape"])) * 2
+    data = ocdbt.zstd_decompress(frame, raw_bytes)
+    t0 = time.perf_counter()
+    for _ in range(O_RATE_REPS):
+        ocdbt.zstd_decompress(frame, raw_bytes)
+    decode_s = (time.perf_counter() - t0) / O_RATE_REPS
+    shutil.rmtree(out, ignore_errors=True)
+    return {"restore_s": restore_s, "resume_s": resume_s, "losses": losses,
+            "jax_losses": expected["losses"],
+            "max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses, expected["losses"])),
+            "restored_step": int(restored["step"]), "frame_key": key,
+            "frame_bytes": size_c, "decoded_bytes": len(data),
+            "decode_ms": decode_s * 1e3, "decode_mb_per_s": len(data) / decode_s / 1e6,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 PROFILER_RANGES = ("int4_dequantize", "moe_route", "moe_dispatch", "vision_tower",
                    "mm_projector", "evaluate", "dpo_reference_forward")
 
@@ -6569,6 +6819,26 @@ def main(argv=None) -> int:
         DISK.mark("K")
         gc.collect()
         torch.cuda.empty_cache()
+        # G: Gemma's head dim 256, the kernels alone and the shipped job;
+        # the job's trainer counts its flash launches in its events
+        gemma = gemma_phase(work, args.seed, max(4, args.reps // 8))
+        _report_gemma(gemma)
+        paged_entry["launches"] += gemma["paged_launches"]
+        paged_entry["launches_by_path"]["g_generate"] = gemma["paged_launches"]
+        DISK.mark("G")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # O: the JAX package's orbax checkpoint resumed on the card
+        orbax = orbax_phase(work, args.seed)
+        log(f"O orbax fixture: restored in {orbax['restore_s']:.3f} s, resumed steps "
+            f"{orbax['losses']} against the JAX package's {orbax['jax_losses']} (max rel "
+            f"{orbax['max_rel_diff']:.3g}, rtol {O_LOSS_RTOL}) in {orbax['resume_s']:.1f} s; "
+            f"native zstd decoder over {orbax['frame_key']} ({orbax['frame_bytes']} -> "
+            f"{orbax['decoded_bytes']} bytes): {orbax['decode_ms']:.2f} ms, "
+            f"{orbax['decode_mb_per_s']:.1f} MB/s of output ({O_RATE_REPS} repeats, host CPU)")
+        DISK.mark("O")
+        gc.collect()
+        torch.cuda.empty_cache()
         prefs, prefs_eval = preference_rows(work, args.seed)
         dpo_check = dpo_objective_check(prefs, args.seed)
         log(f"P0 DPO objective (2 full-width layers, 8 pairs x 512, {dpo_check['padded_rows']} "
@@ -6715,6 +6985,13 @@ def main(argv=None) -> int:
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
         "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
         "library_ms": flash[name]["library_ms"],
+    } for name in FLASH_KERNELS] + [{
+        "name": f"{name}_d256", "route": "cuda", "source": src, "replaces": replaces[name],
+        "launches": gemma["flash_launches"][name],
+        "launches_by_path": {"g_job": gemma["flash_launches"][name]},
+        "tiles": fa.TILES[256][name],
+        **{f: gemma["flash_bench"][name][f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for name in FLASH_KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serve": serve_summary}), flush=True)
@@ -6734,6 +7011,8 @@ def main(argv=None) -> int:
     print(json.dumps({"workers": workers}), flush=True)
     print(json.dumps({"storage": storage}), flush=True)
     print(json.dumps({"k8s": k8s}), flush=True)
+    print(json.dumps({"gemma": gemma}), flush=True)
+    print(json.dumps({"orbax": orbax}), flush=True)
     print(json.dumps({"remat": remat}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",

@@ -1402,6 +1402,7 @@ def build_app(runtime: Runtime, *, with_monitor: bool | None = None) -> web.Appl
     if runtime.serve is None:
         runtime.serve = ServeManager(
             runtime.state, runtime.store, settings, obs=runtime.obs,
+            backend=runtime.backend,
         )
     elif getattr(runtime.serve, "obs", None) is None:
         runtime.serve.obs = runtime.obs

@@ -5,7 +5,7 @@
 //   wg::flash_fwd_wg / flash_fwd_kernel         <- _fwd_kernel (pallas_call in _flash_forward)
 //   wg::flash_bwd_dq_wg / flash_bwd_dq_kernel   <- _bwd_dq_kernel (first in _flash_backward)
 //   wg::flash_bwd_dkv_wg / flash_bwd_dkv_kernel <- _bwd_dkv_kernel (second in _flash_backward)
-// (the bf16 / the f32 kernel of each, for head dims 64 and 128).
+// (the bf16 / the f32 kernel of each, for head dims 64, 128 and 256).
 // Same contract: q, dO, out (B, S, H, D); k, v (B, S, Hkv, D) with head h
 // reading KV head h / (H / Hkv); optional int32 segment ids (B, S) for the
 // queries and for the keys; causal or full attention; lse and delta
@@ -531,7 +531,22 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // where dK and dV stay in registers, 2 x 64 a thread at D = 128).
 // setmaxnreg gives the consumers 240 registers (forward, dQ) or 232 (dK/dV,
 // whose producer also copies lse, delta and segment ids and keeps 40); 384
-// threads launch at 168 each.  Causal work grows with the query tile in the
+// threads launch at 168 each.
+//
+// Head dim 256 (Gemma) has tiles of its own: the 64 x 256 f32 accumulator of
+// a consumer warpgroup takes 128 registers a thread, and the D = 128 rings
+// would need 320-512 KiB of shared memory.  So at D = 256:
+//   forward  key tiles of 64 in 2 stages (64 KiB of Q + 128 KiB);
+//   dQ       one consumer warpgroup of 64 query rows (256 threads, no
+//            setmaxnreg: up to 255 registers a thread), key tiles of 64 in
+//            2 stages (64 KiB of Q and dO + 128 KiB);
+//   dK/dV    a block of 64 key rows whose two consumer warpgroups split D:
+//            each computes the whole Sᵀ and dPᵀ (reduced over all of D) and
+//            keeps dK and dV for its 128 columns, so a thread holds 2 x 64
+//            accumulators as at D = 128; query tiles of 64 in 2 stages
+//            (64 KiB of K and V + 128 KiB).  The two Sᵀ / dPᵀ products run
+//            twice per tile pair, 1.5x the operations of the four products.
+// The O and dQ products of 256 columns are one m64n256k16 wgmma each.  Causal work grows with the query tile in the
 // forward and dQ and shrinks with the key tile in dK/dV; the grid's y axis
 // is ordered so the heaviest blocks get the lowest indices and start first,
 // and the light ones fill the tail.
@@ -655,7 +670,7 @@ __device__ __forceinline__ int ring_setup(uint64_t* bars, const int* flags, int*
 // ---------------------------------------------------------------------------
 
 template <int D> struct Fwd {
-  static constexpr int NC = 2, BQ = 64 * NC, BK = 128, ST = D == 128 ? 2 : 4;
+  static constexpr int NC = 2, BQ = 64 * NC, BK = D == 256 ? 64 : 128, ST = D == 64 ? 4 : 2;
   static constexpr int NT = WG_THREADS * (NC + 1), P = D / 64;
   static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
   static constexpr size_t K_OFF = Q_BYTES, KSEG_OFF = K_OFF + (size_t)ST * 2 * KV_BYTES;
@@ -841,7 +856,11 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
 // ---------------------------------------------------------------------------
 
 template <int D> struct Dkv {
-  static constexpr int NC = 2, BK = 64 * NC, BQ = 64, ST = 3;
+  // SPLIT: both consumer warpgroups own the block's BK key rows, each the
+  // dK and dV of DH = D / 2 columns (D = 256); else each owns 64 rows
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int NC = 2, BK = SPLIT ? 64 : 64 * NC, BQ = 64, ST = SPLIT ? 2 : 3;
+  static constexpr int DH = SPLIT ? D / NC : D;
   static constexpr int NT = WG_THREADS * (NC + 1), P = D / 64;
   static constexpr uint32_t KV_BYTES = BK * D * 2, QT_BYTES = BQ * D * 2;
   static constexpr size_t Q_OFF = 2 * (size_t)KV_BYTES;
@@ -936,22 +955,25 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     return;
   }
 
-  // consumers: warpgroup wgi owns key rows k0 + 64 wgi .. + 63
+  // consumers: warpgroup wgi owns key rows k0 + r0 .. + 63 and the dK and
+  // dV columns c0 .. c0 + DH - 1
   sm90::regs_inc<232>();
+  constexpr int DH = C::DH;
+  const int r0 = C::SPLIT ? 0 : 64 * wgi, c0 = C::SPLIT ? DH * wgi : 0;
   const int wl = warp % 4, g = lane / 4, t4 = lane % 4;
-  const int row[2] = {k0 + 64 * wgi + 16 * wl + g, k0 + 64 * wgi + 16 * wl + g + 8};
+  const int row[2] = {k0 + r0 + 16 * wl + g, k0 + r0 + 16 * wl + g + 8};
   int ks[2] = {0, 0};
   if (kseg) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) ks[r] = row[r] < S ? kseg[(int64_t)b * S + row[r]] : 0;
   }
   const float c1 = scale * LOG2E;
-  float dk[D / 2], dv[D / 2];
+  float dk[DH / 2], dv[DH / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
   // K and V K-major (this warpgroup's 64 rows)
-  const uint64_t dka = sm90::desc(k_s + 64 * wgi * 64, 16, 1024);
-  const uint64_t dva = sm90::desc(v_s + 64 * wgi * 64, 16, 1024);
+  const uint64_t dka = sm90::desc(k_s + r0 * 64, 16, 1024);
+  const uint64_t dva = sm90::desc(v_s + r0 * 64, 16, 1024);
   sm90::bar_wait(&bars[0], 0);
 
   int i = 0;
@@ -1013,9 +1035,10 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       sm90::fence_regs(dk);
       sm90::mma_fence();
       {
-        // dO and Q MN-major for the products over queries (LBO: next 64 columns)
-        const uint64_t ddo_t = sm90::desc(do_s, BQ * 128, 1024);
-        const uint64_t dq_t = sm90::desc(q_s, BQ * 128, 1024);
+        // dO and Q MN-major for the products over queries (LBO: next 64
+        // columns), from this warpgroup's first column on
+        const uint64_t ddo_t = sm90::desc(do_s + (c0 / 64) * BQ * 64, BQ * 128, 1024);
+        const uint64_t dq_t = sm90::desc(q_s + (c0 / 64) * BQ * 64, BQ * 128, 1024);
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
           sm90::mma_rs<1>(dv, pf[kk], sm90::desc_add(ddo_t, kk * 16 * 128), 1);
@@ -1037,9 +1060,9 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   for (int r = 0; r < 2; ++r) {
     const int kp = row[r];
     if (kp >= S) continue;
-    const int64_t off = (((int64_t)b * S + kp) * Hkv + kvh) * D;
+    const int64_t off = (((int64_t)b * S + kp) * Hkv + kvh) * D + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       store_pair(dk_out + off + 8 * j + 2 * t4, dk[4 * j + 2 * r] * scale,
                      dk[4 * j + 2 * r + 1] * scale);
       store_pair(dv_out + off + 8 * j + 2 * t4, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
@@ -1057,7 +1080,7 @@ flash_bwd_dkv_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // ---------------------------------------------------------------------------
 
 template <int D> struct Dq {
-  static constexpr int NC = 2, BQ = 64 * NC, BK = 64, ST = 4;
+  static constexpr int NC = D == 256 ? 1 : 2, BQ = 64 * NC, BK = 64, ST = D == 256 ? 2 : 4;
   static constexpr int NT = WG_THREADS * (NC + 1), P = D / 64;
   static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
   static constexpr size_t DO_OFF = Q_BYTES, K_OFF = 2 * (size_t)Q_BYTES;
@@ -1100,7 +1123,7 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int wgi = threadIdx.x / WG_THREADS;
 
   if (wgi == C::NC) {  // producer
-    sm90::regs_dec<24>();
+    if constexpr (C::NC > 1) sm90::regs_dec<24>();
     if (warp % 4 != 0) return;
     if (lane == 0) {
       sm90::bar_arrive_tx(&bars[0], 2 * C::Q_BYTES);
@@ -1132,7 +1155,7 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   }
 
   // consumers: warpgroup wgi owns query rows q0 + 64 wgi .. + 63
-  sm90::regs_inc<240>();
+  if constexpr (C::NC > 1) sm90::regs_inc<240>();
   const int wl = warp % 4, g = lane / 4, t4 = lane % 4;
   const int row[2] = {q0 + 64 * wgi + 16 * wl + g, q0 + 64 * wgi + 16 * wl + g + 8};
   int qs[2] = {0, 0};
@@ -1383,13 +1406,14 @@ cudaError_t launch(Which which, const Args& a, bool tensor_cores) {
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16; head dims 64 and 128.
+// dtype: 0 = float32, 1 = bfloat16; head dims 64, 128 and 256.
 int dispatch(Which which, const Args& a, int D, int dtype) {
   if (a.B <= 0 || a.S <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0) return (int)cudaErrorInvalidValue;
   if ((a.qseg == nullptr) != (a.kseg == nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (D == 64) return (int)launch<64>(which, a, dtype == 1);
   if (D == 128) return (int)launch<128>(which, a, dtype == 1);
+  if (D == 256) return (int)launch<256>(which, a, dtype == 1);
   return (int)cudaErrorInvalidValue;
 }
 

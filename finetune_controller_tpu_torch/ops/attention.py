@@ -28,8 +28,10 @@ choice ``FTC_FLASH_ATTN`` makes:
 * ``kernel`` — the CUDA kernels; raises for CPU tensors;
 * ``plain`` — the plain version on any device (operator override).
 
-``ring`` and ``ulysses`` shard the sequence over devices and wait for the
-multi-GPU queue.
+``ring`` and ``ulysses`` shard the sequence over an ``sp`` mesh axis in
+the reference; the port has none (``train.cli.check_mesh`` refuses
+``sp > 1``), so both run :func:`xla_causal_attention`, as the reference
+does when no ``sp`` axis is active.
 """
 
 from __future__ import annotations
@@ -161,8 +163,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention(q, k, v, segment_ids=segment_ids,
                                plain=flash_attention_impl(q) == "plain")
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} shards the sequence over devices; it is "
-            "not ported yet (ROADMAP Queue A item 7, multi-GPU)"
-        )
+        # no sequence-parallel axis exists in the port (train.cli refuses a
+        # mesh with sp > 1): plain attention, as the reference runs when no
+        # sp axis is active
+        return xla_causal_attention(q, k, v, segment_ids=segment_ids)
     raise ValueError(f"unknown attention impl: {impl!r}")

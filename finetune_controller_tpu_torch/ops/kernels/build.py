@@ -15,6 +15,15 @@ spills from ``-Xptxas=-v``) is kept beside each library as ``.log``;
 
 Several sources build in parallel: one ``nvcc`` process per source, all
 started together.  A build error raises with the compiler's output.
+
+Host sources (``csrc/<name>.cc``, plain C++ for the CPU, such as the zstd
+decoder of ``csrc/zstd_decode.cc``) take a second route beside it: the host
+C++ compiler (``$CXX``, else ``g++`` or ``c++`` on ``PATH``)::
+
+    g++ -std=c++17 -O2 -shared -fPIC -o build/torch_kernels/<name>-<hash>.so
+
+into the same directory, keyed the same way, at first use
+(:func:`load_host`); a build error raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -33,6 +42,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 
 def nvcc_path() -> str:
@@ -55,14 +67,18 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _keyed(stem: str, flags: tuple[str, ...], files: list[Path]) -> Path:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in files:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by the source, the shared
     headers of ``csrc/`` and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
-        digest.update(path.name.encode())
-        digest.update(path.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return _keyed(name, NVCC_FLAGS, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
 
 
 def build(names: list[str] | None = None) -> dict[str, Path]:
@@ -121,3 +137,46 @@ def ptxas_report(name: str) -> dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built first if needed."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` or ``c++`` on ``PATH``."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler ($CXX, g++ or c++ on PATH): the port's host "
+                       "libraries (csrc/*.cc) are built with one at first use")
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cc`` builds to: keyed by the source and the flags."""
+    return _keyed(f"{name}-host", HOST_FLAGS, [CSRC / f"{name}.cc"])
+
+
+def build_host(name: str) -> Path:
+    """Build ``csrc/<name>.cc`` with the host compiler unless it is built."""
+    path = host_library_path(name)
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cc")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    path.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cmd[0]} failed on csrc/{name}.cc (exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, path)
+    return path
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cc``, built first if needed."""
+    path = build_host(name)
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {path} (built from csrc/{name}.cc): {e}; the "
+                           f"compiler said:\n{path.with_suffix('.log').read_text()}") from e

@@ -20,6 +20,8 @@ blocks of ``csrc/sm90.cuh``); its note gives the design.  In short:
   its 128 query rows of Q and dO resident and streams K and V, computing
   S = Q·Kᵀ and dP = dO·Vᵀ together and dQ += dS·K with dS kept in
   registers; no kernel uses atomics, so two launches give the same bits;
+  head dims 64, 128 and 256, the last with tiles of its own (:data:`TILES`;
+  its dK/dV splits D across the two consumer warpgroups);
 * f32 products run as FMAs on the CUDA cores.
 
 Layouts are the reference's: q, out, dO (B, S, H, D); k, v (B, S, Hkv, D);
@@ -54,13 +56,18 @@ TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 _NEG_INF = torch.finfo(torch.float32).min
 _L_FLOOR = 1e-30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
-#: (query tile, key tile) of each bf16 kernel: the tile pairs it computes
-#: are those :func:`live_tiles` marks at these sizes.
-TILES = {"flash_forward": (128, 128), "flash_backward_dq": (128, 64),
-         "flash_backward_dkv": (64, 128)}
+_TILES_UP_TO_128 = {"flash_forward": (128, 128), "flash_backward_dq": (128, 64),
+                    "flash_backward_dkv": (64, 128)}
+#: (query tile, key tile) of each bf16 kernel by head dim: the tile pairs it
+#: computes are those :func:`live_tiles` marks at these sizes.  D = 256 has
+#: tiles of its own (the D <= 128 rings do not fit its shared memory and
+#: registers; ``csrc/flash_attention.cu`` above ``namespace wg``).
+TILES = {64: _TILES_UP_TO_128, 128: _TILES_UP_TO_128,
+         256: {"flash_forward": (128, 64), "flash_backward_dq": (64, 64),
+               "flash_backward_dkv": (64, 64)}}
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,11 @@
 
 Builds ``csrc/flash_attention.cu``, prints ptxas's register and spill line
 of each kernel, holds the forward, dQ and dK/dV kernels against their plain
-versions (D 64 and 128; full, causal, causal with segment ids and full with
-segment ids; S 128, 300 and 1024; and the :func:`segment_layouts` at
-S 300), then times the forward, dQ and dK/dV kernels at the training shapes
-(B=2, S=2048, H=32, Hkv=8, D=128) on random documents of ~1500 tokens and
+versions (bf16 at D 64, 128 and 256, and f32 at D 256; full, causal, causal
+with segment ids and full with segment ids; S 128, 300 and 1024; and the
+:func:`segment_layouts` at S 300), then times the forward, dQ and dK/dV
+kernels at the training shapes (B=2, S=2048, H=32, Hkv=8, D=128) and at
+Gemma-7B's heads (H=Hkv=16, D=256) on random documents of ~1500 tokens and
 with no segment ids.  Exits non-zero without a card or on any mismatch.
 ``chip_smoke.py`` is the full check; this one skips serving and training,
 for work on the kernels.
@@ -55,12 +56,12 @@ def segment_layouts(b: int, s: int) -> dict[str, np.ndarray]:
     return {name: ids.astype(np.int32) for name, ids in layouts.items()}
 
 
-def _compare(gen, d, b, s, h, hkv, causal, seg, label) -> bool:
+def _compare(gen, d, b, s, h, hkv, causal, seg, label, dtype=torch.bfloat16) -> bool:
     """Forward, dQ and dK/dV against their plain versions on one case;
     prints one line and returns whether every error is inside ``LIMITS``."""
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v, dout = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, h, d)
     out_ref, lse_ref = fa.flash_forward_reference(q, k, v, seg, None, causal)
@@ -74,7 +75,7 @@ def _compare(gen, d, b, s, h, hkv, causal, seg, label) -> bool:
             for name, got, want in (("out", out, out_ref), ("lse", lse, lse_ref),
                                     ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
     ok = all(errs[name] <= LIMITS[name] for name in errs)
-    print(f"D={d} (b, s, h, hkv)={(b, s, h, hkv)} {label}: "
+    print(f"D={d} {str(dtype)[6:]} (b, s, h, hkv)={(b, s, h, hkv)} {label}: "
           + " ".join(f"{name} {e:.4g}" for name, e in errs.items()) + ("" if ok else " BAD"),
           flush=True)
     return ok
@@ -85,24 +86,31 @@ def check(gen) -> bool:
     and full with 97-token documents at three shapes, then causal on each
     of :func:`segment_layouts` (inputs from a generator of their own)."""
     ok = True
-    for d in (64, 128):
+    for d, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (256, torch.bfloat16),
+                     (256, torch.float32)):
         for b, s, h, hkv in ((1, 128, 1, 1), (2, 300, 8, 2), (1, 1024, 4, 1)):
             for mode in ("full", "causal", "seg", "segfull"):
                 seg = None
                 if mode.startswith("seg"):
                     seg = (torch.arange(s, device="cuda") // 97 + 1).to(torch.int32)
                     seg = seg[None].repeat(b, 1)
-                ok &= _compare(gen, d, b, s, h, hkv, mode in ("causal", "seg"), seg, mode)
+                ok &= _compare(gen, d, b, s, h, hkv, mode in ("causal", "seg"), seg, mode,
+                               dtype)
     layout_gen = torch.Generator(device="cuda").manual_seed(1)
-    for d in (64, 128):
+    for d in (64, 128, 256):
         for name, ids in segment_layouts(2, 300).items():
             ok &= _compare(layout_gen, d, 2, 300, 8, 2, True, torch.from_numpy(ids).cuda(), name)
     return ok
 
 
 def bench(gen) -> None:
-    """Kernel times (ms) at the training shapes, with and without segment ids."""
-    b, s, h, hkv, d = 2, 2048, 32, 8, 128
+    """Kernel times (ms) at the training shapes and at Gemma-7B's heads, with
+    and without segment ids."""
+    for shape in ((2, 2048, 32, 8, 128), (2, 2048, 16, 16, 256)):
+        _bench_shape(gen, *shape)
+
+
+def _bench_shape(gen, b, s, h, hkv, d) -> None:
     q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                      for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d)))
     starts = torch.rand((b, s), generator=gen, device="cuda") < 1.0 / 1500

@@ -29,14 +29,15 @@ CPU) and, when the trainer passes one, the topology ``manifest.json``
   restores as before.
 * **The JAX package's checkpoints.** A ``step_N/`` holding the reference's
   ``state.msgpack`` (its multi-process layout, ``_save_msgpack``) is read
-  with ``utils/flax_msgpack.py`` and mapped to the port's state: the
-  trainable flax paths through ``models/convert.trainable_from_flax``,
+  with ``utils/flax_msgpack.py``; a step in orbax's OCDBT layout (its
+  one-process save, ``ocp.StandardCheckpointer``) with ``train/ocdbt.py``
+  (the OCDBT database, zarr v2 arrays, zstd frames by the native decoder
+  ``csrc/zstd_decode.cc``).  Either tree is mapped to the port's state:
+  the trainable flax paths through ``models/convert.trainable_from_flax``,
   optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) to the port's
   optimizer state (``train/optimizer.py`` matches the optax chain step for
-  step); its manifest's leaves are checked under the mapped names.  A step
-  in orbax's OCDBT layout (the reference's one-process save) raises
-  ``NotImplementedError`` naming ROADMAP Queue A item 1i: it is never
-  skipped.
+  step); its manifest's leaves are checked under the mapped names.  The
+  port writes only its own layout.
 """
 
 from __future__ import annotations
@@ -280,9 +281,8 @@ class CheckpointManager:
 
     def layout(self, step: int) -> str:
         """``"torch"`` (the port's ``state.pt``), ``"msgpack"`` (the JAX
-        package's ``state.msgpack``) or ``"orbax"``; raises
-        ``NotImplementedError`` for orbax's OCDBT layout and
-        ``FileNotFoundError`` for a directory holding no state."""
+        package's ``state.msgpack``) or ``"orbax"`` (its OCDBT layout);
+        raises ``FileNotFoundError`` for a directory holding no state."""
         self.wait()
         path = self.path(step)
         if (path / STATE_NAME).exists():
@@ -291,12 +291,7 @@ class CheckpointManager:
             return "msgpack"
         names = sorted(p.name for p in path.iterdir()) if path.is_dir() else []
         if any(name in _ORBAX_MARKERS for name in names):
-            raise NotImplementedError(
-                f"checkpoint {path} is in orbax's OCDBT layout (the JAX package's "
-                f"one-process save: {', '.join(names[:6])}); reading it is not ported "
-                "yet (ROADMAP Queue A item 1i): convert it to the msgpack layout or "
-                "resume on the JAX package"
-            )
+            return "orbax"
         raise FileNotFoundError(f"checkpoint {path} holds no {STATE_NAME} or {MSGPACK_NAME} "
                                 f"({names[:6]})")
 
@@ -349,7 +344,7 @@ class CheckpointManager:
         from .elastic import leaf_entries
 
         shapes = {path: _Shape(entry["shape"]) for path, entry in leaves.items()}
-        if layout == "msgpack":
+        if layout in ("msgpack", "orbax"):
             shapes = leaf_entries(state_from_jax(_nest(shapes)))
             shapes = {path: _Shape(entry["shape"]) for path, entry in shapes.items()}
         like_leaves = leaf_entries(like)
@@ -375,9 +370,14 @@ class CheckpointManager:
         if layout == "torch":
             state = torch.load(path / STATE_NAME, map_location="cpu", weights_only=True)
         else:
-            from ..utils import flax_msgpack
+            if layout == "msgpack":
+                from ..utils import flax_msgpack
 
-            raw = flax_msgpack.restore((path / MSGPACK_NAME).read_bytes())
+                raw = flax_msgpack.restore((path / MSGPACK_NAME).read_bytes())
+            else:
+                from .ocdbt import read_orbax_tree
+
+                raw = read_orbax_tree(path)
             mapped = state_from_jax(raw)
             state = {"step": _to_tensor(mapped["step"]),
                      "trainable": {k: _to_tensor(v) for k, v in mapped["trainable"].items()},

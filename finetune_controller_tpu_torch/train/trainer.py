@@ -29,7 +29,7 @@ copy synchronized before a writer thread serializes it), the last save and
 a preemption save block, every save carries the topology manifest
 (``train/elastic.py``), and a resume restores through the shape-checked
 ``restore(like=)``, from the port's checkpoints or the JAX package's
-``state.msgpack``.  ``fit`` arms the chaos hook of
+(``state.msgpack``, or orbax's OCDBT layout).  ``fit`` arms the chaos hook of
 ``resilience/faults.py`` (``FTC_FAULT_KILL_AT_STEP``, ``FTC_FAULT_SIGNAL``,
 ``FTC_FAULT_ONCE_FILE``).
 

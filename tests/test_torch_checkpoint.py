@@ -12,8 +12,19 @@
   and a read waits for the save in flight;
 * every committed step holds a ``manifest.json`` with the reference's keys
   whose leaves match the trainer's state; a manifest-less step restores;
-* a step in orbax's OCDBT layout (written by the JAX package's own
-  ``CheckpointManager``) makes ``fit`` raise naming ROADMAP item 1i;
+* a step in orbax's OCDBT layout, written by the JAX package's own
+  ``CheckpointManager`` after 2 steps of the JAX trainer, restores in the
+  port with every leaf bit-equal to the JAX package's own ``restore`` of
+  it, and the port's resume gives the JAX package's own resumed losses
+  (the msgpack test's tolerance); a tree of a bf16 leaf, scalars and an
+  all-zero array reads bit-equal; a flipped byte in a B-tree node is
+  refused naming the CRC-32C; the OCDBT reader holds every key of a deep
+  tensorstore-written tree (interior nodes, hundreds of versions) and reads
+  zarr arrays of several chunks, the missing ones filled, as tensorstore
+  reads them; the
+  committed fixture ``tests/fixtures/jax_orbax_tiny`` still restores to
+  what the JAX package's ``restore`` gives and resumes to its recorded
+  losses;
 * a ``state.msgpack`` the JAX package's ``_save_msgpack`` writes after 2
   steps of the JAX trainer (``tiny-test`` LoRA, f32, scanned layers, with
   its manifest) resumes in the port: the restored Adam moments equal the
@@ -210,16 +221,6 @@ def test_every_committed_step_has_a_manifest_and_legacy_steps_restore(tmp_path):
         assert torch.equal(state["trainable"][name], p.detach())
 
 
-def test_an_orbax_step_is_refused_naming_item_1i(tmp_path):
-    _trainer(total_steps=2, checkpoint_every=2).fit(_packed_batches(7, 4, 2), str(tmp_path))
-    JaxCheckpointManager(str(tmp_path / "checkpoints")).save(
-        6, {"step": np.int32(6), "trainable": {"w": np.zeros((2, 3), np.float32)}},
-        blocking=True)
-    assert any(p.name != "state.pt" for p in (tmp_path / "checkpoints" / "step_6").iterdir())
-    with pytest.raises(NotImplementedError, match=r"orbax's OCDBT layout.*item 1i"):
-        _trainer(total_steps=8, checkpoint_every=2).fit(_packed_batches(7, 4, 8), str(tmp_path))
-
-
 def test_a_jax_msgpack_checkpoint_resumes_in_the_port(tmp_path):
     train_kw = {**TRAIN_KW, "total_steps": 4, "checkpoint_every": 100}
     jcfg = JAX_PRESETS["tiny-test"].replace(dtype=jnp.float32, lora=JaxLoRAConfig(rank=4))
@@ -271,6 +272,204 @@ def test_a_jax_msgpack_checkpoint_resumes_in_the_port(tmp_path):
         for k, v in want.items():
             np.testing.assert_allclose(got[k].numpy(), np.asarray(v), rtol=0,
                                        atol=1e-3 * scale, err_msg=f"{which} {k}")
+
+
+def _leaves(tree, prefix="") -> dict:
+    """Flat {path: numpy array or None} of a restored tree: sequences as
+    string-indexed dicts, bf16 tensors as their bits."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix: ("bfloat16", tree.view(torch.int16).numpy())}
+    if tree is None:
+        return {prefix: None}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return {prefix: ("bfloat16", arr.view(np.int16))}
+    return {prefix: (arr.dtype.name, arr)}
+
+
+def _assert_bit_equal(got, want) -> None:
+    got, want = _leaves(got), _leaves(want)
+    assert got.keys() == want.keys()
+    for path, value in want.items():
+        if value is None:
+            assert got[path] is None, path
+            continue
+        assert got[path][0] == value[0], path
+        np.testing.assert_array_equal(got[path][1], value[1], err_msg=path)
+        assert got[path][1].shape == value[1].shape, path
+
+
+def _jax_orbax_run(tmp_path):
+    """The JAX trainer 2 steps, saved by the JAX ``CheckpointManager``
+    (orbax); then the JAX package's own resume through its ``restore`` for
+    steps 3-4.  Returns (frozen, trainable at init, batches, losses 3-4)."""
+    train_kw = {**TRAIN_KW, "total_steps": 4, "checkpoint_every": 100}
+    jcfg = JAX_PRESETS["tiny-test"].replace(dtype=jnp.float32, lora=JaxLoRAConfig(rank=4))
+    jtrainer = JaxTrainer(jcfg, JaxTrainConfig(**train_kw))
+    init = jtrainer.init_state()
+    frozen = _noisy(jax.device_get(init.frozen), 5)
+    trainable = _noisy(jax.device_get(init.trainable), 6)
+    fresh = init.replace(frozen=frozen, trainable=trainable,
+                         opt_state=jtrainer.tx.init(trainable))
+    state = fresh
+    batches = _packed_batches(7, 4, 4)
+    for batch in batches[:2]:
+        state, _ = jtrainer.step(state, dict(batch))
+    host = jtrainer.state_to_host(state)
+    JaxCheckpointManager(str(tmp_path / "checkpoints")).save(
+        2, host, blocking=True, manifest=jtrainer._build_manifest(2, host))
+    restored = JaxCheckpointManager(str(tmp_path / "checkpoints")).restore(
+        2, like=jtrainer.state_to_host(fresh))
+    state = fresh.replace(step=jnp.asarray(restored["step"], jnp.int32),
+                          trainable=restored["trainable"], opt_state=restored["opt_state"])
+    losses = []
+    for batch in batches[2:]:
+        state, metrics = jtrainer.step(state, dict(batch))
+        losses.append(float(metrics["loss"]))
+    return frozen, trainable, batches, losses
+
+
+def test_a_jax_orbax_checkpoint_resumes_in_the_port(tmp_path):
+    """Every leaf bit-equal to the JAX package's own ``restore``; the port's
+    resumed losses equal the JAX package's own resume within the msgpack
+    test's tolerance (rtol 2e-5)."""
+    from finetune_controller_tpu_torch.train.ocdbt import read_orbax_tree
+
+    frozen, trainable, batches, want_loss = _jax_orbax_run(tmp_path)
+    step_dir = tmp_path / "checkpoints" / "step_2"
+    assert (step_dir / "manifest.ocdbt").exists() and not (step_dir / "state.msgpack").exists()
+    _assert_bit_equal(read_orbax_tree(step_dir),
+                      JaxCheckpointManager(str(tmp_path / "checkpoints")).restore(2))
+
+    cfg = PRESETS["tiny-test"].replace(dtype=torch.float32, lora=LoRAConfig(rank=4))
+    trainer = Trainer(cfg, TrainConfig(**{**TRAIN_KW, "total_steps": 4,
+                                          "checkpoint_every": 100}), device="cpu")
+    trainer.model.load_state_dict(from_flax({**frozen, "lora": trainable}, cfg))
+    ckpt = CheckpointManager(tmp_path / "checkpoints")
+    assert ckpt.layout(2) == "orbax"
+    restored = ckpt.restore(2, like=trainer._state_tree())
+    assert restored["step"] == 2 and restored["opt_state"]["count"] == 2
+    trainer.fit(batches, str(tmp_path))
+    rows = _rows(tmp_path / "metrics.csv")
+    assert [r["step"] for r in rows] == ["3", "4"]
+    np.testing.assert_allclose([float(r["loss"]) for r in rows], want_loss, rtol=2e-5)
+
+
+def test_an_orbax_tree_of_bf16_scalar_and_zero_leaves_reads_bit_equal(tmp_path):
+    from finetune_controller_tpu_torch.train.ocdbt import read_orbax_tree
+
+    rng = np.random.default_rng(3)
+    tree = {"step": np.int32(9), "scale": np.float32(2.5),
+            "w": jnp.asarray(rng.standard_normal((33, 17)), jnp.bfloat16),
+            "z": np.zeros((4, 5), np.float32), "n": {"i": np.arange(7, dtype=np.int32),
+                                                     "u": np.arange(3, dtype=np.uint32)},
+            "h": rng.standard_normal((6,)).astype(np.float16)}
+    JaxCheckpointManager(str(tmp_path)).save(9, tree, blocking=True)
+    got = read_orbax_tree(tmp_path / "step_9")
+    _assert_bit_equal(got, JaxCheckpointManager(str(tmp_path)).restore(9))
+    assert got["w"].dtype == torch.bfloat16 and not got["z"].any() and got["scale"] == 2.5
+
+
+def test_a_flipped_byte_in_a_btree_node_is_refused_naming_the_crc(tmp_path):
+    from finetune_controller_tpu_torch.train.ocdbt import OcdbtError, read_framed, read_orbax_tree
+
+    JaxCheckpointManager(str(tmp_path)).save(
+        1, {"w": np.arange(12, dtype=np.float32).reshape(3, 4)}, blocking=True)
+    step = tmp_path / "step_1"
+    nodes = [p for p in (step / "d").iterdir()]
+    assert len(nodes) == 1 and read_framed(nodes[0].read_bytes(), 0x0CDB20DE, "node")
+    data = bytearray(nodes[0].read_bytes())
+    data[len(data) // 2] ^= 0x40
+    nodes[0].write_bytes(bytes(data))
+    with pytest.raises(OcdbtError, match="CRC-32C mismatch"):
+        read_orbax_tree(step)
+
+
+def test_the_ocdbt_reader_holds_every_key_of_a_deep_tensorstore_tree(tmp_path):
+    """Small nodes and inline limits force interior nodes (keys stored
+    under their subtree's common prefix), indirect values in several
+    ``d/`` files and a version tree of hundreds of generations."""
+    ts = pytest.importorskip("tensorstore")
+    from finetune_controller_tpu_torch.train.ocdbt import KvStore
+
+    kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{tmp_path}/",
+                          "config": {"max_decoded_node_bytes": 300, "max_inline_value_bytes": 16,
+                                     "compression": {"id": "zstd"}}}).result()
+    rng = np.random.default_rng(1)
+    want = {}
+    for i in range(240):
+        key = f"layer_{i % 37}/param_{i}/chunk.{i * 7 % 13}"
+        want[key] = rng.bytes(int(rng.integers(0, 60)))
+        kv.write(key, want[key]).result()
+    store = KvStore(tmp_path)
+    assert store.manifest["height"] >= 2 and store.manifest["generation"] > 240
+    assert store.keys() == sorted(want)
+    for key, value in want.items():
+        assert store.get(key) == value, key
+
+
+@pytest.mark.parametrize("dtype", ["<f4", "bfloat16"])
+def test_zarr_arrays_of_several_chunks_read_as_tensorstore_reads_them(tmp_path, dtype):
+    """C-order chunks stitched at ragged edges, and the chunks never written
+    filled with ``fill_value``, against tensorstore's own read."""
+    ts = pytest.importorskip("tensorstore")
+    from finetune_controller_tpu_torch.train.ocdbt import KvStore, read_array
+
+    spec = {"driver": "zarr", "kvstore": {"driver": "ocdbt", "base": f"file://{tmp_path}/"},
+            "path": "arr", "metadata": {"chunks": [4, 3], "compressor": {"id": "zstd",
+                                                                      "level": 1},
+                                        "dtype": dtype, "shape": [10, 7], "fill_value": 1.5}}
+    arr = ts.open({**spec, "create": True}).result()
+    values = np.random.default_rng(2).standard_normal((10, 7)).astype(np.float32)
+    arr[:8, :5].write(values[:8, :5].astype(arr.dtype.numpy_dtype)).result()
+    want = np.asarray(ts.open(spec).result().read().result()).astype(np.float32)
+    store = KvStore(tmp_path)
+    assert "arr/2.0" not in store.keys() and "arr/0.0" in store.keys()
+    got = read_array(store, "arr")
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_array_equal(got, want)
+    assert got[9, 6] == 1.5
+
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "jax_orbax_tiny")
+
+
+def test_the_committed_fixture_restores_to_the_jax_restore_and_resumes(tmp_path):
+    """``tests/fixtures/jax_orbax_tiny`` (``make_jax_orbax_tiny.py``): both
+    saves read bit-equal to the JAX package's ``restore``, and the port
+    resumes step 2 to the JAX package's recorded losses (rtol 2e-5), as
+    ``chip_smoke.py`` phase O does on the card."""
+    import shutil
+
+    from finetune_controller_tpu_torch.train.ocdbt import read_orbax_tree
+
+    shutil.copytree(FIXTURE, tmp_path / "fx")
+    fx = tmp_path / "fx"
+    for root, step in (("checkpoints", 2), ("large", 0)):
+        _assert_bit_equal(read_orbax_tree(fx / root / f"step_{step}"),
+                          JaxCheckpointManager(str(fx / root)).restore(step))
+    expected = json.loads((fx / "expected.json").read_text())
+    cfg = PRESETS[expected["preset"]].replace(dtype=torch.float32,
+                                              lora=LoRAConfig(rank=expected["lora_rank"]))
+    trainer = Trainer(cfg, TrainConfig(**expected["train"]), device="cpu")
+    base = np.load(fx / "base.npz")
+    trainer.model.load_state_dict({k: torch.from_numpy(base[k]) for k in base.files})
+    packed = np.load(fx / "batches.npz")
+    batches = [{k.split("/", 1)[1]: packed[k] for k in packed.files if k.startswith(f"{i}/")}
+               for i in range(expected["train"]["total_steps"])]
+    art = tmp_path / "art"
+    shutil.copytree(fx / "checkpoints", art / "checkpoints")
+    trainer.fit(batches, str(art))
+    rows = _rows(art / "metrics.csv")
+    assert [int(r["step"]) for r in rows] == expected["resumed_steps"]
+    np.testing.assert_allclose([float(r["loss"]) for r in rows], expected["losses"], rtol=2e-5)
 
 
 @pytest.mark.cuda

@@ -361,3 +361,29 @@ def test_trainer_refusal_exit_is_terminal(exit_code):
     assert cls is FailureClass.USER
     assert cls not in RETRYABLE
     assert not RetryPolicy().should_retry(cls, attempt=1)
+
+
+def test_build_app_gives_a_fallback_serve_manager_the_runtimes_backend(tmp_path):
+    """A runtime assembled outside ``build_runtime`` gets its
+    ``ServeManager`` in ``build_app``, with the runtime's backend (where
+    ``serve_transport=process`` puts its worker sandboxes), as the
+    reference's ``build_app`` passes it (``controller/server.py:1403-1406``)."""
+    import sys
+
+    from finetune_controller_tpu_torch.controller import monitor, runtime, server
+    from finetune_controller_tpu_torch.controller.backends.local import LocalProcessBackend
+
+    settings = port_config.Settings(state_dir=str(tmp_path / "state"),
+                                    object_store_root=str(tmp_path / "objects"))
+    state = port_statestore.StateStore(settings.state_path)
+    store = port_objectstore.LocalObjectStore(settings.object_store_path)
+    catalog = port_devices.default_catalog()
+    backend = LocalProcessBackend(settings.state_path / "sandboxes", store, catalog,
+                                  python=sys.executable)
+    rt = runtime.Runtime(
+        settings=settings, state=state, store=store, catalog=catalog, backend=backend,
+        monitor=monitor.JobMonitor(state, store, backend, interval_s=0.1),
+        presigner=port_objectstore.Presigner(settings.presign_secret))
+    assert rt.serve is None
+    server.build_app(rt)
+    assert rt.serve is not None and rt.serve.backend is backend

@@ -12,10 +12,13 @@ only).
 checked on the CPU: every live (query, key) pair lies in a live tile pair,
 on packed, non-monotonic and trailing-padding segment ids at a ragged S.
 
-The CUDA kernels are held against the plain versions on the card, also on
-those segment layouts, and the Hopper kernels (forward, dQ, dK/dV) are
-checked to be bitwise deterministic; those tests carry the ``cuda`` marker
-and skip without one.
+The CUDA kernels are held against the plain versions on the card (head
+dims 64, 128 and Gemma's 256), also on those segment layouts, and the
+Hopper kernels (forward, dQ, dK/dV) are checked to be bitwise
+deterministic; those tests carry the ``cuda`` marker and skip without one.
+``ring`` and ``ulysses`` on one device run plain attention, as the
+reference's do without an ``sp`` axis, and every card example on the
+kernel path has a head dim the kernels take.
 """
 
 from __future__ import annotations
@@ -175,16 +178,51 @@ def test_dispatch_refusals(monkeypatch):
     monkeypatch.setenv("FTC_FLASH_ATTN", "turbo")
     with pytest.raises(ValueError, match="FTC_FLASH_ATTN"):
         flash_attention_impl(q)
-    for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            causal_attention(q, q, q, impl=impl)
     with pytest.raises(ValueError, match="unknown attention impl"):
         causal_attention(q, q, q, impl="nope")
 
 
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_ring_and_ulysses_on_one_device_match_the_reference(impl, segments):
+    """With no ``sp`` axis the reference's ``causal_attention`` runs plain
+    attention for both impls (``ops/attention.py:322-327``); so does the
+    port's.  f32, atol 1e-5."""
+    jnp = pytest.importorskip("jax.numpy")
+    from finetune_controller_tpu.ops.attention import causal_attention as jax_causal_attention
+
+    arrays, seg, _, _ = _inputs("group2_segments")
+    seg = seg if segments else None
+    want = jax_causal_attention(*(jnp.asarray(arrays[n]) for n in ("q", "k", "v")), impl=impl,
+                                segment_ids=None if seg is None else jnp.asarray(seg))
+    got = causal_attention(*(torch.from_numpy(arrays[n]) for n in ("q", "k", "v")), impl=impl,
+                           segment_ids=None if seg is None else torch.from_numpy(seg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_every_card_job_on_the_kernel_path_has_a_kernel_head_dim():
+    """Each shipped example whose default device is the card and whose
+    preset takes the flash path (``auto`` or ``pallas``) has a head dim the
+    kernels take (Gemma's 256 among them)."""
+    from finetune_controller_tpu_torch.controller.examples import BUILTIN_JOB_SPECS
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.multimodal import MM_PRESETS
+
+    seen = set()
+    for spec in BUILTIN_JOB_SPECS:
+        preset = spec.model_preset
+        cfg = PRESETS[preset] if preset in PRESETS else MM_PRESETS[preset].text
+        if spec.default_device != "h100" or cfg.attention_impl not in ("auto", "pallas"):
+            continue
+        assert cfg.head_dim in fa._HEAD_DIMS, (spec.model_name, cfg.head_dim)
+        seen.add(cfg.head_dim)
+    assert {128, 256} <= seen
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (64, 128),
-                                   fa.TILES["flash_backward_dq"]])
+                                   fa.TILES[128]["flash_backward_dq"],
+                                   fa.TILES[256]["flash_forward"]])
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_live_tiles_cover_live_pairs(name, tiles, causal):
     """Every live (query, key) pair of ``_live`` lies in a tile pair that
@@ -209,7 +247,8 @@ def test_live_tiles_skip_work_on_packed_batches():
     """On packed documents fewer tile pairs are live than causal ones, at
     every kernel's tile sizes; one document keeps every causal pair."""
     seg = torch.from_numpy(LAYOUTS["packed"])
-    for name, (tq, tk) in fa.TILES.items():
+    for name, (tq, tk) in ((f"{name} D={d}", t) for d, by_name in fa.TILES.items()
+                           for name, t in by_name.items()):
         causal_only = fa.live_tiles(torch.zeros_like(seg), None, tq, tk, True)
         packed = fa.live_tiles(seg, None, tq, tk, True)
         assert packed.sum() < causal_only.sum(), name
@@ -239,7 +278,7 @@ def _card_case(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("name", list(CASES) + list(LAYOUTS))
 def test_kernels_match_plain_on_card(cuda, name, d, dtype):
     """Each CUDA kernel against its plain version, one launch each."""
@@ -268,7 +307,7 @@ def test_kernels_match_plain_on_card(cuda, name, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_hopper_kernels_are_deterministic(cuda, d):
     """Two launches of the bf16 forward, dQ and dK/dV kernels give the same
     bits (no atomics: the GQA sum and every tile order are fixed)."""

@@ -5,13 +5,15 @@ Importing every module of ``finetune_controller_tpu_torch`` (and the
 ``aiohttp`` and ``finetune_controller_tpu`` out of ``sys.modules`` (and the
 preference slice ``msgpack`` too) — checked in a
 subprocess because this test process has JAX loaded already.  An AST scan
-pins the same for every source file.  Entry points default to the CUDA card
+pins the same for every source file.  The reader of the JAX package's orbax
+checkpoints restores one with no zstd package, tensorstore or orbax.  Entry points default to the CUDA card
 and raise where there is none, unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
 import ast
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -504,3 +506,45 @@ def test_storage_entry_points_start_without_the_reference():
                                f"finetune_controller_tpu_torch.controller.{mod}", "--help"],
                               cwd=ROOT, capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0 and "usage" in proc.stdout, proc.stdout + proc.stderr
+
+
+#: reading the JAX package's orbax checkpoints: the OCDBT and zarr reader,
+#: the plain zstd decoder and the checkpoint manager that calls them (the
+#: card machine has no zstd package, tensorstore or orbax)
+CHECKPOINT_SLICE = [PORT / "train" / "ocdbt.py", PORT / "utils" / "zstd.py",
+                    PORT / "train" / "checkpoint.py", PORT / "ops" / "kernels" / "build.py"]
+CHECKPOINT_FORBIDDEN = ("zstandard", "zstd", "tensorstore", "orbax", "msgpack")
+
+
+@pytest.mark.parametrize("path", CHECKPOINT_SLICE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_checkpoint_reader_imports_resolve_inside_the_port(path):
+    """The orbax reader's modules, relative and lazy imports resolved, stay
+    out of JAX, flax, the JAX package, zstd packages, tensorstore, orbax and
+    ``msgpack``."""
+    assert path in SOURCES
+    for line, module in _resolved_imports(path):
+        top = module.split(".")[0]
+        assert not _forbidden(module) and top not in CHECKPOINT_FORBIDDEN, \
+            f"{path.relative_to(ROOT)}:{line} imports {module}"
+
+
+def test_an_orbax_step_restores_without_jax_zstd_packages_or_tensorstore():
+    """A fresh interpreter restores the committed orbax fixture through the
+    port (the native decoder built with the host compiler) and loads none of
+    JAX, flax, the JAX package, zstd packages, tensorstore, orbax or
+    ``msgpack``."""
+    if not any(shutil.which(c) for c in ("g++", "c++")):
+        pytest.skip("no host C++ compiler to build the native zstd decoder")
+    fixture = ROOT / "tests" / "fixtures" / "jax_orbax_tiny" / "checkpoints"
+    code = (
+        "import sys\n"
+        "from finetune_controller_tpu_torch.train.checkpoint import CheckpointManager\n"
+        "state = CheckpointManager(%r, sweep=False).restore(2)\n"
+        "assert state['step'] == 2 and state['trainable'], state.keys()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    ) % (str(fixture), CHECKPOINT_FORBIDDEN + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
