@@ -43,6 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
    to back) beside the kernel's bound and its split count;
 7. compare first-token logits of the model's paged prefill under
    ``FTC_PAGED_ATTN=kernel`` and ``FTC_PAGED_ATTN=gather``;
+   (J, the engine) S1's requests (``J_NEW_TOKENS`` each) through fresh S1
+   engines with ``FTC_TRANSFER_GUARD`` unset and ``raise`` in turns, driven
+   on the main thread so each decode window arms the CUDA sync-debug
+   mode: 0 trips, the same tokens, the signatures within the engine's
+   budget; decode ms/step off and on; the sync-free sampler against
+   ``torch.multinomial`` on the card;
 8. (H1) write the base T2's trainer draws from ``--seed`` as an HF
    directory in the layout of the published Meta-Llama-3-8B repository
    (bf16 shards of at most 5 GB, ``model.safetensors.index.json``,
@@ -64,7 +70,7 @@ Phases (any failure exits non-zero and prints no result line):
    spans of ``trace/trainer.jsonl`` and the phase columns are checked, and
    the losses printed beside those of the same run from a random-init
    base at 32 layers.
-   H1, T2, H2 and S2 run ``HF_LAYERS`` = 10 of the 32 layers: the run may
+   H1, T2, H2 and S2 run ``HF_LAYERS`` = 6 of the 32 layers: the run may
    write 45 GiB to its disk at most, which 32 layers' bf16 base, f32
    merged export and checkpoints (46.3 GiB) exceed, and phases C, Q, M, V,
    P, R, W, D and P4 need about 29 GB beside them; after each phase the script prints what
@@ -99,8 +105,9 @@ Phases (any failure exits non-zero and prints no result line):
     documents (``POST /datasets``) and submits ``llama3-8b-lora`` on the
     ``h100`` flavor as multipart (LoRA rank 16, batch 4 x 2048 in 2
     microbatches, 6 steps, one checkpoint, a profiler window over steps 3
-    and 4), at full width and full depth from random weights drawn from
-    the job's seed.  The fair-share scheduler admits it, the local backend
+    and 4), at full width and ``C_LAYERS`` = 8 of 32 layers (an operator
+    plugin, for the run's time limit) from random weights drawn from the
+    job's seed.  The fair-share scheduler admits it, the local backend
     runs ``python -m finetune_controller_tpu_torch.train.cli`` on the card,
     the monitor follows it to SUCCEEDED.  Checked: the statuses, 6 metrics
     rows with finite losses, the logs, the timeline, ``/trace`` without
@@ -111,7 +118,7 @@ Phases (any failure exits non-zero and prints no result line):
     ``BatchEngine`` (the service's ``EngineConfig``) on the model the
     loader builds from the same promoted prefix, and the paged kernel's
     count (zeroed just before the requests) must rise.  (Q) On the same
-    server and dataset, ``mistral-7b-qlora`` at ``QLORA_LAYERS`` = 16 of 32
+    server and dataset, ``mistral-7b-qlora`` at ``QLORA_LAYERS`` = 8 of 32
     layers (``QLORA_PLUGIN``, for the run's time limit; the
     ``jax_qlora`` framework:
     an int4 base quantized at init from the job's seed, LoRA rank 16 on all
@@ -123,10 +130,12 @@ Phases (any failure exits non-zero and prints no result line):
     promote and load s, TTFT, generated tokens/s and the int4 base's bytes;
     (M) ``mixtral-8x7b`` with int4 experts (``MOE_SPEC``: no mesh, bf16
     frozen tensors, LoRA rank 16 on the attention projections, batch 4 x
-    2048 in 2 microbatches, full width and ``MOE_LAYERS`` = 16 of 32 layers
+    2048 in 2 microbatches, full width and ``MOE_LAYERS`` = 8 of 32 layers
     (the run's time limit), the preset's ``full``
-    remat) through ``train.cli.main`` in this process, 4 steps then 2
-    resumed; checked: finite ``loss`` and a finite positive ``moe_aux``,
+    remat) through ``train.cli.main`` in a process of its own (this script
+    with ``--phase-child M``, beside D and K, its flash launches counted
+    there), 4 steps then 2 resumed; checked: finite ``loss`` and a finite
+    positive ``moe_aux``,
     the LoRA ``B`` leaves moved, the flash kernels launched, ``done.txt``,
     an attention-only adapter, the int4 base drawn identically by both runs
     and a rebuild; then one more step under ``torch.profiler`` (experts'
@@ -138,8 +147,9 @@ Phases (any failure exits non-zero and prints no result line):
     336x336x3 image as an NPY ``data:`` URI (neither decode nor resize
     needs PIL; whether PIL imports is printed) with a prompt and a
     completion, uploaded with ``POST /datasets``; ``llava-1.5-lora`` on
-    ``h100`` at full width and depth (CLIP ViT-L/14-336 with 23 of its 24
-    blocks run, the projector, the 32-layer 7B decoder; LoRA rank 16 on all
+    ``h100`` at full width (CLIP ViT-L/14-336 with 23 of its 24 blocks
+    run, the projector, the 7B decoder at ``LLAVA_LAYERS`` = 8 of its 32
+    layers by an operator plugin, for the run's time limit; LoRA rank 16 on all
     seven projections and the projector trained; batch 4 x 1472 text tokens
     behind the 576-token image prefix, 2048 positions, in 2 microbatches; 6
     steps, a profiler window over steps 3-4; the API spec's f32 base from
@@ -165,8 +175,8 @@ Phases (any failure exits non-zero and prints no result line):
     (P) the preference plane: (P1, on C's server after V2) 64 seeded
     pre-tokenized ``{prompt_tokens, chosen_tokens, rejected_tokens}`` rows
     (most right-padded to 512, some truncated) uploaded with ``POST
-    /datasets``, and ``llama3-8b-dpo`` on ``h100`` at full width and depth
-    (the API spec's f32 base, LoRA rank 16, 8 pairs x 512 in 2
+    /datasets``, and ``llama3-8b-dpo`` on ``h100`` at full width and C's
+    depth (the API spec's f32 base, LoRA rank 16, 8 pairs x 512 in 2
     microbatches, 6 steps, evaluation every 3 steps on 16 held-out rows,
     which an operator plugin names since the API has no held-out field, a
     profiler window over steps 3-4).  Checked: SUCCEEDED, 6 finite rows
@@ -199,7 +209,8 @@ Phases (any failure exits non-zero and prints no result line):
     P3's spec, ``P4_WORKERS`` rollout worker processes scoring each round
     with that worker's ``reward_score`` RPC, ``P4_TOTAL_STEPS`` steps and a
     checkpoint every ``P4_CHECKPOINT_EVERY``; ``rollout-1`` SIGKILLed once
-    its first round is in and before the first commit.  Checked: finite
+    its first round is in and before the first commit (the learner's step
+    ``P4_CHECKPOINT_EVERY`` waits for its respawn's first round).  Checked: finite
     rows; the respawn streams again, no (worker, pair id) ingested twice,
     duplicates dropped and every replay token-equal to its original;
     ``rollout-0``'s pid unchanged and its policy at the last pushed version
@@ -211,9 +222,21 @@ Phases (any failure exits non-zero and prints no result line):
     and streaming, actor tokens/s per worker and in all beside P3's,
     learner ms/step beside P3's, ``reward_score`` ms a round, the rollout
     base's and a policy blob's bytes, each process's peak card memory;
+    (A) after P1, a fresh server with ``serve_autoscale`` on (``A_ENV``)
+    over C's state and object store (:func:`serve_tenant_phase`): C's
+    promoted job loaded as a ``serve`` tenant of the one-H100 catalog; a
+    burst of ``A_BURST`` requests grows the fleet by a workload that stays
+    QUEUED; with 4 requests in flight (``A_INFLIGHT_NEW_TOKENS``) a
+    normal-priority job of C's spec (``A_ARGS``) reclaims the card: the
+    replica drains (the 4 finish with C's tokens), the job is admitted
+    within ``A_ADMIT_AFTER_DRAIN_S`` and trains on the flash kernels (its
+    ``events.jsonl``); ``/generate`` answers 503 while no replica is up
+    and through the paged kernel after the job; printed: the drain's
+    seconds, drain -> admitted, SUCCEEDED -> serving again, requests lost
+    (0), the card's used memory at each edge;
     (R) resilience after P1, on a server of its own whose retry supervisor
     may resubmit once (the backend restarts nothing): ``llama3-8b-lora`` at
-    full width and depth with C's arguments, dataset and seed, a checkpoint
+    full width and C's depth with C's arguments, dataset and seed, a checkpoint
     every 2 steps and no profiler window, submitted by ``python -m
     finetune_controller_tpu_torch.controller.ctl submit ... --watch`` in a
     subprocess, and SIGKILLed after step 3 by the trainer's chaos hook
@@ -255,7 +278,7 @@ Phases (any failure exits non-zero and prints no result line):
     subprocess, an S3 endpoint in this script that verifies every SigV4
     signature, and the port's server on both (``state_backend=remote``,
     ``object_store_backend=s3``, auth on); T2's documents uploaded to S3;
-    C's job (full width, ``D_LAYERS`` = 16 of 32 layers by an operator
+    C's job (full width, ``D_LAYERS`` = 8 of 32 layers by an operator
     plugin, for the run's time limit; C's arguments) followed over a
     WebSocket opened right after the submit with the gate ``D_SEARCH``,
     and synced by ``storage_cli sync --until-done-file`` beside it as a
@@ -301,6 +324,12 @@ Phases (any failure exits non-zero and prints no result line):
     trainer's ``kernel_launches`` holding ``G_FLASH_PER_STEP`` a step of
     each flash kernel, then promoted and one ``/generate`` equal to an
     in-process engine through the paged kernel at D = 256;
+    (N) after K, ``N_BYTES`` of seeded chat and SFT rows (``DiskTally``
+    counts them) packed into 2048-token blocks by the native packer, timed
+    here, and by the Python loader in a subprocess beside the phases that
+    follow, joined after F: the arrays bit-equal (SHA-256), both MB/s; T2
+    must have taken the native path (``native_loader.packs_total``), and
+    C's job must log it;
     (O) the JAX package's orbax checkpoint of ``tests/fixtures/
     jax_orbax_tiny`` restored through ``train/ocdbt.py`` with the native
     zstd decoder and its ``tiny-test`` job resumed on the card to the JAX
@@ -316,6 +345,12 @@ Phases (any failure exits non-zero and prints no result line):
     ``REMAT_FLASH_FORWARDS`` per layer (zeroed before each policy's step,
     read after it, and summed over the policies for the ``kernels``
     line), ms/step and memory printed;
+    (J, the trainer) ``J_STEPS`` steps of the same 2 layers through
+    ``Trainer.step`` under ``transfer_guard="raise"`` and
+    ``recompile_budget=2`` with no prefetch thread (the CUDA sync-debug
+    mode armed): 0 trips, one signature, flash launches counted; then
+    ``FTC_FAULT_TRANSFER=1``: the guard's host copy aborts step 2 with the
+    sync-debug mode's error;
 12. (T4) each flash kernel at the main path's shapes (B=2, S=2048, H=32,
     Hkv=8, D=128, bf16, the packed microbatch's segment ids): kernel, plain
     and library times beside the bound, the error against the plain
@@ -323,6 +358,10 @@ Phases (any failure exits non-zero and prints no result line):
     sizes), its rate on that executed work and its share of the bound, each
     with no segment ids too (every causal tile pair), beside its time before
     the Hopper redesign; each launched twice must give the same bits;
+    (B) ``ops/kernel_bench.py`` at T2's flash shape (forward and gradient,
+    1 and 4 documents a row) and the paged decode shape, chained calls on
+    the host clock, beside T4's CUDA events and S1's graph replay, SDPA a
+    yardstick; the ``auto`` gate holds the kernel at every length;
 13. (F) the fidelity proof at the reference's default scale
     (``fidelity.py:286-299``), on the card through the port's controller
     (``fidelity.run_proof``): ``pretrain_base`` (``tiny-test``, 600 steps
@@ -335,12 +374,21 @@ Phases (any failure exits non-zero and prints no result line):
     < 0.75 x step 1, the generation starts with ``SFT_PREFIX`` only after
     the job).  ``tiny-test`` runs the plain attention by its config (head
     dim 16, ``attention_impl="xla"``); the kernels are held on the
-    full-width phases;
+    full-width phases.  F runs in a process of its own (this script with
+    ``--phase-child F``), started before H1 and joined after B, beside the
+    phases between;
 14. print the ``kernels`` (the four TPU kernels' ports, and the three
     flash kernels at D = 256 as ``*_d256``), ``serve``, ``serve_tenants``,
     ``control``, ``qlora``, ``moe``, ``llava``, ``prefs``, ``hf_io``,
     ``fidelity``, ``resilience``, ``workers``, ``storage``, ``k8s``,
-    ``gemma``, ``orbax``, ``remat`` and ``train`` lines, the card line, and last ``{"ok": true, "device": {...}}``.
+    ``gemma``, ``orbax``, ``serve_tenant``, ``guards``, ``native_packer``,
+    ``kernel_bench``, ``remat`` and ``train`` lines, the card line, and last
+    ``{"ok": true, "device": {...}}``.
+
+After each phase the script prints the phase's seconds and the run's
+clock, and one line to standard error; at ``RUN_DEADLINE_S`` a watchdog
+prints every thread's stack to standard error, kills the processes the run
+started and exits 1.
 
 Needs one card; exits non-zero where ``torch.cuda.is_available()`` is false
 or the port's package is not beside this script.
@@ -350,7 +398,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import atexit
 import contextlib
+import faulthandler
 import gc
 import json
 import math
@@ -379,6 +429,26 @@ EARLIER_MS = {"flash_forward": 0.733, "flash_backward_dq": 1.066, "flash_backwar
 
 #: the most a run may write to the card machine's disk (deleted files count)
 DISK_CAP_BYTES = 45 * 2**30
+#: the run's clock: a card machine stops the run at 1200 s.  At this many
+#: seconds the watchdog prints every thread's stack to standard error and
+#: exits non-zero, so a run that is too slow or stuck says where it was
+RUN_DEADLINE_S = 1180.0
+RUN_T0 = time.perf_counter()
+#: where the run's processes keep the bytecode they compile.  The card
+#: machine's Python finds no bytecode it can use beside torch's, numpy's and
+#: sympy's sources, so each process it starts compiles them again: seconds
+#: of every job's and worker's start.  Here the first process to import a
+#: module compiles it for all the others
+PYCACHE_DIR = Path(__file__).resolve().parent / "build" / "pycache"
+
+
+def share_bytecode() -> None:
+    """Point this process, and every process it starts, at ``PYCACHE_DIR``."""
+    PYCACHE_DIR.mkdir(parents=True, exist_ok=True)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE_DIR)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = str(PYCACHE_DIR)
+    sys.dont_write_bytecode = False
 
 
 class DiskTally:
@@ -395,6 +465,7 @@ class DiskTally:
     def __init__(self, root: Path = Path(__file__).resolve().parent):
         self.root = root
         self.start = self.last = self.read()
+        self.last_clock = 0.0
 
     def read(self) -> tuple[int, int]:
         try:
@@ -411,11 +482,16 @@ class DiskTally:
     def mark(self, phase: str) -> int:
         now = self.read()
         total = self.written()
+        clock = time.perf_counter() - RUN_T0
         log(f"disk: {phase} wrote {self.written(self.last) / 1e9:.2f} GB; {total / 1e9:.2f} GB "
             f"({total / 2**30:.2f} GiB) since the start (write() calls "
             f"{(now[0] - self.start[0]) / 1e9:.2f} GB, used space "
             f"{(now[1] - self.start[1]) / 1e9:.2f} GB), cap {DISK_CAP_BYTES / 2**30:.0f} GiB")
-        self.last = now
+        log(f"clock: {phase} took {clock - self.last_clock:.1f} s; {clock:.1f} s since the "
+            f"start (deadline {RUN_DEADLINE_S:.0f} s)")
+        print(f"chip_smoke: {phase} done at {clock:.1f} s ({clock - self.last_clock:.1f} s), "
+              f"{total / 2**30:.2f} GiB written", file=sys.stderr, flush=True)
+        self.last, self.last_clock = now, clock
         if total > DISK_CAP_BYTES:
             raise SmokeFailure(f"the run wrote {total / 2**30:.2f} GiB, past the "
                                f"{DISK_CAP_BYTES / 2**30:.0f} GiB cap")
@@ -423,6 +499,54 @@ class DiskTally:
 
 
 DISK = DiskTally()
+
+
+def _descendants(pid: int) -> list[int]:
+    """Every live process below ``pid``, parents before their children
+    (read from ``/proc``)."""
+    children: dict[int, list[int]] = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        ppid = int(stat.rsplit(")", 1)[1].split()[1])
+        children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def start_watchdog() -> None:
+    """At ``RUN_DEADLINE_S`` on the run's clock: print every thread's stack
+    to standard error, SIGKILL every process this run started and exit 1.
+    ``faulthandler``'s own timer, which needs no GIL, does the printing and
+    the exit 12 s later should the Python thread not get to run."""
+    import signal
+    import threading
+
+    left = RUN_DEADLINE_S - (time.perf_counter() - RUN_T0)
+
+    def expire() -> None:
+        print(f"chip_smoke: FAILED: the run passed its {RUN_DEADLINE_S:.0f} s deadline; "
+              f"every thread's stack follows", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for pid in _descendants(os.getpid())[::-1]:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        sys.stderr.flush()
+        os._exit(1)
+
+    timer = threading.Timer(left, expire)
+    timer.daemon = True
+    timer.start()
+    faulthandler.dump_traceback_later(left + 12, exit=True)
 
 
 def log(msg: str) -> None:
@@ -1048,14 +1172,28 @@ def serve_phase(args):
         for name, ms in prof["top"]:
             log(f"  {ms:8.3f} ms/step  {name}")
 
+    # J: the decode window under the transfer guard, on this model
+    try:
+        guards = guard_decode_phase(model, reqs)
+    except (AssertionError, RuntimeError, ValueError) as e:
+        raise SmokeFailure(f"J decode: {type(e).__name__}: {e}") from e
+    log(f"J decode under FTC_TRANSFER_GUARD=raise (S1's {guards['requests']} requests, "
+        f"{guards['new_tokens']} new tokens each, driven on the main thread, CUDA sync-debug "
+        f"mode armed in each window): {guards['trips']} trips over {guards['windows']} "
+        f"windows, tokens equal to the unguarded engine's, signatures {guards['signatures']} "
+        f"within the budget {guards['budget']}; decode ms/step off "
+        f"{[round(x, 2) for x in guards['decode_ms_per_step_off']]}, raise "
+        f"{[round(x, 2) for x in guards['decode_ms_per_step_raise']]}; paged launches "
+        f"{guards['paged_launches']}")
+
     dec = shapes["decode"]
     entry = {
         "name": "paged_attention",
         "route": "cuda",
         "source": "finetune_controller_tpu_torch/csrc/paged_attention.cu",
         "replaces": "finetune_controller_tpu/ops/pallas/paged_attention.py:65",
-        "launches": launches,
-        "launches_by_path": {"s1": launches},
+        "launches": launches + guards["paged_launches"],
+        "launches_by_path": {"s1": launches, "j_decode": guards["paged_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
@@ -1069,7 +1207,7 @@ def serve_phase(args):
         "decode_ms_per_step": decode_time / len(steps) * 1e3,
         "ttft_ms_p50": ttfts_ms[len(ttfts_ms) // 2], "ttft_ms_max": ttfts_ms[-1],
         "wall_s": wall, "peak_memory_gb": peak_gb, "layers": cfg.n_layers,
-        "logits_rel_err": rel, "profile": prof,
+        "logits_rel_err": rel, "profile": prof, "guards_decode": guards,
     }
     return entry, summary
 
@@ -1083,8 +1221,10 @@ def serve_phase(args):
 #: run before (what the artifact sync catches of a save varies), so 18
 #: layers can pass the cap; 16 layers left 3.3 GiB (41.68 GiB written), and
 #: P4's rollout base (5.59 GB at 8 layers) needed more, so 12 (42.20 GiB
-#: written); phase D's job on S3 writes about 2.5 GiB more, so 10
-HF_LAYERS = 10
+#: written); phase D's job on S3 writes about 2.5 GiB more, so 10 (40.46
+#: GiB written with phases A, J, N and B); 6 for a run that must also end
+#: inside 1200 s on the slower card machines
+HF_LAYERS = 6
 #: the llama3-8b preset's depth, which S1 serves
 PRESETS_DEPTH = 32
 #: LoRA SFT of llama3-8b (full width, ``HF_LAYERS`` deep) through the spec
@@ -1461,6 +1601,54 @@ def fidelity_phase(work) -> dict:
     if not record["passed"]:
         raise SmokeFailure(f"F: fidelity checks failed: {record['checks']}")
     torch.cuda.empty_cache()
+    return record
+
+
+#: the phases that run in a process of their own (this script with
+#: ``--phase-child``) beside others: F (a small share of the card) beside
+#: H1-B, M beside D and K.  Each child counts its own kernel launches; its
+#: record is read, and its output printed here, at the join
+CHILD_PHASES = {"F": lambda work, seed: fidelity_phase(work),
+                "M": lambda work, seed: moe_phase(work, seed)}
+#: how long a join waits for its child once the phases beside it are done
+CHILD_JOIN_TIMEOUT_S = 300
+
+
+def phase_start(name: str, work, seed: int) -> dict:
+    """Start phase ``name`` of ``CHILD_PHASES`` in a process of its own, its
+    output to ``work/phase_<name>.log``, its record to
+    ``work/phase_<name>.json``; joined by :func:`phase_finish`."""
+    work = Path(work)
+    out, logf = work / f"phase_{name}.json", work / f"phase_{name}.log"
+    out.unlink(missing_ok=True)
+    with open(logf, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+             "--phase-child", name, str(work), str(out)], stdout=f,
+            stderr=subprocess.STDOUT, cwd=str(Path(__file__).resolve().parent))
+    # a run that fails before the join leaves no child running
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"name": name, "proc": proc, "out": out, "log": logf, "t0": time.perf_counter()}
+
+
+def phase_finish(child: dict) -> dict:
+    """Join a child phase: its output printed here, its record read."""
+    name = child["name"]
+    try:
+        rc = child["proc"].wait(timeout=CHILD_JOIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child["proc"].kill()
+        rc = "killed after the join's timeout"
+    text = child["log"].read_text(errors="replace")
+    log(f"--- phase {name}, run in a process of its own: its output ---")
+    for line in text.splitlines():
+        log(line)
+    log(f"--- end of phase {name}'s output ---")
+    if rc != 0 or not child["out"].exists():
+        raise SmokeFailure(f"{name}: its process exited {rc}; its output's end:\n"
+                           + text[-3000:])
+    record = json.loads(child["out"].read_text())
+    record["joined_after_s"] = time.perf_counter() - child["t0"]
     return record
 
 
@@ -1864,6 +2052,12 @@ def serve_tenants_phase(art, seed: int) -> tuple[int, dict]:
 #: default ``profile_start_step``, 2, so steps 3 and 4 are traced
 CONTROL_MODEL = "llama3-8b-lora"
 CONTROL_FLAVOR = "h100"
+#: the depth of C's job and of every job on C's model and base (P1, A, R,
+#: W), set by an operator plugin (``LLAMA_CUT_PLUGIN``; ``DPO_PLUGIN`` for
+#: P1, whose adapter W1 loads onto C's base): the run must end inside
+#: 1200 s on the slower card machines (all 32 until this cut, with which a
+#: whole run took 961.2 s on an NVIDIA H100 80GB HBM3 at 700 W)
+C_LAYERS = 8
 CONTROL_ARGS = {"lora_rank": 16, "batch_size": 4, "seq_len": 2048, "grad_accum_steps": 2,
                 "total_steps": 6, "checkpoint_every": 6, "log_every": 1, "profile_steps": 2,
                 "warmup_steps": 2, "learning_rate": 2e-4}
@@ -1888,8 +2082,10 @@ CONTROL_JOB_TIMEOUT_S = 900
 QLORA_MODEL = "mistral-7b-qlora"
 QLORA_ARGS = {k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"}
 #: Q's depth, set by an operator plugin (``QLORA_PLUGIN``): the run must end
-#: inside 1200 s on the slower card machines
-QLORA_LAYERS = 16
+#: inside 1200 s on the slower card machines (16 layers until phases A, J, N
+#: and B came; with them at 16 a whole run took 1095.8 s on an NVIDIA H100
+#: 80GB HBM3 at 700 W)
+QLORA_LAYERS = 8
 QLORA_PLUGIN = '''"""``mistral-7b-qlora`` at {layers} of its 32 layers."""
 
 from finetune_controller_tpu_torch.controller.examples import Mistral7B_QLoRA
@@ -2116,7 +2312,7 @@ def _generate_against_engine(ctx, job_id: str, vocab: int, prompt_lens, new_toke
             "answers": {a["request_id"]: a["tokens"] for a in answers}}
 
 
-def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
+def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict, dict]:
     """C, Q, V2 and P1: the control plane on the card.  The port's server runs in
     this process on an ephemeral port, on its own event-loop thread, with a
     fresh state dir and object store under ``build/chip_smoke_ctrl``.  A dev
@@ -2141,8 +2337,9 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
     ``LLAVA_MODEL`` on the same server (:func:`_llava_job`), and P1
     ``DPO_MODEL`` on seeded preference rows uploaded with ``POST /datasets``
     (:func:`_dpo_job`; the held-out rows through ``DPO_PLUGIN``, from the
-    registry's plugin directory).  Returns C's, Q's, V2's and P1's
-    records."""
+    registry's plugin directory).  A then serves C's promoted job from a
+    server with ``serve_autoscale`` on (:func:`serve_tenant_phase`).
+    Returns C's, Q's, V2's, P1's and A's records."""
     t_phase = time.perf_counter()
     ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_ctrl"
     shutil.rmtree(ctrl, ignore_errors=True)
@@ -2153,8 +2350,10 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
     prefs, prefs_eval = preference_rows(work, seed)
     (ctrl / "plugins").mkdir()
     (ctrl / "plugins" / "dpo_held_out.py").write_text(
-        DPO_PLUGIN.format(eval_path=str(prefs_eval)))
+        DPO_PLUGIN.format(eval_path=str(prefs_eval), layers=C_LAYERS))
     (ctrl / "plugins" / "qlora_depth.py").write_text(QLORA_PLUGIN.format(layers=QLORA_LAYERS))
+    (ctrl / "plugins" / "llama_depth.py").write_text(LLAMA_CUT_PLUGIN.format(layers=C_LAYERS))
+    (ctrl / "plugins" / "llava_depth.py").write_text(LLAVA_CUT_PLUGIN.format(layers=LLAVA_LAYERS))
     with control_plane(ctrl, CONTROL_ENV, plugin_dir=ctrl / "plugins") as ctx:
         api = ctx[0]
         dataset = api.ok("POST", "/datasets", files={"file": ("train.jsonl", docs.read_bytes())},
@@ -2179,7 +2378,10 @@ def control_phase(work, seed: int) -> tuple[dict, dict, dict, dict]:
         dpo = _dpo_job(ctx, dpo_dataset["dataset_id"], seed)
         dpo["phase_s"] = time.perf_counter() - t_p
     dpo["control_dir_bytes"] = tree_bytes(ctrl)
-    return record, qlora, llava, dpo
+    DISK.mark("P1")
+    tenant = serve_tenant_phase(work, seed, record, dataset["dataset_id"])
+    tenant["control_dir_bytes"] = tree_bytes(ctrl)
+    return record, qlora, llava, dpo, tenant
 
 
 @contextlib.contextmanager
@@ -2248,6 +2450,9 @@ def _control_job(ctx, dataset_id: str, seed: int) -> dict:
         "dataset_id": dataset_id, "arguments": json.dumps(CONTROL_ARGS)})["job_id"]
     job, seen, logs = _follow_job(api, job_id, t_submit, "C")
     order = [st for st in ("queued", "running", "succeeded") if st in seen]
+    native = [line for line in logs if "native packer produced" in line]
+    if not native:
+        raise SmokeFailure("C: the job's log has no line of the native JSONL packer")
     records = _job_rows(api, job_id, CONTROL_ARGS["total_steps"], "C")
     losses = [r["loss"] for r in records]
     timeline, at = _timeline(api, job_id, (
@@ -2307,7 +2512,7 @@ def _control_job(ctx, dataset_id: str, seed: int) -> dict:
         "flash_launches_in_profile": seen_launches,
         "profile": profiles[0], "profile_bytes": len(profile_bytes),
         "log_lines": len(logs), "timeline_events": len(timeline),
-        "job_sandbox_bytes": job_bytes,
+        "job_sandbox_bytes": job_bytes, "native_packer_log": native[0][-200:],
     }
     log(f"control: {CONTROL_MODEL} on {CONTROL_FLAVOR} through the port's server: "
         f"{' -> '.join(order)}; submit -> RUNNING {record['submit_to_running_s']:.1f} s, "
@@ -2524,8 +2729,10 @@ def int4_check(seed: int) -> dict:
 #: ``full`` remat), LoRA rank 16 on the attention projections (the experts
 #: carry none), bf16 for the other frozen tensors; T2's batch shape
 #: M's depth: the run must end inside 1200 s on the slower card machines
-#: (with M at 32 layers a whole run took 1141 s on one H100 machine)
-MOE_LAYERS = 16
+#: (with M at 32 layers a whole run took 1141 s on one H100 machine; at 16,
+#: with phases A, J, N and B, 1095.8 s, M itself 63.5 s, on an NVIDIA H100
+#: 80GB HBM3 at 700 W)
+MOE_LAYERS = 8
 MOE_SPEC = {
     "job_id": "chip-smoke-moe",
     "model": {"preset": "mixtral-8x7b", "lora": {"rank": 16, "alpha": 32.0},
@@ -2818,6 +3025,20 @@ LLAVA_HF_LAYERS = 1
 #: the 576 patches of the image prefix make 2048 decoder positions,
 #: LLaVA-1.5's ``model_max_length``; ``profile_steps`` 2 traces steps 3-4
 LLAVA_MODEL = "llava-1.5-lora"
+#: V2's decoder depth, set by an operator plugin (``LLAVA_CUT_PLUGIN``): the
+#: run must end inside 1200 s on the slower card machines (32 until then)
+LLAVA_LAYERS = 8
+LLAVA_CUT_PLUGIN = '''"""``llava-1.5-lora`` with {layers} of its 32 decoder layers."""
+
+from finetune_controller_tpu_torch.controller.examples import Llava15LoRA
+
+
+class Llava15LoRA_Cut(Llava15LoRA):
+    def build_trainer_spec(self, job_id, artifacts_dir, **kw):
+        spec = super().build_trainer_spec(job_id, artifacts_dir, **kw)
+        spec["model"].setdefault("overrides", {{}})["n_layers"] = {layers}
+        return spec
+'''
 LLAVA_ARGS = {"lora_rank": 16, "batch_size": 4, "seq_len": 1472, "grad_accum_steps": 2,
               "total_steps": 6, "checkpoint_every": 6, "log_every": 1, "profile_steps": 2,
               "warmup_steps": 2, "learning_rate": 2e-4}
@@ -3158,7 +3379,7 @@ def _llava_job(ctx, seed: int) -> dict:
     return record
 
 
-#: P1: ``llama3-8b-dpo`` through C's server at full width and depth (the
+#: P1: ``llama3-8b-dpo`` through C's server at full width and C's depth (the
 #: API spec's f32 base from the job's seed): the preset's batch of 8 pairs x
 #: 512 tokens in 2 microbatches (one (2b, S) = (8, 512) stacked forward per
 #: model each), 6 steps, evaluation every 3 steps on the held-out file (2
@@ -3176,7 +3397,8 @@ LLAMA3_VOCAB = 128256
 #: P1: the API names no held-out file (the reference's neither); an
 #: operator plugin (the registry's plugin directory) renders ``llama3-8b-dpo``
 #: with the held-out file as ``dataset.eval_path``
-DPO_PLUGIN = '''"""``llama3-8b-dpo`` whose trainer spec names a held-out preference file."""
+DPO_PLUGIN = '''"""``llama3-8b-dpo`` at {layers} of its 32 layers, whose trainer spec names a
+held-out preference file."""
 
 from finetune_controller_tpu_torch.controller.examples import Llama3_8B_DPO
 
@@ -3185,6 +3407,7 @@ class Llama3_8B_DPO_HeldOut(Llama3_8B_DPO):
     def build_trainer_spec(self, job_id, artifacts_dir, **kw):
         spec = super().build_trainer_spec(job_id, artifacts_dir, **kw)
         spec["dataset"]["eval_path"] = {eval_path!r}
+        spec["model"].setdefault("overrides", {{}})["n_layers"] = {layers}
         return spec
 '''
 
@@ -3275,7 +3498,7 @@ def _dpo_job(ctx, dataset_id: str, seed: int) -> dict:
     in_ref = kernels_inside(events, "dpo_reference_forward", fwd_sym)
     m = re.fullmatch(r"profile/steps_(\d+)-(\d+)\.pt\.trace\.json", profiles[0])
     profiled = list(range(int(m.group(1)) + 1, int(m.group(2)) + 1))
-    layers, micro = PRESETS_DEPTH, DPO_ARGS["grad_accum_steps"]
+    layers, micro = C_LAYERS, DPO_ARGS["grad_accum_steps"]
     excess = launches["flash_forward"] - in_eval - 2 * launches["flash_backward_dq"]
     want = layers * micro * len(profiled)
     if DEVICE == "cuda" and (excess != want or launches["flash_backward_dq"] != want):
@@ -3337,7 +3560,7 @@ def _dpo_job(ctx, dataset_id: str, seed: int) -> dict:
 
 #: P0: the DPO step's flash shape: 8 pairs stacked to 16 rows of 512
 DPO_FLASH_SHAPE = (16, 512, 32, 8, 128)
-#: P2 and P3: llama3-8b at full width cut to this depth.  P1 keeps all 32;
+#: P2 and P3: llama3-8b at full width cut to this depth (P1 runs at C's);
 #: at 32 layers P2's and P3's checkpoints with optimizer state (0.5 GB each,
 #: 5 of them) and exports would add ~3 GB to the run's writes, and P3's
 #: learner steps and actor decode would take ~4x longer
@@ -3629,13 +3852,15 @@ def rlhf_phase(work, seed: int) -> dict:
 P4_WORKERS = 2
 #: P4's learner: the first commit (and so the first policy push) must come
 #: after the SIGKILLed worker's respawn streams again (a respawn regenerates
-#: version-0 rounds only before any push): on an NVIDIA H100 80GB HBM3 at
-#: 700 W the respawn streamed 33.8-41.5 s after the kill and a learner step
-#: took 615 ms, so the first commit comes ~49 s after the kill.  The second
-#: push follows a commit later; the steps after it let the stream, which
-#: the prefetch thread runs ahead, pull once more and push it
-P4_CHECKPOINT_EVERY = 80
+#: version-0 rounds only before any push), so the learner's step
+#: ``P4_CHECKPOINT_EVERY`` waits for that stream (at most
+#: ``P4_RESPAWN_WAIT_S``; the respawn streamed 33.8-41.5 s after the kill on
+#: an NVIDIA H100 80GB HBM3 at 700 W).  The second push follows a commit
+#: later; the steps after it let the stream, which the prefetch thread runs
+#: ahead, pull once more and push it
+P4_CHECKPOINT_EVERY = 16
 P4_TOTAL_STEPS = 2 * P4_CHECKPOINT_EVERY + 4
+P4_RESPAWN_WAIT_S = 240.0
 #: the reward worker's serving engine (it answers generate too; P4 drives
 #: its reward_score RPC)
 P4_REWARD_ENGINE = {"slots": 2, "prompt_buckets": (32,), "max_new_tokens": 8}
@@ -3743,6 +3968,12 @@ def rollout_plane_phase(work, seed: int, rlhf: dict) -> dict:
         return real_from_doc(doc)
 
     def spy_step(trainer, batch):
+        if len(step_starts) + 1 == P4_CHECKPOINT_EVERY:
+            # the step whose commit is the first push: after the respawn streams
+            deadline = time.monotonic() + P4_RESPAWN_WAIT_S
+            while ("rollout-1", 2) not in first_ingest and time.monotonic() < deadline:
+                time.sleep(0.02)
+            kill["learner_waited_at_step"] = P4_CHECKPOINT_EVERY
         step_starts.append(time.time_ns())
         return real_step(trainer, batch)
 
@@ -4178,7 +4409,7 @@ def save_cost(records: list[dict], checkpoint_ms: dict, resumed_from: int) -> di
 
 
 def resilience_phase(work, seed: int, control: dict) -> dict:
-    """R: a ``llama3-8b-lora`` job at full width and depth submitted with
+    """R: a ``llama3-8b-lora`` job at full width and C's depth submitted with
     ``python -m finetune_controller_tpu_torch.controller.ctl submit ...
     --watch`` (a subprocess) to the port's server in this process, with C's
     arguments, dataset and seed, a checkpoint every 2 steps and no profiler
@@ -4215,7 +4446,9 @@ def resilience_phase(work, seed: int, control: dict) -> dict:
     docs = Path(work) / "train.jsonl"
     fault = StepFault(kill_at_step=RESILIENCE_KILL_AT, signum=signal.SIGKILL,
                       once_file="fault_fired")
-    with control_plane(ctrl, RESILIENCE_ENV) as ctx:
+    (ctrl / "plugins").mkdir()
+    (ctrl / "plugins" / "llama_depth.py").write_text(LLAMA_CUT_PLUGIN.format(layers=C_LAYERS))
+    with control_plane(ctrl, RESILIENCE_ENV, plugin_dir=ctrl / "plugins") as ctx:
         api, scrape, rt, settings, on_loop, _ = ctx
         rt.backend.backoff_limit = 0
         rt.backend.extra_env.update(fault.to_env())
@@ -4488,15 +4721,17 @@ W_KILL_AT_STEP = 8
 #: prompt lengths W1 sends beside C's four, in each session
 W_PROMPTS = (64, 200, 333, 480)
 W_TENANT_PROMPTS = (40, 150, 300, 450)
-#: W2: C's job at full width, 3 steps, one checkpoint at the end, no
+#: W2: C's job at full width and depth, 3 steps, one checkpoint at the end, no
 #: profiler window, in a warm trainer process
 W2_ARGS = {**{k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"},
            "total_steps": 3, "checkpoint_every": 3}
 W2_ENV = {**CONTROL_ENV, "FTC_WARM_WORKERS": "1"}
 #: what W may write (its ``DiskTally``)
 W_DISK_BYTES = int(2.5 * 2**30)
-#: flash launches per training step of C's shape (32 layers, 2 microbatches)
-FLASH_PER_STEP = {"flash_forward": 128, "flash_backward_dq": 64, "flash_backward_dkv": 64}
+#: flash launches per training step of C's shape (``C_LAYERS`` layers, 2
+#: microbatches; ``mlp`` remat runs each layer's forward twice)
+FLASH_PER_STEP = {"flash_forward": 4 * C_LAYERS, "flash_backward_dq": 2 * C_LAYERS,
+                  "flash_backward_dkv": 2 * C_LAYERS}
 
 
 def _free_cuda() -> None:
@@ -4775,16 +5010,17 @@ def worker_phase(work, seed: int, control: dict, dpo: dict) -> dict:
     t_phase = time.perf_counter()
     disk0 = DISK.written()
     ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_ctrl"
-    with control_plane(ctrl, W_ENV) as ctx:
+    plugins = ctrl / "plugins"  # C's: W2 runs C's job at C's depth
+    with control_plane(ctrl, W_ENV, plugin_dir=plugins) as ctx:
         merged = _w1_merged(ctx, control, seed)
     once = ctrl / "w1_fault_fired"
     once.unlink(missing_ok=True)
     fault = ServeFault(replica_id="r0", at_step=W_KILL_AT_STEP, mode="kill",
                        once_file=str(once)).to_env()
-    with control_plane(ctrl, {**W_TENANT_ENV, **fault}) as ctx:
+    with control_plane(ctrl, {**W_TENANT_ENV, **fault}, plugin_dir=plugins) as ctx:
         tenants = _w1_tenants(ctx, control, dpo, seed, once)
     DISK.mark("W1")
-    with control_plane(ctrl, W2_ENV) as ctx:
+    with control_plane(ctrl, W2_ENV, plugin_dir=plugins) as ctx:
         warm = _w2_warm(ctx, work, control)
     written = DISK.written() - disk0
     record = {"w1": merged, "w1_tenants": tenants, "w2": warm, "bytes_written": written,
@@ -4841,8 +5077,8 @@ D_DISK_BYTES = 3 * 2**30
 #: seconds the monitor daemon and the state service get to exit on SIGTERM
 D_STOP_S = 10
 #: D's depth (``LLAMA_CUT_PLUGIN``): K runs after D in a run that must end
-#: inside 1200 s
-D_LAYERS = 16
+#: inside 1200 s (16 until the run's cuts for the slower card machines)
+D_LAYERS = 8
 
 
 class S3Endpoint:
@@ -5999,7 +6235,7 @@ class _KubeletPod:
                 self.times[f"{n}_exit"] = time.time()
 
 
-def _wait_until(predicate, timeout_s: float, what: str):
+def _wait_until(predicate, timeout_s: float, what: str, tag: str = "K"):
     """Poll ``predicate`` every 0.1 s until it returns a true value."""
     t0 = time.time()
     while True:
@@ -6007,7 +6243,7 @@ def _wait_until(predicate, timeout_s: float, what: str):
         if value:
             return value
         if time.time() - t0 > timeout_s:
-            raise SmokeFailure(f"K: {what} within {timeout_s:.0f} s")
+            raise SmokeFailure(f"{tag}: {what} within {timeout_s:.0f} s")
         time.sleep(0.1)
 
 
@@ -6664,6 +6900,540 @@ def orbax_phase(work, seed: int) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# A, J, N, B: serve as a scheduler tenant, the runtime guards, the native
+# packer and the kernel bench
+# ---------------------------------------------------------------------------
+
+#: A: C's server settings plus the serve tenant: every replica of a served
+#: job is a low-priority ``serve`` workload on the ``h100`` flavor (one chip
+#: of quota), reconciled every 0.25 s; 2 queued requests per replica for 2
+#: ticks grow the fleet (a scheduler submit)
+A_ENV = {**CONTROL_ENV, "FTC_SERVE_AUTOSCALE": "true", "FTC_SERVE_FLAVOR": CONTROL_FLAVOR,
+         "FTC_SERVE_MIN_REPLICAS": "1", "FTC_SERVE_MAX_REPLICAS": "2",
+         "FTC_SERVE_SCALE_UP_QUEUE_DEPTH": "2", "FTC_SERVE_SCALE_SUSTAIN_TICKS": "2",
+         "FTC_SERVE_HEALTH_INTERVAL_S": "0.25"}
+#: A's training job: C's spec, 3 steps, no profiler window
+A_ARGS = {**{k: v for k, v in CONTROL_ARGS.items() if k != "profile_steps"},
+          "total_steps": 3, "checkpoint_every": 3}
+#: the burst that pushes queue depth past the threshold (C's 4 prompts in turn)
+A_BURST = 24
+#: new tokens of the 4 requests in flight when the training job arrives:
+#: their first ``CONTROL_NEW_TOKENS`` must equal C's answers
+A_INFLIGHT_NEW_TOKENS = 48
+#: the most the scheduler may take from the drain to the job's admission:
+#: one monitor tick (``FTC_JOB_MONITOR_INTERVAL_S``) and the polling slack
+A_ADMIT_AFTER_DRAIN_S = 1.5
+
+
+def _card_mb() -> float | None:
+    return CardMemorySampler.read()
+
+
+def serve_tenant_phase(work, seed: int, control: dict, dataset_id: str) -> dict:
+    """A: C's promoted job served by a server with ``serve_autoscale`` on, over
+    the fair-share scheduler of the one-H100 catalog (a fresh control plane
+    on C's state dir and object store).  The tenant attaches the replica as
+    a ``serve`` workload; a burst of ``A_BURST`` requests grows the fleet by
+    a second workload, which stays QUEUED on one chip of quota; then, with
+    4 requests in flight, a normal-priority training job (``A_ARGS``) is
+    submitted: the tenant takes the preemption and drains the replica (the
+    4 finish, their tokens C's answers), the workload is released and the
+    job admitted on the next scheduler tick; it trains on the flash kernels
+    (its ``events.jsonl``).  While no replica is up ``/generate`` answers
+    the router's 503.  After SUCCEEDED the tenant is admitted again at
+    ``serve_min_replicas`` and ``/generate`` answers through the paged
+    kernel.  Timed on the host clock (polling ``GET /admin/serve`` and the
+    scheduler every 20 ms); the card's used memory read at each edge."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from finetune_controller_tpu_torch.ops.kernels import paged_attention as pa
+
+    ctrl = Path(__file__).resolve().parent / "build" / "chip_smoke_ctrl"
+    job_c, prompts, want = control["job_id"], control["prompts"], control["answers"]
+    t_phase = time.perf_counter()
+    with control_plane(ctrl, A_ENV, plugin_dir=ctrl / "plugins") as ctx:
+        api, scrape, rt, settings, on_loop, _ = ctx
+        sched = rt.backend.scheduler
+        mem = {"before_load": _card_mb()}
+
+        def session():
+            return api.ok("GET", "/admin/serve")["sessions"].get(job_c) or {}
+
+        # the burst's prompts are its own (C's lengths in turn): a prompt
+        # seen before would hit the prefix cache, whose suffix prefill may
+        # round differently from C's full one; the requests held to C's
+        # answers are each prompt's first on the engine that serves it
+        burst_prompts = []
+
+        def generate(i, new_tokens, tag, prompt=None):
+            status, out = api.call("POST", f"/jobs/{job_c}/generate", {
+                "tokens": prompt or prompts[i % len(prompts)], "max_new_tokens": new_tokens,
+                "request_id": f"{tag}{i}"})
+            return status, out, None if prompt else want[f"c{i % len(prompts)}"]
+
+        def lost(answers, new_tokens) -> list:
+            return [(status, out) for status, out, ref in answers
+                    if status != 200 or len(out["tokens"]) != new_tokens
+                    or (ref is not None and out["tokens"][:len(ref)] != ref)]
+
+        t0 = time.time()
+        vocab = api.ok("POST", f"/admin/serve/{job_c}/load")["model"]["vocab_size"]
+        load_s = time.time() - t0
+        rng = np.random.default_rng(seed + 23)
+        burst_prompts += [rng.integers(0, vocab, len(prompts[i % len(prompts)])).tolist()
+                          for i in range(A_BURST)]
+        (w0,) = session()["autoscale"]["workloads"]
+        _wait_until(lambda: sched.is_admitted(w0), 30, "the serve workload admitted", "A")
+        mem["serving"] = _card_mb()
+
+        # the burst: queue depth past the threshold grows the fleet by a
+        # second workload, which one chip of quota cannot admit
+        pa.paged_attention.launches = 0
+        polls = []
+        with ThreadPoolExecutor(A_BURST) as pool:
+            burst = [pool.submit(generate, i, CONTROL_NEW_TOKENS, "a", burst_prompts[i])
+                     for i in range(A_BURST)]
+            while not all(f.done() for f in burst):
+                s = session()
+                polls.append((s.get("queue_depth", 0), s.get("replicas_healthy", 0),
+                              dict(s.get("autoscale", {}).get("workloads", {}))))
+                time.sleep(0.05)
+            burst = [f.result() for f in burst]
+        burst_launches = pa.paged_attention.launches
+        grow = sorted({wid for _, _, wls in polls for wid, rid in wls.items()
+                       if wid != w0 and rid is None})
+        tenant = session()["autoscale"]
+        if lost(burst, CONTROL_NEW_TOKENS) or not grow or any(h > 1 for _, h, _ in polls) \
+                or any(sched.is_admitted(w) for w in grow) or tenant["scale_ups_total"] < 1:
+            raise SmokeFailure(
+                f"A: burst lost {lost(burst, CONTROL_NEW_TOKENS)[:3]}, grow "
+                f"workloads {grow} (admitted: {[sched.is_admitted(w) for w in grow]}), healthy "
+                f"{sorted({h for _, h, _ in polls})}, tenant {tenant}")
+
+        # a normal-priority training job while 4 requests are in flight
+        mem["before_drain"] = _card_mb()
+        pool = ThreadPoolExecutor(len(prompts))
+        inflight = [pool.submit(generate, i, A_INFLIGHT_NEW_TOKENS, "f")
+                    for i in range(len(prompts))]
+        _wait_until(lambda: session().get("slots_busy", 0) >= len(prompts), 60,
+                    "the 4 requests in flight", "A")
+        t_submit = time.time()
+        job_a = api.ok("POST", "/jobs", fields={
+            "model_name": CONTROL_MODEL, "device": CONTROL_FLAVOR, "dataset_id": dataset_id,
+            "arguments": json.dumps(A_ARGS)})["job_id"]
+        edges = {}
+        while time.time() - t_submit < 300 and "admitted" not in edges:
+            s = session()
+            now = time.time()
+            if s.get("replicas_draining") and "drain_start" not in edges:
+                edges["drain_start"] = now
+            if not s.get("replicas_total") and "drained" not in edges:
+                edges["drained"] = now
+                mem["after_drain"] = _card_mb()
+            if "drained" in edges and sched.is_admitted(job_a):
+                edges["admitted"] = time.time()
+            time.sleep(0.02)
+        inflight = [f.result() for f in inflight]
+        pool.shutdown()
+        if "admitted" not in edges or lost(inflight, A_INFLIGHT_NEW_TOKENS):
+            raise SmokeFailure(f"A: edges {sorted(edges)}, in flight lost "
+                               f"{lost(inflight, A_INFLIGHT_NEW_TOKENS)}")
+        unavailable = api.call("POST", f"/jobs/{job_c}/generate",
+                               {"tokens": prompts[0], "max_new_tokens": 4})
+        with CardMemorySampler() as sampler:
+            job, seen, logs = _follow_job(api, job_a, t_submit, "A")
+        records = _job_rows(api, job_a, A_ARGS["total_steps"], "A")
+        _, at = _timeline(api, job_a, ("submitted", "running", "succeeded"), "A")
+        t_end = time.time()
+        _wait_until(lambda: session().get("replicas_healthy") == 1, 300,
+                    "the replica back after the job", "A")
+        edges["serving_again"] = time.time()
+        mem["serving_again"] = _card_mb()
+        pa.paged_attention.launches = 0
+        with ThreadPoolExecutor(len(prompts)) as p:
+            again = list(p.map(lambda i: generate(i, CONTROL_NEW_TOKENS, "g"),
+                               range(len(prompts))))
+        again_launches = pa.paged_attention.launches
+        tenant = session()["autoscale"]
+        events = [json.loads(ln) for ln in (settings.state_path / "sandboxes" / job_a
+                                            / "artifacts" / "events.jsonl").read_text().splitlines()]
+        launches = attempt_launches(events)
+        api.ok("POST", f"/admin/serve/{job_c}/unload")
+    n_lost = len(lost(burst, CONTROL_NEW_TOKENS)) + len(lost(inflight, A_INFLIGHT_NEW_TOKENS)) \
+        + len(lost(again, CONTROL_NEW_TOKENS))
+    if n_lost or len(launches) != 1 or any(launches[0].get(n, 0) <= 0 for n in FLASH_KERNELS) \
+            or tenant["preempted_total"] != 1 or unavailable[0] != 503 \
+            or (DEVICE == "cuda" and min(burst_launches, again_launches) <= 0):
+        raise SmokeFailure(
+            f"A: {n_lost} requests lost, the job's flash launches {launches}, tenant {tenant}, "
+            f"/generate with no replica {unavailable}, paged launches {burst_launches} / "
+            f"{again_launches}")
+    record = {
+        "job_id": job_a, "served_job": job_c, "load_s": load_s,
+        "statuses": [st for st in ("queued", "running", "succeeded") if st in seen],
+        "burst": A_BURST, "burst_queue_depth_max": max(d for d, _, _ in polls),
+        "grow_workloads_queued": grow, "requests_lost": n_lost,
+        "requests": len(burst) + len(inflight) + len(again),
+        "submit_to_drain_start_s": edges.get("drain_start", edges["drained"]) - t_submit,
+        "drain_s": edges["drained"] - edges.get("drain_start", edges["drained"]),
+        "drain_to_admitted_s": edges["admitted"] - edges["drained"],
+        "admitted_to_first_step_s": records[0]["timestamp"] - edges["admitted"],
+        "succeeded_to_serving_s": edges["serving_again"] - at["succeeded"],
+        "succeeded_seen_to_serving_s": edges["serving_again"] - t_end,
+        "no_replica_answer": {"status": unavailable[0], "detail": unavailable[1]},
+        "job_losses": [r["loss"] for r in records], "job_flash_launches": launches[0],
+        "job_peak_card_gb_over_start": sampler.peak_gb, "card_used_mb": mem,
+        "paged_launches_burst": burst_launches, "paged_launches_after": again_launches,
+        "tenant": tenant, "phase_s": time.perf_counter() - t_phase,
+    }
+    if record["drain_to_admitted_s"] > A_ADMIT_AFTER_DRAIN_S:
+        raise SmokeFailure(f"A: the job was admitted {record['drain_to_admitted_s']:.2f} s "
+                           f"after the drain (a scheduler tick is "
+                           f"{CONTROL_ENV['FTC_JOB_MONITOR_INTERVAL_S']} s)")
+    log(f"A serve tenant: {job_c} loaded with serve_autoscale in {load_s:.1f} s; a burst of "
+        f"{A_BURST} requests (queue depth up to {record['burst_queue_depth_max']}) submitted "
+        f"{len(grow)} grow workload(s), each QUEUED on one chip of quota (the policy cancels a "
+        f"pending grow when the pressure lapses); {job_a} (C's spec, 3 steps) submitted "
+        f"with 4 requests in flight: drain began {record['submit_to_drain_start_s']:.2f} s "
+        f"after the submit and took {record['drain_s']:.2f} s, the job admitted "
+        f"{record['drain_to_admitted_s']:.2f} s after the drain, its first step "
+        f"{record['admitted_to_first_step_s']:.1f} s after admission; /generate with no replica "
+        f"answered {unavailable[0]} ({unavailable[1]}); SUCCEEDED -> serving again "
+        f"{record['succeeded_to_serving_s']:.2f} s; {n_lost} of {record['requests']} requests "
+        f"lost; the job's flash launches {launches[0]}; paged launches {burst_launches} "
+        f"(burst), {again_launches} (after); card used MB {mem}; the job's peak over the "
+        f"server {sampler.peak_gb} GB; tenant {tenant}")
+    return record
+
+
+#: J: new tokens of each request of S1's mix under the transfer guard
+J_NEW_TOKENS = 16
+#: J: the trainer's steps (the first is exempt from the guard)
+J_STEPS = 5
+
+
+def _timed_decode(engine, reqs) -> tuple[dict, list[float]]:
+    """``BatchEngine.run``'s loop with each decode step on the host clock
+    (a step ends in the host fetch of its (slots,) token vector)."""
+    results, pending, step_s = {}, list(reqs), []
+    while pending or engine.active_requests:
+        while pending and engine.free_slots and engine.can_admit(pending[0]):
+            done = engine.admit(pending.pop(0))
+            if done is not None:
+                results[done.request_id] = done
+        t0 = time.perf_counter()
+        for done in engine.step():
+            results[done.request_id] = done
+        step_s.append(time.perf_counter() - t0)
+    return results, step_s
+
+
+def guard_decode_phase(model, reqs) -> dict:
+    """J, the engine: S1's request mix (``J_NEW_TOKENS`` each) through a
+    fresh S1 engine with ``FTC_TRANSFER_GUARD`` unset and ``raise``, twice
+    each in turns, driven on this (main) thread, so the decode window arms
+    the CUDA sync-debug mode.  The guarded runs must trip 0 times with the
+    same tokens, their distinct signatures within the engine's budget; the
+    sync-free sampler must draw ``torch.multinomial``'s tokens on the card.
+    Returns decode ms/step off and on, the counts and the paged launches."""
+    import dataclasses
+
+    import torch
+    from finetune_controller_tpu_torch.models.generate import _sample
+    from finetune_controller_tpu_torch.ops.kernels import paged_attention as pa
+    from finetune_controller_tpu_torch.serve.engine import BatchEngine, EngineConfig, warm_engine
+
+    for s in range(8):
+        logits = torch.randn((4, 32000), generator=torch.Generator("cuda").manual_seed(s),
+                             device="cuda")
+        a = _sample(logits, temperature=0.8, top_k=50,
+                    generator=torch.Generator("cuda").manual_seed(s))
+        scaled = logits / 0.8
+        kth = torch.sort(scaled, dim=-1).values[:, -50][:, None]
+        probs = torch.softmax(scaled.masked_fill(scaled < kth, float("-inf")), dim=-1)
+        b = torch.multinomial(probs, 1, generator=torch.Generator("cuda").manual_seed(s))[:, 0]
+        if not torch.equal(a, b):
+            raise SmokeFailure(f"J: the sync-free sampler drew {a.tolist()}, multinomial "
+                               f"{b.tolist()}")
+    ecfg = EngineConfig(slots=8, prompt_buckets=(32, 128, 512), max_new_tokens=128,
+                        prefix_cache_bytes=512 << 20, page_tokens=16)
+    jreqs = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, J_NEW_TOKENS))
+             for r in reqs]
+    ms = {"off": [], "raise": []}
+    tokens, out, launches = {}, {}, 0
+    saved = os.environ.pop("FTC_TRANSFER_GUARD", None)
+    try:
+        for mode in ("off", "raise", "off", "raise"):
+            if mode == "raise":
+                os.environ["FTC_TRANSFER_GUARD"] = "raise"
+            else:
+                os.environ.pop("FTC_TRANSFER_GUARD", None)
+            engine = BatchEngine(model, ecfg)
+            warm_engine(engine)
+            torch.cuda.synchronize()
+            pa.paged_attention.launches = 0
+            results, step_s = _timed_decode(engine, jreqs)
+            launches += pa.paged_attention.launches
+            ms[mode].append(sum(step_s) / len(step_s) * 1e3)
+            got = {rid: r.generated for rid, r in results.items()}
+            if tokens.setdefault(mode, got) != got:
+                raise SmokeFailure(f"J: two {mode} runs of one request mix gave different tokens")
+            guard = engine._transfer_guard
+            if (guard is None) != (mode == "off"):
+                raise SmokeFailure(f"J: FTC_TRANSFER_GUARD={mode} built guard {guard}")
+            if guard is not None:
+                if guard.trips or torch.cuda.get_sync_debug_mode() != 0:
+                    raise SmokeFailure(f"J: the decode guard tripped {guard.trips} times")
+                out = {"trips": guard.trips, "windows": guard._calls.get("decode", 0),
+                       "signatures": engine.guard.counts(), "budget": engine.guard.budget}
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("FTC_TRANSFER_GUARD", None)
+        if saved is not None:
+            os.environ["FTC_TRANSFER_GUARD"] = saved
+    if tokens["off"] != tokens["raise"]:
+        raise SmokeFailure("J: the guarded engine's tokens differ from the unguarded one's")
+    if sum(out["signatures"].values()) > out["budget"]:
+        raise SmokeFailure(f"J: signatures {out['signatures']} past the budget {out['budget']}")
+    return {**out, "decode_ms_per_step_off": ms["off"], "decode_ms_per_step_raise": ms["raise"],
+            "requests": len(jreqs), "new_tokens": J_NEW_TOKENS, "paged_launches": launches}
+
+
+def guard_train_phase(seg, seed: int) -> dict:
+    """J, the trainer: ``J_STEPS`` steps of llama3-8b cut to 2 layers at T3's
+    shape (full width, bf16 base, LoRA rank 16, B=2, S=2048, T3's packed
+    segments) through ``Trainer.step`` with ``transfer_guard="raise"``,
+    ``recompile_budget=2`` (``raise``) and no prefetch thread, so the step's
+    window arms the CUDA sync-debug mode: 0 trips and one signature.  Then
+    the same under ``FTC_FAULT_TRANSFER=1``: the guard's host copy inside
+    the second step's window must abort it with the sync-debug mode's
+    error (a real CUDA sync; the CPU cannot show it).  The flash kernels'
+    counts are zeroed before the clean steps and read after."""
+    import torch
+    from finetune_controller_tpu_torch.analysis.transfer_guard import TransferGuardError
+    from finetune_controller_tpu_torch.data.loader import batches_from_tokens
+    from finetune_controller_tpu_torch.models.llama import PRESETS
+    from finetune_controller_tpu_torch.models.lora import LoRAConfig
+    from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
+    from finetune_controller_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = PRESETS["llama3-8b"].replace(n_layers=2, lora=LoRAConfig(rank=16, alpha=32.0))
+    tcfg = TrainConfig(frozen_dtype="bfloat16", batch_size=2, seq_len=2048, seed=seed,
+                       prefetch=0, transfer_guard="raise", recompile_budget=2,
+                       recompile_action="raise", total_steps=J_STEPS, warmup_steps=1)
+    host_seg = seg.cpu().numpy()
+    tokens = np.random.default_rng(seed + 17).integers(0, cfg.vocab_size, host_seg.shape)
+    batches = batches_from_tokens(tokens.astype(np.int32), host_seg, 2, seed=seed)
+    saved = os.environ.pop("FTC_FAULT_TRANSFER", None)
+    try:
+        trainer = Trainer(cfg, tcfg)
+        for name in FLASH_KERNELS:
+            getattr(fa, name).launches = 0
+        step_ms, losses = [], []
+        for _ in range(J_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        launches = {name: getattr(fa, name).launches for name in FLASH_KERNELS}
+        guard, counts = trainer._transfer_guard, trainer._recompile_guard.counts()
+        if guard.trips or not guard.arm_cuda or min(launches.values()) <= 0 \
+                or sum(counts.values()) != 1 or not all(map(math.isfinite, losses)):
+            raise SmokeFailure(f"J: guarded steps tripped {guard.trips} times (CUDA mode "
+                               f"{guard.arm_cuda}), signatures {counts}, losses {losses}, "
+                               f"flash launches {launches}")
+        clean = {"trips": guard.trips, "windows": guard._calls, "signatures": counts,
+                 "losses": losses, "ms_per_step": step_ms, "flash_launches": launches}
+        del trainer, guard
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.environ["FTC_FAULT_TRANSFER"] = "1"
+        trainer = Trainer(cfg, tcfg)
+        aborted_at, error = None, ""
+        for i in range(J_STEPS):
+            try:
+                trainer.step(next(batches))
+            except TransferGuardError as e:
+                aborted_at, error = i + 1, str(e)
+                break
+        if aborted_at != 2 or "sync-debug mode caught" not in error \
+                or torch.cuda.get_sync_debug_mode() != 0:
+            raise SmokeFailure(f"J: the injected sync aborted step {aborted_at}: {error!r}")
+        fault = {"aborted_at_step": aborted_at, "error": error[:300],
+                 "trips": trainer._transfer_guard.trips}
+        del trainer
+    finally:
+        os.environ.pop("FTC_FAULT_TRANSFER", None)
+        if saved is not None:
+            os.environ["FTC_FAULT_TRANSFER"] = saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"clean": clean, "fault": fault}
+
+
+#: N: the JSONL's size and the rows' pool (chat and SFT, text and tokens)
+N_BYTES = 200 * 10**6
+N_POOL = 4096
+
+
+def write_packer_rows(path: Path, seed: int, nbytes: int = N_BYTES) -> dict:
+    """N's dataset: ``N_POOL`` rows drawn from ``seed`` — chat (system, user and
+    assistant turns, one in three with a second exchange), SFT
+    prompt/completion text and SFT token rows, with escapes and non-ASCII
+    text — written in a seeded order until ``nbytes``."""
+    rng = np.random.default_rng(seed)
+    words = ["".join(chr(c) for c in rng.integers(97, 123, rng.integers(2, 10)))
+             for _ in range(4000)] + ["café", "naïve", "♞", "😀", '"q"', "a\\b", "t\tx", "l\nb"]
+
+    def text(n):
+        return " ".join(words[i] for i in rng.integers(0, len(words), n))
+
+    pool = []
+    for i in range(N_POOL):
+        kind = i % 4
+        if kind == 0:
+            row = {"messages": [{"role": "system", "content": text(8)},
+                                {"role": "user", "content": text(40)},
+                                {"role": "assistant", "content": text(80)}]}
+        elif kind == 1:
+            row = {"prompt": text(40), "completion": text(60)}
+        elif kind == 2:
+            row = {"prompt_tokens": rng.integers(0, 128000, 50).tolist(),
+                   "completion_tokens": rng.integers(0, 128000, 30).tolist()}
+        else:
+            row = {"messages": [{"role": "user", "content": text(30)},
+                                {"role": "assistant", "content": text(50)},
+                                {"role": "user", "content": text(10)},
+                                {"role": "assistant", "content": text(30)}]}
+        pool.append((json.dumps(row, ensure_ascii=bool(i % 2)) + "\n").encode())
+    rows = size = 0
+    with open(path, "wb") as f:
+        while size < nbytes:
+            for j in rng.integers(0, N_POOL, 4096):
+                f.write(pool[j])
+                size += len(pool[j])
+                rows += 1
+    return {"bytes": size, "rows": rows}
+
+
+def _digests(arrays) -> list:
+    import hashlib
+
+    return [[list(a.shape), str(a.dtype), hashlib.sha256(np.ascontiguousarray(a)).hexdigest()]
+            for a in arrays]
+
+
+N_PYTHON_PACK = """
+import json, sys, time, hashlib
+import numpy as np
+from finetune_controller_tpu_torch.data.loader import load_token_documents, pack_documents
+t0 = time.perf_counter()
+arrays = pack_documents(load_token_documents(sys.argv[1]), int(sys.argv[2]))
+s = time.perf_counter() - t0
+print(json.dumps({"seconds": s, "digests": [[list(a.shape), str(a.dtype),
+      hashlib.sha256(np.ascontiguousarray(a)).hexdigest()] for a in arrays]}))
+"""
+
+
+def native_packer_phase(work, seed: int) -> dict:
+    """N: ``write_packer_rows`` (counted by ``DiskTally``), packed into
+    2048-token blocks by the native packer (``csrc/packer.cc``, built here
+    by the host compiler) on this thread; then the Python loader packs the
+    same file in a subprocess of its own, which runs beside the phases
+    that follow (one of the host's cores) and is joined by
+    :func:`native_packer_finish`: the arrays' SHA-256 digests must be
+    equal."""
+    from finetune_controller_tpu_torch.data import native_loader
+
+    path = Path(work) / "packer_rows.jsonl"
+    t0 = time.perf_counter()
+    written = write_packer_rows(path, seed)
+    write_s = time.perf_counter() - t0
+    native_loader._library()  # the first use builds the library (host compiler)
+    t0 = time.perf_counter()
+    arrays = native_loader.pack_jsonl_native(str(path), 2048)
+    native_s = time.perf_counter() - t0
+    digests = _digests(arrays)
+    blocks = arrays[0].shape[0]
+    del arrays
+    gc.collect()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", N_PYTHON_PACK, str(path), "2048"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(Path(__file__).resolve().parent))
+    # a run that fails before the join leaves no packer behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"path": str(path), **written, "write_s": write_s, "native_s": native_s,
+            "native_mb_per_s": written["bytes"] / native_s / 1e6, "blocks": blocks,
+            "digests": digests, "proc": proc}
+
+
+def native_packer_finish(n: dict) -> dict:
+    """N, joined: the Python path's digests against the native ones."""
+    proc = n.pop("proc")
+    out, err = proc.communicate(timeout=900)
+    Path(n["path"]).unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"N: the Python packer exited {proc.returncode}: {err[-2000:]}")
+    py = json.loads(out.strip().splitlines()[-1])
+    if py["digests"] != n["digests"]:
+        raise SmokeFailure(f"N: native {n['digests']} against Python {py['digests']}")
+    n.update(python_s=py["seconds"], python_mb_per_s=n["bytes"] / py["seconds"] / 1e6,
+             bit_equal=True)
+    return n
+
+
+#: B: the kernel bench at T2's flash shape and the paged decode shape (S1's
+#: lane holds 40 pages of 16 tokens)
+B_FLASH_SHAPE = dict(batch=2, seq=2048, heads=32, kv_heads=8, head_dim=128)
+B_PAGED_SHAPE = dict(batch=8, heads=32, kv_heads=8, head_dim=128, page_tokens=16,
+                     pages_per_lane=(40, 256))
+
+
+def kernel_bench_phase(flash: dict, paged_entry: dict) -> dict:
+    """B: ``ops/kernel_bench.py`` on the card (chained calls, host clock):
+    ``bench_attention`` and ``bench_flash_variants`` (1 and 4 documents a
+    row) at T2's flash shape, ``bench_paged_variants`` at the decode shape;
+    beside T4's CUDA-event times and S1's CUDA-graph replay of the paged
+    kernel, with SDPA as a yardstick.  The gate keeps the kernel on the card
+    at every length."""
+    import torch
+    from finetune_controller_tpu_torch.ops import kernel_bench
+
+    for seq in (1, 512, 1023, 1024, 8192):
+        if kernel_bench.preferred_impl(seq, "cuda") != "kernel":
+            raise SmokeFailure(f"B: the auto gate routes S={seq} off the kernel")
+    t0 = time.perf_counter()
+    attn = kernel_bench.bench_attention(**B_FLASH_SHAPE, dtype=torch.bfloat16, iters=10)
+    variants = kernel_bench.bench_flash_variants(**B_FLASH_SHAPE, dtype=torch.bfloat16,
+                                                 iters=8, documents=(1, 4))
+    paged = kernel_bench.bench_paged_variants(**B_PAGED_SHAPE, dtype=torch.bfloat16, iters=20)
+    events_grad = sum(flash[n]["ms"] for n in FLASH_KERNELS)
+    out = {"attention_ms": {k: v * 1e3 for k, v in attn.items()},
+           "flash_variants_ms": {k: v * 1e3 for k, v in variants.items()},
+           "paged_variants_ms": {k: v * 1e3 for k, v in paged.items()},
+           "t4_events_ms": {n: flash[n]["ms"] for n in FLASH_KERNELS},
+           "t4_events_grad_ms": events_grad,
+           "s1_paged_decode_graph_ms": paged_entry["ms"],
+           "phase_s": time.perf_counter() - t0}
+    log(f"B kernel_bench at B=2, S=2048, H=32, Hkv=8, D=128 (chained, host clock): forward "
+        f"kernel {attn['kernel_fwd_s'] * 1e3:.4f} ms (T4 CUDA events {flash['flash_forward']['ms']:.4f}"
+        f" ms), plain {attn['plain_fwd_s'] * 1e3:.3f} ms, SDPA {attn['sdpa_fwd_s'] * 1e3:.4f} ms; "
+        f"grad kernel {attn['kernel_grad_s'] * 1e3:.4f} ms (T4 forward + dQ + dK/dV "
+        f"{events_grad:.4f} ms), plain {attn['plain_grad_s'] * 1e3:.3f} ms, SDPA "
+        f"{attn['sdpa_grad_s'] * 1e3:.4f} ms; variants (grad) "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in variants.items()))
+    log(f"B paged decode at B=8, H=32, Hkv=8, D=128, 16-token pages (chained): "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in paged.items())
+        + f"; S1's CUDA-graph replay of the kernel at 40 pages {paged_entry['ms']:.4f} ms")
+    return out
+
+
 PROFILER_RANGES = ("int4_dequantize", "moe_route", "moe_dispatch", "vision_tower",
                    "mm_projector", "evaluate", "dpo_reference_forward")
 
@@ -6698,6 +7468,8 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the serving model's depth (0 = the preset's)")
     ap.add_argument("--reps", type=int, default=64, help="timed launches per shape")
+    ap.add_argument("--phase-child", nargs=3, metavar=("PHASE", "WORK", "OUT"),
+                    help=argparse.SUPPRESS)  # a phase's own process (phase_start)
     args = ap.parse_args(argv)
 
     import torch
@@ -6709,8 +7481,20 @@ def main(argv=None) -> int:
         from finetune_controller_tpu_torch.ops.kernels import flash_attention as fa
     except ImportError as e:
         return fail(f"the port's package is not importable beside this script: {e}")
+    share_bytecode()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.phase_child:
+        name, work, out = args.phase_child
+        try:
+            record = CHILD_PHASES[name](Path(work), args.seed)
+        except SmokeFailure as e:
+            return fail(str(e))
+        except (AssertionError, RuntimeError, ValueError) as e:
+            return fail(f"{name}: {type(e).__name__}: {e}")
+        Path(out).write_text(json.dumps(record))
+        return 0
+    start_watchdog()
 
     # 1. the card
     smi = subprocess.run(
@@ -6758,9 +7542,16 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
+        fproof = phase_start("F", work, args.seed)
         hf_base = hf_base_phase(work, args.seed)
         DISK.mark("H1")
+        from finetune_controller_tpu_torch.data import native_loader
+
+        packs_before = native_loader.packs_total
         train = train_phase(work, args.seed)
+        train["native_packs"] = native_loader.packs_total - packs_before
+        if train["native_packs"] <= 0:
+            raise SmokeFailure("T2: the loader did not take the native JSONL packer")
         DISK.mark("T2")
         log(f"train: llama3-8b LoRA SFT from the HF directory, {train['steps']} steps "
             f"(6 + 2 resumed), eval every 3 steps, "
@@ -6779,12 +7570,15 @@ def main(argv=None) -> int:
         DISK.mark("S2")
         gc.collect()
         torch.cuda.empty_cache()
-        control, qlora, llava, dpo = control_phase(work, args.seed)
+        control, qlora, llava, dpo, tenant = control_phase(work, args.seed)
         for path, record in (("c_generate", control), ("q_generate", qlora),
                              ("p_generate", dpo)):
             paged_entry["launches"] += record["paged_launches"]
             paged_entry["launches_by_path"][path] = record["paged_launches"]
-        DISK.mark("P1")
+        a_paged = tenant["paged_launches_burst"] + tenant["paged_launches_after"]
+        paged_entry["launches"] += a_paged
+        paged_entry["launches_by_path"]["a_generate"] = a_paged
+        DISK.mark("A")
         gc.collect()
         torch.cuda.empty_cache()
         for name in FLASH_KERNELS:
@@ -6812,13 +7606,21 @@ def main(argv=None) -> int:
         # S3, its log followed over a WebSocket; /generate in this process
         # K: the k8s backend on D's S3 and state service; its pod's trainer
         # counts its flash launches in its events, /generate runs here
+        # M (its own process, its flash launches counted there) beside D and K
+        mchild = phase_start("M", work, args.seed)
         storage, k8s = storage_phase(work, args.seed, card)
         for path, record in (("d_generate", storage), ("k_generate", k8s)):
             paged_entry["launches"] += record["paged_launches"]
             paged_entry["launches_by_path"][path] = record["paged_launches"]
         DISK.mark("K")
+        moe = phase_finish(mchild)
+        DISK.mark("M (joined)")
         gc.collect()
         torch.cuda.empty_cache()
+        # N: the native packer now; the Python loader packs the same file in
+        # a subprocess beside the next phases, joined at the end
+        packer = native_packer_phase(work, args.seed)
+        DISK.mark("N")
         # G: Gemma's head dim 256, the kernels alone and the shipped job;
         # the job's trainer counts its flash launches in its events
         gemma = gemma_phase(work, args.seed, max(4, args.reps // 8))
@@ -6885,10 +7687,6 @@ def main(argv=None) -> int:
         DISK.mark("P4")
         gc.collect()
         torch.cuda.empty_cache()
-        moe = moe_phase(work, args.seed)
-        DISK.mark("M")
-        gc.collect()
-        torch.cuda.empty_cache()
         flash_llava = flash_shape_bench(LLAVA_FLASH_SHAPE, max(4, args.reps // 8), args.seed,
                                         "V0")
         for name, r in flash_llava.items():
@@ -6909,6 +7707,18 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         model = model_check(seg, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        guards_train = guard_train_phase(seg, args.seed)
+        clean = guards_train["clean"]
+        log(f"J trainer (2 full-width layers, B=2, S=2048, packed; transfer_guard=raise, "
+            f"recompile_budget=2, no prefetch thread, CUDA sync-debug mode armed): "
+            f"{J_STEPS} steps, {clean['trips']} trips over {clean['windows']} windows, "
+            f"signatures {clean['signatures']}, ms/step "
+            f"{[round(x, 1) for x in clean['ms_per_step']]}, flash launches "
+            f"{clean['flash_launches']}; with FTC_FAULT_TRANSFER=1 step "
+            f"{guards_train['fault']['aborted_at_step']} aborted: "
+            f"{guards_train['fault']['error'][:160]}")
         log(f"model check (2 layers, kernel vs plain): loss {model['loss_kernel']:.5f} vs "
             f"{model['loss_plain']:.5f} (rel {model['loss_rel']:.3g}), worst LoRA grad rel "
             f"{model['grad_rel']:.3g}")
@@ -6932,8 +7742,20 @@ def main(argv=None) -> int:
         flash = flash_bench(seg, max(4, args.reps // 8), args.seed)
         gc.collect()
         torch.cuda.empty_cache()
-        fidelity = fidelity_phase(work)
-        DISK.mark("T3, T4 and F")
+        bench = kernel_bench_phase(flash, paged_entry)
+        gc.collect()
+        torch.cuda.empty_cache()
+        DISK.mark("T3, T4, J and B")
+        fidelity = phase_finish(fproof)
+        DISK.mark("F (joined)")
+        packer = native_packer_finish(packer)
+        log(f"N native packer: {packer['bytes'] / 1e6:.1f} MB of chat and SFT rows "
+            f"({packer['rows']} rows, written in {packer['write_s']:.1f} s) -> "
+            f"{packer['blocks']} blocks of 2048: native {packer['native_s']:.2f} s "
+            f"({packer['native_mb_per_s']:.1f} MB/s), Python {packer['python_s']:.2f} s "
+            f"({packer['python_mb_per_s']:.1f} MB/s, in a subprocess beside phases G-B), "
+            f"the arrays bit-equal (SHA-256); T2 took the native path "
+            f"({train['native_packs']} packs), C's job log: {control['native_packer_log']!r}")
     except SmokeFailure as e:
         return fail(str(e))
     except (AssertionError, RuntimeError, ValueError) as e:
@@ -6964,7 +7786,8 @@ def main(argv=None) -> int:
                      + remote["flash_launches"][name] + remote["reward_flash_launches"][name]
                      + resilience["flash_launches"][name] + r2_launches[name]
                      + workers["w2"]["flash_launches"][name] + k8s["flash_launches"][name]
-                     + t5_launches[name]),
+                     + t5_launches[name] + tenant["job_flash_launches"][name]
+                     + clean["flash_launches"][name]),
         "launches_by_path": {
             "t2_in_process": train["launches"][name],
             "c_job_profile_steps": control["flash_launches_in_profile"][name],
@@ -6980,7 +7803,9 @@ def main(argv=None) -> int:
             "r2_snapshot_in_process": r2_launches[name],
             "w2_warm_job": workers["w2"]["flash_launches"][name],
             "k_pod_trainer": k8s["flash_launches"][name],
-            "t5_remat_in_process_all_policies": t5_launches[name]},
+            "t5_remat_in_process_all_policies": t5_launches[name],
+            "a_job": tenant["job_flash_launches"][name],
+            "j_guarded_steps_in_process": clean["flash_launches"][name]},
         "max_abs_err": flash[name]["max_abs_err"],
         "ms": flash[name]["ms"], "plain_ms": flash[name]["plain_ms"],
         "bound_ms": flash[name]["bound_ms"], "bound_by": flash[name]["bound_by"],
@@ -7013,6 +7838,12 @@ def main(argv=None) -> int:
     print(json.dumps({"k8s": k8s}), flush=True)
     print(json.dumps({"gemma": gemma}), flush=True)
     print(json.dumps({"orbax": orbax}), flush=True)
+    print(json.dumps({"serve_tenant": tenant}), flush=True)
+    print(json.dumps({"guards": {"decode": serve_summary["guards_decode"],
+                                 "train": guards_train}}), flush=True)
+    print(json.dumps({"native_packer": {k: v for k, v in packer.items() if k != "path"}}),
+          flush=True)
+    print(json.dumps({"kernel_bench": bench}), flush=True)
     print(json.dumps({"remat": remat}), flush=True)
     print(json.dumps({"train": {**train, "model_check": model, "flash": {
         k: {f: r[f] for f in ("tflops", "bound_share", "live_tile_share", "executed_flops",

@@ -23,6 +23,7 @@ from ..obs.prom import ObsHub
 from ..resilience.heartbeat import LeaseChecker
 from ..resilience.policy import RetryPolicy
 from ..resilience.supervisor import RetrySupervisor
+from ..sched import FairShareScheduler
 from .backends.base import TrainingBackend
 from .backends.local import LocalProcessBackend
 from .config import Settings, get_settings
@@ -174,9 +175,20 @@ def build_runtime(
         backend=backend,
         monitor=monitor,
         presigner=presigner,
-        # serve autoscaling (the fair-share scheduler's serve tenants) is
-        # refused on load (ROADMAP item 3a-rest); serve_transport=process
-        # puts worker sandboxes on the backend's substrate
-        serve=ServeManager(state, store, settings, obs=obs, backend=backend),
+        # the fair-share scheduler handle (local backend) makes serve an
+        # autoscaling preemptible tenant when FTC_SERVE_AUTOSCALE is on;
+        # FIFO/k8s backends serve statically-sized fleets.
+        # serve_transport=process puts worker sandboxes on the backend's
+        # substrate
+        serve=ServeManager(
+            state, store, settings, obs=obs,
+            scheduler=(
+                backend.scheduler
+                if isinstance(getattr(backend, "scheduler", None),
+                              FairShareScheduler)
+                else None
+            ),
+            backend=backend,
+        ),
         obs=obs,
     )

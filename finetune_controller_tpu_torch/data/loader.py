@@ -1,7 +1,8 @@
 """Host-side data pipeline: tokenized-JSONL → packed fixed-length batches.
 
-A copy of the reference's ``data/loader.py`` without its native C++ packer
-(``data/native_loader.py``): the Python path here gives the same blocks.
+A copy of the reference's ``data/loader.py``.  ``.jsonl`` datasets without a
+tokenizer file go through the native C++ packer first
+(``data/native_loader.py``), which gives the same blocks as the Python path.
 
 Datasets are files in the object store (the control plane downloads them to a
 local path before launch, mirroring the reference's init-container `s3 cp`
@@ -262,8 +263,26 @@ def jsonl_token_batches(
     shard_index: int = 0,
     shard_count: int = 1,
 ) -> Iterator[dict]:
-    docs = load_token_documents(path, tokenizer_file)
-    tokens, segments, loss_flags = pack_documents(docs, seq_len)
+    tokens = segments = loss_flags = None
+    if tokenizer_file is None and path.endswith(".jsonl"):
+        # native C++ parse+tokenize+pack (data/native_loader.py): every
+        # byte-level row schema, with loss flags, bit-equal to the Python
+        # path; FTC_NATIVE=0 opts out.  A row it cannot own (malformed,
+        # non-string chat content it would have to stringify) raises
+        # ValueError and the Python loader decides — including raising the
+        # user-facing error.  A build or load failure raises.
+        from .native_loader import pack_jsonl_native
+
+        try:
+            packed = pack_jsonl_native(path, seq_len)
+        except ValueError:
+            packed = None
+        if packed is not None:
+            tokens, segments, loss_flags = packed
+            logger.info("native packer produced %d blocks from %s", tokens.shape[0], path)
+    if tokens is None:
+        docs = load_token_documents(path, tokenizer_file)
+        tokens, segments, loss_flags = pack_documents(docs, seq_len)
     return batches_from_tokens(
         tokens, segments, batch_size, seed=seed,
         shard_index=shard_index, shard_count=shard_count,

@@ -30,7 +30,13 @@ from .llama import DenseKV
 
 def _sample(logits: torch.Tensor, *, temperature: float, top_k: int,
             generator: torch.Generator | None) -> torch.Tensor:
-    """Next tokens (B,) from (B, V) logits; ``generator`` advances in place."""
+    """Next tokens (B,) from (B, V) logits; ``generator`` advances in place.
+
+    A draw is ``torch.multinomial(probs, 1)``'s own one-sample path written
+    out (the argmax of ``probs`` over exponential noise from ``generator``):
+    the same tokens from the same generator state, without the host read
+    ``multinomial`` makes to check its input, so a decode step samples
+    with no device<->host sync."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     scaled = logits.to(torch.float32) / temperature
@@ -38,7 +44,8 @@ def _sample(logits: torch.Tensor, *, temperature: float, top_k: int,
         kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
         scaled = scaled.masked_fill(scaled < kth, float("-inf"))
     probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, dim=-1)
 
 
 def _image_kw(model, pixels) -> dict:

@@ -9,8 +9,9 @@ the storage dtype.
 ``paged_cache_attention`` is the one seam every paged attention call of the
 engine goes through.  ``FTC_PAGED_ATTN`` selects its path:
 
-* ``auto`` (default) — the CUDA kernel for CUDA tensors, the plain gather
-  path for CPU tensors;
+* ``auto`` (default) — the gate of ``ops/kernel_bench.py``
+  (:func:`~.kernel_bench.preferred_impl`): the CUDA kernel for CUDA
+  tensors, the plain gather path for CPU tensors;
 * ``kernel`` — the CUDA kernel; raises for CPU tensors;
 * ``gather`` — the plain gather path on any device (operator override).
 
@@ -22,9 +23,11 @@ card: the kernel walks any lane length.
 and ``auto`` are the flash path (``ops/kernels/flash_attention.py``), whose
 choice ``FTC_FLASH_ATTN`` makes:
 
-* ``auto`` (default) — the CUDA kernels for CUDA tensors at every length
-  (the JAX package's 1024-token crossover was measured on a TPU), the plain
-  version for CPU tensors;
+* ``auto`` (default) — the gate of ``ops/kernel_bench.py``
+  (:func:`~.kernel_bench.preferred_impl`, as the reference's ``auto``
+  consults its bench): the CUDA kernels for CUDA tensors at every length
+  (the JAX package's 1024-token crossover was measured on a TPU), the
+  plain version for CPU tensors;
 * ``kernel`` — the CUDA kernels; raises for CPU tensors;
 * ``plain`` — the plain version on any device (operator override).
 
@@ -106,7 +109,9 @@ def paged_attention_impl(q: torch.Tensor) -> str:
     if impl not in ("auto", "kernel", "gather"):
         raise ValueError(f"FTC_PAGED_ATTN={raw!r}: expected auto, kernel or gather")
     if impl == "auto":
-        return "kernel" if q.is_cuda else "gather"
+        from .kernel_bench import preferred_impl
+
+        return "kernel" if preferred_impl(q.shape[1], q.device) == "kernel" else "gather"
     if impl == "kernel" and not q.is_cuda:
         raise ValueError(
             "FTC_PAGED_ATTN=kernel needs CUDA tensors; the paged-attention "
@@ -140,7 +145,9 @@ def flash_attention_impl(q: torch.Tensor) -> str:
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"FTC_FLASH_ATTN={raw!r}: expected auto, kernel or plain")
     if impl == "auto":
-        return "kernel" if q.is_cuda else "plain"
+        from .kernel_bench import preferred_impl
+
+        return preferred_impl(q.shape[1], q.device)
     if impl == "kernel" and not q.is_cuda:
         raise ValueError(
             "FTC_FLASH_ATTN=kernel needs CUDA tensors; the flash-attention "

@@ -16,10 +16,12 @@ Modules:
   share first, full eviction as the fallback; docs/elasticity.md) and the
   victim ordering (lowest priority, most-over-share, youngest first);
 - :mod:`.backfill` — the reservation-protected backfill gate;
-
-The reference's ``serve_tenant.py`` (serve replicas as preemptible
-workloads) and ``sim.py`` (the seeded cluster simulator) are not ported yet
-(ROADMAP Queue A item 3a-rest).
+- :mod:`.serve_tenant` — serve replicas as preemptible ``owner="serve"``
+  workloads with queue-depth autoscaling; shrink and preemption go through
+  graceful drain;
+- :mod:`.sim` — a seeded, clock-injected cluster simulator so fairness /
+  starvation / preemption / progress-loss properties are provable in fast
+  deterministic tests.
 """
 
 from .backfill import backfill_capacity
@@ -33,6 +35,13 @@ from .queues import (
     Workload,
     parse_priority,
 )
+from .serve_tenant import (
+    ROLLOUT_QUEUE,
+    SERVE_QUEUE,
+    RolloutTenant,
+    ServeScalePolicy,
+    ServeTenant,
+)
 
 __all__ = [
     "DEFAULT_QUEUE",
@@ -40,6 +49,11 @@ __all__ = [
     "FairShareScheduler",
     "QueueConfig",
     "QueueSet",
+    "ROLLOUT_QUEUE",
+    "RolloutTenant",
+    "SERVE_QUEUE",
+    "ServeScalePolicy",
+    "ServeTenant",
     "Workload",
     "ResizeDecision",
     "backfill_capacity",

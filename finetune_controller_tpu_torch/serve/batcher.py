@@ -1,9 +1,9 @@
 """Asyncio admission layer over :class:`~.engine.BatchEngine`.
 
 A copy of the reference's ``serve/batcher.py`` (free of JAX), kept by the
-port so that it imports nothing of the reference package; the only change
-is that the port's engine runs eagerly, so its ``compilations`` stat stays
-0 (no program is traced or compiled per shape).
+port so that it imports nothing of the reference package.  Its
+``compilations`` stat is the engine's count of distinct forward signatures
+(the port compiles nothing; the reference counts its XLA compiles there).
 
 The engine is host-driven and synchronous; this wraps it in the control
 plane's event loop:

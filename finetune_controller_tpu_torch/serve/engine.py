@@ -44,10 +44,22 @@ Differences from the reference, by design:
 * the KV caches are updated in place; the reference rebuilt the cache tree
   on every jitted call;
 * the per-lane cache index lives on the host and rides into every forward
-  as a (slots,) int32 tensor beside the page table and the RoPE positions;
-* there is no ``RecompileGuard`` and no ``TransferGuard``: PyTorch runs
-  eagerly and compiles nothing, and the decode step's host<->device
-  traffic is its explicit inputs and the (slots,) token vector it returns.
+  as a (slots,) int32 tensor beside the page table and the RoPE positions.
+
+The reference's compile-count contract holds as it is, armed with
+``analysis/recompile_guard.py``: the prefill forwards count one signature
+per **prompt bucket** (plus one more per bucket for the unpaged
+prefix-reuse suffix prefill when the cache is on; paged, one prefill serves
+fresh prompts and suffix continuations alike) and the decode step **one**,
+so the default budget is ``len(prompt_buckets) + 1`` (``2 x buckets + 1``
+unpaged with the prefix cache), and the engine raises past it.  PyTorch
+compiles nothing, but a new signature is still new launch shapes and new
+allocator blocks on the serve path.
+
+The decode dispatch runs in the reference's transfer-guard window
+(``FTC_TRANSFER_GUARD=raise|warn``, ``analysis/transfer_guard.py``): every
+per-step input is copied to the device explicitly before the window, and
+the (slots,) token vector is fetched after it.
 
 The decode step keeps on-device token selection: it returns a ``(slots,)``
 integer tensor, never the logits.  Sampled lanes draw from a per-request
@@ -66,6 +78,8 @@ import time
 import numpy as np
 import torch
 
+from ..analysis.recompile_guard import RecompileGuard, signature_of
+from ..analysis.transfer_guard import TransferGuard, device_get
 from ..models.generate import _sample
 from ..models.llama import DenseKV, PagedKV, tenant_stacks
 from .adapters import AdapterRegistry, UnknownAdapter, install_into
@@ -109,6 +123,11 @@ class EngineConfig:
     tenant_rank: int = 0
     #: host-RAM KV tier byte budget; 0 = off (paged + prefix cache only)
     host_pool_bytes: int = 0
+    #: signature budget: defaults to len(prompt_buckets) + 1 (the decode
+    #: step), or 2*len(prompt_buckets) + 1 with the prefix cache on AND
+    #: paging off (fill AND fill_from per bucket); the guard RAISES past it
+    #: — an unexpected new shape on the serve path is a latency bug
+    recompile_budget: int = 0
 
     @property
     def cache_len(self) -> int:
@@ -265,10 +284,14 @@ class BatchEngine:
         self._adapter_slots = np.zeros((self.config.slots,), np.int32)
         if self.adapters is not None:
             self.sync_adapters()
+        per_bucket = 2 if self.config.prefix_cache_bytes > 0 and not self.config.paged else 1
+        budget = self.config.recompile_budget or (
+            per_bucket * len(self.config.prompt_buckets) + 1)
+        self.guard = RecompileGuard(budget, on_excess="raise", name="serve-engine")
+        # the decode window's transfer guard; it arms the CUDA sync-debug
+        # mode only when the engine is stepped on the main thread
+        self._transfer_guard = TransferGuard.from_env(name="serve-decode")
         # counters the /metrics gauges read
-        #: programs compiled for serving; the eager engine compiles none
-        #: (the reference counts its XLA compiles here)
-        self.compilations = 0
         self.steps_total = 0
         self.tokens_generated_total = 0
         self.requests_finished_total = 0
@@ -286,6 +309,11 @@ class BatchEngine:
     @property
     def paged(self) -> bool:
         return self._pool is not None
+
+    @property
+    def compilations(self) -> int:
+        """Distinct forward signatures so far (the reference's compiles)."""
+        return self.guard.compilations
 
     # ---- adapters ---------------------------------------------------------
 
@@ -456,23 +484,32 @@ class BatchEngine:
             return None
         return torch.from_numpy(slots).to(self.device)
 
-    def _forward(self, tokens: np.ndarray, positions: np.ndarray, index: np.ndarray,
-                 last_idx: int, adapter_slots: np.ndarray, *, table: np.ndarray | None = None,
-                 kv=None, fresh: bool = False) -> torch.Tensor:
-        """One forward: host int32 inputs in, (B, V) f32 logits at chunk
-        offset ``last_idx`` out.  Paged when ``table`` is given (the chunk's
-        K/V go into the pools), else against the dense ``kv`` (the engine's
-        own lanes unless a B=1 prefill cache is passed)."""
+    def _inputs(self, label: str, tokens: np.ndarray, positions: np.ndarray,
+                index: np.ndarray, adapter_slots: np.ndarray,
+                table: np.ndarray | None) -> tuple:
+        """Count the call's signature under ``label`` (the recompile guard
+        raises past the budget), then copy its host int32 inputs to the
+        device: (tokens, positions, index, adapter ids or None, table or
+        None)."""
+        self.guard.check(label, signature_of(tokens, positions, index, adapter_slots, table))
         dev = self.device
-        args = (torch.from_numpy(tokens).to(dev, torch.long), torch.from_numpy(positions).to(dev))
-        tenant = dict(adapter_ids=self._adapter_ids(adapter_slots), tenants=self._tenants)
-        index_t = torch.from_numpy(index).to(dev)
+        return (torch.from_numpy(tokens).to(dev, torch.long), torch.from_numpy(positions).to(dev),
+                torch.from_numpy(index).to(dev), self._adapter_ids(adapter_slots),
+                None if table is None else torch.from_numpy(table).to(dev))
+
+    def _forward(self, tokens, positions, index, adapter_ids, table, last_idx: int, *,
+                 kv=None, fresh: bool = False) -> torch.Tensor:
+        """One forward on device inputs (:meth:`_inputs`): (B, V) f32 logits
+        at chunk offset ``last_idx``.  Paged when ``table`` is given (the
+        chunk's K/V go into the pools), else against the dense ``kv`` (the
+        engine's own lanes unless a B=1 prefill cache is passed)."""
+        tenant = dict(adapter_ids=adapter_ids, tenants=self._tenants)
         if table is not None:
-            logits = self.model.forward_paged(*args, self.kv, torch.from_numpy(table).to(dev),
-                                              index_t, last_idx=last_idx, **tenant)
+            logits = self.model.forward_paged(tokens, positions, self.kv, table, index,
+                                              last_idx=last_idx, **tenant)
         else:
-            logits = self.model.forward_cached(*args, self.kv if kv is None else kv, index_t,
-                                               fresh=fresh, last_idx=last_idx, **tenant)
+            logits = self.model.forward_cached(tokens, positions, self.kv if kv is None else kv,
+                                               index, fresh=fresh, last_idx=last_idx, **tenant)
         return logits.to(torch.float32)
 
     # ---- unpaged prefill --------------------------------------------------
@@ -493,8 +530,9 @@ class BatchEngine:
             padded = np.zeros((1, sbucket), np.int32)
             padded[0, :len(suffix)] = suffix
             positions = (reuse + np.arange(sbucket, dtype=np.int32))[None, :]
-            logits = self._forward(padded, positions, np.array([reuse], np.int32),
-                                   len(suffix) - 1, ids, kv=one)
+            inputs = self._inputs("fill_from", padded, positions,
+                                  np.array([reuse], np.int32), ids, None)
+            logits = self._forward(*inputs, len(suffix) - 1, kv=one)
             self.prefix_hits_total += 1
             self.prefill_tokens_saved_total += reuse
         else:
@@ -503,8 +541,9 @@ class BatchEngine:
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :plen] = req.tokens
             positions = np.arange(bucket, dtype=np.int32)[None, :]
-            logits = self._forward(padded, positions, np.zeros((1,), np.int32), plen - 1, ids,
-                                   kv=one, fresh=True)
+            inputs = self._inputs("fill", padded, positions, np.zeros((1,), np.int32), ids,
+                                  None)
+            logits = self._forward(*inputs, plen - 1, kv=one, fresh=True)
             if self._prefix_cache is not None:
                 self.prefix_misses_total += 1
         if self._prefix_cache is not None:
@@ -626,9 +665,10 @@ class BatchEngine:
             padded = np.zeros((1, sbucket), np.int32)
             padded[0, :len(suffix)] = suffix
             positions = (start + np.arange(sbucket, dtype=np.int32))[None, :]
-            logits = self._forward(padded, positions, np.array([start], np.int32),
-                                   len(suffix) - 1, np.array([a_slot], np.int32),
-                                   table=row[None, :])
+            inputs = self._inputs("fill_paged", padded, positions,
+                                  np.array([start], np.int32), np.array([a_slot], np.int32),
+                                  row[None, :])
+            logits = self._forward(*inputs, len(suffix) - 1)
         except BaseException:
             # roll the lane's pool state back so a failed prefill never
             # leaks pages (its writes landed only in pages it owned, or in
@@ -729,13 +769,12 @@ class BatchEngine:
                 slot.pages.append(phys)
                 slot.reserved -= 1
 
-    def _decode(self, tokens, positions) -> torch.Tensor:
-        """One batched decode step with on-device token selection: (slots,)
-        next tokens.  Greedy lanes take the argmax; sampled lanes draw from
-        their own generator, so a request's stream does not depend on its
-        batch-mates' draws."""
-        logits = self._forward(tokens, positions, self._index, 0, self._adapter_slots,
-                               table=self._tables if self.paged else None)
+    def _decode(self, tokens, positions, index, adapter_ids, table) -> torch.Tensor:
+        """One batched decode step on device inputs with on-device token
+        selection: (slots,) next tokens.  Greedy lanes take the argmax;
+        sampled lanes draw from their own generator, so a request's stream
+        does not depend on its batch-mates' draws."""
+        logits = self._forward(tokens, positions, index, adapter_ids, table, 0)
         next_tokens = torch.argmax(logits, dim=-1)
         for i, slot in enumerate(self._slots):
             if slot.active and slot.req.temperature > 0.0:
@@ -760,7 +799,16 @@ class BatchEngine:
             if slot.active:
                 tokens[i, 0] = slot.last_token
                 positions[i, 0] = slot.next_pos
-        next_tokens = self._decode(tokens, positions).tolist()
+        # the per-step inputs go to the device BEFORE the guarded window:
+        # they are the decode step's whole intended transfer, and anything
+        # else crossing inside the dispatch trips the transfer guard
+        inputs = self._inputs("decode_step", tokens, positions, self._index,
+                              self._adapter_slots, self._tables if self.paged else None)
+        if self._transfer_guard is not None:
+            next_tokens = self._transfer_guard.run("decode", self._decode, *inputs)
+        else:
+            next_tokens = self._decode(*inputs)
+        next_tokens = device_get(next_tokens).tolist()
         # every lane (parked ones too) advanced its index by one, saturating
         # at the lane capacity
         lane_cap = (self._tables.shape[1] * self._pool.page_tokens if self.paged

@@ -29,9 +29,13 @@ process of its own, which rebuilds the model from the staged dir on the
 same device (``transport/``); the control plane then holds no weights.  A
 reward job in process mode gets reward workers, which also answer the
 batched ``reward_score`` RPC with the job's head over the staged prefix
-(``prefs/rollout_plane.py::RewardScorer``).  Serve autoscaling
-(``serve_autoscale``) answers 501 naming item 3a-rest; the shard-audit block
-of ``GET {prefix}/admin/serve`` reports the audit as not ported (item 9).
+(``prefs/rollout_plane.py::RewardScorer``).  With ``serve_autoscale`` on
+and the backend's fair-share scheduler at hand, every replica is a
+preemptible ``owner="serve"`` scheduler workload
+(``sched/serve_tenant.py``): queue-depth pressure grows the fleet through
+scheduler submits, and a training job reclaims a replica by drain, never by
+kill.  The shard-audit block of ``GET {prefix}/admin/serve`` reports the
+audit as not ported (it needs DTensor placements).
 """
 
 from __future__ import annotations
@@ -78,15 +82,21 @@ class _Session:
     #: process transport: the staged deploy prefix this generation's worker
     #: processes rebuild their weights from (removed on unload/rollover)
     worker_stage_dir: str | None = None
+    tenant: Any = None  # sched/serve_tenant.py when autoscale is on
+    tenant_task: Any = None  # the tenant's reconcile loop (cancelled on unload)
 
 
 class ServeManager:
     """Loaded serving sessions, one replica fleet + router per promoted job."""
 
-    def __init__(self, state, store, settings, *, obs=None, backend=None):
+    def __init__(self, state, store, settings, *, obs=None, scheduler=None,
+                 backend=None):
         self.state = state
         self.store = store
         self.settings = settings
+        #: the backend's fair-share scheduler (serve-as-a-tenant autoscale);
+        #: None = static fleets
+        self.scheduler = scheduler
         #: observability hub (obs/prom.py): serve TTFT histogram + timeline
         #: events on load/unload (docs/observability.md)
         self.obs = obs
@@ -177,18 +187,6 @@ class ServeManager:
             probe_timeout_s=max(10.0, s.serve_health_interval_s * 5),
         )
 
-    def _check_supported(self) -> str:
-        """Refuse the serving modes the port does not run yet; returns the
-        transport mode."""
-        mode = self._transport_mode
-        if self.settings.serve_autoscale:
-            raise ServeLoadError(
-                "serve_autoscale (serve replicas as scheduler tenants, "
-                "sched/serve_tenant.py) is not ported yet (ROADMAP Queue A "
-                "item 3a-rest)", status=501,
-            )
-        return mode
-
     def _adapter_registry(self) -> AdapterRegistry | None:
         if not self._multi_tenant:
             return None
@@ -242,8 +240,42 @@ class ServeManager:
             job_id=job_id, fleet=fleet, router=router, meta=meta,
             loaded_at=time.time(),
         )
+        if s.serve_autoscale and self.scheduler is not None:
+            from ..sched.serve_tenant import ServeScalePolicy, ServeTenant
+
+            flavor = s.serve_flavor or getattr(
+                getattr(self.scheduler, "_catalog", None), "default_flavor", ""
+            )
+            if flavor:
+                session.tenant = ServeTenant(
+                    self.scheduler, fleet,
+                    flavor=flavor, queue=s.serve_queue,
+                    policy=ServeScalePolicy(
+                        min_replicas=s.serve_min_replicas,
+                        max_replicas=s.serve_max_replicas,
+                        scale_up_queue_depth=s.serve_scale_up_queue_depth,
+                        sustain_ticks=s.serve_scale_sustain_ticks,
+                    ),
+                )
+                await session.tenant.attach_initial()
         fleet.start_health_loop(s.serve_health_interval_s)
+        if session.tenant is not None:
+            self._start_tenant_loop(session)
         return session
+
+    def _start_tenant_loop(self, session: _Session) -> None:
+        async def loop():
+            while session.tenant is not None \
+                    and self.sessions.get(session.job_id) is session:
+                try:
+                    await session.tenant.tick()
+                # logged: the autoscale loop must outlive a single tick's failure
+                except Exception:
+                    logger.exception("serve tenant tick failed for %s",
+                                     session.job_id)
+                await asyncio.sleep(self.settings.serve_health_interval_s)
+
+        session.tenant_task = asyncio.get_running_loop().create_task(loop())
 
     async def load(self, job_id: str) -> dict[str, Any]:
         """Load a promoted job for serving (idempotent), or — when it is
@@ -378,7 +410,7 @@ class ServeManager:
         return meta
 
     async def _load_or_rollover(self, job_id: str) -> dict[str, Any]:
-        if self._check_supported() == "process":
+        if self._transport_mode == "process":
             return await self._load_or_rollover_process(job_id)
         existing = self.sessions.get(job_id)
         if existing is not None:
@@ -520,6 +552,11 @@ class ServeManager:
         for tenant_id, base_id in list(self._adapter_routes.items()):
             if base_id == job_id:
                 self._adapter_routes.pop(tenant_id, None)
+        if session.tenant_task is not None:
+            session.tenant_task.cancel()
+        if session.tenant is not None:
+            await session.tenant.close()
+            session.tenant = None
         await session.fleet.close()
         if session.worker_stage_dir:
             import shutil
@@ -581,6 +618,8 @@ class ServeManager:
         for job_id, session in self.sessions.items():
             stats = session.fleet.stats()
             stats.update(session.router.stats())
+            if session.tenant is not None:
+                stats["autoscale"] = session.tenant.stats()
             if session.adapters:
                 stats["adapter_jobs"] = {
                     tid: {"slot": m.get("slot"),

@@ -39,10 +39,15 @@ microbatch's loss and metrics), :meth:`Trainer._eval_metrics`,
 into every metrics row), and ``_extra_trainable`` (leaves trained beside the
 model's); the preference trainers (``prefs/``) override them.  A batch is
 split into microbatches by the rows of its first leaf, so a pair batch
-splits pair-wise.  Configurations it cannot train raise
-``NotImplementedError`` naming the ROADMAP item that ports them: the guard
-fields ``transfer_guard``, ``shard_audit`` and a ``recompile_budget`` above
-0.
+splits pair-wise.
+
+The step and eval calls run behind the reference's runtime guards
+(``analysis/``): ``recompile_budget`` above 0 counts their distinct call
+signatures (``recompile_action`` warns or raises past it), and
+``transfer_guard`` (or ``FTC_TRANSFER_GUARD`` when it is empty) makes a
+device<->host sync inside the step a ``TransferGuardError``; the step's copy
+of the batch to the device runs before the guarded window.  ``shard_audit``
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -121,18 +126,13 @@ class TrainConfig:
 
 
 def refuse_untrainable(model_cfg: LlamaConfig, cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice cannot train."""
-    refusals = [
-        (bool(cfg.transfer_guard),
-         f"transfer_guard {cfg.transfer_guard!r}: the transfer guard (ROADMAP Queue A item 9)"),
-        (bool(cfg.shard_audit),
-         f"shard_audit {cfg.shard_audit!r}: the shard audit (ROADMAP Queue A item 9)"),
-        (cfg.recompile_budget > 0,
-         f"recompile_budget {cfg.recompile_budget}: the recompile guard (ROADMAP Queue A item 9)"),
-    ]
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"the port's trainer does not run {what} yet")
+    """Raise ``NotImplementedError`` for what the port cannot train yet: the
+    shard audit (ROADMAP Queue A item 9), which needs the DTensor placements
+    of item 7."""
+    if cfg.shard_audit:
+        raise NotImplementedError(
+            f"the port's trainer does not run shard_audit {cfg.shard_audit!r}: "
+            "the shard audit (ROADMAP Queue A item 9) is not ported yet")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -291,6 +291,31 @@ class Trainer:
         self._warned_eval_unsplit = False
         #: pinned host buffers of the checkpoint snapshots on a card
         self._snapshot_buffers: dict = {}
+        # the guarded step and eval callables, one per batch structure (the
+        # reference's per-structure step jits)
+        self._step_fns: dict[tuple[str, ...], Callable] = {}
+        self._recompile_guard = None
+        if train_cfg.recompile_budget > 0:
+            from ..analysis.recompile_guard import RecompileGuard
+
+            self._recompile_guard = RecompileGuard(
+                train_cfg.recompile_budget, on_excess=train_cfg.recompile_action,
+                name="trainer-recompile-guard",
+            )
+        # a prefetch thread that copies batches to the card syncs its own
+        # stream, so the step's window may not arm the process-wide CUDA
+        # sync-debug mode beside it (analysis/transfer_guard.py)
+        from ..analysis.transfer_guard import TransferGuard
+
+        one_driver = not (train_cfg.prefetch > 0 and train_cfg.prefetch_to_device)
+        mode = (train_cfg.transfer_guard or "").strip().lower()
+        self._transfer_guard = (
+            TransferGuard(mode, name="trainer-transfer-guard", arm_cuda=one_driver)
+            if mode in ("raise", "warn")
+            # empty inherits FTC_TRANSFER_GUARD; any other value is off
+            else TransferGuard.from_env(name="trainer-transfer-guard", arm_cuda=one_driver)
+            if mode == "" else None
+        )
 
     #: a multimodal model's leaves trained beside the adapters (the LLaVA
     #: recipe always trains the vision→text projector)
@@ -397,8 +422,31 @@ class Trainer:
         metrics are averaged over them, ``target_tokens`` summed.  Returns
         0-dim tensors: the objective's metrics (here loss, accuracy,
         target_tokens, and for an MoE model ``moe_aux``), grad_norm (before
-        clipping) and learning_rate."""
+        clipping) and learning_rate.  The copy to the device runs first;
+        the rest is the guarded window of ``recompile_budget`` and
+        ``transfer_guard``."""
         batch = self._to_device(batch)
+        return self._guarded("step", self._device_step, batch)(batch)
+
+    def _guarded(self, kind: str, fn: Callable, batch: dict) -> Callable:
+        """``fn`` behind the guards, cached per batch structure and labelled
+        as the reference labels its jits (``step:loss_mask,tokens``,
+        ``eval:eval,tokens``); the eval calls take no transfer guard, as in
+        the reference."""
+        key = tuple(sorted(batch)) if kind == "step" else ("eval",) + tuple(sorted(batch))
+        guarded = self._step_fns.get(key)
+        if guarded is None:
+            guarded = fn
+            label = f"{kind}:{','.join(key)}"
+            if self._recompile_guard is not None:
+                guarded = self._recompile_guard.wrap(guarded, label=label)
+            if self._transfer_guard is not None and kind == "step":
+                guarded = self._transfer_guard.wrap(guarded, label=label)
+            self._step_fns[key] = guarded
+        return guarded
+
+    def _device_step(self, batch: dict) -> dict[str, torch.Tensor]:
+        """:meth:`step` on a batch already on the device: no host sync."""
         accum = self.cfg.grad_accum_steps
         rows = next(iter(batch.values())).shape[0] // accum
         self.model.train()
@@ -462,7 +510,8 @@ class Trainer:
                         batch = self._to_device(
                             {k: v[c * size:(c + 1) * size] for k, v in host_batch.items()})
                         input_s += time.perf_counter() - t_in
-                        for k, v in self._eval_metrics(batch).items():
+                        eval_fn = self._guarded("eval", self._eval_metrics, batch)
+                        for k, v in eval_fn(batch).items():
                             sums[k] = sums.get(k, 0.0) + float(v)
                         n += 1
                     if self._heartbeat is not None:

@@ -248,7 +248,6 @@ def test_cli_rejects_unconsumed_arguments_and_unknown_task(tmp_path):
     pytest.param({"training": {"task": "rlhf", "rollout_workers": 1}, "mesh": {"dp": 2}},
                  r"mesh axes \{'dp': 2\}.*multi-GPU", id="spec0-preference plane"),
     ({"mesh": {"dp": 2}}, "multi-GPU"),
-    ({"training": {"transfer_guard": "disallow"}}, "transfer guard"),
     # multimodal trains on one card (tests/test_torch_multimodal.py); a
     # LLaVA spec with a mesh one card cannot form is refused
     pytest.param({"model": {"preset": "tiny-mm-test"}, "mesh": {"fsdp": 2}},
@@ -256,7 +255,6 @@ def test_cli_rejects_unconsumed_arguments_and_unknown_task(tmp_path):
     # MoE trains on one card; the Mixtral example's ``ep`` mesh is refused
     pytest.param({"model": {"preset": "tiny-moe-test"}, "mesh": {"ep": 2}},
                  r"mesh axes \{'ep': 2\}.*multi-GPU", id="spec4-MoE"),
-    ({"training": {"recompile_budget": 2}}, "recompile guard"),
 ])
 def test_cli_refuses_what_the_slice_cannot_train(spec, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):

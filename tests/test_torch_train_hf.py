@@ -191,9 +191,7 @@ def test_loader_with_weights_dir_gives_the_trainer_logits(job):
 
 
 @pytest.mark.parametrize("field,value,what", [
-    ("transfer_guard", "disallow", "transfer guard"),
     ("shard_audit", "raise", "shard audit"),
-    ("recompile_budget", 3, "recompile guard"),
 ])
 def test_guard_fields_raise_naming_their_item(field, value, what):
     with pytest.raises(NotImplementedError, match=f"{what} \\(ROADMAP Queue A item 9\\)"):
